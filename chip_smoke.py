@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the CUDA kernels from giga_tpu_torch/csrc (timed);
+  1. build the CUDA kernels from giga_tpu_torch/csrc (timed, one nvcc per
+     source, all started together);
   2. load the shipped checkpoint through the port's msgpack reader and
      weight bridge;
   3. hold kernels K1 (stem + pool) and K2 (dense-decode trunk) against
@@ -17,9 +18,20 @@ Phases (any failure exits non-zero; nothing is caught):
      file (giga_tpu_torch/testdata/golden_plan_giga.npz);
   6. send requests through PlannerService and check each result against
      plan_batch's;
-  7. assert that the main path launched both kernels;
-  8. print timings (kernels, plan_batch scenes/s at B=64, __call__ at B=1),
-     each beside the card's name and power limit.
+  7. assert that plan_batch launched K1 and K2;
+  8. hold kernel K3 (single-scene trunk) against its plain version on one
+     scene at R=40, and time both and the bound;
+  9. run GIGAPlanner.__call__ (the single-scene program) on the golden
+     file's scenes with K3's counter zeroed just before: each equals the
+     golden candidates and plan_batch's grasps, one K3 launch per call;
+ 10. run plan_stream over 8 scenes and hold it against per-scene calls;
+ 11. hold kernels K4 (raw-feature trunk) and K5 (hybrid trunk) against their
+     plain versions at B=64, R=40, and their decodes against K2's; plan the
+     batch from K4's volumes and hold it against plan_batch; drive the two
+     decode entry points with the counters zeroed; time kernels, plain
+     versions and bounds;
+ 12. print timings (kernels, plan_batch scenes/s at B=64, __call__ of one
+     scene), each beside the card's name and power limit.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -50,7 +62,8 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 TOL_STEM = 2e-5     # K1 vs its plain version, absolute, on plane features
-TOL_DECODE = 1e-5   # K2 vs its plain version, |a - b| <= tol * (1 + |b|)
+TOL_DECODE = 1e-5   # K2-K5 vs their plain versions, |a - b| <= tol * (1 + |b|)
+TOL_VOLUME = 1e-5   # K4's and K5's (qual, rot, width) vs K2's, absolute
 TOL_SCORE = 1e-5    # candidate scores and widths, absolute
 TOL_POS = 1e-6      # candidate positions (lattice coordinates), absolute
 
@@ -122,6 +135,58 @@ def bound(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def trunk_flops(points: int, heads: int, H: int, n_blocks: int, O: int,
+                extra_adds: int = 0) -> int:
+    """fp32 operations of the per-head trunk (the fused trunk's off-diagonal
+    zeros are no work): per point and head the fc_p sum (2H), per block the
+    three plane adds, the fc0 and fc1 products and three bias/residual adds
+    (4H^2 + 6H, plus ``extra_adds`` * H), then the head (2HO + O)."""
+    per_block = 4 * H * H + (6 + extra_adds) * H
+    return points * heads * (2 * H + n_blocks * per_block + 2 * H * O + O)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_close(got, ref, tol: float, what: str):
+    """(max |a - b|, max |a - b| / (1 + |b|)); raises past ``tol`` on the
+    second or on non-finite values."""
+    import torch
+
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / (1.0 + ref.abs())).max())
+    if not (rel <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{what} differs from its plain version by {rel} > {tol}")
+    return err, rel
+
+
+def compare_grasps(a, b, voxel: float, what: str, tol: float = TOL_SCORE):
+    """Hold two (grasps, scores) results equal: the same count and grasp
+    positions, scores, widths and quaternions within ``tol``; grasps are
+    matched by lattice position, so ties in another order compare equal."""
+    (ga, sa), (gb, sb) = a, b
+    if len(ga) != len(gb):
+        raise AssertionError(f"{what}: {len(ga)} vs {len(gb)} grasps")
+
+    def keyed(grasps, scores):
+        return {tuple(np.rint(g.pose.translation / voxel).astype(int)): (g, s)
+                for g, s in zip(grasps, scores)}
+
+    ka, kb = keyed(ga, sa), keyed(gb, sb)
+    if set(ka) != set(kb) or len(ka) != len(ga):
+        raise AssertionError(f"{what}: other grasp positions")
+    worst = 0.0
+    for key, (g1, s1) in ka.items():
+        g2, s2 = kb[key]
+        worst = max(worst, abs(s1 - s2), abs(g1.width - g2.width),
+                    float(np.abs(g1.pose.rotation.as_quat() - g2.pose.rotation.as_quat()).max()),
+                    float(np.abs(g1.pose.translation - g2.pose.translation).max()))
+    if not worst <= tol:
+        raise AssertionError(f"{what}: differs by {worst} > {tol}")
+    return worst
+
+
 def compare_candidates(a, b, scenes, R: int, what: str) -> dict:
     """Hold two host GraspCandidates sets equal scene by scene: equal
     counts, the same lattice positions, and scores, widths and rotations
@@ -166,11 +231,13 @@ def main() -> int:
         lattice_coords, sample_planes_on_lattice_batched)
     from giga_tpu_torch.inference.planner import (
         GIGAPlanner, State, build_batched_giga_planner_fn, candidates_to_host,
-        full_precision)
-    from giga_tpu_torch.inference.postprocess import GraspCandidates
+        full_precision, lattice_positions)
+    from giga_tpu_torch.inference.postprocess import (
+        GraspCandidates, bound_quality, mask_quality, select_grasps_batched)
     from giga_tpu_torch.inference.serving import PlannerService
     from giga_tpu_torch.models.registry import load_network
     from giga_tpu_torch.ops.kernels import _build
+    from giga_tpu_torch.ops.kernels import decoder as dk
     from giga_tpu_torch.ops.kernels.decoder import (
         dense_decode_batched, dense_decode_plain, prepare_projections_batched)
     from giga_tpu_torch.ops.kernels.stem import stem_pool_batched, stem_pool_plain
@@ -225,12 +292,10 @@ def main() -> int:
     B, N = BATCH, R ** 3
     # K1: 27 multiply-adds, the bias add and 3 pooling adds per voxel and channel
     bound1 = bound(B * N * C * (2 * 27 + 1 + 3), 4 * (B * N + 28 * C + 3 * B * R * R * C))
-    # K2, run per head (the fused trunk's off-diagonal zeros are no work):
-    # per point and head 2H + n_blocks*(4H^2 + 6H) + 2*H*O + O flops
+    # K2, run per head (the fused trunk's off-diagonal zeros are no work)
     heads, O = 3, 4
-    flops2 = B * N * heads * (2 * H + n_blocks * (4 * H * H + 6 * H) + 2 * H * O + O)
-    bytes2 = 4 * (sum(t.numel() for t in inputs) + B * heads * O * N)
-    bound2 = bound(flops2, bytes2)
+    bound2 = bound(trunk_flops(B * N, heads, H, n_blocks, O),
+                   nbytes(*inputs) + 4 * B * heads * O * N)
     launch0 = {"stem_pool": stem_pool_batched.launches, "dense_decode": dense_decode_batched.launches}
 
     # 4. the main path: GIGAPlanner.plan_batch on the card, counters zeroed
@@ -290,7 +355,101 @@ def main() -> int:
         raise AssertionError(f"main path did not launch every kernel: {launches}")
     print(f"phase 7: launches on plan_batch: {launches} (comparison launches before: {launch0})")
 
-    # 8. timings
+    dec = net.decoder_aff.params()
+    voxel = SIZE / R
+    # 8. K3 against its plain version on one scene
+    with torch.inference_mode(), full_precision():
+        inputs3 = dk.prepare_projections(dec, {t: v[0] for t, v in feats.items()}, coords,
+                                         n_blocks)
+        k3 = dk.fused_dense_decode(*inputs3)
+        err3, rel3 = check_close(k3, dk.fused_dense_decode_plain(*inputs3), TOL_DECODE, "K3")
+        ms3 = cuda_ms(lambda: dk.fused_dense_decode(*inputs3), 50)
+        plain3 = cuda_ms(lambda: dk.fused_dense_decode_plain(*inputs3), 10)
+    bound3 = bound(trunk_flops(N, heads, H, n_blocks, O), nbytes(*inputs3, k3))
+    print(f"phase 8: K3 max abs err {err3:.3g}, max err/(1+|plain|) {rel3:.3g} "
+          f"(tol {TOL_DECODE}), one scene R={R}")
+
+    # 9. the single-scene path: GIGAPlanner.__call__ on the golden scenes
+    n_gold = len(gc.count)
+    dk.fused_dense_decode.launches = 0
+    called = [planner(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)]
+    torch.cuda.synchronize()
+    launches3 = dk.fused_dense_decode.launches
+    if launches3 != n_gold:
+        raise AssertionError(f"__call__ launched K3 {launches3} times in {n_gold} calls")
+    worst9 = 0.0
+    for i, got in enumerate(called):
+        golden_i = planner._to_grasps(GraspCandidates(*(np.asarray(x[i]) for x in gc)))
+        worst9 = max(worst9, compare_grasps(got, golden_i, voxel, f"__call__ vs golden, scene {i}"),
+                     compare_grasps(got, results[i], voxel, f"__call__ vs plan_batch, scene {i}"))
+    print(f"phase 9: __call__ on {n_gold} golden scenes ({sum(len(g) for g, _ in called)} "
+          f"grasps) equals the JAX golden candidates and plan_batch (max diff {worst9:.3g}); "
+          f"K3 launches {launches3}")
+
+    # 10. plan_stream against per-scene calls
+    n_stream = 8
+    streamed = planner.plan_stream(scenes[:n_stream])
+    for i, got in enumerate(streamed):
+        compare_grasps(got, planner(State(tsdf=scenes[i]))[:2], voxel,
+                       f"plan_stream vs __call__, scene {i}", tol=1e-6)
+    print(f"phase 10: plan_stream over {n_stream} scenes ({sum(len(g) for g, _ in streamed)} "
+          f"grasps) equals per-scene __call__")
+
+    # 11. K4 and K5 at the serving shape, against their plain versions and K2
+    with torch.inference_mode(), full_precision():
+        inputs4 = dk.prepare_feats_inputs(dec, feats, coords, n_blocks)
+        k4 = dk.dense_decode_feats_batched(*inputs4)
+        err4, rel4 = check_close(k4, dk.dense_decode_feats_plain(*inputs4), TOL_DECODE, "K4")
+        inputs5 = dk.prepare_hybrid_inputs(dec, feats, coords, n_blocks)
+        k5 = dk.dense_decode_hybrid_batched(*inputs5)
+        err5, rel5 = check_close(k5, dk.dense_decode_hybrid_plain(*inputs5), TOL_DECODE, "K5")
+        torch.cuda.synchronize()
+        ref2 = dk.split_heads_transposed(k2, heads, R)
+        ref2 = (ref2[0], ref2[1].permute(0, 2, 1).reshape(B, R, R, R, 4), ref2[2])
+        vols = {}
+        for name, out in (("K4", k4), ("K5", k5)):
+            vols[name] = dk.split_heads(out, heads)
+            diff = max(float((a - b).abs().max()) for a, b in zip(vols[name], ref2))
+            if not diff <= TOL_VOLUME:
+                raise AssertionError(f"{name}'s volumes differ from K2's by {diff} > {TOL_VOLUME}")
+        qual4, rot4, width4 = vols["K4"]
+        masked = bound_quality(mask_quality(qual4, tsdfs, width4, planner.planner_cfg),
+                               voxel, planner.planner_cfg)
+        c4 = candidates_to_host(select_grasps_batched(masked, rot4, width4,
+                                                      lattice_positions(coords),
+                                                      planner.planner_cfg))
+        worst11 = compare_candidates(c4, ck, range(B), R, "K4's volumes vs plan_batch")
+        del k4, k5
+        # the decode A/B entry points, counters zeroed just before
+        dk.dense_decode_feats_batched.launches = 0
+        dk.dense_decode_hybrid_batched.launches = 0
+        for vol in (dk.decode_affordance_dense_kernel_feats_batched(dec, feats, coords, n_blocks),
+                    dk.decode_affordance_dense_kernel_hybrid_batched(dec, feats, coords, n_blocks)):
+            if not all(bool(torch.isfinite(v).all()) for v in vol):
+                raise AssertionError("a decode entry point gave non-finite volumes")
+        torch.cuda.synchronize()
+        launches45 = {"dense_decode_feats": dk.dense_decode_feats_batched.launches,
+                      "dense_decode_hybrid": dk.dense_decode_hybrid_batched.launches}
+        if not all(launches45.values()):
+            raise AssertionError(f"the decode entry points did not launch K4/K5: {launches45}")
+        ms4 = cuda_ms(lambda: dk.dense_decode_feats_batched(*inputs4), 10)
+        plain4 = cuda_ms(lambda: dk.dense_decode_feats_plain(*inputs4), 3, warmup=1)
+        ms5 = cuda_ms(lambda: dk.dense_decode_hybrid_batched(*inputs5), 10)
+        plain5 = cuda_ms(lambda: dk.dense_decode_hybrid_plain(*inputs5), 3, warmup=1)
+    out_bytes = 4 * B * N * heads * O
+    F = heads * H
+    # in-kernel projections counted once per plane row: 2*C*F per row and block
+    proj = B * R * R * n_blocks * 2 * C * F
+    bound4 = bound(trunk_flops(B * N, heads, H, n_blocks, O, extra_adds=1) + 3 * proj,
+                   nbytes(*inputs4) + out_bytes)
+    bound5 = bound(trunk_flops(B * N, heads, H, n_blocks, O) + 2 * proj,
+                   nbytes(*inputs5) + out_bytes)
+    print(f"phase 11: K4 max abs err {err4:.3g}, max err/(1+|plain|) {rel4:.3g}; K5 max abs "
+          f"err {err5:.3g}, max err/(1+|plain|) {rel5:.3g} (tol {TOL_DECODE}); both within "
+          f"{TOL_VOLUME} of K2's volumes; planning from K4's volumes equals plan_batch (max "
+          f"diffs {worst11}); launches on the decode entry points {launches45}")
+
+    # 12. timings
     plan_ms = cuda_ms(lambda: kern_fn(tsdfs, tsdfs), 10)
     reps = 5
     torch.cuda.synchronize()
@@ -305,23 +464,35 @@ def main() -> int:
     for _ in range(20):
         planner(state)
     call_ms = (time.perf_counter() - t0) / 20 * 1e3
-    print(f"K1 stem_pool: {ms1:.4f} ms (plain {plain1:.4f} ms, bound {bound1[0]:.4f} ms "
-          f"by {bound1[1]}) B={B} R={R} | {card}")
-    print(f"K2 dense_decode: {ms2:.4f} ms (plain {plain2:.4f} ms, bound {bound2[0]:.4f} ms "
-          f"by {bound2[1]}) B={B} R={R} | {card}")
+    rows = [("K1 stem_pool", ms1, plain1, bound1, f"B={B}"),
+            ("K2 dense_decode", ms2, plain2, bound2, f"B={B}"),
+            ("K3 fused_dense_decode", ms3, plain3, bound3, "one scene"),
+            ("K4 dense_decode_feats", ms4, plain4, bound4, f"B={B}"),
+            ("K5 dense_decode_hybrid", ms5, plain5, bound5, f"B={B}")]
+    for name, ms, plain, bnd, shape in rows:
+        print(f"{name}: {ms:.4f} ms (plain {plain:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"by {bnd[1]}) {shape} R={R} | {card}")
     print(f"plan_batch B={B}: {sps:.1f} scenes/s end to end, batched program "
           f"{plan_ms:.3f} ms/batch ({B / plan_ms * 1e3:.1f} scenes/s) | {card}")
-    print(f"__call__ B=1: {call_ms:.3f} ms | {card}")
+    print(f"__call__ (single-scene program, K3): {call_ms:.3f} ms | {card}")
+
+    def entry(name, source, replaces, n, err, ms, plain, bnd):
+        return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",
+                "replaces": f"giga_tpu/ops/pallas/{replaces}", "launches": n,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
 
     kernels = [
-        {"name": "stem_pool", "route": "cuda", "source": "giga_tpu_torch/csrc/stem_pool.cu",
-         "replaces": "giga_tpu/ops/pallas/stem_kernel.py:120",
-         "launches": launches["stem_pool"], "max_abs_err": err1, "ms": ms1,
-         "plain_ms": plain1, "bound_ms": bound1[0], "bound_by": bound1[1], "library_ms": None},
-        {"name": "dense_decode", "route": "cuda", "source": "giga_tpu_torch/csrc/dense_decode.cu",
-         "replaces": "giga_tpu/ops/pallas/decoder_kernel.py:348",
-         "launches": launches["dense_decode"], "max_abs_err": err2, "ms": ms2,
-         "plain_ms": plain2, "bound_ms": bound2[0], "bound_by": bound2[1], "library_ms": None},
+        entry("stem_pool", "stem_pool.cu", "stem_kernel.py:120", launches["stem_pool"],
+              err1, ms1, plain1, bound1),
+        entry("dense_decode", "dense_decode.cu", "decoder_kernel.py:348",
+              launches["dense_decode"], err2, ms2, plain2, bound2),
+        entry("fused_dense_decode", "dense_decode.cu", "decoder_kernel.py:153", launches3,
+              err3, ms3, plain3, bound3),
+        entry("dense_decode_feats", "dense_decode_feats.cu", "decoder_kernel.py:608",
+              launches45["dense_decode_feats"], err4, ms4, plain4, bound4),
+        entry("dense_decode_hybrid", "dense_decode_feats.cu", "decoder_kernel.py:447",
+              launches45["dense_decode_hybrid"], err5, ms5, plain5, bound5),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 """Dense grasp-grid decoding with lattice factorization (counterpart of
-giga_tpu/inference/dense_decode.py, batched path).
+giga_tpu/inference/dense_decode.py: the batched path and its unit-batch
+single-scene wrappers).
 
 The planner queries the affordance decoder at the full R^3 lattice. Each
 triplane feature depends on two of the three coordinates, so sampling runs
@@ -7,9 +8,9 @@ on three R^2 lattices (two small matmuls per plane), and each block's fc_c
 projection splits into three per-plane projections broadcast-added into the
 R^3 hidden state. Only the ResnetBlockFC trunk runs on the full lattice.
 
-These functions are the plain versions of kernel K2's path: the planner
-runs ``ops/kernels/decoder.py`` on the card, and the tests hold both
-against the JAX package.
+These functions are the module path: the planner's programs run
+``ops/kernels/decoder.py`` (K2 batched, K3 single-scene) on the card, and
+the tests hold both against the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +40,15 @@ def sample_planes_on_lattice_batched(planes: dict, coords: torch.Tensor, plane_r
         s = torch.einsum("qw,brwc->brqc", m_t, s)
         out[t] = s.permute(0, 2, 1, 3)  # [b, row, col] -> [b, first, second]
     return out
+
+
+def sample_planes_on_lattice(planes: dict, coords: torch.Tensor, plane_reso: int,
+                             padding: float):
+    """One scene: {t: (H, W, C)} -> {t: (R, R, C)} indexed
+    [first_axis_query, second_axis_query, C]."""
+    out = sample_planes_on_lattice_batched({t: v[None] for t, v in planes.items()},
+                                           coords, plane_reso, padding)
+    return {t: v[0] for t, v in out.items()}
 
 
 def _fused_head_weights(dec: dict, n_blocks: int):
@@ -101,12 +111,28 @@ def decode_dense_batched(dec: dict, feats: dict, coords: torch.Tensor, n_blocks:
     return out.reshape(B, R, R, R, heads, o).permute(4, 0, 1, 2, 3, 5)
 
 
-def decode_affordance_dense_batched(dec: dict, feats: dict, coords: torch.Tensor,
-                                    n_blocks: int = 5):
-    """Batched (qual, rot, width): (B,R,R,R), (B,R,R,R,4), (B,R,R,R)."""
-    out = decode_dense_batched(dec, feats, coords, n_blocks)
+def decode_dense(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+    """One scene, a unit-batch wrapper over ``decode_dense_batched`` as in the
+    JAX package: feats {t: (R, R, C)} -> (heads, R, R, R, out_dim)."""
+    out = decode_dense_batched(dec, {t: v[None] for t, v in feats.items()}, coords, n_blocks)
+    return out[:, 0]
+
+
+def _affordance(out: torch.Tensor):
+    """(heads, ..., out_dim) raw heads -> qual sigmoid, rot unit-norm, width."""
     qual = torch.sigmoid(out[0, ..., 0])
     rot = out[1]
     rot = rot / torch.clamp_min(torch.linalg.vector_norm(rot, dim=-1, keepdim=True), 1e-12)
     width = out[2, ..., 0]
     return qual, rot, width
+
+
+def decode_affordance_dense_batched(dec: dict, feats: dict, coords: torch.Tensor,
+                                    n_blocks: int = 5):
+    """Batched (qual, rot, width): (B,R,R,R), (B,R,R,R,4), (B,R,R,R)."""
+    return _affordance(decode_dense_batched(dec, feats, coords, n_blocks))
+
+
+def decode_affordance_dense(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+    """One scene's (qual, rot, width): (R,R,R), (R,R,R,4), (R,R,R)."""
+    return _affordance(decode_dense(dec, feats, coords, n_blocks))

@@ -1,11 +1,16 @@
 """GIGA grasp planner: TSDF in -> ranked grasps out, on the card
 (counterpart of giga_tpu/inference/planner.py, GIGA batched path).
 
-One batched program runs encoding, the dense R^3 affordance decode,
-Gaussian smoothing, surface masking, bounding, NMS and top-K; the host only
-turns the top-K arrays into Grasp objects. With ``use_kernels`` the program
-runs kernel K1 (stem + pool) and kernel K2 (dense-decode trunk); for CPU
-tensors their wrappers run the kernels' plain versions.
+Two programs run encoding, the dense R^3 affordance decode, Gaussian
+smoothing, surface masking, bounding, NMS and top-K; the host only turns the
+top-K arrays into Grasp objects:
+  * the single-scene program (``build_giga_planner_fn``), run by
+    ``GIGAPlanner.__call__`` and ``plan_stream``; with ``use_kernels`` its
+    decode runs kernel K3;
+  * the batched program (``build_batched_giga_planner_fn``), run by
+    ``plan_batch`` and PlannerService; with ``use_kernels`` it runs kernel
+    K1 (stem + pool) and kernel K2 (dense-decode trunk).
+For CPU tensors the kernel wrappers run the kernels' plain versions.
 
 Precision: the fp32 plan turns TF32 off for cuDNN convolutions and CUDA
 matmuls while it runs (``full_precision``), the counterpart of the JAX
@@ -18,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+from collections import deque
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -27,19 +33,26 @@ from giga_tpu_torch.core.config import GIGAConfig, PlannerConfig
 from giga_tpu_torch.core.grasp import Grasp
 from giga_tpu_torch.core.transform import Rotation, Transform
 from giga_tpu_torch.inference.dense_decode import (
+    decode_affordance_dense,
     lattice_coords,
+    sample_planes_on_lattice,
     sample_planes_on_lattice_batched,
 )
 from giga_tpu_torch.inference.postprocess import (
     GraspCandidates,
     bound_quality,
     mask_quality,
+    select_grasps,
     select_grasps_batched,
 )
+from giga_tpu_torch.inference.serving import fetch_async
 from giga_tpu_torch.models.convert import flax_to_state_dict
 from giga_tpu_torch.models.encoder import can_encode_fused, encode_planes_fused
 from giga_tpu_torch.models.registry import get_network, load_network
-from giga_tpu_torch.ops.kernels.decoder import decode_affordance_dense_kernel_batched
+from giga_tpu_torch.ops.kernels.decoder import (
+    decode_affordance_dense_kernel,
+    decode_affordance_dense_kernel_batched,
+)
 
 
 class State(NamedTuple):
@@ -99,6 +112,61 @@ def lattice_positions(coords: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1)
 
 
+class _Lattice:
+    """The lattice coords (R,) and positions (R, R, R, 3), made once per
+    device: a copy from host memory inside a program would wait for the
+    card's queue."""
+
+    def __init__(self, resolution: int):
+        self.resolution = resolution
+        self._by_device = {}
+
+    def __call__(self, device):
+        if device not in self._by_device:
+            coords = lattice_coords(self.resolution, device)
+            self._by_device[device] = (coords, lattice_positions(coords))
+        return self._by_device[device]
+
+
+def build_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig,
+                          size: float, use_kernels: bool = False):
+    """Single-scene program: (tsdf (P,P,P), tsdf_process (R,R,R)) ->
+    unbatched GraspCandidates (count a 0-d tensor), left on the tensors'
+    device. It makes no synchronizing call once warm.
+
+    It encodes with ``net.encode``, as the JAX package's single-scene
+    program does. ``use_kernels`` decodes through K3; without it the program
+    decodes through the module path, the reference the kernel's program is
+    checked against.
+    """
+    voxel_size = size / planner_cfg.resolution
+    R = planner_cfg.resolution
+    P = model_cfg.encoder.plane_resolution
+    n_blocks = model_cfg.decoder.n_blocks
+    lattice = _Lattice(R)
+
+    def plan(tsdf: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
+        if tuple(tsdf.shape) != (P, P, P):
+            raise ValueError(f"expected a ({P}, {P}, {P}) TSDF grid, got {tuple(tsdf.shape)}")
+        if tuple(tsdf_process.shape) != (R, R, R):
+            raise ValueError(f"expected a ({R}, {R}, {R}) process grid, "
+                             f"got {tuple(tsdf_process.shape)}")
+        coords, positions = lattice(tsdf.device)
+        with torch.inference_mode(), full_precision():
+            planes = {t: v[0] for t, v in net.encode(tsdf[None]).items()}
+            feats = sample_planes_on_lattice(planes, coords, P, model_cfg.decoder.padding)
+            dec = net.decoder_aff.params()
+            if use_kernels:
+                qual, rot, width = decode_affordance_dense_kernel(dec, feats, coords, n_blocks)
+            else:
+                qual, rot, width = decode_affordance_dense(dec, feats, coords, n_blocks)
+            masked = mask_quality(qual, tsdf_process, width, planner_cfg)
+            masked = bound_quality(masked, voxel_size, planner_cfg)
+            return select_grasps(masked, rot, width, positions, planner_cfg)
+
+    return plan
+
+
 def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig,
                                   size: float, use_kernels: bool = False):
     """Batched serving program: (tsdfs (B,P,P,P), tsdf_process (B,R,R,R)) ->
@@ -113,7 +181,7 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     R = planner_cfg.resolution
     P = model_cfg.encoder.plane_resolution
     n_blocks = model_cfg.decoder.n_blocks
-    lattice = {}  # device -> (coords, positions)
+    lattice = _Lattice(R)
 
     def plan(tsdfs: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
         if tsdfs.ndim != 4 or tuple(tsdfs.shape[1:]) != (P, P, P):
@@ -121,10 +189,7 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
         if tuple(tsdf_process.shape) != (tsdfs.shape[0], R, R, R):
             raise ValueError(f"expected ({tsdfs.shape[0]}, {R}, {R}, {R}) process grids, "
                              f"got {tuple(tsdf_process.shape)}")
-        if tsdfs.device not in lattice:
-            coords = lattice_coords(R, tsdfs.device)
-            lattice[tsdfs.device] = (coords, lattice_positions(coords))
-        coords, positions = lattice[tsdfs.device]
+        coords, positions = lattice(tsdfs.device)
         with torch.inference_mode(), full_precision():
             if use_kernels and can_encode_fused(model_cfg.encoder, tsdfs.shape):
                 planes = encode_planes_fused(net.encoder, tsdfs)
@@ -178,7 +243,11 @@ def _get_grids(state: State, resolution: int, default_size: float):
 
 
 class GIGAPlanner:
-    """VGNImplicit-equivalent host wrapper around the batched program.
+    """VGNImplicit-equivalent host wrapper around the planning programs:
+    ``__call__`` and ``plan_stream`` run the single-scene program (kernel
+    K3 on the card), ``plan_batch`` and PlannerService the batched one (K1,
+    K2). Both programs are built at first use, from the ``planner_cfg`` of
+    that moment.
 
     __call__(state) -> (grasps, scores, toc): grasps in metric workspace
     coordinates, best-first when ``best`` else randomly permuted (reference:
@@ -236,11 +305,29 @@ class GIGAPlanner:
         )
         self.size = size
         self.rng = rng if rng is not None else np.random
+        self._fn = None
         self._vfn = None
 
+    def _ensure_fn(self):
+        """Build (once) the single-scene program of __call__ and plan_stream;
+        on the card its decode runs kernel K3."""
+        if self._fn is None:
+            self._fn = build_giga_planner_fn(
+                self.net, self.model_cfg, self.planner_cfg, self.size, use_kernels=True)
+        return self._fn
+
+    def _upload(self, grid) -> torch.Tensor:
+        """One (R, R, R) or (1, R, R, R) grid onto the device, through pinned
+        memory without waiting for the card's queue."""
+        a = np.asarray(grid, np.float32)
+        t = torch.from_numpy(a.reshape(a.shape[-3:]))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     def _ensure_batched_fn(self):
-        """Build (once) the batched program shared by __call__, plan_batch
-        and PlannerService; on the card it runs kernels K1 and K2."""
+        """Build (once) the batched program shared by plan_batch and
+        PlannerService; on the card it runs kernels K1 and K2."""
         if self._vfn is None:
             self._vfn = build_batched_giga_planner_fn(
                 self.net, self.model_cfg, self.planner_cfg, self.size, use_kernels=True)
@@ -259,14 +346,46 @@ class GIGAPlanner:
                 f"state TSDF size {size} != planner size {self.size}; "
                 f"construct GIGAPlanner(size={size}) for this workspace"
             )
-        fn = self._ensure_batched_fn()
+        fn = self._ensure_fn()
         tic = time.time()
-        tsdf = torch.from_numpy(_as_batch(grid)).to(self.device)
-        proc = torch.from_numpy(_as_batch(process_grid)).to(self.device)
-        host = candidates_to_host(fn(tsdf, proc))
+        host = candidates_to_host(fn(self._upload(grid), self._upload(process_grid)))
         toc = time.time() - tic
-        grasps, scores = self._to_grasps(GraspCandidates(*(x[0] for x in host)))
+        grasps, scores = self._to_grasps(host)
         return grasps, scores, toc
+
+    def plan_stream(self, tsdf_grids, process_grids=None):
+        """Plan a sequence of scenes one by one, hiding the fetch.
+
+        Scene i's program is queued, and its candidates' copy to host memory
+        queued behind it, before the host waits for scene i-1's copy; so the
+        card runs scene i while the host builds scene i-1's Grasp objects.
+        Results equal calling the planner per scene.
+
+        Args:
+            tsdf_grids: iterable of (R, R, R) or (1, R, R, R) grids.
+            process_grids: optional sequence of the same length.
+        Returns:
+            list of (grasps, scores) per scene, in input order.
+        """
+        fn = self._ensure_fn()
+        pending, out = deque(), []
+        for i, grid in enumerate(tsdf_grids):
+            g = self._upload(grid)
+            p = g if process_grids is None else self._upload(process_grids[i])
+            pending.append(fetch_async(fn(g, p)))
+            if len(pending) > 1:
+                out.append(self._collect(pending.popleft()))
+        while pending:
+            out.append(self._collect(pending.popleft()))
+        return out
+
+    def _collect(self, fetch):
+        """Wait for one queued fetch (the only wait on the card) and build
+        its Grasp objects."""
+        cands, ready = fetch
+        if ready is not None:
+            ready.synchronize()
+        return self._to_grasps(GraspCandidates(*(t.numpy() for t in cands)))
 
     def plan_batch(self, tsdf_grids, process_grids=None):
         """Plan a whole batch of scenes in one program.

@@ -60,6 +60,15 @@ def bound_quality(qual, voxel_size: float, cfg: PlannerConfig):
     return qual * (mx[:, None, None] * my[None, :, None] * mz[None, None, :])
 
 
+def select_grasps(qual, rot, width, positions, cfg: PlannerConfig) -> GraspCandidates:
+    """One scene's threshold + NMS + top-K: qual (R, R, R), rot
+    (R, R, R, 4), width (R, R, R), positions (R, R, R, 3) -> unbatched
+    GraspCandidates, count a 0-d tensor. ``select_grasps_batched`` on a
+    unit batch, so the two agree scene by scene."""
+    cands = select_grasps_batched(qual[None], rot[None], width[None], positions, cfg)
+    return GraspCandidates(*(t[0] for t in cands))
+
+
 def select_grasps_batched(qual, rot, width, positions, cfg: PlannerConfig) -> GraspCandidates:
     """Batched threshold + NMS + top-K over (B, R, R, R) scenes.
 

@@ -43,7 +43,7 @@ import torch
 
 from giga_tpu_torch.inference.postprocess import GraspCandidates
 
-__all__ = ["PlannerService", "ServiceStats"]
+__all__ = ["PlannerService", "ServiceStats", "fetch_async"]
 
 
 @dataclass
@@ -80,8 +80,8 @@ class ServiceStats:
             }
 
 
-def _fetch_async(cands: GraspCandidates):
-    """Queue the copy of a batch's candidates to (pinned) host memory right
+def fetch_async(cands: GraspCandidates):
+    """Queue the copy of a program's candidates to (pinned) host memory right
     behind the program that makes them; returns the host tensors and the
     event that marks them ready (None on the CPU). A plain ``.cpu()`` at
     drain time would queue behind the next batch's program and wait for it."""
@@ -222,7 +222,7 @@ class PlannerService:
         if pad:
             grids = grids + [grids[-1]] * pad
         batch = torch.from_numpy(np.stack(grids)).to(self.planner.device)
-        return _fetch_async(self._vfn(batch, batch)), items, pad
+        return fetch_async(self._vfn(batch, batch)), items, pad
 
     def _resolve(self, fetch, items):
         """Wait for a batch's fetch (the wait on the card) and resolve futures."""

@@ -3,8 +3,9 @@
 Each ``giga_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``build/giga_tpu_torch/`` at the repository root, and loaded with ``ctypes``.
-Libraries are named by a hash of their source, so an edited source is
-rebuilt and an unchanged one is reused. Nothing is built at import: the
+Libraries are named by a hash of their source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt and an
+unchanged one is reused. Nothing is built at import: the
 first launch builds what it needs, and ``build_all`` builds every kernel at
 once, one ``nvcc`` process per source, all started together.
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "giga_tpu_torch"
-SOURCES = ("stem_pool", "dense_decode")
+SOURCES = ("stem_pool", "dense_decode", "dense_decode_feats")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,7 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

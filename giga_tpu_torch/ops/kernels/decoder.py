@@ -1,19 +1,27 @@
-"""Kernel K2: dense-decode trunk (csrc/dense_decode.cu), with its input
-preparation and head split.
+"""Dense-decode kernels K2-K5 (csrc/dense_decode.cu, csrc/dense_decode_feats.cu),
+with their input preparation and head splits.
 
-Counterpart of giga_tpu/ops/pallas/decoder_kernel.py's batched path
-(``prepare_projections_batched``, ``_prepare_axis_terms``,
-``fused_dense_decode_batched``, ``_split_heads_transposed``).
+Counterpart of giga_tpu/ops/pallas/decoder_kernel.py:
+  * K2 ``dense_decode_batched``: ``fused_dense_decode_batched``, B scenes,
+    from precomputed projections (``prepare_projections_batched``);
+  * K3 ``fused_dense_decode``: ``fused_dense_decode``, one scene
+    (``prepare_projections``, ``split_heads``);
+  * K4 ``dense_decode_feats_batched``: ``fused_dense_decode_feats_batched``,
+    all three fc_c projections formed in-kernel from the raw lattice
+    features (``prepare_feats_inputs``);
+  * K5 ``dense_decode_hybrid_batched``: ``fused_dense_decode_hybrid_batched``,
+    the xz/xy projections in-kernel, pyz precomputed with the fc_c biases
+    folded in (``prepare_hybrid_inputs``).
 
-The TPU kernel runs the three heads as one fused trunk with block-diagonal
+The TPU kernels run the three heads as one fused trunk with block-diagonal
 (F, F) weights, F = heads * hidden. Its off-diagonal blocks are exact
 zeros, so here the trunk weights stay per head, (n_blocks, heads, H, H),
 and each head runs as its own H-wide trunk: the same sums with a third of
-the multiply-adds. The projection inputs keep the fused F-wide layout
-(head e owns columns e*H .. e*H + H - 1).
+the multiply-adds. Projection inputs and fc_c weight splits keep the fused
+F-wide layout (head e owns columns e*H .. e*H + H - 1).
 
-``dense_decode_batched`` launches the CUDA kernel for CUDA tensors and runs
-``dense_decode_plain`` for CPU tensors; there is no other fallback.
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+PyTorch version (``*_plain``) for CPU tensors; there is no other fallback.
 """
 
 from __future__ import annotations
@@ -39,102 +47,308 @@ def prepare_axis_terms(dec: dict, coords: torch.Tensor):
     px = coords[:, None] * w_p[0] + dec["fc_p_bias"].reshape(-1)
     py = coords[:, None] * w_p[1]
     pz = coords[:, None] * w_p[2]
-    return px, py, pz
+    return px.contiguous(), py.contiguous(), pz.contiguous()
+
+
+def _fc_c_splits(dec: dict, n_blocks: int):
+    """Per-plane fc_c weight splits wxz/wxy/wyz (n_blocks, C, F) and the
+    fc_c biases (n_blocks, F)."""
+    c_dim = dec["fc_c0_kernel"].shape[1] // 3
+    w = torch.stack([_cat_out(dec[f"fc_c{i}_kernel"]) for i in range(n_blocks)])
+    bc = torch.stack([dec[f"fc_c{i}_bias"].reshape(-1) for i in range(n_blocks)])
+    return (w[:, :c_dim].contiguous(), w[:, c_dim:2 * c_dim].contiguous(),
+            w[:, 2 * c_dim:].contiguous(), bc.contiguous())
+
+
+def _trunk_weights(dec: dict, n_blocks: int):
+    """Per-head trunk weights w0 (n_blocks, heads, H, H), b0 (n_blocks,
+    heads, H), w1, b1, and head weights wout (heads, H, O), bout (heads, O)."""
+    def stack(name):
+        return torch.stack([dec[f"block{i}_{name}"] for i in range(n_blocks)]).contiguous()
+
+    return (stack("fc0_kernel"), stack("fc0_bias"), stack("fc1_kernel"), stack("fc1_bias"),
+            dec["fc_out_kernel"].contiguous(), dec["fc_out_bias"].contiguous())
+
+
+def _project(f: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., C) lattice features @ (C, F) -> (..., F)."""
+    return torch.einsum("...c,cf->...f", f, w)
 
 
 def prepare_projections_batched(dec: dict, feats: dict, coords: torch.Tensor,
                                 n_blocks: int = 5):
-    """feats {t: (B, R, R, C)} -> the kernel's inputs:
-    px/py/pz (R, F); pxz/pxy/pyz (B, n_blocks, R, R, F), the fc_c bias in
-    pxz; per-head trunk weights w0/w1 (n_blocks, heads, H, H), b0/b1
-    (n_blocks, heads, H); head weights wout (heads, H, O), bout (heads, O)."""
+    """feats {t: (B, R, R, C)} -> K2's inputs: px/py/pz (R, F); pxz/pxy/pyz
+    (B, n_blocks, R, R, F), the fc_c bias in pxz; the per-head trunk and
+    head weights (``_trunk_weights``)."""
     px, py, pz = prepare_axis_terms(dec, coords)
-    c_dim = dec["fc_c0_kernel"].shape[1] // 3
-    pxz, pxy, pyz = [], [], []
+    wxz, wxy, wyz, bc = _fc_c_splits(dec, n_blocks)
+    pxz = torch.stack([_project(feats["xz"], wxz[i]) + bc[i] for i in range(n_blocks)], 1)
+    pxy = torch.stack([_project(feats["xy"], wxy[i]) for i in range(n_blocks)], 1)
+    pyz = torch.stack([_project(feats["yz"], wyz[i]) for i in range(n_blocks)], 1)
+    return (px, py, pz, pxz, pxy, pyz, *_trunk_weights(dec, n_blocks))
+
+
+def prepare_projections(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+    """Single-scene ``prepare_projections_batched``: feats {t: (R, R, C)} ->
+    K3's inputs, pxz/pxy/pyz (n_blocks, R, R, F)."""
+    inputs = prepare_projections_batched(dec, {t: v[None] for t, v in feats.items()},
+                                         coords, n_blocks)
+    return inputs[:3] + tuple(p[0] for p in inputs[3:6]) + inputs[6:]
+
+
+def prepare_feats_inputs(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+    """K4's inputs: px/py/pz (R, F); the raw features fxz/fxy/fyz
+    (B, R, R, C); wxz/wxy/wyz (n_blocks, C, F); bc (n_blocks, F); the
+    per-head trunk and head weights."""
+    px, py, pz = prepare_axis_terms(dec, coords)
+    return (px, py, pz, *(feats[t].contiguous() for t in ("xz", "xy", "yz")),
+            *_fc_c_splits(dec, n_blocks), *_trunk_weights(dec, n_blocks))
+
+
+def prepare_hybrid_inputs(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+    """K5's inputs: px/py/pz (R, F); fxz/fxy (B, R, R, C); pyz
+    (B, n_blocks, R, R, F) with the fc_c biases folded in; wxz/wxy
+    (n_blocks, C, F); the per-head trunk and head weights."""
+    px, py, pz = prepare_axis_terms(dec, coords)
+    wxz, wxy, wyz, bc = _fc_c_splits(dec, n_blocks)
+    pyz = torch.stack([_project(feats["yz"], wyz[i]) + bc[i] for i in range(n_blocks)], 1)
+    return (px, py, pz, feats["xz"].contiguous(), feats["xy"].contiguous(), pyz, wxz, wxy,
+            *_trunk_weights(dec, n_blocks))
+
+
+# -- plain versions -----------------------------------------------------------
+
+def _trunk_plain(net, block_input, w0, b0, w1, b1, wout, bout):
+    """The per-head trunk on a (..., F) residual stream: block i first adds
+    ``block_input(net, i)``'s plane terms, then runs its ResnetBlockFC.
+    Returns (..., heads*O)."""
+    n_blocks, E, H, _ = w0.shape
+    lead = net.shape[:-1]
     for i in range(n_blocks):
-        w_c = _cat_out(dec[f"fc_c{i}_kernel"])  # (3C, F)
-        bias = dec[f"fc_c{i}_bias"].reshape(-1)
-        pxz.append(torch.einsum("qabc,ch->qabh", feats["xz"], w_c[:c_dim]) + bias)
-        pxy.append(torch.einsum("qabc,ch->qabh", feats["xy"], w_c[c_dim:2 * c_dim]))
-        pyz.append(torch.einsum("qabc,ch->qabh", feats["yz"], w_c[2 * c_dim:]))
+        net = block_input(net, i)
+        heads = net.reshape(*lead, E, H)
+        hid = torch.einsum("...ek,ekj->...ej", torch.relu(heads), w0[i]) + b0[i]
+        dx = torch.einsum("...ek,ekj->...ej", torch.relu(hid), w1[i]) + b1[i]
+        net = net + dx.reshape(*lead, E * H)
+    heads = net.reshape(*lead, E, H)
+    out = torch.einsum("...ek,eko->...eo", torch.relu(heads), wout) + bout
+    return out.reshape(*lead, -1)
 
-    def stack(name):
-        return torch.stack([dec[f"block{i}_{name}"] for i in range(n_blocks)])
 
-    return (
-        px.contiguous(), py.contiguous(), pz.contiguous(),
-        torch.stack(pxz, 1), torch.stack(pxy, 1), torch.stack(pyz, 1),
-        stack("fc0_kernel").contiguous(), stack("fc0_bias").contiguous(),
-        stack("fc1_kernel").contiguous(), stack("fc1_bias").contiguous(),
-        dec["fc_out_kernel"].contiguous(), dec["fc_out_bias"].contiguous(),
-    )
+def _lattice_start(px, py, pz, B: int):
+    """(B, R, R, R, F) block-0 input (px[x] + py[y]) + pz[z]."""
+    R, F = px.shape
+    net = (px[:, None, None, :] + py[None, :, None, :]) + pz[None, None, :, :]
+    return net.expand(B, R, R, R, F)
 
 
 def dense_decode_plain(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
     """Plain PyTorch version of K2 on the same inputs -> (B, heads*O, R^3),
     rows flattened as (x*R + y)*R + z."""
-    R, F = px.shape
-    n_blocks, E, H, _ = w0.shape
-    B = pxz.shape[0]
-    net = (px[:, None, None, :] + py[None, :, None, :]) + pz[None, None, :, :]
-    net = net.expand(B, R, R, R, F)
-    for i in range(n_blocks):
-        net = (net + pxz[:, i][:, :, None, :, :] + pxy[:, i][:, :, :, None, :]
-               + pyz[:, i][:, None, :, :, :])
-        heads = net.reshape(B, R, R, R, E, H)
-        hid = torch.einsum("...ek,ekj->...ej", torch.relu(heads), w0[i]) + b0[i]
-        dx = torch.einsum("...ek,ekj->...ej", torch.relu(hid), w1[i]) + b1[i]
-        net = net + dx.reshape(B, R, R, R, F)
-    heads = net.reshape(B, R, R, R, E, H)
-    out = torch.einsum("...ek,eko->...eo", torch.relu(heads), wout) + bout
+    B, R = pxz.shape[0], px.shape[0]
+
+    def block_input(net, i):
+        return (net + pxz[:, i][:, :, None, :, :] + pxy[:, i][:, :, :, None, :]
+                + pyz[:, i][:, None, :, :, :])
+
+    out = _trunk_plain(_lattice_start(px, py, pz, B), block_input, w0, b0, w1, b1, wout, bout)
     return out.reshape(B, R ** 3, -1).permute(0, 2, 1).contiguous()
+
+
+def fused_dense_decode_plain(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
+    """Plain PyTorch version of K3: one scene, pxz/pxy/pyz (n_blocks, R, R, F)
+    -> (R, R, R, heads*O) indexed [x, y, z, o]."""
+    def block_input(net, i):
+        return net + pxz[i][:, None, :, :] + pxy[i][:, :, None, :] + pyz[i][None, :, :, :]
+
+    return _trunk_plain(_lattice_start(px, py, pz, 1)[0], block_input,
+                        w0, b0, w1, b1, wout, bout)
+
+
+def dense_decode_feats_plain(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
+                             w0, b0, w1, b1, wout, bout):
+    """Plain PyTorch version of K4 -> (B, R, R, R, heads*O): block i adds
+    fxz @ wxz[i], fxy @ wxy[i], fyz @ wyz[i] and bc[i], in that order."""
+    def block_input(net, i):
+        return (net + _project(fxz, wxz[i])[:, :, None, :, :]
+                + _project(fxy, wxy[i])[:, :, :, None, :]
+                + _project(fyz, wyz[i])[:, None, :, :, :] + bc[i])
+
+    return _trunk_plain(_lattice_start(px, py, pz, fxz.shape[0]), block_input,
+                        w0, b0, w1, b1, wout, bout)
+
+
+def dense_decode_hybrid_plain(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1, b1, wout, bout):
+    """Plain PyTorch version of K5 -> (B, R, R, R, heads*O): block i adds
+    fxz @ wxz[i], fxy @ wxy[i] and pyz[:, i], in that order."""
+    def block_input(net, i):
+        return (net + _project(fxz, wxz[i])[:, :, None, :, :]
+                + _project(fxy, wxy[i])[:, :, :, None, :] + pyz[:, i][:, None, :, :, :])
+
+    return _trunk_plain(_lattice_start(px, py, pz, fxz.shape[0]), block_input,
+                        w0, b0, w1, b1, wout, bout)
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+def _check(what: str, expect: dict, args, device) -> None:
+    """Raise ValueError unless every tensor has its expected shape and is
+    contiguous, 16-byte aligned float32 on ``device``."""
+    for (name, shape), t in zip(expect.items(), args):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
+        if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{what}: {name} must be contiguous, 16-byte aligned "
+                             f"float32 on {device}")
+
+
+def _trunk_shapes(w0, wout):
+    """(n_blocks, heads, H, O) of per-head trunk weights, checked against
+    the width the kernels are built for."""
+    n_blocks, E, H, _ = w0.shape
+    O = wout.shape[-1]
+    lib = _lib()
+    if H != lib.dense_decode_hidden() or O != lib.dense_decode_outputs():
+        raise ValueError(f"dense decode kernels are built for hidden {lib.dense_decode_hidden()} "
+                         f"and {lib.dense_decode_outputs()} outputs per head, got {H} and {O}")
+    return n_blocks, E, H, O
+
+
+def _trunk_expect(n_blocks, E, H, O) -> dict:
+    return {"w0": (n_blocks, E, H, H), "b0": (n_blocks, E, H), "w1": (n_blocks, E, H, H),
+            "b1": (n_blocks, E, H), "wout": (E, H, O), "bout": (E, O)}
+
+
+def _device(what: str, t: torch.Tensor):
+    """The tensor's device if it is a CUDA device, None for the CPU."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device
 
 
 def dense_decode_batched(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
     """K2 trunk -> (B, heads*O, R^3); the CUDA kernel for CUDA tensors."""
     args = (px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout)
-    device = pxz.device
-    if device.type == "cpu":
+    device = _device("dense_decode_batched", pxz)
+    if device is None:
         return dense_decode_plain(*args)
-    if device.type != "cuda":
-        raise ValueError(f"dense_decode_batched: unsupported device {device}")
     R, F = px.shape
-    n_blocks, E, H, _ = w0.shape
     B = pxz.shape[0]
-    O = wout.shape[-1]
-    lib = _lib()
-    if H != lib.dense_decode_hidden() or O != lib.dense_decode_outputs():
-        raise ValueError(f"dense_decode_batched: kernel is built for hidden "
-                         f"{lib.dense_decode_hidden()} and {lib.dense_decode_outputs()} "
-                         f"outputs per head, got {H} and {O}")
-    expect = {
-        "px": (R, F), "py": (R, F), "pz": (R, F),
-        "pxz": (B, n_blocks, R, R, F), "pxy": (B, n_blocks, R, R, F),
-        "pyz": (B, n_blocks, R, R, F),
-        "w0": (n_blocks, E, H, H), "b0": (n_blocks, E, H),
-        "w1": (n_blocks, E, H, H), "b1": (n_blocks, E, H),
-        "wout": (E, H, O), "bout": (E, O),
-    }
-    for (name, shape), t in zip(expect.items(), args):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"dense_decode_batched: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"dense_decode_batched: {name} must be contiguous, "
-                             f"16-byte aligned float32 on {device}")
-    if F != E * H:
-        raise ValueError(f"dense_decode_batched: F={F} != heads*hidden={E * H}")
+    n_blocks, E, H, O = _trunk_shapes(w0, wout)
+    plane = (B, n_blocks, R, R, E * H)
+    _check("dense_decode_batched",
+           {"px": (R, E * H), "py": (R, E * H), "pz": (R, E * H), "pxz": plane, "pxy": plane,
+            "pyz": plane, **_trunk_expect(n_blocks, E, H, O)}, args, device)
     out = torch.empty((B, E * O, R ** 3), device=device, dtype=torch.float32)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.dense_decode_f32(*(t.data_ptr() for t in args), out.data_ptr(),
-                               B, R, E, n_blocks, stream)
+    err = _lib().dense_decode_f32(*(t.data_ptr() for t in args), out.data_ptr(),
+                                  B, R, E, n_blocks, stream)
     _build.check(err, "dense_decode_f32")
     dense_decode_batched.launches += 1
     return out
 
 
 dense_decode_batched.launches = 0
+
+
+def fused_dense_decode(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
+    """K3 trunk for one scene, pxz/pxy/pyz (n_blocks, R, R, F) ->
+    (R, R, R, heads*O) indexed [x, y, z, o]; the CUDA kernel for CUDA tensors."""
+    args = (px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout)
+    device = _device("fused_dense_decode", pxz)
+    if device is None:
+        return fused_dense_decode_plain(*args)
+    R = px.shape[0]
+    n_blocks, E, H, O = _trunk_shapes(w0, wout)
+    plane = (n_blocks, R, R, E * H)
+    _check("fused_dense_decode",
+           {"px": (R, E * H), "py": (R, E * H), "pz": (R, E * H), "pxz": plane, "pxy": plane,
+            "pyz": plane, **_trunk_expect(n_blocks, E, H, O)}, args, device)
+    out = torch.empty((R, R, R, E * O), device=device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _lib().dense_decode_single_f32(*(t.data_ptr() for t in args), out.data_ptr(),
+                                         R, E, n_blocks, stream)
+    _build.check(err, "dense_decode_single_f32")
+    fused_dense_decode.launches += 1
+    return out
+
+
+fused_dense_decode.launches = 0
+
+
+def dense_decode_feats_batched(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
+                               w0, b0, w1, b1, wout, bout, x_chunk: int = 8):
+    """K4 trunk from raw features -> (B, R, R, R, heads*O); the CUDA kernel
+    for CUDA tensors. ``x_chunk`` is the run of x-slabs one block of the
+    kernel walks (the outputs do not depend on it)."""
+    args = (px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc, w0, b0, w1, b1, wout, bout)
+    device = _device("dense_decode_feats_batched", fxz)
+    if device is None:
+        return dense_decode_feats_plain(*args)
+    R = px.shape[0]
+    B, C = fxz.shape[0], fxz.shape[-1]
+    n_blocks, E, H, O = _trunk_shapes(w0, wout)
+    F = E * H
+    if x_chunk < 1:
+        raise ValueError(f"dense_decode_feats_batched: x_chunk must be >= 1, got {x_chunk}")
+    _check("dense_decode_feats_batched",
+           {"px": (R, F), "py": (R, F), "pz": (R, F), "fxz": (B, R, R, C), "fxy": (B, R, R, C),
+            "fyz": (B, R, R, C), "wxz": (n_blocks, C, F), "wxy": (n_blocks, C, F),
+            "wyz": (n_blocks, C, F), "bc": (n_blocks, F),
+            **_trunk_expect(n_blocks, E, H, O)}, args, device)
+    out = torch.empty((B, R, R, R, E * O), device=device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _feats_lib().dense_decode_feats_f32(*(t.data_ptr() for t in args), out.data_ptr(),
+                                              B, R, C, E, n_blocks, min(x_chunk, R), stream)
+    _build.check(err, "dense_decode_feats_f32")
+    dense_decode_feats_batched.launches += 1
+    return out
+
+
+dense_decode_feats_batched.launches = 0
+
+
+def dense_decode_hybrid_batched(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1, b1, wout, bout):
+    """K5 trunk, xz/xy rows projected in-kernel -> (B, R, R, R, heads*O);
+    the CUDA kernel for CUDA tensors."""
+    args = (px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1, b1, wout, bout)
+    device = _device("dense_decode_hybrid_batched", fxz)
+    if device is None:
+        return dense_decode_hybrid_plain(*args)
+    R = px.shape[0]
+    B, C = fxz.shape[0], fxz.shape[-1]
+    n_blocks, E, H, O = _trunk_shapes(w0, wout)
+    F = E * H
+    _check("dense_decode_hybrid_batched",
+           {"px": (R, F), "py": (R, F), "pz": (R, F), "fxz": (B, R, R, C), "fxy": (B, R, R, C),
+            "pyz": (B, n_blocks, R, R, F), "wxz": (n_blocks, C, F), "wxy": (n_blocks, C, F),
+            **_trunk_expect(n_blocks, E, H, O)}, args, device)
+    out = torch.empty((B, R, R, R, E * O), device=device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _feats_lib().dense_decode_hybrid_f32(*(t.data_ptr() for t in args), out.data_ptr(),
+                                               B, R, C, E, n_blocks, stream)
+    _build.check(err, "dense_decode_hybrid_f32")
+    dense_decode_hybrid_batched.launches += 1
+    return out
+
+
+dense_decode_hybrid_batched.launches = 0
+
+
+# -- head splits and the decode entry points ----------------------------------
+
+def split_heads(out: torch.Tensor, heads: int):
+    """(..., R, R, R, heads*O) -> qual (..., R, R, R) sigmoid; rot
+    (..., R, R, R, 4) unit-norm; width (..., R, R, R)."""
+    parts = out.reshape(*out.shape[:-1], heads, out.shape[-1] // heads)
+    qual = torch.sigmoid(parts[..., 0, 0])
+    rot = parts[..., 1, :]
+    rot = rot / torch.clamp_min(torch.linalg.vector_norm(rot, dim=-1, keepdim=True), 1e-12)
+    width = parts[..., 2, 0]
+    return qual, rot, width
 
 
 def split_heads_transposed(out: torch.Tensor, heads: int, R: int):
@@ -150,24 +364,66 @@ def split_heads_transposed(out: torch.Tensor, heads: int, R: int):
     return qual, rot, width
 
 
+def _heads(dec: dict) -> int:
+    return dec["fc_p_kernel"].shape[0]
+
+
 def decode_affordance_dense_kernel_batched(dec: dict, feats: dict, coords: torch.Tensor,
                                            n_blocks: int = 5):
     """Batched (qual, rot, width) through K2: qual (B,R,R,R), rot (B,4,R^3),
     width (B,R,R,R)."""
     inputs = prepare_projections_batched(dec, feats, coords, n_blocks)
     out = dense_decode_batched(*inputs)
-    return split_heads_transposed(out, dec["fc_p_kernel"].shape[0], coords.shape[0])
+    return split_heads_transposed(out, _heads(dec), coords.shape[0])
+
+
+def decode_affordance_dense_kernel(dec: dict, feats: dict, coords: torch.Tensor,
+                                   n_blocks: int = 5):
+    """Single-scene (qual, rot, width) through K3, feats {t: (R, R, C)}:
+    qual (R,R,R), rot (R,R,R,4), width (R,R,R)."""
+    out = fused_dense_decode(*prepare_projections(dec, feats, coords, n_blocks))
+    return split_heads(out, _heads(dec))
+
+
+def decode_affordance_dense_kernel_feats_batched(dec: dict, feats: dict, coords: torch.Tensor,
+                                                 n_blocks: int = 5, x_chunk: int = 8):
+    """Batched (qual, rot, width) through K4: qual (B,R,R,R), rot
+    (B,R,R,R,4), width (B,R,R,R)."""
+    inputs = prepare_feats_inputs(dec, feats, coords, n_blocks)
+    return split_heads(dense_decode_feats_batched(*inputs, x_chunk=x_chunk), _heads(dec))
+
+
+def decode_affordance_dense_kernel_hybrid_batched(dec: dict, feats: dict, coords: torch.Tensor,
+                                                  n_blocks: int = 5):
+    """Batched (qual, rot, width) through K5: qual (B,R,R,R), rot
+    (B,R,R,R,4), width (B,R,R,R)."""
+    inputs = prepare_hybrid_inputs(dec, feats, coords, n_blocks)
+    return split_heads(dense_decode_hybrid_batched(*inputs), _heads(dec))
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernel library, built and loaded on first use, its C signatures bound."""
+    """K2/K3's library, built and loaded on first use, its C signatures bound."""
     lib = _build.load("dense_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dense_decode_f32.argtypes = [p] * 13 + [i, i, i, i, p]
     lib.dense_decode_f32.restype = i
+    lib.dense_decode_single_f32.argtypes = [p] * 13 + [i, i, i, p]
+    lib.dense_decode_single_f32.restype = i
     lib.dense_decode_hidden.argtypes = []
     lib.dense_decode_hidden.restype = i
     lib.dense_decode_outputs.argtypes = []
     lib.dense_decode_outputs.restype = i
+    return lib
+
+
+@functools.cache
+def _feats_lib() -> ctypes.CDLL:
+    """K4/K5's library, built and loaded on first use, its C signatures bound."""
+    lib = _build.load("dense_decode_feats")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dense_decode_feats_f32.argtypes = [p] * 17 + [i] * 6 + [p]
+    lib.dense_decode_feats_f32.restype = i
+    lib.dense_decode_hybrid_f32.argtypes = [p] * 15 + [i] * 5 + [p]
+    lib.dense_decode_hybrid_f32.restype = i
     return lib

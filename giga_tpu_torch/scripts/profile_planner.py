@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's batched planning goes, on the card.
+"""Where the time of the port's planning goes, on the card.
 
     python3 -m giga_tpu_torch.scripts.profile_planner [--batch 64] [--iters 10]
 
@@ -15,7 +15,12 @@ the card), and prints, each line beside the card's name and power limit:
     once, three times;
   * a cProfile of ``--iters`` ``plan_batch`` calls: the host functions with
     the most time of their own. cProfile slows Python calls, not the card,
-    so read its shares, not its totals.
+    so read its shares, not its totals;
+  * one scene through ``GIGAPlanner.__call__`` (the single-scene program,
+    kernel K3): the program by CUDA events, its trace (device time by
+    kernel, idle share), the call's latency split (upload, program, fetch of
+    candidates), and beside it the batched program at B=1 (K1 + K2) timed
+    the same way, the two in turns.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ ROOT = Path(__file__).resolve().parents[2]
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description="Profile the port's batched planning on the card.")
+    ap = argparse.ArgumentParser(description="Profile the port's planning on the card.")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
@@ -49,8 +54,6 @@ def main() -> int:
     from giga_tpu_torch.inference.postprocess import GraspCandidates
     from giga_tpu_torch.inference.serving import PlannerService
     from giga_tpu_torch.models.registry import load_network
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     card = chip_smoke.card_line()
     net, cfg = load_network(ROOT / chip_smoke.CHECKPOINT)
@@ -62,22 +65,10 @@ def main() -> int:
     n = args.iters
     program_ms = chip_smoke.cuda_ms(lambda: fn(tsdfs, tsdfs), n)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn(tsdfs, tsdfs)
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    rows = []  # device kernels only: operator rows would count their kernels twice
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total / 1e3 / n, e.count // n, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
+    busy, wall, rows = _trace(lambda: fn(tsdfs, tsdfs), n)
     print(f"program B={args.batch}: {program_ms:.3f} ms/batch by CUDA events | {card}")
-    print(f"traced: {busy:.3f} ms device time per batch of {window_ms / n:.3f} ms "
-          f"wall; device idle share {max(0.0, 1 - busy * n / window_ms):.3f} | {card}")
+    print(f"traced: {busy:.3f} ms device time per batch of {wall:.3f} ms "
+          f"wall; device idle share {max(0.0, 1 - busy / wall):.3f} | {card}")
     for ms, calls, name in rows[:25]:
         print(f"  {ms:8.3f} ms  x{calls:<3d} {name[:90]}")
 
@@ -135,7 +126,82 @@ def main() -> int:
           f"functions by own time over {n} calls | {card}")
     body = out.getvalue()
     print(body[body.find("ncalls"):].rstrip())
+    profile_single(planner, scenes[0], card, n)
     return 0
+
+
+def _trace(fn, n: int):
+    """(device ms per call, wall ms per call, [(ms per call, calls, kernel)])
+    of ``n`` warm calls of ``fn`` under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    # device kernels only: operator rows would count their kernels twice
+    rows = sorted(((e.self_device_time_total / 1e3 / n, round(e.count / n), e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    return sum(r[0] for r in rows), wall, rows
+
+
+def profile_single(planner, scene, card: str, n: int) -> None:
+    """One scene: the single-scene program of __call__ against the batched
+    program at B=1, each traced and its call split."""
+    import torch
+
+    import chip_smoke
+    from giga_tpu_torch.inference.planner import State, candidates_to_host
+
+    single, batched = planner._ensure_fn(), planner._ensure_batched_fn()
+    programs = {
+        "single-scene program (K3)": (single, lambda g: g),
+        "batched program at B=1 (K1, K2)": (batched, lambda g: g[None]),
+    }
+    reps = 4 * n
+    for name, (fn, shape) in programs.items():
+        t = shape(torch.from_numpy(scene).cuda())
+        ms = chip_smoke.cuda_ms(lambda: fn(t, t), reps)
+        busy, wall, rows = _trace(lambda: fn(t, t), reps)
+        print(f"{name}: {ms:.3f} ms per call by CUDA events; traced {busy:.3f} ms device "
+              f"time of {wall:.3f} ms wall, idle share {max(0.0, 1 - busy / wall):.3f}, "
+              f"{sum(r[1] for r in rows)} kernels per call | {card}")
+        for k_ms, calls, kname in rows[:8]:
+            print(f"  {k_ms:8.3f} ms  x{calls:<3d} {kname[:90]}")
+    # the call's split, the two programs in turns (A, B, B, A)
+    split = {name: [0.0, 0.0, 0.0] for name in programs}
+    for name in [*programs, *reversed(programs)]:
+        fn, shape = programs[name]
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = shape(planner._upload(scene))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cands = fn(g, g)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            candidates_to_host(cands)
+            t3 = time.perf_counter()
+            for i, dt in enumerate((t1 - t0, t2 - t1, t3 - t2)):
+                split[name][i] += dt * 1e3 / (2 * reps)
+    for name, (up, prog, fetch) in split.items():
+        print(f"{name}, split per call in turns: upload {up:.3f} ms, program (enqueue + "
+              f"run) {prog:.3f} ms, fetch {fetch:.3f} ms | {card}")
+    state = State(tsdf=scene)
+    for _ in range(3):
+        planner(state)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        planner(state)
+    print(f"__call__: {(time.perf_counter() - t0) / reps * 1e3:.3f} ms per call | {card}")
 
 
 if __name__ == "__main__":

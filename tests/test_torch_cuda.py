@@ -12,10 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from giga_tpu_torch.inference.planner import GIGAPlanner, build_batched_giga_planner_fn
+from giga_tpu_torch.inference.planner import (
+    GIGAPlanner,
+    State,
+    build_batched_giga_planner_fn,
+    build_giga_planner_fn,
+)
 from giga_tpu_torch.inference.serving import PlannerService
 from giga_tpu_torch.core.config import PlannerConfig, giga
 from giga_tpu_torch.models.conv_onet import GIGANet
+from giga_tpu_torch.ops.kernels import decoder as dk
 from giga_tpu_torch.ops.kernels.decoder import dense_decode_batched, dense_decode_plain
 from giga_tpu_torch.ops.kernels.stem import stem_pool_batched, stem_pool_plain
 
@@ -143,3 +149,150 @@ def test_service_pipelined_batches_match_plan_batch(cuda_device):
             np.testing.assert_array_equal(a.pose.translation, b.pose.translation)
             np.testing.assert_allclose(a.width, b.width, atol=1e-6)
         np.testing.assert_allclose(scores, ref_scores, atol=1e-6)
+
+
+def _trunk(rng, nb, E=3, H=32, O=4):
+    return [_u(rng, nb, E, H, H), _u(rng, nb, E, H), _u(rng, nb, E, H, H), _u(rng, nb, E, H),
+            _u(rng, E, H, O), _u(rng, E, O)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,nb", [(40, 5), (7, 2)])
+def test_single_scene_kernel_matches_plain(cuda_device, R, nb):
+    """K3, [x, y, z, o] output; R = 7 leaves a ragged last tile."""
+    rng = np.random.RandomState(4)
+    F = 96
+    args = [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F), _u(rng, nb, R, R, F),
+            _u(rng, nb, R, R, F), _u(rng, nb, R, R, F), *_trunk(rng, nb)]
+    args = [a.to(cuda_device) for a in args]
+    n = dk.fused_dense_decode.launches
+    got = dk.fused_dense_decode(*args)
+    ref = dk.fused_dense_decode_plain(*args)
+    assert dk.fused_dense_decode.launches == n + 1 and tuple(got.shape) == (R, R, R, 12)
+    torch.testing.assert_close(got, ref, atol=TOL_KERNEL, rtol=TOL_KERNEL)
+
+
+def _feats_args(rng, B, R, C, nb, F=96):
+    return [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F), _u(rng, B, R, R, C),
+            _u(rng, B, R, R, C), _u(rng, B, R, R, C), _u(rng, nb, C, F), _u(rng, nb, C, F),
+            _u(rng, nb, C, F), _u(rng, nb, F), *_trunk(rng, nb)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,C,nb,x_chunk", [(2, 40, 32, 5, 8), (1, 17, 8, 2, 5),
+                                              (2, 7, 4, 1, 40)])
+def test_feats_kernel_matches_plain(cuda_device, B, R, C, nb, x_chunk):
+    """K4. R = 40 ends on a quarter-full tile of (y, z) points, R = 17
+    (289 points) on a ragged tile and a ragged run of x-slabs, R = 7 on
+    one tile smaller than a block."""
+    rng = np.random.RandomState(5)
+    args = [a.to(cuda_device) for a in _feats_args(rng, B, R, C, nb)]
+    n = dk.dense_decode_feats_batched.launches
+    got = dk.dense_decode_feats_batched(*args, x_chunk=x_chunk)
+    ref = dk.dense_decode_feats_plain(*args)
+    assert dk.dense_decode_feats_batched.launches == n + 1
+    torch.testing.assert_close(got, ref, atol=TOL_KERNEL, rtol=TOL_KERNEL)
+    assert torch.equal(dk.dense_decode_feats_batched(*args, x_chunk=1), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,C,nb", [(2, 40, 32, 5), (1, 7, 8, 2)])
+def test_hybrid_kernel_matches_plain(cuda_device, B, R, C, nb):
+    """K5; R = 7 (49 points) leaves most threads of a block idle."""
+    rng = np.random.RandomState(6)
+    F = 96
+    args = [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F), _u(rng, B, R, R, C),
+            _u(rng, B, R, R, C), _u(rng, B, nb, R, R, F), _u(rng, nb, C, F),
+            _u(rng, nb, C, F), *_trunk(rng, nb)]
+    args = [a.to(cuda_device) for a in args]
+    n = dk.dense_decode_hybrid_batched.launches
+    got = dk.dense_decode_hybrid_batched(*args)
+    ref = dk.dense_decode_hybrid_plain(*args)
+    assert dk.dense_decode_hybrid_batched.launches == n + 1
+    torch.testing.assert_close(got, ref, atol=TOL_KERNEL, rtol=TOL_KERNEL)
+
+
+@pytest.mark.cuda
+def test_decode_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    rng = np.random.RandomState(7)
+    args = [a.to(cuda_device) for a in _feats_args(rng, 1, 8, 4, 2)]
+    with pytest.raises(ValueError, match="shape"):  # fyz of another scene count
+        dk.dense_decode_feats_batched(*args[:5], args[5][:0], *args[6:])
+    with pytest.raises(ValueError, match="float32"):
+        dk.dense_decode_feats_batched(*args[:3], args[3].double(), *args[4:])
+    with pytest.raises(ValueError, match="contiguous"):
+        dk.dense_decode_feats_batched(*args[:3], args[3].transpose(1, 2), *args[4:])
+    with pytest.raises(ValueError, match="x_chunk"):
+        dk.dense_decode_feats_batched(*args, x_chunk=0)
+    with pytest.raises(ValueError, match="hidden"):  # 16 wide heads: the kernels take 32
+        dk.dense_decode_feats_batched(*args[:10], *_trunk(rng, 2, H=16))
+    misaligned = torch.empty(args[3].numel() + 1, device=cuda_device)[1:].view(args[3].shape)
+    hybrid = args[:5] + [_u(rng, 1, 2, 8, 8, 96).to(cuda_device)] + args[6:8] + args[10:]
+    with pytest.raises(ValueError, match="aligned"):
+        dk.dense_decode_hybrid_batched(*hybrid[:3], misaligned, *hybrid[4:])
+    single = [_u(rng, 8, 96), _u(rng, 8, 96), _u(rng, 8, 96), *[_u(rng, 2, 8, 8, 96)] * 3,
+              *_trunk(rng, 2)]
+    single = [a.to(cuda_device) for a in single]
+    with pytest.raises(ValueError, match="shape"):  # a batched pxz
+        dk.fused_dense_decode(*single[:3], single[3][None], *single[4:])
+    with pytest.raises(ValueError, match="on cuda"):  # px left on the CPU
+        dk.fused_dense_decode(single[0].cpu(), *single[1:])
+
+
+@pytest.mark.cuda
+def test_single_scene_program_queues_without_waiting_for_the_card(cuda_device):
+    """Once warm, the single-scene program (K3 on the card) makes no
+    synchronizing CUDA call, and equals the module-path program."""
+    net, cfg, pcfg, grids = _random_giga(cuda_device)
+    fn = build_giga_planner_fn(net, cfg, pcfg, 0.3, use_kernels=True)
+    fn(grids[0], grids[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cands = fn(grids[0], grids[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    plain = build_giga_planner_fn(net, cfg, pcfg, 0.3, use_kernels=False)(grids[0], grids[0])
+    n = int(cands.count)
+    assert n == int(plain.count) > 0
+    torch.testing.assert_close(cands.scores[:n], plain.scores[:n], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_plan_stream_fetch_does_not_wait_for_the_next_scene(cuda_device):
+    """plan_stream queues scene i's program before it waits for scene i-1's
+    candidates, and that wait ends before scene i's work does: each program
+    here is followed by a ~0.2 s spin on the card, and scene i-1's
+    candidates arrive while scene i's spin still runs."""
+    net, cfg, pcfg, grids = _random_giga(cuda_device)
+    planner = GIGAPlanner(net=net, model_cfg=cfg, device=cuda_device)
+    planner.planner_cfg = dataclasses.replace(pcfg, best=True)
+    scenes = grids.cpu().numpy()
+    ref = [planner(State(tsdf=s))[:2] for s in scenes]
+    fn = planner._ensure_fn()
+    done = []  # per scene: the event after its spin
+
+    def slow(g, p):
+        cands = fn(g, p)
+        torch.cuda._sleep(int(2e8))
+        done.append(torch.cuda.Event())
+        done[-1].record()
+        return cands
+
+    planner._fn = slow
+    seen = []
+    to_grasps = planner._to_grasps
+
+    def record(cands):
+        seen.append((len(done), [e.query() for e in done]))
+        return to_grasps(cands)
+
+    planner._to_grasps = record
+    got = planner.plan_stream(list(scenes) + list(scenes))
+    # the first scene is collected once the second is queued, while the
+    # second's spin still runs
+    queued, finished = seen[0]
+    assert queued == 2 and finished == [True, False]
+    for (g1, s1), (g2, s2) in zip(got, ref + ref):
+        assert len(g1) == len(g2)
+        np.testing.assert_allclose(s1, s2, atol=1e-6)

@@ -1,7 +1,8 @@
-"""Kernels K1 (stem + pool) and K2 (dense-decode trunk) of the PyTorch port.
+"""Kernels K1 (stem + pool) and K2-K5 (dense-decode trunks) of the PyTorch port.
 
 The kernels' plain versions are held against the JAX package's Pallas
-kernels in interpret mode, on the same seeded inputs.
+kernels in interpret mode, on the same seeded inputs; the kernels' input
+preparation and decode entry points against their JAX counterparts.
 tests/test_torch_cuda.py holds the CUDA kernels against the plain
 versions on the card.
 """
@@ -12,8 +13,17 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
+from giga_tpu.core import config as jcfg
+from giga_tpu.models.conv_onet import GIGANet as JGIGANet
+from giga_tpu.ops.pallas import decoder_kernel as jdk
 from giga_tpu.ops.pallas.decoder_kernel import fused_dense_decode_batched
 from giga_tpu.ops.pallas.stem_kernel import fused_stem_pool_batched
+from giga_tpu_torch.core import config as tcfg
+from giga_tpu_torch.models.conv_onet import GIGANet
+from giga_tpu_torch.models.convert import flax_to_state_dict
+from giga_tpu_torch.ops.kernels import decoder as tdk
 from giga_tpu_torch.ops.kernels.decoder import (
     dense_decode_batched,
     dense_decode_plain,
@@ -140,3 +150,234 @@ def test_cpu_tensors_take_the_plain_versions():
     n2 = dense_decode_batched.launches
     assert torch.equal(dense_decode_batched(*d), dense_decode_plain(*d))
     assert (stem_pool_batched.launches, dense_decode_batched.launches) == (n1, n2)
+
+
+# -- K3, K4, K5 ---------------------------------------------------------------
+
+def _trunk_inputs(rng, E, H, O, nb):
+    def u(*shape):
+        return rng.uniform(-0.5, 0.5, shape).astype(np.float32)
+
+    return {"w0": u(nb, E, H, H), "b0": u(nb, E, H), "w1": u(nb, E, H, H), "b1": u(nb, E, H),
+            "wout": u(E, H, O), "bout": u(E, O)}
+
+
+def _jax_trunk(t):
+    """Per-head trunk weights -> the JAX kernels' fused block-diagonal ones."""
+    nb = t["w0"].shape[0]
+    return [jnp.asarray(a) for a in (
+        _block_diag(t["w0"]), t["b0"].reshape(nb, -1), _block_diag(t["w1"]),
+        t["b1"].reshape(nb, -1), _block_diag(t["wout"][None])[0], t["bout"].reshape(1, -1))]
+
+
+def _torch(d):
+    return [torch.from_numpy(v) for v in d.values()]
+
+
+@pytest.mark.parametrize("R,nb", [(8, 2), (5, 1)])
+def test_fused_decode_plain_matches_pallas_interpret(R, nb):
+    """K3's plain version, one scene, [x, y, z, o] layout."""
+    rng = np.random.RandomState(20 + R)
+    E, H, O, F = 3, 4, 4, 12
+    d = {"px": rng.uniform(-.5, .5, (R, F)), "py": rng.uniform(-.5, .5, (R, F)),
+         "pz": rng.uniform(-.5, .5, (R, F))}
+    for k in ("pxz", "pxy", "pyz"):
+        d[k] = rng.uniform(-.5, .5, (nb, R, R, F))
+    d = {k: v.astype(np.float32) for k, v in d.items()}
+    t = _trunk_inputs(rng, E, H, O, nb)
+    ref = jdk.fused_dense_decode(*(jnp.asarray(v) for v in d.values()), *_jax_trunk(t),
+                                 n_blocks=nb, interpret=True)
+    got = tdk.fused_dense_decode_plain(*_torch(d), *_torch(t)).numpy()
+    assert got.shape == ref.shape == (R, R, R, E * O)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=TOL_KERNEL)
+
+
+def _feats_case(seed, B, R, C, nb, E=3, H=4, O=4):
+    rng = np.random.RandomState(seed)
+    F = E * H
+
+    def u(*shape):
+        return rng.uniform(-0.5, 0.5, shape).astype(np.float32)
+
+    d = {"px": u(R, F), "py": u(R, F), "pz": u(R, F),
+         "fxz": u(B, R, R, C), "fxy": u(B, R, R, C), "fyz": u(B, R, R, C),
+         "wxz": u(nb, C, F), "wxy": u(nb, C, F), "wyz": u(nb, C, F), "bc": u(nb, F)}
+    return d, _trunk_inputs(rng, E, H, O, nb)
+
+
+@pytest.mark.parametrize("B,R,C,nb,x_chunk", [(2, 8, 4, 2, 4), (1, 6, 8, 1, 6)])
+def test_feats_decode_plain_matches_pallas_interpret(B, R, C, nb, x_chunk):
+    """K4's plain version: all three projections from raw features."""
+    d, t = _feats_case(30 + R, B, R, C, nb)
+    ref = jdk.fused_dense_decode_feats_batched(
+        *(jnp.asarray(v) for v in d.values()), *_jax_trunk(t), n_blocks=nb,
+        x_chunk=x_chunk, interpret=True)
+    got = tdk.dense_decode_feats_plain(*_torch(d), *_torch(t)).numpy()
+    assert got.shape == ref.shape == (B, R, R, R, 12)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=TOL_KERNEL)
+
+
+@pytest.mark.parametrize("B,R,C,nb", [(2, 8, 4, 2), (1, 6, 8, 1)])
+def test_hybrid_decode_plain_matches_pallas_interpret(B, R, C, nb):
+    """K5's plain version: xz/xy projections from raw features, pyz given."""
+    d, t = _feats_case(40 + R, B, R, C, nb)
+    rng = np.random.RandomState(50 + R)
+    pyz = rng.uniform(-0.5, 0.5, (B, nb, R, R, 12)).astype(np.float32)
+    args = [d["px"], d["py"], d["pz"], d["fxz"], d["fxy"], pyz, d["wxz"], d["wxy"]]
+    ref = jdk.fused_dense_decode_hybrid_batched(
+        *(jnp.asarray(v) for v in args), *_jax_trunk(t), n_blocks=nb, interpret=True)
+    got = tdk.dense_decode_hybrid_plain(*(torch.from_numpy(v) for v in args),
+                                        *_torch(t)).numpy()
+    assert got.shape == ref.shape == (B, R, R, R, 12)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=TOL_KERNEL)
+
+
+def test_feats_decode_plain_independent_of_x_chunk():
+    """The wrapper's x_chunk is a tile of the CUDA kernel only."""
+    d, t = _feats_case(7, 1, 6, 4, 2)
+    args = _torch(d) + _torch(t)
+    ref = tdk.dense_decode_feats_batched(*args)
+    for x_chunk in (1, 4, 100):
+        assert torch.equal(tdk.dense_decode_feats_batched(*args, x_chunk=x_chunk), ref)
+
+
+R_SMALL = 8
+
+
+def _small_cfg(m):
+    return m.GIGAConfig(
+        encoder=m.EncoderConfig(c_dim=8, plane_resolution=R_SMALL,
+                                unet=m.UNet2DConfig(depth=2, start_filts=4)),
+        decoder=m.DecoderConfig(c_dim=8, hidden_size=8, n_blocks=2),
+    )
+
+
+@pytest.fixture(scope="module")
+def small_decoder():
+    """(flax decoder params, port decoder params, R_SMALL lattice coords,
+    numpy lattice features {t: (2, R, R, C)}) from one seeded model."""
+    jnet = JGIGANet(_small_cfg(jcfg))
+    t0, p0 = jnp.zeros((1,) + (R_SMALL,) * 3), jnp.zeros((1, 1, 3))
+    params = jax.device_get(jnet.init(jax.random.PRNGKey(4), t0, p0, p0))
+    net = GIGANet(_small_cfg(tcfg))
+    net.load_state_dict(flax_to_state_dict(params))
+    rng = np.random.RandomState(12)
+    feats = {t: rng.randn(2, R_SMALL, R_SMALL, 8).astype(np.float32)
+             for t in ("xz", "xy", "yz")}
+    coords = np.linspace(-0.5, 0.5 - 1.0 / R_SMALL, R_SMALL).astype(np.float32)
+    jdec = jax.tree.map(jnp.asarray, params["params"]["decoder_aff"])
+    return jdec, {k: v.detach() for k, v in net.decoder_aff.params().items()}, coords, feats
+
+
+def _jfeats(feats, scene=None):
+    return {t: jnp.asarray(v if scene is None else v[scene]) for t, v in feats.items()}
+
+
+def _tfeats(feats, scene=None):
+    return {t: torch.from_numpy(v if scene is None else v[scene]) for t, v in feats.items()}
+
+
+def _fused_to_heads(w, E):
+    """The JAX fused (nb, E*H, E*H) block-diagonal weights -> per head."""
+    H = w.shape[-1] // E
+    return np.stack([w[..., e * H:(e + 1) * H, e * H:(e + 1) * H] for e in range(E)], -3)
+
+
+def _assert_same_inputs(ref, got, E, trunk_at):
+    """JAX's fused kernel inputs against the port's, the trunk weights
+    (from ``trunk_at`` on) compared per head."""
+    ref = [np.asarray(r) for r in ref]
+    got = [g.numpy() for g in got]
+    for r, g in zip(ref[:trunk_at], got[:trunk_at]):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, atol=1e-6)
+    nb = ref[trunk_at].shape[0]
+    w0, b0, w1, b1, wout, bout = ref[trunk_at:]
+    H, O = w0.shape[-1] // E, bout.size // E
+    head_out = np.stack([wout[e * H:(e + 1) * H, e * O:(e + 1) * O] for e in range(E)])
+    expect = [_fused_to_heads(w0, E), b0.reshape(nb, E, -1), _fused_to_heads(w1, E),
+              b1.reshape(nb, E, -1), head_out, bout.reshape(E, -1)]
+    for r, g in zip(expect, got[trunk_at:]):
+        np.testing.assert_array_equal(g, r)
+
+
+def test_prepare_projections_matches_jax(small_decoder):
+    jdec, tdec, coords, feats = small_decoder
+    ref = jdk.prepare_projections(jdec, _jfeats(feats, 0), jnp.asarray(coords), 2)
+    got = tdk.prepare_projections(tdec, _tfeats(feats, 0), torch.from_numpy(coords), 2)
+    _assert_same_inputs(ref, got, 3, trunk_at=6)
+
+
+def test_prepare_feats_inputs_matches_jax(small_decoder):
+    jdec, tdec, coords, feats = small_decoder
+    ref = jdk.prepare_feats_inputs(jdec, _jfeats(feats), jnp.asarray(coords), 2)
+    got = tdk.prepare_feats_inputs(tdec, _tfeats(feats), torch.from_numpy(coords), 2)
+    _assert_same_inputs(ref, got, 3, trunk_at=10)
+
+
+def test_prepare_hybrid_inputs_matches_jax(small_decoder):
+    """The fc_c biases are folded into pyz, as in the JAX package."""
+    jdec, tdec, coords, feats = small_decoder
+    ref = jdk.prepare_hybrid_inputs(jdec, _jfeats(feats), jnp.asarray(coords), 2)
+    got = tdk.prepare_hybrid_inputs(tdec, _tfeats(feats), torch.from_numpy(coords), 2)
+    _assert_same_inputs(ref, got, 3, trunk_at=8)
+
+
+def _assert_same_volumes(ref, got, atol=TOL_KERNEL):
+    for r, g in zip(ref, got):
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=atol)
+
+
+def test_decode_affordance_dense_kernel_matches_pallas(small_decoder):
+    """K3's entry point, one scene: qual (R,R,R), rot (R,R,R,4), width."""
+    jdec, tdec, coords, feats = small_decoder
+    ref = jdk.decode_affordance_dense_pallas(jdec, _jfeats(feats, 1), jnp.asarray(coords), 2,
+                                             interpret=True)
+    got = tdk.decode_affordance_dense_kernel(tdec, _tfeats(feats, 1), torch.from_numpy(coords), 2)
+    _assert_same_volumes(ref, got)
+
+
+def test_decode_affordance_dense_kernel_feats_matches_pallas(small_decoder):
+    """K4's entry point: qual (B,R,R,R), rot (B,R,R,R,4), width (B,R,R,R)."""
+    jdec, tdec, coords, feats = small_decoder
+    ref = jdk.decode_affordance_dense_pallas_feats_batched(
+        jdec, _jfeats(feats), jnp.asarray(coords), 2, x_chunk=4, interpret=True)
+    got = tdk.decode_affordance_dense_kernel_feats_batched(
+        tdec, _tfeats(feats), torch.from_numpy(coords), 2)
+    _assert_same_volumes(ref, got)
+
+
+def test_decode_affordance_dense_kernel_hybrid_matches_pallas(small_decoder):
+    """K5's entry point: qual (B,R,R,R), rot (B,R,R,R,4), width (B,R,R,R)."""
+    jdec, tdec, coords, feats = small_decoder
+    ref = jdk.decode_affordance_dense_pallas_hybrid_batched(
+        jdec, _jfeats(feats), jnp.asarray(coords), 2, interpret=True)
+    got = tdk.decode_affordance_dense_kernel_hybrid_batched(
+        tdec, _tfeats(feats), torch.from_numpy(coords), 2)
+    _assert_same_volumes(ref, got)
+
+
+def test_split_heads_matches_jax():
+    rng = np.random.RandomState(13)
+    out = rng.randn(2, 3, 3, 3, 12).astype(np.float32)
+    dec = {"fc_p_kernel": np.zeros((3, 3, 8)), "fc_out_bias": np.zeros((3, 4))}
+    _assert_same_volumes(jdk._split_heads(jnp.asarray(out), dec),
+                         tdk.split_heads(torch.from_numpy(out), 3), atol=1e-6)
+
+
+def test_cpu_decode_wrappers_launch_nothing(small_decoder):
+    """K3's, K4's and K5's wrappers handed CPU tensors run the plain
+    versions and launch nothing."""
+    _, tdec, coords, feats = small_decoder
+    c = torch.from_numpy(coords)
+    wrappers = (tdk.fused_dense_decode, tdk.dense_decode_feats_batched,
+                tdk.dense_decode_hybrid_batched)
+    before = [w.launches for w in wrappers]
+    single = tdk.prepare_projections(tdec, _tfeats(feats, 0), c, 2)
+    assert torch.equal(tdk.fused_dense_decode(*single), tdk.fused_dense_decode_plain(*single))
+    fin = tdk.prepare_feats_inputs(tdec, _tfeats(feats), c, 2)
+    assert torch.equal(tdk.dense_decode_feats_batched(*fin), tdk.dense_decode_feats_plain(*fin))
+    hin = tdk.prepare_hybrid_inputs(tdec, _tfeats(feats), c, 2)
+    assert torch.equal(tdk.dense_decode_hybrid_batched(*hin), tdk.dense_decode_hybrid_plain(*hin))
+    assert [w.launches for w in wrappers] == before

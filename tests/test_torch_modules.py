@@ -261,3 +261,60 @@ def test_select_grasps_batched_matches_jax(force, transposed):
     _assert_same_candidates(ref, got)
     assert int(got.count[0]) == 16  # truncated at k
     assert int(got.count[1]) == (1 if force else 0)
+
+
+def test_lattice_sampling_single_scene_matches_jax():
+    rng = np.random.RandomState(14)
+    planes = {t: rng.randn(10, 10, 4).astype(np.float32) for t in ("xz", "xy", "yz")}
+    coords = jdd.lattice_coords(8)
+    ref = jdd.sample_planes_on_lattice({t: jnp.asarray(v) for t, v in planes.items()},
+                                       coords, 10, 0.0)
+    got = tdd.sample_planes_on_lattice({t: _t(v) for t, v in planes.items()}, _t(coords), 10, 0.0)
+    for t in planes:
+        assert tuple(got[t].shape) == ref[t].shape == (8, 8, 4)
+        np.testing.assert_allclose(got[t].numpy(), np.asarray(ref[t]), atol=1e-6)
+
+
+def test_dense_decode_single_scene_matches_jax(small_model):
+    _, params, net = small_model
+    rng = np.random.RandomState(15)
+    feats = {t: rng.randn(8, 8, 8).astype(np.float32) for t in ("xz", "xy", "yz")}
+    coords = jdd.lattice_coords(8)
+    dec = jax.tree.map(jnp.asarray, params["params"]["decoder_aff"])
+    jf = {t: jnp.asarray(v) for t, v in feats.items()}
+    tf = {t: _t(v) for t, v in feats.items()}
+    with torch.no_grad():
+        raw = tdd.decode_dense(net.decoder_aff.params(), tf, _t(coords), 2)
+        got = tdd.decode_affordance_dense(net.decoder_aff.params(), tf, _t(coords), 2)
+    np.testing.assert_allclose(raw.numpy(), np.asarray(jdd.decode_dense(dec, jf, coords, 2)),
+                               atol=1e-5)
+    for r, g in zip(jdd.decode_affordance_dense(dec, jf, coords, 2), got):
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-5)
+
+
+@pytest.mark.parametrize("force", [True, False])
+@pytest.mark.parametrize("scene", [0, 1])
+def test_select_grasps_matches_jax(force, scene):
+    """One scene, rot (R, R, R, 4). Scene 1 has no voxel above qual_th,
+    so force_detection keeps only its best; each equals
+    select_grasps_batched on that scene."""
+    rng = np.random.RandomState(16)
+    R = 16
+    qual = rng.rand(2, R, R, R).astype(np.float32)
+    qual[1] *= 0.6
+    rot = rng.randn(2, R, R, R, 4).astype(np.float32)
+    width = rng.rand(2, R, R, R).astype(np.float32)
+    coords = jdd.lattice_coords(R)
+    pos = np.stack(np.meshgrid(*(np.asarray(coords),) * 3, indexing="ij"), -1)
+    jc, tc = _planner_cfgs(resolution=R, max_grasps=16, force_detection=force,
+                           low_th=0.3, qual_th=0.8)
+    ref = jpp.select_grasps(jnp.asarray(qual[scene]), jnp.asarray(rot[scene]),
+                            jnp.asarray(width[scene]), jnp.asarray(pos), jc)
+    got = tpp.select_grasps(_t(qual[scene]), _t(rot[scene]), _t(width[scene]), _t(pos), tc)
+    assert got.count.shape == () and tuple(got.scores.shape) == (16,)
+    _assert_same_candidates([np.asarray(x)[None] for x in ref], [x[None] for x in got])
+    batched = tpp.select_grasps_batched(_t(qual), _t(rot), _t(width), _t(pos), tc)
+    for a, b in zip(got, batched):
+        assert torch.equal(a, b[scene])
+    assert int(got.count) == (16 if scene == 0 else int(force))

@@ -1,6 +1,7 @@
-"""The port's batched planning program, GIGAPlanner and PlannerService,
-held against the JAX package's ``build_batched_giga_planner_fn`` (its XLA
-path on the CPU) on the same scenes and weights.
+"""The port's planning programs, GIGAPlanner and PlannerService, held
+against the JAX package's ``build_batched_giga_planner_fn``,
+``build_giga_planner_fn`` and ``GIGAPlanner`` (their XLA paths on the CPU)
+on the same scenes and weights.
 
 Candidates must agree in count and lattice positions, with scores, widths
 and rotations within 1e-5; candidates are matched by position, so equal
@@ -21,7 +22,10 @@ import jax.numpy as jnp
 
 import chip_smoke
 from giga_tpu.core import config as jcfg
+from giga_tpu.inference.planner import GIGAPlanner as JGIGAPlanner
+from giga_tpu.inference.planner import State as JState
 from giga_tpu.inference.planner import build_batched_giga_planner_fn as jax_build
+from giga_tpu.inference.planner import build_giga_planner_fn as jax_build_single
 from giga_tpu.models.conv_onet import GIGANet as JGIGANet
 from giga_tpu.models.registry import load_params
 from giga_tpu_torch.core import config as tcfg
@@ -29,6 +33,7 @@ from giga_tpu_torch.inference.planner import (
     GIGAPlanner,
     State,
     build_batched_giga_planner_fn,
+    build_giga_planner_fn,
     full_precision,
 )
 from giga_tpu_torch.inference.serving import PlannerService
@@ -125,6 +130,88 @@ def test_giga_checkpoint_slice_matches_jax():
     got = fn(t, t)
     assert_same_candidates(ref, got, 40)
     assert int(got.count.min()) > 0
+
+
+@pytest.mark.parametrize("force", [True, False])
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_single_scene_program_matches_jax(small, small_scenes, force, use_kernels):
+    """The single-scene program (K3's plain version with use_kernels, the
+    module path without) against JAX's build_giga_planner_fn, scene by
+    scene; unbatched candidates, count a 0-d tensor."""
+    jnet, params, net = small
+    kw = dict(SMALL_PLAN, force_detection=force)
+    jfn = jax_build_single(jnet, small_cfg(jcfg), jcfg.PlannerConfig(**kw), 0.3)
+    fn = build_giga_planner_fn(net, small_cfg(tcfg), tcfg.PlannerConfig(**kw), 0.3,
+                               use_kernels=use_kernels)
+    for scene in small_scenes:
+        ref, _ = jax.device_get(jfn(params, jnp.asarray(scene), jnp.asarray(scene)))
+        t = torch.from_numpy(scene)
+        got = fn(t, t)
+        assert got.count.shape == () and int(got.count) > 0
+        assert_same_candidates([np.asarray(x)[None] for x in ref], [x[None] for x in got],
+                               R_SMALL)
+
+
+def test_single_scene_program_rejects_batches(small, small_scenes):
+    _, _, net = small
+    fn = build_giga_planner_fn(net, small_cfg(tcfg), tcfg.PlannerConfig(**SMALL_PLAN), 0.3)
+    t = torch.from_numpy(small_scenes)
+    with pytest.raises(ValueError, match="TSDF"):
+        fn(t, t[0])
+
+
+@pytest.fixture(scope="module")
+def giga_planners():
+    """The shipped checkpoint in JAX's GIGAPlanner and the port's CPU one,
+    chip_smoke's planner settings, best-first."""
+    path = REPO / chip_smoke.CHECKPOINT
+    jp = JGIGAPlanner(net=JGIGANet(jcfg.giga()), model_cfg=jcfg.giga(),
+                      params=load_params(path), **chip_smoke.PLANNER_KW)
+    net, cfg = load_network(path)
+    tp = GIGAPlanner(net=net, model_cfg=cfg, device="cpu", **chip_smoke.PLANNER_KW)
+    return jp, tp, chip_smoke.make_scenes(2, seed=17)
+
+
+def _assert_grasps_match_jax(ref, got, atol=TOL):
+    """Equal counts, equal positions in the same (best-first) order, and
+    widths, rotations and scores within ``atol``."""
+    (gr, sr), (gg, sg) = ref, got
+    assert len(gg) == len(gr) > 0
+    np.testing.assert_allclose(sg, sr, atol=atol)
+    for a, b in zip(gg, gr):
+        np.testing.assert_allclose(a.pose.translation, b.pose.translation, atol=1e-7)
+        np.testing.assert_allclose(a.width, b.width, atol=atol)
+        np.testing.assert_allclose(a.pose.rotation.as_quat(), b.pose.rotation.as_quat(),
+                                   atol=atol)
+
+
+def test_call_and_plan_stream_match_jax_planner(giga_planners):
+    """__call__ (the single-scene program, K3's plain version on the CPU)
+    and plan_stream on two R = 40 scenes with the shipped checkpoint, held
+    against JAX's GIGAPlanner.__call__ and plan_stream."""
+    jp, tp, scenes = giga_planners
+    ref = [jp(JState(tsdf=s[None]))[:2] for s in scenes]
+    for r, s in zip(ref, scenes):
+        _assert_grasps_match_jax(r, tp(State(tsdf=s[None]))[:2])
+    for r, g in zip(ref, tp.plan_stream(list(scenes))):
+        _assert_grasps_match_jax(r, g)
+    for r, g in zip(jp.plan_stream(list(scenes), list(scenes)),
+                    tp.plan_stream(iter(scenes), list(scenes))):
+        _assert_grasps_match_jax(r, g)
+
+
+def test_plan_stream_matches_call(small, small_scenes):
+    """plan_stream equals per-scene __call__, with and without process
+    grids (here: an all-unobserved grid, which masks every grasp)."""
+    single = _planner(small)
+    stream = _planner(small).plan_stream(small_scenes)
+    assert len(stream) == len(small_scenes)
+    for scene, got in zip(small_scenes, stream):
+        grasps, scores, _ = single(State(tsdf=scene))
+        _assert_same_grasps(got, (grasps, scores))
+    blank = np.zeros_like(small_scenes)
+    assert all(len(g) == 0 for g, _ in _planner(small).plan_stream(small_scenes, blank))
+    assert _planner(small).plan_stream([]) == []
 
 
 def _planner(small, **kw):
