@@ -31,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught):
      decode entry points with the counters zeroed; time kernels, plain
      versions and bounds;
  12. print timings (kernels, plan_batch scenes/s at B=64, __call__ of one
-     scene), each beside the card's name and power limit.
+     scene), each beside the card's name and power limit; then K2's and K3's
+     resources: ptxas registers and spills, shared memory per block, the
+     grid and resident blocks per SM their launcher picks on this card, and
+     the share of its bound each reaches.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -143,6 +146,35 @@ def trunk_flops(points: int, heads: int, H: int, n_blocks: int, O: int,
     (4H^2 + 6H, plus ``extra_adds`` * H), then the head (2HO + O)."""
     per_block = 4 * H * H + (6 + extra_adds) * H
     return points * heads * (2 * H + n_blocks * per_block + 2 * H * O + O)
+
+
+def ptxas_resources(log: str) -> dict:
+    """{kernel name: "N registers, S/L bytes spill stores/loads"} from an
+    nvcc -Xptxas -v build log."""
+    import re
+
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            found.setdefault(name, {})["spills"] = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found.setdefault(name, {})["registers"] = int(m.group(1))
+    return {k: f"{v.get('registers')} registers, {v.get('spills', '?')} bytes spill stores/loads"
+            for k, v in found.items()}
+
+
+def kernel_resources(log: str, kernel: str) -> str:
+    """ptxas_resources of the one kernel whose mangled name contains ``kernel``."""
+    hits = [v for k, v in ptxas_resources(log).items() if kernel in k]
+    if len(hits) != 1:
+        raise AssertionError(f"ptxas log names {len(hits)} kernels like {kernel!r}")
+    return hits[0]
 
 
 def nbytes(*tensors) -> int:
@@ -475,6 +507,15 @@ def main() -> int:
     print(f"plan_batch B={B}: {sps:.1f} scenes/s end to end, batched program "
           f"{plan_ms:.3f} ms/batch ({B / plan_ms * 1e3:.1f} scenes/s) | {card}")
     print(f"__call__ (single-scene program, K3): {call_ms:.3f} ms | {card}")
+    log2 = _build.build_log("dense_decode")
+    for name, point_major, batch, ms, bnd in (("K2", False, B, ms2, bound2),
+                                              ("K3", True, 1, ms3, bound3)):
+        lc = dk.dense_decode_launch_config(batch, R, heads, n_blocks, point_major=point_major)
+        res = kernel_resources(log2, f"dense_decode_kernelILb{int(point_major)}E")
+        print(f"{name} resources: {res}, {lc['shared_bytes']} bytes shared per block, "
+              f"grid {lc['grid'][0]}x{lc['grid'][1]} blocks of {lc['threads']} threads, "
+              f"{lc['blocks_per_sm']} resident blocks per SM on {lc['sms']} SMs; "
+              f"{bnd[0] / ms:.1%} of its bound ({bnd[0]:.4f} ms / {ms:.4f} ms) | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

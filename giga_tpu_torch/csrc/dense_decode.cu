@@ -15,70 +15,218 @@
 //     net += pxz[b,i,x,z] + pxy[b,i,x,y] + pyz[b,i,y,z]  (fc_c terms, bias in pxz)
 //     net += relu(relu(net) @ w0[i,e] + b0[i,e]) @ w1[i,e] + b1[i,e]
 //   out = relu(net) @ wout[e] + bout[e]               (OE = 4 values)
-// Only the OE outputs per head and point reach device memory (trunk.cuh).
+// Only the OE outputs per head and point reach device memory.
 //
 // What bounds it: the TPU kernels run the three heads as one 96-wide trunk
 // with block-diagonal weights. The off-diagonal blocks are exact zeros, so
-// this kernel runs each head as its own 32-wide trunk: the same sums with a
-// third of the FMAs. At the serving shape (B=64, R=40, 5 blocks) that is
-// ~10.4k FMAs per point and head, ~267 GFLOP per batch, against ~590 MB of
-// projections read and ~197 MB of output written: bound by fp32 CUDA-core
-// arithmetic. K3 is the same work for one scene (~4.2 GFLOP, ~12 MB).
+// each head runs here as its own 32-wide trunk: the same sums with a third of
+// the FMAs. At the serving shape (B=64, R=40, 5 blocks) that is ~10.4k FMAs
+// and ~1k adds per point and head, 267 GFLOP per batch (3.99 ms at the
+// H100's 67 TFLOP/s fp32 rate), against ~590 MB of projections read and
+// ~197 MB of output written (0.23 ms at 3.35 TB/s): bound by fp32 FFMA. K3 is
+// the same work for one scene (4.18 GFLOP, 12.3 MB; 0.062 ms).
 //
-// Design: one thread per lattice point and head, TILE=128 consecutive
-// lattice rows per block, grid (row tiles, heads, scenes). At R=40 one scene
-// is 500 row tiles x 3 heads = 1,500 blocks, enough for 132 SMs. K3 writes
-// its four outputs as one 16-byte store into the point-major layout.
+// Design (trunk_tiled.cuh), against the four faults of the one-point-per-
+// thread kernel it replaces, which reached 28.5% of that bound:
+//  1. Shared loads per FMA. A warp owns a tile of 64 consecutive lattice
+//     points x the head's 32 columns, a lane an 8-point x 8-column micro-
+//     tile. Each layer is a warp-level product from a per-warp activation
+//     buffer: per k, four 16-byte shared loads feed 64 FMAs, 4 FMAs per
+//     float loaded (was 1), which is what an SM's 128 bytes a clock from
+//     shared memory needs to keep its 128 FMA lanes busy.
+//  2. Registers and occupancy. 64 accumulators and the 64 matching `net`
+//     values a lane; one block of 12 warps per SM under
+//     __launch_bounds__(384, 1), 168 registers a thread. The product's k
+//     loop is unrolled two steps at a time: fully unrolled, ptxas hoists
+//     the shared loads of many steps and runs out of registers.
+//  3. Weight copies. Blocks are persistent: the grid is (resident blocks per
+//     SM x SMs / heads, heads), sized from cudaOccupancyMaxActiveBlocksPer-
+//     Multiprocessor once per device and NB, then reused. Each block copies
+//     its head's weights (42.8 KB at 5 blocks) into shared memory once; its
+//     warps then stride over (scene, tile) pairs with no block barrier.
+//  4. Row reads. A lane adds only its 8 points x 8 columns of each plane row
+//     (two 16-byte loads per point and plane; the 4 lanes of a point group
+//     read the row's 128 bytes together), loaded from device memory as the
+//     block adds them. K2 writes each output channel as 32 consecutive
+//     floats per warp, K3 each point's 4 head outputs as one 16-byte store.
+// The sums run in the one-point-per-thread kernel's order, one fmaf per term
+// with k ascending, so the outputs equal it bit for bit. The ragged last
+// tile (R^3 not a multiple of 64) computes clamped points and masks their
+// stores.
+//
+// Resources at NB = 5 (ptxas for sm_90a; chip_smoke.py prints them from the
+// build log): 168 registers, 268/276 bytes of spill stores/loads (K2;
+// 320/328 for K3), 147,216 bytes of shared memory per block. On an NVIDIA
+// H100 80GB HBM3 at 700 W (132 SMs) that is one block per SM, a grid of
+// 44 x 3 blocks, and K2 takes 7.61 ms at B=64, R=40, 52% of its bound
+// (chip_smoke.py). ab_dense_decode.py times the alternatives and ablations
+// (PERF.md): at B=64 the plane-row loads cost K2 about 1.3 ms, the second
+// product of every block about 1.8 ms, the activation stores about 0.1 ms.
 
-#include "trunk.cuh"
+#include <mutex>
+
+#include "trunk_tiled.cuh"
 
 namespace {
 
 using trunk::H;
 using trunk::OE;
-constexpr int TILE = 128;
+// The design (ab_dense_decode.py rewrites these constants in a copy of this
+// source to time the alternatives):
+constexpr int TP = 8;          // points of a lane's micro-tile
+constexpr int TC = 8;          // columns of a lane's micro-tile
+constexpr int WARPS = 12;      // warps per block
+constexpr int MIN_BLOCKS = 1;  // resident blocks per SM asked of ptxas
+constexpr int KUNROLL = 2;     // k steps of a product unrolled at a time
+constexpr int THREADS = 32 * WARPS;
+using Lane = tiled::Lane<TP, TC, KUNROLL>;
+constexpr int P = Lane::P;
+
+size_t shared_bytes(int NB) {
+  return ((size_t)trunk::weight_floats(NB) + (size_t)WARPS * Lane::ACT_FLOATS) * sizeof(float);
+}
 
 template <bool kPointMajor>
-__global__ void __launch_bounds__(TILE)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 dense_decode_kernel(const float* __restrict__ px, const float* __restrict__ py,
                     const float* __restrict__ pz, const float* __restrict__ pxz,
                     const float* __restrict__ pxy, const float* __restrict__ pyz,
                     const float* __restrict__ w0, const float* __restrict__ b0,
                     const float* __restrict__ w1, const float* __restrict__ b1,
                     const float* __restrict__ wout, const float* __restrict__ bout,
-                    float* __restrict__ out, int R, int E, int NB) {
+                    float* __restrict__ out, int B, int R, int E, int NB) {
   extern __shared__ __align__(16) float smem[];
-  const int e = blockIdx.y, b = blockIdx.z, F = E * H;
+  const int e = blockIdx.y, F = E * H;
   const trunk::Weights s = trunk::load_weights(smem, w0, b0, w1, b1, wout, bout, e, E, NB);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* act = smem + trunk::weight_floats(NB) + warp * Lane::ACT_FLOATS;
+  const Lane ln(lane);
   __syncthreads();
 
-  const int N = R * R * R;
-  const int n = blockIdx.x * TILE + threadIdx.x;
-  if (n >= N) return;
-  const int x = n / (R * R), y = (n / R) % R, z = n % R;
+  const int RR = R * R, N = RR * R;
+  const int tiles = (N + P - 1) / P;
+  const long units = (long)B * tiles;
   const int col = e * H;
+  for (long u = (long)blockIdx.x * WARPS + warp; u < units; u += (long)gridDim.x * WARPS) {
+    const int b = (int)(u / tiles);
+    const int base = (int)(u % tiles) * P;
+    int xz[TP], xy[TP], yz[TP];
+    float net[TP][TC];
+    {
+      const float* rx[TP];
+      const float* ry[TP];
+      const float* rz[TP];
+#pragma unroll
+      for (int p = 0; p < TP; ++p) {
+        const int n = min(base + ln.point(p), N - 1);  // the ragged tile's clamped points
+        const int x = n / RR, y = (n / R) % R, z = n % R;
+        xz[p] = x * R + z;
+        xy[p] = x * R + y;
+        yz[p] = y * R + z;
+        rx[p] = px + (size_t)x * F + col;
+        ry[p] = py + (size_t)y * F + col;
+        rz[p] = pz + (size_t)z * F + col;
+      }
+      tiled::set_rows(net, rx, ln);
+      tiled::add_rows(net, ry, ln);
+      tiled::add_rows(net, rz, ln);
+    }
+    for (int blk = 0; blk < NB; ++blk) {
+      const size_t plane = ((size_t)b * NB + blk) * RR;
+      const float* rows[3][TP];
+#pragma unroll
+      for (int p = 0; p < TP; ++p) {
+        rows[0][p] = pxz + (plane + xz[p]) * F + col;
+        rows[1][p] = pxy + (plane + xy[p]) * F + col;
+        rows[2][p] = pyz + (plane + yz[p]) * F + col;
+      }
+      tiled::add_rows(net, rows[0], ln);
+      tiled::add_rows(net, rows[1], ln);
+      tiled::add_rows(net, rows[2], ln);
+      tiled::resnet_block(net, act, s, blk, ln);
+    }
+    float4 o[Lane::OUTS];
+    tiled::head_out(o, net, act, s, ln, lane);
+#pragma unroll
+    for (int i = 0; i < Lane::OUTS; ++i) {
+      const int n = base + lane + 32 * i;
+      if (lane + 32 * i >= P || n >= N) break;
+      if (kPointMajor) {
+        reinterpret_cast<float4*>(out)[((size_t)b * N + n) * E + e] = o[i];
+      } else {
+        float* dst = out + ((size_t)b * E * OE + e * OE) * N + n;
+        dst[0] = o[i].x;
+        dst[N] = o[i].y;
+        dst[2 * (size_t)N] = o[i].z;
+        dst[3 * (size_t)N] = o[i].w;
+      }
+    }
+  }
+}
 
-  float net[H];
-  trunk::set_row(net, px + (size_t)x * F + col);
-  trunk::add_row(net, py + (size_t)y * F + col);
-  trunk::add_row(net, pz + (size_t)z * F + col);
-  for (int blk = 0; blk < NB; ++blk) {
-    const size_t plane = ((size_t)b * NB + blk) * R;
-    trunk::add_row(net, pxz + ((plane + x) * R + z) * F + col);
-    trunk::add_row(net, pxy + ((plane + x) * R + y) * F + col);
-    trunk::add_row(net, pyz + ((plane + y) * R + z) * F + col);
-    trunk::resnet_block(net, s, blk);
+// Resident blocks per SM and SMs of the current device for kernel
+// dense_decode_kernel<kPointMajor> at NB blocks. The first launch on a device
+// (or with another NB) sets the kernel's shared-memory attributes and asks
+// the occupancy; later launches reuse the answer.
+struct Occupancy {
+  int nb = -1, per_sm = 0, sms = 0;
+};
+
+template <bool kPointMajor>
+int occupancy(int NB, Occupancy* occ) {
+  constexpr int kDevices = 16;
+  static std::mutex mu;
+  static Occupancy cached[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (dev < kDevices && cached[dev].nb == NB) {
+    *occ = cached[dev];
+    return 0;
   }
-  const float4 o = trunk::head_out(net, s);
-  if (kPointMajor) {
-    reinterpret_cast<float4*>(out)[((size_t)b * N + n) * E + e] = o;
-  } else {
-    float* dst = out + ((size_t)b * E * OE + e * OE) * N + n;
-    dst[0] = o.x;
-    dst[N] = o.y;
-    dst[2 * (size_t)N] = o.z;
-    dst[3 * (size_t)N] = o.w;
-  }
+  auto kernel = dense_decode_kernel<kPointMajor>;
+  const size_t shmem = shared_bytes(NB);
+  int per_sm = 0, sms = 0;
+  // the blocks that registers and the largest carve-out allow; then ask for
+  // the carve-out that holds them (1 KB reserved per block), leaving the
+  // rest of the SM's 256 KB to L1, and read the occupancy that gives
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)shmem)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, shmem)))
+    return (int)err;
+  const int carveout = (int)((per_sm * (shmem + 1024) * 100 + 228 * 1024 - 1) / (228 * 1024));
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                  carveout < 100 ? carveout : 100)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, shmem)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  occ->nb = NB;
+  occ->per_sm = per_sm;
+  occ->sms = sms;
+  if (dev < kDevices) cached[dev] = *occ;
+  return 0;
+}
+
+// Launch configuration: info = {resident blocks per SM, SMs, blocks per head
+// (grid.x), heads (grid.y), threads per block, dynamic shared bytes}.
+template <bool kPointMajor>
+int configure(int B, int R, int E, int NB, int* info) {
+  Occupancy occ;
+  const int err = occupancy<kPointMajor>(NB, &occ);
+  if (err) return err;
+  const long units = (long)B * ((R * R * R + P - 1) / P);
+  long per_head = (long)occ.per_sm * occ.sms / E;
+  per_head = per_head < 1 ? 1 : per_head;
+  const long needed = (units + WARPS - 1) / WARPS;
+  info[0] = occ.per_sm;
+  info[1] = occ.sms;
+  info[2] = (int)(per_head < needed ? per_head : needed);
+  info[3] = E;
+  info[4] = THREADS;
+  info[5] = (int)shared_bytes(NB);
+  return 0;
 }
 
 template <bool kPointMajor>
@@ -86,13 +234,12 @@ int launch(const float* px, const float* py, const float* pz, const float* pxz,
            const float* pxy, const float* pyz, const float* w0, const float* b0,
            const float* w1, const float* b1, const float* wout, const float* bout,
            float* out, int B, int R, int E, int NB, void* stream) {
-  size_t shmem = (size_t)trunk::weight_floats(NB) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(dense_decode_kernel<kPointMajor>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((R * R * R + TILE - 1) / TILE, E, B);
-  dense_decode_kernel<kPointMajor><<<grid, TILE, shmem, (cudaStream_t)stream>>>(
-      px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, R, E, NB);
+  int info[6];
+  int err = configure<kPointMajor>(B, R, E, NB, info);
+  if (err) return err;
+  dim3 grid(info[2], E);
+  dense_decode_kernel<kPointMajor><<<grid, THREADS, info[5], (cudaStream_t)stream>>>(
+      px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
   return (int)cudaGetLastError();
 }
 
@@ -116,6 +263,12 @@ extern "C" int dense_decode_single_f32(const float* px, const float* py, const f
                                        float* out, int R, int E, int NB, void* stream) {
   return launch<true>(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out,
                       1, R, E, NB, stream);
+}
+
+// The launch configuration K2 (point_major 0) or K3 (1) takes for these
+// shapes, into info[6] (see configure).
+extern "C" int dense_decode_config(int point_major, int B, int R, int E, int NB, int* info) {
+  return point_major ? configure<true>(B, R, E, NB, info) : configure<false>(B, R, E, NB, info);
 }
 
 extern "C" int dense_decode_hidden() { return H; }

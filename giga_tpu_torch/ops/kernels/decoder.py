@@ -401,6 +401,19 @@ def decode_affordance_dense_kernel_hybrid_batched(dec: dict, feats: dict, coords
     return split_heads(dense_decode_hybrid_batched(*inputs), _heads(dec))
 
 
+def dense_decode_launch_config(B: int, R: int, heads: int, n_blocks: int,
+                               point_major: bool = False) -> dict:
+    """The launch K2 (or K3, ``point_major``) makes for these shapes on the
+    current card: resident blocks per SM (cudaOccupancyMaxActiveBlocksPer-
+    Multiprocessor), SMs, grid (blocks per head x heads), threads and dynamic
+    shared bytes per block."""
+    info = (ctypes.c_int * 6)()
+    err = _lib().dense_decode_config(int(point_major), B, R, heads, n_blocks, info)
+    _build.check(err, "dense_decode_config")
+    return {"blocks_per_sm": info[0], "sms": info[1], "grid": (info[2], info[3]),
+            "threads": info[4], "shared_bytes": info[5]}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """K2/K3's library, built and loaded on first use, its C signatures bound."""
@@ -410,6 +423,8 @@ def _lib() -> ctypes.CDLL:
     lib.dense_decode_f32.restype = i
     lib.dense_decode_single_f32.argtypes = [p] * 13 + [i, i, i, p]
     lib.dense_decode_single_f32.restype = i
+    lib.dense_decode_config.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.dense_decode_config.restype = i
     lib.dense_decode_hidden.argtypes = []
     lib.dense_decode_hidden.restype = i
     lib.dense_decode_outputs.argtypes = []

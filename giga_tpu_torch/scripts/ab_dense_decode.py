@@ -1,0 +1,309 @@
+#!/usr/bin/env python3
+"""A/B of the dense-decode trunk kernel's designs (K2 and K3) on the card.
+
+    python3 -m giga_tpu_torch.scripts.ab_dense_decode [--tree NAME=DIR ...]
+        [--builds NAME ...] [--rounds 4]
+
+Run from the repository root. Each build in ``DESIGNS`` and ``ABLATIONS``
+(by default all of them) is a copy of ``giga_tpu_torch/csrc/dense_decode.cu``
+and its headers, edited in ``build/giga_tpu_torch/ab/``:
+
+- a design sets the source's design constants (micro-tile TP x TC, warps per
+  block, blocks per SM asked of ptxas, k unroll) and may stage the next
+  block's plane rows in shared memory by ``cp.async`` (``STAGED_ROWS``);
+- an ablation deletes statements (the plane-row loads; each block's two
+  stores of the activation buffer with their bias and ReLU, the first
+  product's result added into the residual instead so that ptxas keeps the
+  product; the second product of each block) to show what each costs. Its
+  outputs are wrong by construction and are not checked.
+
+Each ``--tree NAME=DIR`` adds ``DIR/giga_tpu_torch/csrc/dense_decode.cu`` as
+it stands, for example the parent commit unpacked by ``git archive``. All
+builds compile at once, one nvcc each. On one set of inputs (chip_smoke's
+seeded scenes through the shipped checkpoint's encoder, B=64, R=40) every
+build but the ablations must give K2 and K3 (scene 0) outputs equal,
+``torch.equal``, to the shipped library's; then each is timed by CUDA events
+in turns (the builds in order, then in reverse, ``--rounds`` times). Prints
+each build's ptxas registers and spills, its launch configuration, every
+reading and its range, beside the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+CSRC = ROOT / "giga_tpu_torch" / "csrc"
+
+
+def _design(tp: int, tc: int, warps: int, blocks: int, unroll: int) -> dict:
+    return {"TP": tp, "TC": tc, "WARPS": warps, "MIN_BLOCKS": blocks, "KUNROLL": unroll}
+
+
+# name -> (design constants, staged rows)
+DESIGNS = {
+    "8x8, 12 x 1, k unroll 2 (shipped)": ({}, False),
+    "8x8, 12 x 1, full unroll": (_design(8, 8, 12, 1, 32), False),
+    "8x8, 8 x 1, k unroll 4": (_design(8, 8, 8, 1, 4), False),
+    "8x8, 8 x 1, full unroll": (_design(8, 8, 8, 1, 32), False),
+    "4x8, 8 x 2, full unroll": (_design(4, 8, 8, 2, 32), False),
+    "4x8, 8 x 2, k unroll 4": (_design(4, 8, 8, 2, 4), False),
+    "4x8, 16 x 1, k unroll 4": (_design(4, 8, 16, 1, 4), False),
+    "8x4, 8 x 2, full unroll": (_design(8, 4, 8, 2, 32), False),
+    "8x8, 4 x 1, k unroll 2, staged rows": (_design(8, 8, 4, 1, 2), True),
+    "4x8, 8 x 1, k unroll 4, staged rows": (_design(4, 8, 8, 1, 4), True),
+}
+
+_ROWS = [(f"tiled::add_rows(net, rows[{t}], ln);", "") for t in range(3)]
+# each block's two stores of its activations, with their bias and ReLU. The
+# first product's result is added into net instead, so that it stays live;
+# head_out's store stays, so the buffer is still written and read.
+_STORES = [("store_act(act, net, nullptr, ln);\n  __syncwarp();\n  product(acc, act, s.w0",
+            "__syncwarp();\n  product(acc, act, s.w0"),
+           ("store_act(act, acc, s.b0 + blk * H, ln);",
+            "for (int p = 0; p < TP; ++p)\n    for (int c = 0; c < TC; ++c) net[p][c] += acc[p][c];")]
+
+# name -> {file: [(old, new) edits]}, on the shipped design
+ABLATIONS = {
+    "ablation: no plane-row loads": {"dense_decode.cu": _ROWS},
+    "ablation: no block activation stores": {"trunk_tiled.cuh": _STORES},
+    "ablation: one product per block": {
+        "trunk_tiled.cuh": [("product(acc, act, s.w1 + blk * H * H, ln);", "")]},
+    "ablation: neither rows nor stores": {"dense_decode.cu": _ROWS, "trunk_tiled.cuh": _STORES},
+}
+
+# (old, new) edits of dense_decode.cu that stage block i+1's plane rows in
+# shared memory by cp.async while block i's products run
+STAGED_ROWS = [
+    ("""size_t shared_bytes(int NB) {
+  return ((size_t)trunk::weight_floats(NB) + (size_t)WARPS * Lane::ACT_FLOATS) * sizeof(float);
+}
+""", """// a lane's three planes' rows (3 x TP x TC floats), interleaved by lane
+constexpr int STAGE_FLOATS = 3 * TP * TC * 32;
+
+size_t shared_bytes(int NB) {
+  return ((size_t)trunk::weight_floats(NB) + (size_t)WARPS * (Lane::ACT_FLOATS + STAGE_FLOATS))
+         * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// 16-byte slot (((plane * TP + p) * TC/4 + q) * 32 + lane) of `stage`
+__device__ __forceinline__ void stage_rows(float* stage, const float* const (&rows)[3][TP],
+                                           const Lane& ln, int lane) {
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int p = 0; p < TP; ++p)
+#pragma unroll
+      for (int q = 0; q < TC / 4; ++q)
+        cp_async16(stage + ((((t * TP + p) * (TC / 4)) + q) * 32 + lane) * 4,
+                   rows[t][p] + ln.column(4 * q));
+  asm volatile("cp.async.commit_group;\\n" ::);
+}
+
+__device__ __forceinline__ void add_staged(float (&net)[TP][TC], const float* stage, int lane) {
+  asm volatile("cp.async.wait_group 0;\\n" ::: "memory");
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int p = 0; p < TP; ++p)
+#pragma unroll
+      for (int q = 0; q < TC / 4; ++q) {
+        const float4 u =
+            reinterpret_cast<const float4*>(stage)[((t * TP + p) * (TC / 4) + q) * 32 + lane];
+        net[p][4 * q + 0] += u.x;
+        net[p][4 * q + 1] += u.y;
+        net[p][4 * q + 2] += u.z;
+        net[p][4 * q + 3] += u.w;
+      }
+}
+"""),
+    ("  float* act = smem + trunk::weight_floats(NB) + warp * Lane::ACT_FLOATS;\n",
+     "  float* act = smem + trunk::weight_floats(NB) + warp * (Lane::ACT_FLOATS + STAGE_FLOATS);\n"
+     "  float* stage = act + Lane::ACT_FLOATS;\n"),
+    ("""    for (int blk = 0; blk < NB; ++blk) {
+      const size_t plane = ((size_t)b * NB + blk) * RR;""",
+     """    auto stage_block = [&](int blk) {
+      const size_t plane = ((size_t)b * NB + blk) * RR;"""),
+    ("""      tiled::add_rows(net, rows[0], ln);
+      tiled::add_rows(net, rows[1], ln);
+      tiled::add_rows(net, rows[2], ln);
+      tiled::resnet_block(net, act, s, blk, ln);
+""", """      stage_rows(stage, rows, ln, lane);
+    };
+    stage_block(0);
+    for (int blk = 0; blk < NB; ++blk) {
+      add_staged(net, stage, lane);
+      if (blk + 1 < NB) stage_block(blk + 1);
+      tiled::resnet_block(net, act, s, blk, ln);
+"""),
+]
+
+
+def _replace_once(text: str, old: str, new: str, what: str) -> str:
+    if text.count(old) != 1:
+        raise AssertionError(f"{what}: {old.strip()[:60]!r} found {text.count(old)} times")
+    return text.replace(old, new)
+
+
+def write_build(directory: Path, constants: dict, staged: bool, edits: dict) -> Path:
+    """Copy dense_decode.cu and the headers into ``directory``, apply one
+    build's edits, and return the copy of dense_decode.cu."""
+    directory.mkdir(parents=True, exist_ok=True)
+    for f in CSRC.glob("*.cuh"):
+        shutil.copy(f, directory / f.name)
+    src = (CSRC / "dense_decode.cu").read_text()
+    for name, value in constants.items():
+        src, n = re.subn(rf"^constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
+                         src, flags=re.M)
+        if n != 1:
+            raise AssertionError(f"dense_decode.cu defines {name} {n} times")
+    if staged:
+        for old, new in STAGED_ROWS:
+            src = _replace_once(src, old, new, "staged rows")
+    (directory / "dense_decode.cu").write_text(src)
+    for fname, pairs in edits.items():
+        text = (directory / fname).read_text()
+        for old, new in pairs:
+            text = _replace_once(text, old, new, fname)
+        (directory / fname).write_text(text)
+    return directory / "dense_decode.cu"
+
+
+def build(sources: dict) -> dict:
+    """{name: source} -> {name: (ctypes library, ptxas log)}, one nvcc per
+    build, all started together."""
+    from giga_tpu_torch.ops.kernels import _build
+
+    procs = {}
+    for i, (name, source) in enumerate(sources.items()):
+        lib = _build.BUILD_DIR / "ab" / f"libdense_decode_ab{i}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)]
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        built[name] = (ctypes.CDLL(str(lib)), log)
+    return built
+
+
+def main() -> int:
+    builds = {**DESIGNS, **ABLATIONS}
+    ap = argparse.ArgumentParser(description="A/B the dense-decode trunk kernel's designs.")
+    ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
+                    help="a tree whose giga_tpu_torch/csrc/dense_decode.cu joins the A/B")
+    ap.add_argument("--builds", nargs="*", choices=list(builds), default=list(builds))
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_dense_decode: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from giga_tpu_torch.inference.dense_decode import (
+        lattice_coords, sample_planes_on_lattice_batched)
+    from giga_tpu_torch.inference.planner import full_precision
+    from giga_tpu_torch.models.registry import load_network
+    from giga_tpu_torch.ops.kernels import _build
+    from giga_tpu_torch.ops.kernels import decoder as dk
+
+    card = chip_smoke.card_line()
+    sources = {}
+    for i, name in enumerate(args.builds):
+        constants, staged = DESIGNS.get(name, ({}, False))
+        sources[name] = write_build(_build.BUILD_DIR / "ab" / f"src{i}", constants, staged,
+                                    ABLATIONS.get(name, {}))
+    for tree in args.tree:
+        name, path = tree.split("=", 1)
+        sources[name] = Path(path).resolve() / "giga_tpu_torch" / "csrc" / "dense_decode.cu"
+    libs = build(sources)
+
+    net, cfg = load_network(ROOT / chip_smoke.CHECKPOINT)
+    net = net.cuda().eval()
+    R, B, E, O = chip_smoke.RESOLUTION, args.batch, 3, 4
+    nb = cfg.decoder.n_blocks
+    coords = lattice_coords(R, "cuda")
+    tsdfs = torch.from_numpy(chip_smoke.make_scenes(B)).cuda()
+    with torch.inference_mode(), full_precision():
+        feats = sample_planes_on_lattice_batched(net.encode(tsdfs), coords,
+                                                 cfg.encoder.plane_resolution,
+                                                 cfg.decoder.padding)
+        inputs = dk.prepare_projections_batched(net.decoder_aff.params(), feats, coords, nb)
+        inputs3 = inputs[:3] + tuple(p[0].contiguous() for p in inputs[3:6]) + inputs[6:]
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        out2 = torch.empty((B, E * O, R ** 3), device="cuda")
+        out3 = torch.empty((R, R, R, E * O), device="cuda")
+        ptrs2 = [ctypes.c_void_p(t.data_ptr()) for t in (*inputs, out2)]
+        ptrs3 = [ctypes.c_void_p(t.data_ptr()) for t in (*inputs3, out3)]
+
+        def k2(lib):
+            _build.check(lib.dense_decode_f32(*ptrs2, B, R, E, nb, stream), "dense_decode_f32")
+
+        def k3(lib):
+            _build.check(lib.dense_decode_single_f32(*ptrs3, R, E, nb, stream),
+                         "dense_decode_single_f32")
+
+        ref2 = dk.dense_decode_batched(*inputs)
+        ref3 = dk.fused_dense_decode(*inputs3)
+        for name, (lib, log) in libs.items():
+            out2.fill_(float("nan"))
+            out3.fill_(float("nan"))
+            k2(lib)
+            k3(lib)
+            torch.cuda.synchronize()
+            same = torch.equal(out2, ref2) and torch.equal(out3, ref3)
+            res = {k: chip_smoke.kernel_resources(log, f"dense_decode_kernelILb{i}E")
+                   for k, i in (("K2", 0), ("K3", 1))}
+            cfg_line = ""
+            if hasattr(lib, "dense_decode_config"):
+                info = (ctypes.c_int * 6)()
+                _build.check(lib.dense_decode_config(0, B, R, E, nb, info), "dense_decode_config")
+                cfg_line = (f"; grid ({info[2]}, {info[3]}), {info[0]} blocks of {info[4]} "
+                            f"threads per SM, {info[5]} B shared per block")
+            print(f"{name}: K2 and K3 outputs equal the shipped library's bit for bit: {same}; "
+                  f"ptxas {', '.join(f'{k}: {v}' for k, v in res.items())}{cfg_line}",
+                  flush=True)
+            if not same and name not in ABLATIONS:
+                raise AssertionError(f"{name} gives other outputs than the shipped library")
+
+        times = {name: {"K2": [], "K3": []} for name in libs}
+        order = list(libs)
+        for r in range(args.rounds):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                lib = libs[name][0]
+                times[name]["K2"].append(chip_smoke.cuda_ms(lambda: k2(lib), args.iters))
+                times[name]["K3"].append(chip_smoke.cuda_ms(lambda: k3(lib), 5 * args.iters))
+    b2 = chip_smoke.bound(chip_smoke.trunk_flops(B * R ** 3, E, 32, nb, O),
+                          chip_smoke.nbytes(*inputs) + 4 * B * E * O * R ** 3)
+    b3 = chip_smoke.bound(chip_smoke.trunk_flops(R ** 3, E, 32, nb, O),
+                          chip_smoke.nbytes(*inputs3, out3))
+    for name, t in times.items():
+        for kern, bnd in (("K2", b2), ("K3", b3)):
+            ms = t[kern]
+            print(f"{name:42s} {kern}: {min(ms):.4f}-{max(ms):.4f} ms "
+                  f"[{', '.join(f'{m:.4f}' for m in ms)}] bound {bnd[0]:.4f} ms by {bnd[1]} "
+                  f"({bnd[0] / min(ms):.1%} of it at best) B={B if kern == 'K2' else 1} R={R} "
+                  f"| {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,23 +55,47 @@ def test_stem_kernel_matches_plain(cuda_device, B, R, C):
         torch.testing.assert_close(got[k], ref[k], atol=TOL_STEM, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,R,nb", [(2, 12, 5), (1, 7, 2)])
-def test_decode_kernel_matches_plain(cuda_device, B, R, nb):
-    """R = 7 leaves a ragged last tile of lattice rows."""
-    rng = np.random.RandomState(1)
-    E, H, O = 3, 32, 4
+# Lattices whose R^3 is no multiple of the trunk kernel's 64-point warp tile
+# (R = 7, 13: a ragged last tile) and the serving R = 40; one and several
+# scenes, one and five blocks.
+RAGGED = [(B, R, nb) for R in (7, 13, 40) for B in (1, 3) for nb in (1, 5)]
+
+
+def _decode_args(rng, B, R, nb, E=3, H=32, O=4):
     F = E * H
-    args = [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F),
+    return [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F),
             _u(rng, B, nb, R, R, F), _u(rng, B, nb, R, R, F), _u(rng, B, nb, R, R, F),
             _u(rng, nb, E, H, H), _u(rng, nb, E, H), _u(rng, nb, E, H, H), _u(rng, nb, E, H),
             _u(rng, E, H, O), _u(rng, E, O)]
-    args = [a.to(cuda_device) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,nb", [(2, 12, 5), (1, 7, 2)] + RAGGED)
+def test_decode_kernel_matches_plain(cuda_device, B, R, nb):
+    """K2 against its plain version."""
+    rng = np.random.RandomState(1)
+    args = [a.to(cuda_device) for a in _decode_args(rng, B, R, nb)]
     n = dense_decode_batched.launches
     got = dense_decode_batched(*args)
     ref = dense_decode_plain(*args)
     assert dense_decode_batched.launches == n + 1
     torch.testing.assert_close(got, ref, atol=TOL_KERNEL, rtol=TOL_KERNEL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,nb", [(13, 5), (40, 2)])
+def test_decode_kernel_scenes_are_independent(cuda_device, R, nb):
+    """K2's persistent blocks walk (scene, tile) pairs of all scenes: three
+    scenes in one launch give the bytes of three one-scene launches, and
+    K3 gives K2's bytes for one scene in its point-major layout."""
+    rng = np.random.RandomState(8)
+    args = [a.to(cuda_device) for a in _decode_args(rng, 3, R, nb)]
+    together = dense_decode_batched(*args)
+    for b in range(3):
+        one = args[:3] + [p[b:b + 1].contiguous() for p in args[3:6]] + args[6:]
+        assert torch.equal(dense_decode_batched(*one)[0], together[b])
+        single = args[:3] + [p[b].contiguous() for p in args[3:6]] + args[6:]
+        assert torch.equal(dk.fused_dense_decode(*single).reshape(R ** 3, -1).T, together[b])
 
 
 @pytest.mark.cuda
@@ -157,9 +181,9 @@ def _trunk(rng, nb, E=3, H=32, O=4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,nb", [(40, 5), (7, 2)])
+@pytest.mark.parametrize("R,nb", [(40, 5), (7, 2), (7, 1), (7, 5), (13, 1), (13, 5), (40, 1)])
 def test_single_scene_kernel_matches_plain(cuda_device, R, nb):
-    """K3, [x, y, z, o] output; R = 7 leaves a ragged last tile."""
+    """K3, [x, y, z, o] output; R = 7 and 13 leave a ragged last tile."""
     rng = np.random.RandomState(4)
     F = 96
     args = [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F), _u(rng, nb, R, R, F),
