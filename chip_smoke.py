@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
      weight bridge;
   3. hold kernels K1 (stem + pool) and K2 (dense-decode trunk) against
      their plain PyTorch versions at the serving shape (B=64, R=40), and
-     time kernel, plain version and the reckoned bound;
+     time kernel, plain version and the reckoned bound; print K1's ptxas
+     registers and spills, shared memory per block, grid and share of bound;
   4. run GIGAPlanner.plan_batch on 64 seeded scenes with the launch
      counters zeroed just before, and check its candidates against the
      plain-version program on the card;
@@ -29,7 +30,7 @@ Phases (any failure exits non-zero; nothing is caught):
      plain versions at B=64, R=40, and their decodes against K2's; plan the
      batch from K4's volumes and hold it against plan_batch; drive the two
      decode entry points with the counters zeroed; time kernels, plain
-     versions and bounds;
+     versions and bounds; print K4's resources, launch and share of bound;
  12. print timings (kernels, plan_batch scenes/s at B=64, __call__ of one
      scene), each beside the card's name and power limit; then K2's and K3's
      resources: ptxas registers and spills, shared memory per block, the
@@ -146,6 +147,30 @@ def trunk_flops(points: int, heads: int, H: int, n_blocks: int, O: int,
     (4H^2 + 6H, plus ``extra_adds`` * H), then the head (2HO + O)."""
     per_block = 4 * H * H + (6 + extra_adds) * H
     return points * heads * (2 * H + n_blocks * per_block + 2 * H * O + O)
+
+
+def stem_pool_work(B: int, R: int, C: int):
+    """(fp32 operations, bytes) of K1 on B scenes of R^3 voxels and C
+    channels: per voxel and channel 27 multiply-adds, the bias add and 3
+    pooling adds; the TSDF and the weights read once, the three (B, R, R, C)
+    planes written once. ``bound(*stem_pool_work(...))`` is K1's bound."""
+    N = R ** 3
+    return B * N * C * (2 * 27 + 1 + 3), 4 * (B * N + 28 * C + 3 * B * R * R * C)
+
+
+def dense_decode_feats_work(B: int, R: int, C: int, heads: int, H: int, n_blocks: int,
+                            O: int):
+    """(fp32 operations, bytes) of K4: the per-head trunk with the fc_c bias
+    as a fourth plane add, and each block's three C -> heads*H projections
+    counted once per plane row; px/py/pz, the raw (B, R, R, C) features and
+    every weight read once, the (B, R, R, R, heads*O) output written once.
+    ``bound(*dense_decode_feats_work(...))`` is K4's bound."""
+    F = heads * H
+    proj = B * R * R * n_blocks * 2 * C * F
+    flops = trunk_flops(B * R ** 3, heads, H, n_blocks, O, extra_adds=1) + 3 * proj
+    weights = 2 * n_blocks * F * H + 2 * n_blocks * F + F * O + heads * O
+    inputs = 3 * R * F + 3 * B * R * R * C + 3 * n_blocks * C * F + n_blocks * F + weights
+    return flops, 4 * (inputs + B * R ** 3 * heads * O)
 
 
 def ptxas_resources(log: str) -> dict:
@@ -272,7 +297,8 @@ def main() -> int:
     from giga_tpu_torch.ops.kernels import decoder as dk
     from giga_tpu_torch.ops.kernels.decoder import (
         dense_decode_batched, dense_decode_plain, prepare_projections_batched)
-    from giga_tpu_torch.ops.kernels.stem import stem_pool_batched, stem_pool_plain
+    from giga_tpu_torch.ops.kernels.stem import (
+        stem_pool_batched, stem_pool_launch_config, stem_pool_plain)
 
     card = card_line()
     print(f"card: {card}")
@@ -322,12 +348,16 @@ def main() -> int:
         plain2 = cuda_ms(lambda: dense_decode_plain(*inputs), 3, warmup=1)
     del p2
     B, N = BATCH, R ** 3
-    # K1: 27 multiply-adds, the bias add and 3 pooling adds per voxel and channel
-    bound1 = bound(B * N * C * (2 * 27 + 1 + 3), 4 * (B * N + 28 * C + 3 * B * R * R * C))
+    bound1 = bound(*stem_pool_work(B, R, C))
     # K2, run per head (the fused trunk's off-diagonal zeros are no work)
     heads, O = 3, 4
     bound2 = bound(trunk_flops(B * N, heads, H, n_blocks, O),
                    nbytes(*inputs) + 4 * B * heads * O * N)
+    lc1 = stem_pool_launch_config(B, R, R, R, C)
+    print(f"phase 3: K1 resources: {kernel_resources(_build.build_log('stem_pool'), 'stem_pool')}, "
+          f"{lc1['shared_bytes']} bytes shared per block, grid {lc1['blocks']} blocks of "
+          f"{lc1['threads']} threads ({lc1['channels_per_block']} channels each); {ms1:.4f} ms, "
+          f"{bound1[0] / ms1:.1%} of its bound ({bound1[0]:.4f} ms by {bound1[1]}) | {card}")
     launch0 = {"stem_pool": stem_pool_batched.launches, "dense_decode": dense_decode_batched.launches}
 
     # 4. the main path: GIGAPlanner.plan_batch on the card, counters zeroed
@@ -469,17 +499,24 @@ def main() -> int:
         ms5 = cuda_ms(lambda: dk.dense_decode_hybrid_batched(*inputs5), 10)
         plain5 = cuda_ms(lambda: dk.dense_decode_hybrid_plain(*inputs5), 3, warmup=1)
     out_bytes = 4 * B * N * heads * O
-    F = heads * H
+    bound4 = bound(*dense_decode_feats_work(B, R, C, heads, H, n_blocks, O))
     # in-kernel projections counted once per plane row: 2*C*F per row and block
-    proj = B * R * R * n_blocks * 2 * C * F
-    bound4 = bound(trunk_flops(B * N, heads, H, n_blocks, O, extra_adds=1) + 3 * proj,
-                   nbytes(*inputs4) + out_bytes)
+    proj = B * R * R * n_blocks * 2 * C * heads * H
     bound5 = bound(trunk_flops(B * N, heads, H, n_blocks, O) + 2 * proj,
                    nbytes(*inputs5) + out_bytes)
     print(f"phase 11: K4 max abs err {err4:.3g}, max err/(1+|plain|) {rel4:.3g}; K5 max abs "
           f"err {err5:.3g}, max err/(1+|plain|) {rel5:.3g} (tol {TOL_DECODE}); both within "
           f"{TOL_VOLUME} of K2's volumes; planning from K4's volumes equals plan_batch (max "
           f"diffs {worst11}); launches on the decode entry points {launches45}")
+    lc4 = dk.dense_decode_feats_launch_config(B, R, C, heads, n_blocks, dk.FEATS_X_CHUNK)
+    log4 = _build.build_log("dense_decode_feats")
+    print(f"phase 11: K4 resources: trunk {kernel_resources(log4, 'dense_decode_feats_kernel')}, "
+          f"projections {kernel_resources(log4, 'project_kernel')}; "
+          f"trunk {lc4['shared_bytes']} bytes shared per block, grid {lc4['grid'][0]}x"
+          f"{lc4['grid'][1]} blocks of {lc4['threads']} threads, {lc4['blocks_per_sm']} resident "
+          f"blocks per SM on {lc4['sms']} SMs, {lc4['passes']} passes of x_chunk "
+          f"{dk.FEATS_X_CHUNK}; {ms4:.4f} ms, {bound4[0] / ms4:.1%} of its bound "
+          f"({bound4[0]:.4f} ms by {bound4[1]}) | {card}")
 
     # 12. timings
     plan_ms = cuda_ms(lambda: kern_fn(tsdfs, tsdfs), 10)

@@ -9,146 +9,329 @@
 //   yz (B, Z, Y, C) = mean over x.
 // The (B, X, Y, Z, C) voxel volume is never written to device memory.
 //
-// What bounds it: at the serving shape (B=64, R=40, C=32) it does 27 FMAs
-// per voxel and channel (~7.1 GFLOP) against ~16 MB read and ~10 MB
-// written, so it is bound by fp32 CUDA-core arithmetic, not by bytes.
+// What bounds it: at the serving shape (B=64, R=40, C=32) it does 27 FMAs,
+// a bias add and three pooling adds per voxel and channel (7.60 GFLOP,
+// 0.113 ms at the H100's 67 TFLOP/s fp32 rate) against 55.7 MB moved
+// (0.017 ms at 3.35 TB/s): bound by fp32 CUDA-core arithmetic. An SM
+// issues one warp instruction a clock on each of its four schedulers and
+// runs four warp FFMAs a clock, so every other instruction takes an FFMA's
+// slot: the design keeps the FFMAs the bulk of what is issued.
 //
-// Design: one block per (scene, group of CG=4 channels). A block owns its
-// scene's three planes for its channels, so every plane sum is made by one
-// block in a fixed order: no float atomics, results are bit-reproducible.
-// The block sweeps x; a rolling window of three zero-padded (Y+2)(Z+2) TSDF
-// slabs lives in shared memory (the whole 256 KB scene would not fit), so
-// each tap is a shared-memory read reused by the CG channels. Each thread
-// owns up to MAXP (y, z) voxels of the slab: it keeps their yz sums over x
-// in registers and stores the ReLU'd conv values of the current slab in a
-// shared tile, from which the block then reduces the slab's xy (over z) and
-// xz (over y) rows, each sum by one thread in index order. Means divide by
-// the axis length, as the plain ``.mean`` does.
+// Design, against the four faults of the kernel it replaces (one block per
+// scene and 4 channels, one point per thread, 14% of the bound):
+//  1. Loads per FMA. A tap thread owns a micro-tile of TZ = 4 consecutive z
+//     by the block's CB = 8 channels at one (y, x); the block's tap threads
+//     tile the (y, z) slab. Per (dx, dy) column a thread reads its 6 TSDF
+//     values (z - 1 .. z + 4) as one float4 and one float2, and per tap the
+//     CB weights as broadcast float4s (every lane reads the same address):
+//     72 shared loads feed 864 FFMAs a slab (was about one per FMA). The
+//     taps run dx, dy, dz ascending, one fmaf each from zero, then the bias
+//     add and ReLU: the parent's order, so every value is the parent's bit
+//     for bit. The weights sit in shared memory, not in registers.
+//  2. Pooling. yz (the mean over x) is each tap thread's own sum in
+//     registers over the x sweep. The ReLU'd values of slab x go to one of
+//     two tiles in shared memory, [y][c][z] with row strides chosen so that
+//     the 16-byte reads below are free of bank conflicts. POOL_WARPS = 6
+//     warps of their own sum slab x - 1's xy rows (a thread per (y, 4 c), z
+//     in order) and xz rows (a thread per (4 z, c), y in order), four
+//     independent sums a thread, while the tap warps run slab x into the
+//     other tile. Every sum is made by one thread in index order: no float
+//     atomics, the parent's sums bit for bit.
+//  3. Grid. One block per (scene, CB channels): B * C / CB blocks (256 of
+//     400 tap and 192 pooling threads at the serving shape), each reading
+//     its scene once through a ring of four zero-padded x-slabs in shared
+//     memory; one barrier per slab (the ring and the two tiles make a
+//     second unnecessary). A tap thread fetches its part of slab x + 2 into
+//     registers before slab x's taps run and stores it after them.
+//  4. Index math. A tap thread's (y, z-run) is fixed for the whole sweep and
+//     it loads its own z-run of each slab: no division or modulo per
+//     element. The padding of the ring is written once.
+//
+// Resources and time (ptxas for sm_90a; chip_smoke.py prints them): 96
+// registers, 84/56 bytes of spill stores/loads, 144,384 bytes of shared
+// memory and 608 threads a block, one block per SM. On an NVIDIA H100 80GB
+// HBM3 at 700 W, 0.325-0.328 ms at B=64, R=40, C=32: 35% of the bound. The design
+// A/B (ab_stem_pool.py, PERF.md) puts the rest in the pooling (about 0.08
+// ms: without it the kernel takes 0.24 ms) and in issue slots and shared
+// loads the taps share with it: fewer pooling warps leave the tap warps
+// waiting at the barrier, 8-z micro-tiles spill.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int CG = 4;         // channels per block
-constexpr int THREADS = 320;  // threads per block
-constexpr int MAXP = 8;       // (y, z) voxels per thread: Y*Z <= 2560
+// The design (ab_stem_pool.py rewrites these constants in a copy of this
+// source to time the alternatives):
+constexpr int CB = 8;            // channels per block, and per thread's micro-tile
+constexpr int TZ = 4;            // z of a thread's micro-tile (4 or 8: float4s of a slab row)
+constexpr int POOL_WARPS = 6;    // warps that pool slab x - 1 while the others run slab x
+constexpr int SUMS = 4;          // independent sums a pooling thread carries (4 or 8)
+constexpr int MAX_THREADS = 608;  // threads a block: Y * ceil(Z / TZ) + 32 * POOL_WARPS at most
+constexpr int MIN_BLOCKS = 1;    // resident blocks per SM asked of ptxas
+constexpr int RING = 4;          // x-slabs in shared memory
+constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use on sm_90
 
-__global__ void __launch_bounds__(THREADS)
+struct Layout {
+  int nzr;   // z-runs of TZ per slab row
+  int nzq;   // z-quads per slab row
+  int zp;    // floats per slab row: zero, z = 0 .. TZ*nzr - 1, zeros (16-byte rows)
+  int slab;  // floats per zero-padded (Y + 2, zp) slab
+  int zt;    // floats per (y, c) row of a tile
+  int ys;    // floats per y of a tile: CB rows and 4 floats of padding
+  int tile;  // floats per tile
+  __host__ __device__ Layout(int Y, int Z) {
+    nzr = (Z + TZ - 1) / TZ;
+    nzq = TZ * nzr / 4;
+    zp = TZ * nzr + 4;
+    slab = (Y + 2) * zp;
+    // an odd zt / 4 puts the rows of a y's channels on distinct groups of 4
+    // banks, and the padding of ys those of neighbouring y
+    zt = TZ * nzr + (nzq % 2 ? 0 : 4);
+    ys = CB * zt + 4;
+    tile = Y * ys;
+  }
+  __host__ __device__ int floats() const { return 28 * CB + RING * slab + 2 * tile; }
+};
+static_assert(CB % SUMS == 0 && SUMS % 4 == 0 && TZ % 4 == 0,
+              "whole float4s of channels and z");
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 stem_pool_kernel(const float* __restrict__ tsdf, const float* __restrict__ weight,
                  const float* __restrict__ bias, float* __restrict__ xz,
-                 float* __restrict__ xy, float* __restrict__ yz,
-                 int X, int Y, int Z, int C) {
-  extern __shared__ float smem[];
-  const int PY = Y + 2, PZ = Z + 2, slab = PY * PZ, YZ = Y * Z;
-  float* slabs = smem;              // 3 zero-padded TSDF slabs
-  float* tile = smem + 3 * slab;    // (Y*Z, CG) ReLU'd conv values of one x
-  __shared__ float w[CG * 27];
-  __shared__ float bsh[CG];
+                 float* __restrict__ xy, float* __restrict__ yz, int X, int Y, int Z, int C) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(Y, Z);
+  float* wsh = smem;                     // (27, CB): tap-major, the CB channels contiguous
+  float* bsh = smem + 27 * CB;           // (CB)
+  float* ring = smem + 28 * CB;          // RING zero-padded slabs; slab xx at slot xx & 3
+  float* tiles = ring + RING * L.slab;   // 2 tiles; slab x's ReLU'd values at tile x & 1
 
-  const int groups = C / CG;
-  const int b = blockIdx.x / groups;
-  const int c0 = (blockIdx.x % groups) * CG;
+  const int groups = C / CB;
+  const int b = blockIdx.x / groups, c0 = (blockIdx.x % groups) * CB;
   const int tid = threadIdx.x;
-  const float* vol = tsdf + (size_t)b * X * YZ;
+  const int ntaps = Y * L.nzr;                // threads that run the taps
+  const int pool0 = (ntaps + 31) / 32 * 32;  // the first of the pooling warps
+  const bool taps = tid < ntaps;
+  const int y = tid / L.nzr, z0 = (tid - y * L.nzr) * TZ;  // a tap thread's (y, z-run)
+  const float* vol = tsdf + (size_t)b * X * Y * Z;
+  // rows of the TSDF are read as float4s where every row start is 16-byte aligned
+  const bool vec = Z % 4 == 0 && reinterpret_cast<size_t>(tsdf) % 16 == 0;
 
-  for (int i = tid; i < CG * 27; i += THREADS) w[i] = weight[(c0 + i / 27) * 27 + i % 27];
-  if (tid < CG) bsh[tid] = bias[c0 + tid];
+  for (int i = tid; i < 27 * CB; i += blockDim.x) {
+    const int t = i / CB, c = i % CB;
+    wsh[i] = weight[(c0 + c) * 27 + t];
+  }
+  for (int c = tid; c < CB; c += blockDim.x) bsh[c] = bias[c0 + c];
+  for (int i = tid; i < RING * L.slab; i += blockDim.x) ring[i] = 0.f;
 
-  // slab of x-index xx lives at slot (xx + 3) % 3; out-of-range x is zeros
-  auto load_slab = [&](int xx) {
-    float* dst = slabs + ((xx + 3) % 3) * slab;
-    for (int i = tid; i < slab; i += THREADS) {
-      int yy = i / PZ - 1, zz = i % PZ - 1;
-      float v = 0.f;
-      if (xx >= 0 && xx < X && yy >= 0 && yy < Y && zz >= 0 && zz < Z)
-        v = vol[((size_t)xx * Y + yy) * Z + zz];
-      dst[i] = v;
+  // this thread's z-run of slab xx (zeros past Z and outside 0 .. X-1)
+  auto fetch = [&](int xx, float (&v)[TZ]) {
+#pragma unroll
+    for (int j = 0; j < TZ; ++j) v[j] = 0.f;
+    if (xx < 0 || xx >= X) return;
+    const float* src = vol + ((size_t)xx * Y + y) * Z + z0;
+    if (vec) {  // Z % 4 == 0: a quad of the run lies wholly inside or outside the row
+#pragma unroll
+      for (int q = 0; q < TZ / 4; ++q) {
+        if (z0 + 4 * q >= Z) break;
+        const float4 u = __ldg(reinterpret_cast<const float4*>(src) + q);
+        v[4 * q] = u.x, v[4 * q + 1] = u.y, v[4 * q + 2] = u.z, v[4 * q + 3] = u.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < TZ; ++j)
+        if (z0 + j < Z) v[j] = __ldg(src + j);
     }
   };
-  load_slab(-1);
-  load_slab(0);
+  // slab row y + 1 holds y; row entry z + 1 holds z (entries past Z stay zero)
+  auto put = [&](int xx, const float (&v)[TZ]) {
+    float* dst = ring + (xx & (RING - 1)) * L.slab + (y + 1) * L.zp + z0 + 1;
+#pragma unroll
+    for (int j = 0; j < TZ; ++j) dst[j] = v[j];
+  };
 
-  float acc[MAXP][CG];
+  float next[TZ];
+  __syncthreads();  // the ring's zeros before the first slabs
+  if (taps) {
+    fetch(0, next);
+    put(0, next);
+    fetch(1, next);
+    put(1, next);
+  }
+  __syncthreads();
+
+  // xy[b, y', xp, c] = mean over z (a thread per (y', SUMS c)), then
+  // xz[b, z, xp, c] = mean over y (a thread per (SUMS z, c)), from slab xp's
+  // tile; each thread carries SUMS independent sums, each in index order
+  auto pool_slab = [&](int xp, int first, int stride) {
+    constexpr int QS = SUMS / 4;  // z-quads of an xz task
+    const float* tile = tiles + (xp & 1) * L.tile;
+    const int nzg = (L.nzq + QS - 1) / QS;
+    const int nxy = Y * (CB / SUMS), ntask = nxy + nzg * CB;
+    for (int task = first; task < ntask; task += stride) {
+      float sum[SUMS];
 #pragma unroll
-  for (int k = 0; k < MAXP; ++k)
+      for (int k = 0; k < SUMS; ++k) sum[k] = 0.f;
+      if (task < nxy) {
+        const int yy = task / (CB / SUMS), c = task % (CB / SUMS) * SUMS;
+        const float* row = tile + yy * L.ys + c * L.zt;
+        int z = 0;
+#pragma unroll 2
+        for (; z + 4 <= Z; z += 4) {
 #pragma unroll
-    for (int c = 0; c < CG; ++c) acc[k][c] = 0.f;
+          for (int k = 0; k < SUMS; ++k) {
+            const float4 u = ld4(row + k * L.zt + z);
+            sum[k] += u.x;
+            sum[k] += u.y;
+            sum[k] += u.z;
+            sum[k] += u.w;
+          }
+        }
+        for (; z < Z; ++z)
+#pragma unroll
+          for (int k = 0; k < SUMS; ++k) sum[k] += row[k * L.zt + z];
+        float4* dst = reinterpret_cast<float4*>(xy + (((size_t)b * Y + yy) * X + xp) * C + c0 + c);
+#pragma unroll
+        for (int q = 0; q < QS; ++q)
+          dst[q] = make_float4(sum[4 * q] / (float)Z, sum[4 * q + 1] / (float)Z,
+                               sum[4 * q + 2] / (float)Z, sum[4 * q + 3] / (float)Z);
+      } else {
+        const int k = task - nxy, c = k / nzg, zq = (k - c * nzg) * SUMS;
+        const float* col = tile + c * L.zt + zq;
+        const bool whole = zq + SUMS <= 4 * L.nzq;  // else only the first quad is in the row
+#pragma unroll 4
+        for (int yy = 0; yy < Y; ++yy) {
+#pragma unroll
+          for (int q = 0; q < QS; ++q) {
+            if (q > 0 && !whole) break;
+            const float4 u = ld4(col + yy * L.ys + 4 * q);
+            sum[4 * q] += u.x;
+            sum[4 * q + 1] += u.y;
+            sum[4 * q + 2] += u.z;
+            sum[4 * q + 3] += u.w;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < SUMS; ++j)
+          if (zq + j < Z) xz[(((size_t)b * Z + zq + j) * X + xp) * C + c0 + c] = sum[j] / (float)Y;
+      }
+    }
+  };
+
+  float pool_yz[TZ][CB];
+#pragma unroll
+  for (int j = 0; j < TZ; ++j)
+#pragma unroll
+    for (int c = 0; c < CB; ++c) pool_yz[j][c] = 0.f;
 
   for (int x = 0; x < X; ++x) {
-    load_slab(x + 1);
-    __syncthreads();
-    const float* s0 = slabs + ((x + 2) % 3) * slab;  // x - 1
-    const float* s1 = slabs + (x % 3) * slab;        // x
-    const float* s2 = slabs + ((x + 1) % 3) * slab;  // x + 1
+    if (taps) {
+      fetch(x + 2, next);  // slab x + 2, for slab x + 1's taps; its load overlaps this slab's
+      float acc[TZ][CB];
 #pragma unroll
-    for (int k = 0; k < MAXP; ++k) {
-      int p = tid + k * THREADS;
-      if (p < YZ) {
-        int y = p / Z, z = p % Z;
-        float v[CG];
+      for (int j = 0; j < TZ; ++j)
 #pragma unroll
-        for (int c = 0; c < CG; ++c) v[c] = 0.f;
+        for (int c = 0; c < CB; ++c) acc[j][c] = 0.f;
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float* s = dx == 0 ? s0 : (dx == 1 ? s1 : s2);
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* s = ring + ((x + dx - 1) & (RING - 1)) * L.slab;
 #pragma unroll
-          for (int dy = 0; dy < 3; ++dy)
+        for (int dy = 0; dy < 3; ++dy) {
+          const float* col = s + (y + dy) * L.zp + z0;  // z0 - 1 .. z0 + TZ
+          float t[TZ + 2];
 #pragma unroll
-            for (int dz = 0; dz < 3; ++dz) {
-              float t = s[(y + dy) * PZ + z + dz];
+          for (int q = 0; q < TZ / 4; ++q) {
+            const float4 u = ld4(col + 4 * q);
+            t[4 * q] = u.x, t[4 * q + 1] = u.y, t[4 * q + 2] = u.z, t[4 * q + 3] = u.w;
+          }
+          const float2 hi = ld2(col + TZ);
+          t[TZ] = hi.x, t[TZ + 1] = hi.y;
 #pragma unroll
-              for (int c = 0; c < CG; ++c) v[c] = fmaf(w[c * 27 + dx * 9 + dy * 3 + dz], t, v[c]);
+          for (int dz = 0; dz < 3; ++dz) {
+            const float* w = wsh + ((dx * 3 + dy) * 3 + dz) * CB;
+#pragma unroll
+            for (int q = 0; q < CB / 4; ++q) {
+              const float4 u = ld4(w + 4 * q);
+              const float wq[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+#pragma unroll
+                for (int j = 0; j < TZ; ++j)
+                  acc[j][4 * q + k] = fmaf(wq[k], t[j + dz], acc[j][4 * q + k]);
             }
+          }
+        }
+      }
+      float* tile = tiles + (x & 1) * L.tile;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        float r[TZ];
+#pragma unroll
+        for (int j = 0; j < TZ; ++j) {
+          r[j] = fmaxf(acc[j][c] + bsh[c], 0.f);
+          pool_yz[j][c] += r[j];
         }
 #pragma unroll
-        for (int c = 0; c < CG; ++c) {
-          float r = fmaxf(v[c] + bsh[c], 0.f);
-          acc[k][c] += r;
-          tile[p * CG + c] = r;
-        }
+        for (int q = 0; q < TZ / 4; ++q)
+          reinterpret_cast<float4*>(tile + y * L.ys + c * L.zt + z0)[q] =
+              make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
       }
+      if (x + 1 < X) put(x + 2, next);
+    } else if (tid >= pool0 && x > 0) {
+      pool_slab(x - 1, tid - pool0, 32 * POOL_WARPS);
     }
-    __syncthreads();
-    // xy[b, y, x, c] = mean over z; xz[b, z, x, c] = mean over y
-    for (int s = tid; s < (Y + Z) * CG; s += THREADS) {
-      int c = s % CG, row = s / CG;
-      float sum = 0.f;
-      if (row < Y) {
-        for (int z = 0; z < Z; ++z) sum += tile[(row * Z + z) * CG + c];
-        xy[(((size_t)b * Y + row) * X + x) * C + c0 + c] = sum / (float)Z;
-      } else {
-        int z = row - Y;
-        for (int y = 0; y < Y; ++y) sum += tile[(y * Z + z) * CG + c];
-        xz[(((size_t)b * Z + z) * X + x) * C + c0 + c] = sum / (float)Y;
-      }
-    }
+    __syncthreads();  // slab x's tile is whole; slab x + 2 is in the ring
   }
+  pool_slab(X - 1, tid, blockDim.x);
+  if (!taps) return;
   // yz[b, z, y, c] = mean over x
 #pragma unroll
-  for (int k = 0; k < MAXP; ++k) {
-    int p = tid + k * THREADS;
-    if (p < YZ) {
-      int y = p / Z, z = p % Z;
+  for (int j = 0; j < TZ; ++j) {
+    if (z0 + j >= Z) break;
+    float4* dst = reinterpret_cast<float4*>(yz + (((size_t)b * Z + z0 + j) * Y + y) * C + c0);
 #pragma unroll
-      for (int c = 0; c < CG; ++c)
-        yz[(((size_t)b * Z + z) * Y + y) * C + c0 + c] = acc[k][c] / (float)X;
-    }
+    for (int q = 0; q < CB / 4; ++q)
+      dst[q] = make_float4(pool_yz[j][4 * q] / (float)X, pool_yz[j][4 * q + 1] / (float)X,
+                           pool_yz[j][4 * q + 2] / (float)X, pool_yz[j][4 * q + 3] / (float)X);
   }
 }
 
 }  // namespace
 
+// Launch configuration for these shapes into info[4] = {blocks, threads per
+// block, dynamic shared bytes per block, channels per block}; returns
+// cudaErrorInvalidValue for shapes the kernel does not take.
+extern "C" int stem_pool_config(int B, int X, int Y, int Z, int C, int* info) {
+  const Layout L(Y, Z);
+  const int threads = (Y * L.nzr + 31) / 32 * 32 + 32 * POOL_WARPS;
+  const size_t shmem = (size_t)L.floats() * sizeof(float);
+  if (B < 1 || X < 1 || Y < 1 || Z < 1 || C < CB || C % CB != 0 || threads > MAX_THREADS ||
+      shmem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  info[0] = B * (C / CB);
+  info[1] = threads;
+  info[2] = (int)shmem;
+  info[3] = CB;
+  return 0;
+}
+
 extern "C" int stem_pool_f32(const float* tsdf, const float* weight, const float* bias,
                              float* xz, float* xy, float* yz, int B, int X, int Y, int Z,
                              int C, void* stream) {
-  if (C % CG != 0 || Y * Z > THREADS * MAXP) return (int)cudaErrorInvalidValue;
-  size_t shmem = (size_t)(3 * (Y + 2) * (Z + 2) + Y * Z * CG) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(stem_pool_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  if (err != cudaSuccess) return (int)err;
-  stem_pool_kernel<<<B * (C / CG), THREADS, shmem, (cudaStream_t)stream>>>(
+  int info[4];
+  int err = stem_pool_config(B, X, Y, Z, C, info);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(stem_pool_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, info[2]);
+  if (e != cudaSuccess) return (int)e;
+  stem_pool_kernel<<<info[0], info[1], info[2], (cudaStream_t)stream>>>(
       tsdf, weight, bias, xz, xy, yz, X, Y, Z, C);
   return (int)cudaGetLastError();
 }
-
-extern "C" int stem_pool_max_yz() { return THREADS * MAXP; }

@@ -7,8 +7,8 @@ Counterpart of giga_tpu/ops/pallas/decoder_kernel.py:
   * K3 ``fused_dense_decode``: ``fused_dense_decode``, one scene
     (``prepare_projections``, ``split_heads``);
   * K4 ``dense_decode_feats_batched``: ``fused_dense_decode_feats_batched``,
-    all three fc_c projections formed in-kernel from the raw lattice
-    features (``prepare_feats_inputs``);
+    all three fc_c projections formed by K4's own kernels from the raw
+    lattice features (``prepare_feats_inputs``);
   * K5 ``dense_decode_hybrid_batched``: ``fused_dense_decode_hybrid_batched``,
     the xz/xy projections in-kernel, pyz precomputed with the fc_c biases
     folded in (``prepare_hybrid_inputs``).
@@ -32,6 +32,9 @@ import functools
 import torch
 
 from giga_tpu_torch.ops.kernels import _build
+
+# x-slabs one pass of K4 covers, unless the caller asks for another run
+FEATS_X_CHUNK = 40
 
 
 def _cat_out(w: torch.Tensor) -> torch.Tensor:
@@ -280,10 +283,12 @@ fused_dense_decode.launches = 0
 
 
 def dense_decode_feats_batched(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
-                               w0, b0, w1, b1, wout, bout, x_chunk: int = 8):
-    """K4 trunk from raw features -> (B, R, R, R, heads*O); the CUDA kernel
-    for CUDA tensors. ``x_chunk`` is the run of x-slabs one block of the
-    kernel walks (the outputs do not depend on it)."""
+                               w0, b0, w1, b1, wout, bout, x_chunk: int = FEATS_X_CHUNK):
+    """K4 trunk from raw features -> (B, R, R, R, heads*O); the CUDA kernels
+    for CUDA tensors. ``x_chunk`` is the run of x-slabs one pass of the
+    kernels covers: the xz and xy projection rows of a pass are held in
+    scratch of (B, n_blocks, x_chunk, R, heads*H) floats each (the outputs do
+    not depend on it)."""
     args = (px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc, w0, b0, w1, b1, wout, bout)
     device = _device("dense_decode_feats_batched", fxz)
     if device is None:
@@ -299,10 +304,16 @@ def dense_decode_feats_batched(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
             "fyz": (B, R, R, C), "wxz": (n_blocks, C, F), "wxy": (n_blocks, C, F),
             "wyz": (n_blocks, C, F), "bc": (n_blocks, F),
             **_trunk_expect(n_blocks, E, H, O)}, args, device)
+    XR = min(x_chunk, R)
     out = torch.empty((B, R, R, R, E * O), device=device, dtype=torch.float32)
+    # the projection rows: yz for all slabs, xz and xy for one pass of XR slabs
+    syz = torch.empty((B, n_blocks, R, R, F), device=device, dtype=torch.float32)
+    sxz, sxy = (torch.empty((B, n_blocks, XR, R, F), device=device, dtype=torch.float32)
+                for _ in range(2))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _feats_lib().dense_decode_feats_f32(*(t.data_ptr() for t in args), out.data_ptr(),
-                                              B, R, C, E, n_blocks, min(x_chunk, R), stream)
+                                              sxz.data_ptr(), sxy.data_ptr(), syz.data_ptr(),
+                                              B, R, C, E, n_blocks, XR, stream)
     _build.check(err, "dense_decode_feats_f32")
     dense_decode_feats_batched.launches += 1
     return out
@@ -386,7 +397,7 @@ def decode_affordance_dense_kernel(dec: dict, feats: dict, coords: torch.Tensor,
 
 
 def decode_affordance_dense_kernel_feats_batched(dec: dict, feats: dict, coords: torch.Tensor,
-                                                 n_blocks: int = 5, x_chunk: int = 8):
+                                                 n_blocks: int = 5, x_chunk: int = FEATS_X_CHUNK):
     """Batched (qual, rot, width) through K4: qual (B,R,R,R), rot
     (B,R,R,R,4), width (B,R,R,R)."""
     inputs = prepare_feats_inputs(dec, feats, coords, n_blocks)
@@ -414,6 +425,19 @@ def dense_decode_launch_config(B: int, R: int, heads: int, n_blocks: int,
             "threads": info[4], "shared_bytes": info[5]}
 
 
+def dense_decode_feats_launch_config(B: int, R: int, C: int, heads: int, n_blocks: int,
+                                     x_chunk: int) -> dict:
+    """The launches K4 makes for these shapes on the current card: its trunk
+    kernel's resident blocks per SM, SMs, grid (blocks per head x heads),
+    threads and dynamic shared bytes per block, and the passes of x_chunk
+    x-slabs."""
+    info = (ctypes.c_int * 7)()
+    err = _feats_lib().dense_decode_feats_config(B, R, C, heads, n_blocks, x_chunk, info)
+    _build.check(err, "dense_decode_feats_config")
+    return {"blocks_per_sm": info[0], "sms": info[1], "grid": (info[2], info[3]),
+            "threads": info[4], "shared_bytes": info[5], "passes": info[6]}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """K2/K3's library, built and loaded on first use, its C signatures bound."""
@@ -437,8 +461,10 @@ def _feats_lib() -> ctypes.CDLL:
     """K4/K5's library, built and loaded on first use, its C signatures bound."""
     lib = _build.load("dense_decode_feats")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dense_decode_feats_f32.argtypes = [p] * 17 + [i] * 6 + [p]
+    lib.dense_decode_feats_f32.argtypes = [p] * 20 + [i] * 6 + [p]
     lib.dense_decode_feats_f32.restype = i
+    lib.dense_decode_feats_config.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    lib.dense_decode_feats_config.restype = i
     lib.dense_decode_hybrid_f32.argtypes = [p] * 15 + [i] * 5 + [p]
     lib.dense_decode_hybrid_f32.restype = i
     return lib

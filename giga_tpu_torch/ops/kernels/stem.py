@@ -47,23 +47,33 @@ def stem_pool_batched(weight: torch.Tensor, bias: torch.Tensor, tsdfs: torch.Ten
             raise ValueError(f"stem_pool_batched: {name} must be contiguous float32 "
                              f"on {tsdfs.device}")
     B, X, Y, Z = tsdfs.shape
-    lib = _lib()
-    if C % 4 != 0 or Y * Z > lib.stem_pool_max_yz():
-        raise ValueError(f"stem_pool_batched: needs C % 4 == 0 and Y*Z <= "
-                         f"{lib.stem_pool_max_yz()}, got C={C}, Y*Z={Y * Z}")
+    stem_pool_launch_config(B, X, Y, Z, C)
     xz = torch.empty((B, Z, X, C), device=tsdfs.device, dtype=torch.float32)
     xy = torch.empty((B, Y, X, C), device=tsdfs.device, dtype=torch.float32)
     yz = torch.empty((B, Z, Y, C), device=tsdfs.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(tsdfs.device).cuda_stream
-    err = lib.stem_pool_f32(tsdfs.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                            xz.data_ptr(), xy.data_ptr(), yz.data_ptr(),
-                            B, X, Y, Z, C, stream)
+    err = _lib().stem_pool_f32(tsdfs.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                               xz.data_ptr(), xy.data_ptr(), yz.data_ptr(),
+                               B, X, Y, Z, C, stream)
     _build.check(err, "stem_pool_f32")
     stem_pool_batched.launches += 1
     return {"xz": xz, "xy": xy, "yz": yz}
 
 
 stem_pool_batched.launches = 0
+
+
+def stem_pool_launch_config(B: int, X: int, Y: int, Z: int, C: int) -> dict:
+    """The launch K1 makes for a (B, X, Y, Z) TSDF and C channels: blocks,
+    threads and dynamic shared bytes per block, channels per block. Raises
+    ValueError for shapes the kernel does not take."""
+    info = (ctypes.c_int * 4)()
+    if _lib().stem_pool_config(B, X, Y, Z, C, info) != 0:
+        raise ValueError(f"stem_pool_batched: the kernel does not take B={B}, X={X}, Y={Y}, "
+                         f"Z={Z}, C={C} (it needs C a multiple of 8, Y * ceil(Z / 4) <= 512 "
+                         f"threads and its slabs and tiles in shared memory)")
+    return {"blocks": info[0], "threads": info[1], "shared_bytes": info[2],
+            "channels_per_block": info[3]}
 
 
 @functools.cache
@@ -73,6 +83,6 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.stem_pool_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.stem_pool_f32.restype = i
-    lib.stem_pool_max_yz.argtypes = []
-    lib.stem_pool_max_yz.restype = i
+    lib.stem_pool_config.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.stem_pool_config.restype = i
     return lib

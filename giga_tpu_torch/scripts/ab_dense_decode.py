@@ -156,38 +156,46 @@ def _replace_once(text: str, old: str, new: str, what: str) -> str:
     return text.replace(old, new)
 
 
-def write_build(directory: Path, constants: dict, staged: bool, edits: dict) -> Path:
-    """Copy dense_decode.cu and the headers into ``directory``, apply one
-    build's edits, and return the copy of dense_decode.cu."""
+def edited_copy(directory: Path, source: str, constants: dict, edits: dict) -> Path:
+    """Copy ``csrc/<source>`` and the headers into ``directory``, set the
+    source's design constants (``constexpr int NAME = value;``) and apply
+    ``edits`` {file: [(old, new)]}, each old text found exactly once; returns
+    the copy of the source."""
     directory.mkdir(parents=True, exist_ok=True)
-    for f in CSRC.glob("*.cuh"):
+    for f in [*CSRC.glob("*.cuh"), CSRC / source]:
         shutil.copy(f, directory / f.name)
-    src = (CSRC / "dense_decode.cu").read_text()
+    src = (directory / source).read_text()
     for name, value in constants.items():
         src, n = re.subn(rf"^constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
                          src, flags=re.M)
         if n != 1:
-            raise AssertionError(f"dense_decode.cu defines {name} {n} times")
-    if staged:
-        for old, new in STAGED_ROWS:
-            src = _replace_once(src, old, new, "staged rows")
-    (directory / "dense_decode.cu").write_text(src)
+            raise AssertionError(f"{source} defines {name} {n} times")
+    (directory / source).write_text(src)
     for fname, pairs in edits.items():
         text = (directory / fname).read_text()
         for old, new in pairs:
             text = _replace_once(text, old, new, fname)
         (directory / fname).write_text(text)
-    return directory / "dense_decode.cu"
+    return directory / source
 
 
-def build(sources: dict) -> dict:
+def build_edits(name: str) -> tuple:
+    """(design constants, {file: edits}) of one of ``DESIGNS`` or ``ABLATIONS``."""
+    constants, staged = DESIGNS.get(name, ({}, False))
+    edits = dict(ABLATIONS.get(name, {}))
+    if staged:
+        edits["dense_decode.cu"] = STAGED_ROWS
+    return constants, edits
+
+
+def build(sources: dict, stem: str = "dense_decode") -> dict:
     """{name: source} -> {name: (ctypes library, ptxas log)}, one nvcc per
-    build, all started together."""
+    build, all started together; the libraries are ``lib<stem>_ab<i>.so``."""
     from giga_tpu_torch.ops.kernels import _build
 
     procs = {}
     for i, (name, source) in enumerate(sources.items()):
-        lib = _build.BUILD_DIR / "ab" / f"libdense_decode_ab{i}.so"
+        lib = _build.BUILD_DIR / "ab" / f"lib{stem}_ab{i}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
@@ -228,9 +236,8 @@ def main() -> int:
     card = chip_smoke.card_line()
     sources = {}
     for i, name in enumerate(args.builds):
-        constants, staged = DESIGNS.get(name, ({}, False))
-        sources[name] = write_build(_build.BUILD_DIR / "ab" / f"src{i}", constants, staged,
-                                    ABLATIONS.get(name, {}))
+        sources[name] = edited_copy(_build.BUILD_DIR / "ab" / f"src{i}", "dense_decode.cu",
+                                    *build_edits(name))
     for tree in args.tree:
         name, path = tree.split("=", 1)
         sources[name] = Path(path).resolve() / "giga_tpu_torch" / "csrc" / "dense_decode.cu"

@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""A/B of the stem + pool kernel's designs (K1) on the card.
+
+    python3 -m giga_tpu_torch.scripts.ab_stem_pool [--tree NAME=DIR ...]
+        [--builds NAME ...] [--rounds 4]
+
+Run from the repository root. Each build in ``DESIGNS`` and ``ABLATIONS``
+(by default all of them) is a copy of ``giga_tpu_torch/csrc/stem_pool.cu``
+edited in ``build/giga_tpu_torch/ab/``:
+
+- a design sets the source's design constants (z of a thread's micro-tile
+  ``TZ``, channels per block ``CB``, warps that only pool ``POOL_WARPS``,
+  sums a pooling thread carries ``SUMS``, threads per block, resident
+  blocks per SM asked of ptxas) and may pool each slab in every thread after its barrier instead
+  (``POOL_AFTER_BARRIER``, the design before the pooling warps);
+- an ablation deletes work to show what it costs: the pooling (each slab's
+  tile stores and the xy/xz sums; the yz sums stay, so the taps stay live),
+  the TSDF tap loads (every (dx, dy) column reads the same shared address,
+  which ptxas loads once), or the weight loads (every tap reads the first
+  tap's weights). Its outputs are wrong by construction and are not checked.
+
+Each ``--tree NAME=DIR`` adds ``DIR/giga_tpu_torch/csrc/stem_pool.cu`` as it
+stands, for example the parent commit unpacked by ``git archive``. All builds
+compile at once, one nvcc each. On chip_smoke's seeded scenes (B=64, R=40)
+through the shipped checkpoint's first convolution, every build but the
+ablations must give xz, xy and yz equal, ``torch.equal``, to the shipped
+library's; then each is timed by CUDA events in turns (the builds in order,
+then in reverse, ``--rounds`` times). Prints each build's ptxas registers
+and spills and every reading with its range and share of the bound, beside
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import sys
+from pathlib import Path
+
+from giga_tpu_torch.scripts.ab_dense_decode import build, edited_copy
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# (old, new) edits of stem_pool.cu (with POOL_WARPS = 0) that pool slab x in
+# every thread after the slab's barrier, instead of in pooling warps of
+# their own while the tap warps run slab x + 1
+POOL_AFTER_BARRIER = [
+    ("    } else if (tid >= pool0 && x > 0) {\n"
+     "      pool_slab(x - 1, tid - pool0, 32 * POOL_WARPS);\n    }\n"
+     "    __syncthreads();  // slab x's tile is whole; slab x + 2 is in the ring\n"
+     "  }\n  pool_slab(X - 1, tid, blockDim.x);\n",
+     "    }\n"
+     "    __syncthreads();  // slab x's tile is whole; slab x + 2 is in the ring\n"
+     "    pool_slab(x, tid, blockDim.x);\n  }\n"),
+]
+
+# name -> (design constants, edits)
+DESIGNS = {
+    "4 z x 8 channels, 6 pooling warps of 4 sums (shipped)": ({}, []),
+    "4 z x 8 channels, 4 pooling warps of 4 sums": ({"POOL_WARPS": 4, "MAX_THREADS": 544}, []),
+    "4 z x 8 channels, 8 pooling warps of 4 sums": ({"POOL_WARPS": 8, "MAX_THREADS": 672}, []),
+    "4 z x 8 channels, 3 pooling warps of 8 sums": (
+        {"POOL_WARPS": 3, "SUMS": 8, "MAX_THREADS": 512}, []),
+    "4 z x 8 channels, 6 pooling warps of 8 sums": ({"SUMS": 8}, []),
+    "8 z x 8 channels, 4 pooling warps of 4 sums": (
+        {"TZ": 8, "POOL_WARPS": 4, "MAX_THREADS": 352}, []),
+    "4 z x 8 channels, all threads pool after the barrier": (
+        {"POOL_WARPS": 0, "MAX_THREADS": 416}, POOL_AFTER_BARRIER),
+    "4 z x 4 channels, all threads pool after the barrier, 2 blocks per SM": (
+        {"CB": 4, "POOL_WARPS": 0, "MAX_THREADS": 416, "MIN_BLOCKS": 2}, POOL_AFTER_BARRIER),
+}
+
+# name -> [(old, new) edits of stem_pool.cu], on the shipped design
+ABLATIONS = {
+    "ablation: no pooling (yz kept)": [
+        ("reinterpret_cast<float4*>(tile + y * L.ys + c * L.zt + z0)[q] =\n"
+         "              make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);", "{}"),
+        ("for (int task = first; task < ntask;", "for (int task = ntask; task < ntask;")],
+    "ablation: no TSDF tap loads": [
+        ("const float* col = s + (y + dy) * L.zp + z0;",
+         "const float* col = ring + y * L.zp + z0;")],
+    "ablation: no weight loads": [
+        ("const float4 u = ld4(w + 4 * q);", "const float4 u = ld4(wsh + 4 * q);")],
+}
+
+
+def build_edits(name: str) -> tuple:
+    """(design constants, {file: edits}) of one of ``DESIGNS`` or ``ABLATIONS``."""
+    constants, edits = DESIGNS.get(name, ({}, []))
+    return constants, {"stem_pool.cu": edits + ABLATIONS.get(name, [])}
+
+
+def main() -> int:
+    builds = {**DESIGNS, **ABLATIONS}
+    ap = argparse.ArgumentParser(description="A/B the stem + pool kernel's designs.")
+    ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
+                    help="a tree whose giga_tpu_torch/csrc/stem_pool.cu joins the A/B")
+    ap.add_argument("--builds", nargs="*", choices=list(builds), default=list(builds))
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_stem_pool: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from giga_tpu_torch.inference.planner import full_precision
+    from giga_tpu_torch.models.registry import load_network
+    from giga_tpu_torch.ops.kernels import _build
+    from giga_tpu_torch.ops.kernels.stem import stem_pool_batched, stem_pool_plain
+
+    card = chip_smoke.card_line()
+    sources = {}
+    for i, name in enumerate(args.builds):
+        sources[name] = edited_copy(_build.BUILD_DIR / "ab" / f"stem{i}", "stem_pool.cu",
+                                    *build_edits(name))
+    for tree in args.tree:
+        name, path = tree.split("=", 1)
+        sources[name] = Path(path).resolve() / "giga_tpu_torch" / "csrc" / "stem_pool.cu"
+    libs = build(sources, "stem_pool")
+
+    net, cfg = load_network(ROOT / chip_smoke.CHECKPOINT)
+    conv = net.cuda().eval().encoder.conv_in
+    B, R, C = args.batch, chip_smoke.RESOLUTION, cfg.encoder.c_dim
+    tsdfs = torch.from_numpy(chip_smoke.make_scenes(B)).cuda()
+    with torch.inference_mode(), full_precision():
+        w, b = conv.weight.contiguous(), conv.bias.contiguous()
+        ref = stem_pool_batched(w, b, tsdfs)
+        plain = stem_pool_plain(w, b, tsdfs)
+        outs = {t: torch.empty_like(v) for t, v in ref.items()}
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tsdfs, w, b, outs["xz"], outs["xy"],
+                                                         outs["yz"])]
+
+        def k1(lib):
+            _build.check(lib.stem_pool_f32(*ptrs, B, R, R, R, C, stream), "stem_pool_f32")
+
+        for name, (lib, log) in libs.items():
+            for v in outs.values():
+                v.fill_(float("nan"))
+            k1(lib)
+            torch.cuda.synchronize()
+            same = all(torch.equal(outs[t], ref[t]) for t in ref)
+            err = max(float((outs[t] - plain[t]).abs().max()) for t in ref)
+            print(f"{name}: xz, xy, yz equal the shipped library's bit for bit: {same}; max abs "
+                  f"err vs the plain version {err:.3g}; ptxas "
+                  f"{chip_smoke.kernel_resources(log, 'stem_pool_kernel')}", flush=True)
+            if not same and name not in ABLATIONS:
+                raise AssertionError(f"{name} gives other outputs than the shipped library")
+
+        times = {name: [] for name in libs}
+        order = list(libs)
+        for r in range(args.rounds):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                lib = libs[name][0]
+                times[name].append(chip_smoke.cuda_ms(lambda: k1(lib), args.iters))
+    bnd = chip_smoke.bound(*chip_smoke.stem_pool_work(B, R, C))
+    for name, ms in times.items():
+        print(f"{name:46s} K1: {min(ms):.4f}-{max(ms):.4f} ms "
+              f"[{', '.join(f'{m:.4f}' for m in ms)}] bound {bnd[0]:.4f} ms by {bnd[1]} "
+              f"({bnd[0] / min(ms):.1%} of it at best) B={B} R={R} C={C} | {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,11 @@
-"""The yardstick chip_smoke.py holds the dense-decode kernels against.
+"""The yardstick chip_smoke.py holds the kernels against.
 
 PERF.md reads each kernel's time against its bound: the least time an H100
-could take for the work, from ``chip_smoke.trunk_flops`` and
-``chip_smoke.bound``. The redesigned trunk kernel's target is half of that
-bound, so the numbers PERF.md quotes are pinned here, on the CPU, from the
-shapes of the serving path (B=64, R=40, 5 blocks, 3 heads of 32 columns, 4
+could take for the work, from ``chip_smoke.trunk_flops``,
+``chip_smoke.stem_pool_work``, ``chip_smoke.dense_decode_feats_work`` and
+``chip_smoke.bound``. A redesigned kernel's target is half of that bound, so
+the numbers PERF.md quotes are pinned here, on the CPU, from the shapes of
+the serving path (B=64, R=40, C=32, 5 blocks, 3 heads of 32 columns, 4
 outputs each). Also checked: the ptxas log parser that chip_smoke.py uses to
 print each kernel's registers and spills.
 """
@@ -41,6 +42,40 @@ def test_trunk_bound_is_what_perf_md_quotes(kernel, B, gflop, ms):
     assert round(bound_ms, 4 if B == 1 else 3) == ms
 
 
+@pytest.mark.parametrize("kernel,work,gflop,mb,ms", [
+    ("K1", lambda: chip_smoke.stem_pool_work(64, R, 32), 7.60, 55.7, 0.1135),
+    ("K4", lambda: chip_smoke.dense_decode_feats_work(64, R, 32, E, H, NB, O), 278.8, 236, 4.162),
+])
+def test_stem_and_feats_bounds_are_what_perf_md_quotes(kernel, work, gflop, mb, ms):
+    """K1 at B=64, R=40, C=32 and K4 at B=64 on 32-channel features: both
+    bound by operations."""
+    flops, nbytes = work()
+    assert round(flops / 1e9, 2 if kernel == "K1" else 1) == gflop
+    assert round(nbytes / 1e6, 1 if kernel == "K1" else 0) == mb
+    bound_ms, by = chip_smoke.bound(flops, nbytes)
+    assert (round(bound_ms, 4 if kernel == "K1" else 3), by) == (ms, "operations")
+
+
+def test_stem_work_counts_per_voxel_and_channel():
+    """27 multiply-adds, the bias add and 3 pooling adds per voxel and
+    channel; the TSDF, 27 weights and a bias per channel, and three planes."""
+    flops, nbytes = chip_smoke.stem_pool_work(1, 2, 1)
+    assert flops == 8 * 58
+    assert nbytes == 4 * (8 + 28 + 3 * 4)
+
+
+def test_feats_work_adds_the_projections_once_per_plane_row():
+    """K4's operations are the trunk's with the fc_c bias as a fourth plane
+    add, plus 3 planes x R^2 rows x blocks of C -> heads*H products."""
+    B, C = 2, 8
+    flops, nbytes = chip_smoke.dense_decode_feats_work(B, R, C, E, H, NB, O)
+    trunk = chip_smoke.trunk_flops(B * R ** 3, E, H, NB, O, extra_adds=1)
+    assert flops - trunk == 3 * B * R * R * NB * 2 * C * E * H
+    weights = 2 * NB * E * H * H + 2 * NB * E * H + E * H * O + E * O
+    assert nbytes == 4 * (3 * R * E * H + 3 * B * R * R * C + 3 * NB * C * E * H + NB * E * H
+                          + weights + B * R ** 3 * E * O)
+
+
 def test_trunk_flops_count_per_point_and_head():
     """Per point and head: the fc_p sum (2H), per block the two H x H
     products (4H^2) and six H-wide adds, then the head (2HO + O); the
@@ -68,6 +103,18 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119dense_decode_kernel
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119dense_decode_kernelILb1EEEvPKfS2_Pfiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116stem_pool_kernelEPKfS1_S1_PfS2_S2_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116stem_pool_kernelEPKfS1_S1_PfS2_S2_iiii
+    88 bytes stack frame, 84 bytes spill stores, 56 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 88 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114project_kernelENS_8ProjJobsEiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114project_kernelENS_8ProjJobsEiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 63 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125dense_decode_feats_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_S1_S1_Pfiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125dense_decode_feats_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_S1_S1_Pfiiiiii
+    336 bytes stack frame, 328 bytes spill stores, 332 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 336 bytes cumulative stack size
 """
 
 
@@ -77,6 +124,17 @@ ptxas info    : Used 128 registers, used 1 barriers
 ])
 def test_kernel_resources_reads_the_ptxas_log(point_major, expected):
     assert chip_smoke.kernel_resources(LOG, f"dense_decode_kernelILb{point_major}E") == expected
+
+
+@pytest.mark.parametrize("kernel,expected", [
+    ("stem_pool_kernel", "96 registers, 84/56 bytes spill stores/loads"),
+    ("project_kernel", "63 registers, 0/0 bytes spill stores/loads"),
+    ("dense_decode_feats_kernel", "168 registers, 328/332 bytes spill stores/loads"),
+])
+def test_kernel_resources_reads_the_stem_and_feats_kernels(kernel, expected):
+    """K1 (stem_pool_kernel) and K4's two kernels, by the part of the
+    mangled name chip_smoke.py asks for."""
+    assert chip_smoke.kernel_resources(LOG, kernel) == expected
 
 
 def test_kernel_resources_refuses_an_ambiguous_name():

@@ -40,19 +40,55 @@ def _u(rng, *shape, s=0.5):
     return torch.from_numpy(rng.uniform(-s, s, shape).astype(np.float32))
 
 
+def _stem_args(rng, C, shape, device):
+    w = _u(rng, C, 1, 3, 3, 3).to(device)
+    b = _u(rng, C, s=0.2).to(device)
+    t = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(device)
+    return w, b, t
+
+
+# R = 7 and 13 leave a ragged z-run of K1's 4-z micro-tile (and R = 7 a
+# block of 14 threads); R = 40 is the serving lattice.
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R,C", [(3, 40, 32), (2, 16, 8)])
+@pytest.mark.parametrize("B,R,C", [(2, 16, 8)]
+                         + [(B, R, C) for R in (7, 13, 40) for B in (1, 3) for C in (8, 32)])
 def test_stem_kernel_matches_plain(cuda_device, B, R, C):
     rng = np.random.RandomState(0)
-    w = _u(rng, C, 1, 3, 3, 3).to(cuda_device)
-    b = _u(rng, C, s=0.2).to(cuda_device)
-    t = torch.from_numpy(rng.rand(B, R, R, R).astype(np.float32)).to(cuda_device)
+    w, b, t = _stem_args(rng, C, (B, R, R, R), cuda_device)
     n = stem_pool_batched.launches
     got = stem_pool_batched(w, b, t)
     ref = stem_pool_plain(w, b, t)
     assert stem_pool_batched.launches == n + 1
     for k in ref:
         torch.testing.assert_close(got[k], ref[k], atol=TOL_STEM, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 11, 6), (1, 9, 3, 40)])
+def test_stem_kernel_takes_a_box_that_is_not_a_cube(cuda_device, shape):
+    """X, Y and Z apart, each pooled over its own length; Z = 6 reads the
+    TSDF's rows with scalar loads."""
+    rng = np.random.RandomState(9)
+    w, b, t = _stem_args(rng, 16, shape, cuda_device)
+    got = stem_pool_batched(w, b, t)
+    ref = stem_pool_plain(w, b, t)
+    for k in ref:
+        assert got[k].shape == ref[k].shape
+        torch.testing.assert_close(got[k], ref[k], atol=TOL_STEM, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [13, 40])
+def test_stem_kernel_scenes_are_independent(cuda_device, R):
+    """Three scenes in one launch give the bytes of three one-scene launches
+    (at R = 13 the later scenes start off a 16-byte boundary)."""
+    rng = np.random.RandomState(10)
+    w, b, t = _stem_args(rng, 32, (3, R, R, R), cuda_device)
+    together = stem_pool_batched(w, b, t)
+    for i in range(3):
+        one = stem_pool_batched(w, b, t[i:i + 1].contiguous())
+        for k in together:
+            assert torch.equal(one[k][0], together[k][i])
 
 
 # Lattices whose R^3 is no multiple of the trunk kernel's 64-point warp tile
@@ -107,6 +143,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         stem_pool_batched(w, torch.zeros(6, device=cuda_device), t)
     with pytest.raises(ValueError):
         stem_pool_batched(w[:4], torch.zeros(4, device=cuda_device), t.double())
+    with pytest.raises(ValueError, match="does not take"):  # 4 channels: K1 takes 8 a block
+        stem_pool_batched(w[:4].contiguous(), torch.zeros(4, device=cuda_device), t)
+    w8 = _u(rng, 8, 1, 3, 3, 3).to(cuda_device)
+    with pytest.raises(ValueError, match="does not take"):  # 48 * 12 = 576 threads > 512
+        stem_pool_batched(w8, torch.zeros(8, device=cuda_device),
+                          torch.zeros(1, 4, 48, 48, device=cuda_device))
 
 
 def _random_giga(device):
@@ -204,11 +246,12 @@ def _feats_args(rng, B, R, C, nb, F=96):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,R,C,nb,x_chunk", [(2, 40, 32, 5, 8), (1, 17, 8, 2, 5),
-                                              (2, 7, 4, 1, 40)])
+                                              (2, 7, 4, 1, 40)]
+                         + [(2, 17, 32, 5, c) for c in (1, 5, 8, 40)])
 def test_feats_kernel_matches_plain(cuda_device, B, R, C, nb, x_chunk):
-    """K4. R = 40 ends on a quarter-full tile of (y, z) points, R = 17
-    (289 points) on a ragged tile and a ragged run of x-slabs, R = 7 on
-    one tile smaller than a block."""
+    """K4, equal bit for bit at every x_chunk to x_chunk 1. R = 17 (4,913
+    points a scene) ends on a ragged 64-point tile, and x_chunk 5 or 8 on
+    a ragged last pass; R = 7 is one pass smaller than a tile."""
     rng = np.random.RandomState(5)
     args = [a.to(cuda_device) for a in _feats_args(rng, B, R, C, nb)]
     n = dk.dense_decode_feats_batched.launches
