@@ -35,7 +35,17 @@ Phases (any failure exits non-zero; nothing is caught):
      scene), each beside the card's name and power limit; then K2's and K3's
      resources: ptxas registers and spills, shared memory per block, the
      grid and resident blocks per SM their launcher picks on this card, and
-     the share of its bound each reaches.
+     the share of its bound each reaches;
+ 13-17. the bf16 serving configuration, GIGAPlanner(precision="bf16")
+     (``bf16_phases``): the bf16 modes of K1, K2 and K3 against their plain
+     versions (at least 99.9 % of outputs within 1e-5, all within 2e-2 *
+     (1 + |plain|)), with their resources, times and bounds at 989 TFLOP/s;
+     bf16 plan_batch at B=64 with the counters zeroed just before (one K1
+     and one K2 launch), held by tests/test_bf16_serving.py's four decision
+     gates against the float32 plan and against the committed JAX TPU bf16
+     golden file (golden_plan_giga_bf16.npz); PlannerService equal to it;
+     __call__ on the golden scenes (one K3 launch each) by the same gates;
+     plan_stream equal to per-scene calls; the bf16 programs' timings.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -59,10 +69,13 @@ BATCH = 64
 SEED = 0
 CHECKPOINT = "checkpoints/synthetic_giga_best.msgpack"
 GOLDEN = "giga_tpu_torch/testdata/golden_plan_giga.npz"
+GOLDEN_BF16 = "giga_tpu_torch/testdata/golden_plan_giga_bf16.npz"
 PLANNER_KW = dict(best=True, force_detection=True, low_th=0.1, qual_th=0.8)
 
-# published fp32 (non-tensor-core) peak and memory rate of one H100 SXM
+# published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
+# the memory rate of one H100 SXM
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 TOL_STEM = 2e-5     # K1 vs its plain version, absolute, on plane features
@@ -70,6 +83,13 @@ TOL_DECODE = 1e-5   # K2-K5 vs their plain versions, |a - b| <= tol * (1 + |b|)
 TOL_VOLUME = 1e-5   # K4's and K5's (qual, rot, width) vs K2's, absolute
 TOL_SCORE = 1e-5    # candidate scores and widths, absolute
 TOL_POS = 1e-6      # candidate positions (lattice coordinates), absolute
+# bf16 modes against their plain versions: a float32 sum taken in another
+# order can flip the bf16 rounding of an activation, which moves the outputs
+# downstream of it by a bf16 step; so at least BF16_SHARE of the outputs
+# within TOL_BF16_CLOSE, and every output within TOL_BF16_FAR * (1 + |ref|)
+TOL_BF16_CLOSE = 1e-5
+BF16_SHARE = 0.999
+TOL_BF16_FAR = 2e-2
 
 
 def make_scenes(n: int, seed: int = SEED, resolution: int = RESOLUTION,
@@ -133,9 +153,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    """Least time (ms) for the work on the card and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    """Least time (ms) for the work on the card and what bounds it; ``peak``
+    is the operations' rate (PEAK_BF16_FLOPS for a bf16 mode's)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -149,13 +170,14 @@ def trunk_flops(points: int, heads: int, H: int, n_blocks: int, O: int,
     return points * heads * (2 * H + n_blocks * per_block + 2 * H * O + O)
 
 
-def stem_pool_work(B: int, R: int, C: int):
-    """(fp32 operations, bytes) of K1 on B scenes of R^3 voxels and C
-    channels: per voxel and channel 27 multiply-adds, the bias add and 3
-    pooling adds; the TSDF and the weights read once, the three (B, R, R, C)
-    planes written once. ``bound(*stem_pool_work(...))`` is K1's bound."""
+def stem_pool_work(B: int, R: int, C: int, elem: int = 4):
+    """(operations, bytes) of K1 on B scenes of R^3 voxels and C channels:
+    per voxel and channel 27 multiply-adds, the bias add and 3 pooling adds;
+    the TSDF and the weights read once, the three (B, R, R, C) planes written
+    once, ``elem`` bytes each (2 in the bf16 mode).
+    ``bound(*stem_pool_work(...))`` is K1's bound."""
     N = R ** 3
-    return B * N * C * (2 * 27 + 1 + 3), 4 * (B * N + 28 * C + 3 * B * R * R * C)
+    return B * N * C * (2 * 27 + 1 + 3), elem * (B * N + 28 * C + 3 * B * R * R * C)
 
 
 def dense_decode_feats_work(B: int, R: int, C: int, heads: int, H: int, n_blocks: int,
@@ -218,6 +240,53 @@ def check_close(got, ref, tol: float, what: str):
     return err, rel
 
 
+def check_bf16(got, ref, what: str):
+    """(share of outputs within TOL_BF16_CLOSE, max |a - b| / (1 + |b|), max
+    |a - b|) of a bf16 mode's outputs against a reference on the same
+    inputs; raises past the bf16 tolerance or on non-finite values."""
+    import torch
+
+    got, ref = torch.as_tensor(got).float(), torch.as_tensor(ref).float()
+    d = (got - ref).abs()
+    share = float((d <= TOL_BF16_CLOSE).double().mean())
+    rel = float((d / (1.0 + ref.abs())).max())
+    if not (share >= BF16_SHARE and rel <= TOL_BF16_FAR and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{what}: {share:.5f} of outputs within {TOL_BF16_CLOSE} (need "
+                             f"{BF16_SHARE}), max err/(1+|ref|) {rel:.3g} (tol {TOL_BF16_FAR})")
+    return share, rel, float(d.max())
+
+
+def bf16_gates(ref, got, voxel: float, what: str) -> dict:
+    """Hold bf16 plans ``got`` against reference plans ``ref`` (lists of
+    (grasps, scores) per scene) by tests/test_bf16_serving.py's four
+    decision gates: the top-1 score within 5e-3; the top-1 voxel identical
+    on at least 60 % of the scenes; candidate-set overlap at least 0.5 on
+    every scene and 0.65 on average; the scores of grasps at a voxel both
+    choose within 0.02. Raises on a failed gate; returns the readings."""
+    def voxels(grasps):
+        return [tuple(np.round(g.pose.translation / voxel).astype(int)) for g in grasps]
+
+    top1, same_top1, overlaps, drift = 0.0, 0, [], 0.0
+    for i, ((g_ref, s_ref), (g_got, s_got)) in enumerate(zip(ref, got)):
+        if not (len(g_ref) and len(g_got)):
+            raise AssertionError(f"{what}: scene {i} has {len(g_ref)} vs {len(g_got)} grasps")
+        top1 = max(top1, abs(float(s_got[0]) - float(s_ref[0])))
+        a, b = voxels(g_ref), voxels(g_got)
+        same_top1 += a[0] == b[0]
+        overlaps.append(len(set(a) & set(b)) / max(len(a), len(b)))
+        by_voxel = dict(zip(a, s_ref))
+        drift = max([drift] + [abs(float(s) - float(by_voxel[v])) for v, s in zip(b, s_got)
+                               if v in by_voxel])
+    n = len(overlaps)
+    readings = {"scenes": n, "top1_score_diff": top1, "top1_same": same_top1,
+                "overlap_min": min(overlaps), "overlap_mean": float(np.mean(overlaps)),
+                "score_drift": drift}
+    if not (n and top1 <= 5e-3 and same_top1 >= int(0.6 * n) and min(overlaps) >= 0.5
+            and np.mean(overlaps) >= 0.65 and drift <= 0.02):
+        raise AssertionError(f"{what}: a bf16 decision gate failed: {readings}")
+    return readings
+
+
 def compare_grasps(a, b, voxel: float, what: str, tol: float = TOL_SCORE):
     """Hold two (grasps, scores) results equal: the same count and grasp
     positions, scores, widths and quaternions within ``tol``; grasps are
@@ -274,6 +343,168 @@ def compare_candidates(a, b, scenes, R: int, what: str) -> dict:
         if not d <= tol[name]:
             raise AssertionError(f"{what}: {name} differs by {d} > {tol[name]}")
     return worst
+
+
+def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
+    """Phases 13-17, the bf16 serving configuration (GIGAPlanner(precision=
+    "bf16")): its kernels against their plain versions, plan_batch,
+    PlannerService, __call__ and plan_stream. Returns the program's timings
+    and the bf16 kernels' rows for the kernels line."""
+    import torch
+
+    from giga_tpu_torch.inference.dense_decode import (
+        lattice_coords, sample_planes_on_lattice_batched)
+    from giga_tpu_torch.inference.planner import GIGAPlanner, State, full_precision
+    from giga_tpu_torch.inference.postprocess import GraspCandidates
+    from giga_tpu_torch.inference.serving import PlannerService
+    from giga_tpu_torch.ops.kernels import _build
+    from giga_tpu_torch.ops.kernels import decoder as dk
+    from giga_tpu_torch.ops.kernels.stem import (
+        stem_pool_batched, stem_pool_launch_config, stem_pool_plain)
+
+    bf = torch.bfloat16
+    planner = GIGAPlanner(net=net, model_cfg=cfg, size=SIZE, rng=np.random.RandomState(0),
+                          precision="bf16", **PLANNER_KW)
+    bnet = planner.net
+    B, R, N = len(scenes), RESOLUTION, RESOLUTION ** 3
+    C, n_blocks, H = cfg.encoder.c_dim, cfg.decoder.n_blocks, cfg.decoder.hidden_size
+    heads, O = 3, 4
+    voxel = SIZE / R
+    coords = lattice_coords(R, "cuda")
+    conv = bnet.encoder.conv_in
+    dec = bnet.decoder_aff.params()
+    tsdfs = torch.from_numpy(scenes).cuda().to(bf)
+
+    # 13. the bf16 modes of K1, K2 and K3 against their plain versions
+    with torch.inference_mode(), full_precision():
+        k1 = stem_pool_batched(conv.weight, conv.bias, tsdfs)
+        p1 = stem_pool_plain(conv.weight, conv.bias, tsdfs)
+        err1 = [check_bf16(k1[t], p1[t], f"K1 bf16 {t}") for t in k1]
+        feats = sample_planes_on_lattice_batched(bnet.encoder.refine(k1), coords, R, 0.0)
+        inputs = dk.prepare_projections_batched(dec, feats, coords, n_blocks, bf)
+        k2 = dk.dense_decode_batched(*inputs)
+        err2 = check_bf16(k2, dk.dense_decode_plain(*inputs), "K2 bf16")
+        inputs3 = dk.prepare_projections(dec, {t: v[0] for t, v in feats.items()}, coords,
+                                         n_blocks, bf)
+        k3 = dk.fused_dense_decode(*inputs3)
+        err3 = check_bf16(k3, dk.fused_dense_decode_plain(*inputs3), "K3 bf16")
+        torch.cuda.synchronize()
+        if not all(v.dtype == bf for v in k1.values()):
+            raise AssertionError("K1 bf16 did not write bf16 planes")
+        ms1 = cuda_ms(lambda: stem_pool_batched(conv.weight, conv.bias, tsdfs), 50)
+        plain1 = cuda_ms(lambda: stem_pool_plain(conv.weight, conv.bias, tsdfs), 20)
+        ms2 = cuda_ms(lambda: dk.dense_decode_batched(*inputs), 20)
+        plain2 = cuda_ms(lambda: dk.dense_decode_plain(*inputs), 3, warmup=1)
+        ms3 = cuda_ms(lambda: dk.fused_dense_decode(*inputs3), 50)
+        plain3 = cuda_ms(lambda: dk.fused_dense_decode_plain(*inputs3), 10)
+    bounds = {"K1": bound(*stem_pool_work(B, R, C, elem=2), peak=PEAK_BF16_FLOPS),
+              "K2": bound(trunk_flops(B * N, heads, H, n_blocks, O),
+                          nbytes(*inputs) + 4 * B * heads * O * N, peak=PEAK_BF16_FLOPS),
+              "K3": bound(trunk_flops(N, heads, H, n_blocks, O), nbytes(*inputs3, k3),
+                          peak=PEAK_BF16_FLOPS)}
+    times = {"K1": (ms1, plain1), "K2": (ms2, plain2), "K3": (ms3, plain3)}
+    print(f"phase 13: bf16 modes against their plain versions (share within {TOL_BF16_CLOSE}, "
+          f"max err/(1+|plain|), max abs err; tol {BF16_SHARE} and {TOL_BF16_FAR}): K1 "
+          f"{[tuple(round(x, 6) for x in e) for e in err1]}, K2 "
+          f"{tuple(round(x, 6) for x in err2)}, K3 {tuple(round(x, 6) for x in err3)}")
+    logs = {name: _build.build_log(name) for name in ("stem_pool", "dense_decode")}
+    lc = stem_pool_launch_config(B, R, R, R, C)
+    shapes = {"K1": f"{lc['shared_bytes']} bytes shared per block, grid {lc['blocks']} blocks of "
+                    f"{lc['threads']} threads"}
+    for k, batch, point_major in (("K2", B, False), ("K3", 1, True)):
+        lc = dk.dense_decode_launch_config(batch, R, heads, n_blocks, point_major, bf)
+        shapes[k] = (f"{lc['shared_bytes']} bytes shared per block, grid {lc['grid'][0]}x"
+                     f"{lc['grid'][1]} blocks of {lc['threads']} threads, {lc['blocks_per_sm']} "
+                     f"resident blocks per SM on {lc['sms']} SMs")
+    mangled = {"K1": ("stem_pool", "stem_pool_kernelI13__nv_bfloat16E"),
+               "K2": ("dense_decode", "dense_decode_bf16_kernelILb0E"),
+               "K3": ("dense_decode", "dense_decode_bf16_kernelILb1E")}
+    for k, (lib, name) in mangled.items():
+        ms, plain = times[k]
+        bnd = bounds[k]
+        print(f"phase 13: {k} bf16 resources: {kernel_resources(logs[lib], name)}, {shapes[k]}; "
+              f"{ms:.4f} ms (plain {plain:.4f} ms, float32 mode {fp32_ms[k]:.4f} ms), "
+              f"{bnd[0] / ms:.1%} of its bound ({bnd[0]:.4f} ms by {bnd[1]}) | {card}")
+    del k2, inputs
+
+    # 14. the bf16 main path: plan_batch, counters zeroed just before
+    stem_pool_batched.launches = 0
+    dk.dense_decode_batched.launches = 0
+    results = planner.plan_batch(scenes)
+    torch.cuda.synchronize()
+    launches = {"stem_pool": stem_pool_batched.launches,
+                "dense_decode": dk.dense_decode_batched.launches}
+    if launches != {"stem_pool": 1, "dense_decode": 1}:
+        raise AssertionError(f"bf16 plan_batch launched {launches}")
+    for i, (grasps, scores) in enumerate(results):
+        if not (np.isfinite(scores).all() and (scores >= PLANNER_KW["low_th"]).all()
+                and all(np.all(np.abs(g.pose.translation / SIZE - 0.5) <= 0.5) for g in grasps)):
+            raise AssertionError(f"bf16 scene {i}: candidates out of range")
+    gates32 = bf16_gates(fp32_results, results, voxel, "bf16 vs float32 plan_batch")
+    golden_bf16 = np.load(Path(__file__).resolve().parent / GOLDEN_BF16)
+    np.testing.assert_allclose(golden_bf16["tsdf"], scenes[:len(golden_bf16["tsdf"])], atol=1e-6)
+    gb = GraspCandidates(*(golden_bf16[f] for f in GraspCandidates._fields))
+    n_gold = len(gb.count)
+    golden_grasps = [planner._to_grasps(GraspCandidates(*(np.asarray(x[i]) for x in gb)))
+                     for i in range(n_gold)]
+    gates_gold = bf16_gates(golden_grasps, results[:n_gold], voxel, "bf16 vs JAX bf16 golden")
+    print(f"phase 14: bf16 plan_batch B={B}: {sum(len(g) for g, _ in results)} grasps; launches "
+          f"{launches}; against float32 plan_batch {gates32}; against the JAX TPU bf16 golden "
+          f"candidates {gates_gold}")
+
+    # 15. PlannerService in bf16
+    n_req = B + B // 2
+    with PlannerService(planner, batch_size=B, max_wait_ms=5.0) as svc:
+        served = [f.result(timeout=300) for f in [svc.submit(scenes[i % B]) for i in range(n_req)]]
+    for i, got in enumerate(served):
+        compare_grasps(got, results[i % B], voxel, f"bf16 service scene {i}", tol=1e-6)
+    print(f"phase 15: bf16 PlannerService served {n_req} requests, each equal to bf16 plan_batch")
+
+    # 16. bf16 __call__ on the golden scenes (K3 bf16) and plan_stream
+    dk.fused_dense_decode.launches = 0
+    called = [planner(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)]
+    torch.cuda.synchronize()
+    if dk.fused_dense_decode.launches != n_gold:
+        raise AssertionError(f"bf16 __call__ launched K3 {dk.fused_dense_decode.launches} times "
+                             f"in {n_gold} calls")
+    gates_call = bf16_gates(golden_grasps, called, voxel, "bf16 __call__ vs JAX bf16 golden")
+    gates_call32 = bf16_gates(fp32_results[:n_gold], called, voxel, "bf16 __call__ vs float32")
+    n_stream = 8
+    for i, got in enumerate(planner.plan_stream(scenes[:n_stream])):
+        compare_grasps(got, planner(State(tsdf=scenes[i]))[:2], voxel,
+                       f"bf16 plan_stream vs __call__, scene {i}", tol=1e-6)
+    print(f"phase 16: bf16 __call__ on {n_gold} golden scenes, K3 bf16 launches {n_gold}: against "
+          f"the JAX TPU bf16 golden {gates_call}, against float32 plan_batch {gates_call32}; "
+          f"plan_stream over {n_stream} scenes equals per-scene __call__")
+
+    # 17. timings of the bf16 programs
+    fn = planner._ensure_batched_fn()
+    raw = torch.from_numpy(scenes).cuda()
+    plan_ms = cuda_ms(lambda: fn(raw, raw), 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        planner.plan_batch(scenes)
+    sps = 5 * B / (time.perf_counter() - t0)
+    state = State(tsdf=scenes[0][None])
+    for _ in range(3):
+        planner(state)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        planner(state)
+    call_ms = (time.perf_counter() - t0) / 20 * 1e3
+    for k, name in (("K1", "stem_pool"), ("K2", "dense_decode"), ("K3", "fused_dense_decode")):
+        ms, plain = times[k]
+        print(f"{k} {name} bf16: {ms:.4f} ms (plain {plain:.4f} ms, bound {bounds[k][0]:.4f} ms "
+              f"by {bounds[k][1]}) {'one scene' if k == 'K3' else f'B={B}'} R={R} | {card}")
+    n_launch = {"K1": launches["stem_pool"], "K2": launches["dense_decode"], "K3": n_gold}
+    errs = {"K1": max(e[2] for e in err1), "K2": err2[2], "K3": err3[2]}
+    rows = [(f"{name}_bf16", source, replaces, n_launch[k], errs[k], *times[k], bounds[k])
+            for k, name, source, replaces in (
+                ("K1", "stem_pool", "stem_pool.cu", "stem_kernel.py:120"),
+                ("K2", "dense_decode", "dense_decode.cu", "decoder_kernel.py:348"),
+                ("K3", "fused_dense_decode", "dense_decode.cu", "decoder_kernel.py:153"))]
+    return {"plan_ms": plan_ms, "sps": sps, "call_ms": call_ms}, rows
 
 
 def main() -> int:
@@ -354,7 +585,7 @@ def main() -> int:
     bound2 = bound(trunk_flops(B * N, heads, H, n_blocks, O),
                    nbytes(*inputs) + 4 * B * heads * O * N)
     lc1 = stem_pool_launch_config(B, R, R, R, C)
-    print(f"phase 3: K1 resources: {kernel_resources(_build.build_log('stem_pool'), 'stem_pool')}, "
+    print(f"phase 3: K1 resources: {kernel_resources(_build.build_log('stem_pool'), 'stem_pool_kernelIfE')}, "
           f"{lc1['shared_bytes']} bytes shared per block, grid {lc1['blocks']} blocks of "
           f"{lc1['threads']} threads ({lc1['channels_per_block']} channels each); {ms1:.4f} ms, "
           f"{bound1[0] / ms1:.1%} of its bound ({bound1[0]:.4f} ms by {bound1[1]}) | {card}")
@@ -554,6 +785,14 @@ def main() -> int:
               f"{lc['blocks_per_sm']} resident blocks per SM on {lc['sms']} SMs; "
               f"{bnd[0] / ms:.1%} of its bound ({bnd[0]:.4f} ms / {ms:.4f} ms) | {card}")
 
+    bf16_rows, bf16_kernels = bf16_phases(
+        net, cfg, scenes, results, card, {"K1": ms1, "K2": ms2, "K3": ms3})
+    print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
+          f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
+          f"float32 {plan_ms:.3f} ms) | {card}")
+    print(f"bf16 __call__ (single-scene program, K3 bf16): {bf16_rows['call_ms']:.3f} ms "
+          f"(float32 {call_ms:.3f} ms) | {card}")
+
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",
                 "replaces": f"giga_tpu/ops/pallas/{replaces}", "launches": n,
@@ -571,6 +810,7 @@ def main() -> int:
               launches45["dense_decode_feats"], err4, ms4, plain4, bound4),
         entry("dense_decode_hybrid", "dense_decode_feats.cu", "decoder_kernel.py:447",
               launches45["dense_decode_hybrid"], err5, ms5, plain5, bound5),
+        *(entry(*k) for k in bf16_kernels),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

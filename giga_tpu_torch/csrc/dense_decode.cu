@@ -1,5 +1,5 @@
 // Dense-decode trunk of the GIGA affordance decoder from precomputed plane
-// projections, fp32, for Hopper (sm_90a). Two entry points:
+// projections, for Hopper (sm_90a). Four entry points:
 //
 //   K2 dense_decode_f32: replaces giga_tpu/ops/pallas/decoder_kernel.py::
 //      fused_dense_decode_batched (pallas_call at :348, body
@@ -7,6 +7,10 @@
 //   K3 dense_decode_single_f32: replaces decoder_kernel.py::
 //      fused_dense_decode (pallas_call at :153, body _trunk_kernel :75),
 //      one scene, output (R, R, R, E*OE) indexed [x, y, z, o].
+//   dense_decode_bf16, dense_decode_single_bf16: the same two in the TPU
+//      kernels' compute_dtype=bf16 mode (every input bf16, the products'
+//      operands bf16, their sums float32; the output float32), on the
+//      tensor cores: see "bf16 mode" below.
 //
 // For every point (x, y, z) of the R^3 query lattice of scene b, and every
 // head e (qual, rot, width):
@@ -64,7 +68,9 @@
 // product of every block about 1.8 ms, the activation stores about 0.1 ms.
 
 #include <mutex>
+#include <type_traits>
 
+#include "trunk_mma.cuh"
 #include "trunk_tiled.cuh"
 
 namespace {
@@ -164,16 +170,133 @@ dense_decode_kernel(const float* __restrict__ px, const float* __restrict__ py,
   }
 }
 
-// Resident blocks per SM and SMs of the current device for kernel
-// dense_decode_kernel<kPointMajor> at NB blocks. The first launch on a device
-// (or with another NB) sets the kernel's shared-memory attributes and asks
-// the occupancy; later launches reuse the answer.
+// bf16 mode (trunk_mma.cuh). The same work on the tensor cores: 267 GFLOP at
+// B=64 is 0.270 ms at the H100's 989 TFLOP/s dense bf16 rate, against ~295
+// MB of bf16 inputs read and ~197 MB of float32 output written (0.147 ms at
+// 3.35 TB/s), so its bound is the tensor cores'. A warp carries 32 points x
+// a head's 32 columns through mma.sync m16n8k16 (bf16 operands, float32
+// accumulators), the residual stream in the accumulator layout, and each
+// layer's output rounds straight into the next product's A fragments: no
+// activation buffer, so a block's shared memory is its head's weights alone
+// (22.3 KB at 5 blocks: bf16 fragments, float biases). Rows are read as bf16
+// pairs, a lane's two columns of each 8-column n-tile, addressed from their
+// indices (pointers would cost registers). Blocks are persistent as in the
+// float32 mode. Resources at NB = 5 (ptxas for sm_90a): 128 registers, no
+// spills; 16 warps a block, one block an SM. The A/B (ab_dense_decode.py
+// --bf16, PERF.md) put 64-point tiles (244 registers, 8 warps an SM) and
+// 16-point tiles (spills at 64 registers) behind it; outputs are equal bit
+// for bit across the designs, since each output's sums are the same MMAs.
+constexpr int BF_MT = 2;           // m16 tiles of a warp: 32 points
+constexpr int BF_WARPS = 16;       // warps per block
+constexpr int BF_MIN_BLOCKS = 1;   // resident blocks per SM asked of ptxas
+constexpr int BF_THREADS = 32 * BF_WARPS;
+using BfTile = tc::Tile<BF_MT>;
+constexpr int BF_P = BfTile::P;
+using bf16 = __nv_bfloat16;
+static_assert(OE % 2 == 0, "head outputs in pairs");
+
+size_t bf16_shared_bytes(int NB) { return (size_t)tc::weight_words(NB) * sizeof(unsigned); }
+
+template <bool kPointMajor>
+__global__ void __launch_bounds__(BF_THREADS, BF_MIN_BLOCKS)
+dense_decode_bf16_kernel(const bf16* __restrict__ px, const bf16* __restrict__ py,
+                         const bf16* __restrict__ pz, const bf16* __restrict__ pxz,
+                         const bf16* __restrict__ pxy, const bf16* __restrict__ pyz,
+                         const bf16* __restrict__ w0, const bf16* __restrict__ b0,
+                         const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+                         const bf16* __restrict__ wout, const bf16* __restrict__ bout,
+                         float* __restrict__ out, int B, int R, int E, int NB) {
+  extern __shared__ __align__(16) unsigned wsmem[];
+  const int e = blockIdx.y, F = E * H;
+  const tc::Weights s = tc::load_weights(wsmem, w0, b0, w1, b1, wout, bout, e, E, NB);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+
+  const int RR = R * R, N = RR * R;
+  const int tiles = (N + BF_P - 1) / BF_P;
+  const long units = (long)B * tiles;
+  const int col = e * H;
+  for (long u = (long)blockIdx.x * BF_WARPS + warp; u < units; u += (long)gridDim.x * BF_WARPS) {
+    const int b = (int)(u / tiles);
+    const int base = (int)(u % tiles) * BF_P;
+    int ixz[BF_MT][2], ixy[BF_MT][2], iyz[BF_MT][2];
+    BfTile net;
+    {
+      int ix[BF_MT][2], iy[BF_MT][2], iz[BF_MT][2];
+#pragma unroll
+      for (int m = 0; m < BF_MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = min(base + tc::point(m, h, lane), N - 1);  // clamped past N
+          ix[m][h] = n / RR;
+          iy[m][h] = (n / R) % R;
+          iz[m][h] = n % R;
+          ixz[m][h] = ix[m][h] * R + iz[m][h];
+          ixy[m][h] = ix[m][h] * R + iy[m][h];
+          iyz[m][h] = iy[m][h] * R + iz[m][h];
+        }
+      tc::rows<true>(net, px + col, ix, F, lane);
+      tc::rows<false>(net, py + col, iy, F, lane);
+      tc::rows<false>(net, pz + col, iz, F, lane);
+    }
+    for (int k = 0; k < NB; ++k) {
+      const size_t first = (((size_t)b * NB + k) * RR) * F + col;
+      tc::rows<false>(net, pxz + first, ixz, F, lane);
+      tc::rows<false>(net, pxy + first, ixy, F, lane);
+      tc::rows<false>(net, pyz + first, iyz, F, lane);
+      tc::resnet_block(net, s, k, lane);
+    }
+    float o[BF_MT][4];
+    tc::head_out(o, net, s, lane);
+    // lanes with c >= OE hold padding columns; no early exit, so the warp
+    // stays converged for the next tile's mma.sync
+    const int c = 2 * (lane % 4);  // this lane's head outputs c, c + 1
+#pragma unroll
+    for (int m = 0; m < BF_MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = base + tc::point(m, h, lane);
+        if (c < OE && n < N) {
+          if (kPointMajor) {
+            reinterpret_cast<float2*>(out)[(((size_t)b * N + n) * E * OE + e * OE + c) / 2] =
+                make_float2(o[m][2 * h], o[m][2 * h + 1]);
+          } else {
+            float* dst = out + ((size_t)b * E * OE + e * OE + c) * N + n;
+            dst[0] = o[m][2 * h];
+            dst[N] = o[m][2 * h + 1];
+          }
+        }
+      }
+  }
+}
+
+// A kernel and its launch shape: kBf16 picks the bf16 mode, kPointMajor
+// K3's output layout.
+template <bool kBf16, bool kPointMajor>
+struct Kernel {
+  static constexpr int threads = kBf16 ? BF_THREADS : THREADS;
+  static constexpr int warps = kBf16 ? BF_WARPS : WARPS;
+  static constexpr int points = kBf16 ? BF_P : P;  // lattice points of a warp tile
+  static size_t shared(int NB) { return kBf16 ? bf16_shared_bytes(NB) : shared_bytes(NB); }
+  static const void* function() {
+    if constexpr (kBf16)
+      return reinterpret_cast<const void*>(dense_decode_bf16_kernel<kPointMajor>);
+    else
+      return reinterpret_cast<const void*>(dense_decode_kernel<kPointMajor>);
+  }
+};
+
+// Resident blocks per SM and SMs of the current device for a kernel at NB
+// blocks. The first launch on a device (or with another NB) sets the
+// kernel's shared-memory attributes and asks the occupancy; later launches
+// reuse the answer.
 struct Occupancy {
   int nb = -1, per_sm = 0, sms = 0;
 };
 
-template <bool kPointMajor>
+template <bool kBf16, bool kPointMajor>
 int occupancy(int NB, Occupancy* occ) {
+  using K = Kernel<kBf16, kPointMajor>;
   constexpr int kDevices = 16;
   static std::mutex mu;
   static Occupancy cached[kDevices];
@@ -185,20 +308,20 @@ int occupancy(int NB, Occupancy* occ) {
     *occ = cached[dev];
     return 0;
   }
-  auto kernel = dense_decode_kernel<kPointMajor>;
-  const size_t shmem = shared_bytes(NB);
+  const void* kernel = K::function();
+  const size_t shmem = K::shared(NB);
   int per_sm = 0, sms = 0;
   // the blocks that registers and the largest carve-out allow; then ask for
   // the carve-out that holds them (1 KB reserved per block), leaving the
   // rest of the SM's 256 KB to L1, and read the occupancy that gives
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)shmem)) ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, shmem)))
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K::threads, shmem)))
     return (int)err;
   const int carveout = (int)((per_sm * (shmem + 1024) * 100 + 228 * 1024 - 1) / (228 * 1024));
   if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                   carveout < 100 ? carveout : 100)) ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, shmem)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K::threads, shmem)) ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -211,35 +334,40 @@ int occupancy(int NB, Occupancy* occ) {
 
 // Launch configuration: info = {resident blocks per SM, SMs, blocks per head
 // (grid.x), heads (grid.y), threads per block, dynamic shared bytes}.
-template <bool kPointMajor>
+template <bool kBf16, bool kPointMajor>
 int configure(int B, int R, int E, int NB, int* info) {
+  using K = Kernel<kBf16, kPointMajor>;
   Occupancy occ;
-  const int err = occupancy<kPointMajor>(NB, &occ);
+  const int err = occupancy<kBf16, kPointMajor>(NB, &occ);
   if (err) return err;
-  const long units = (long)B * ((R * R * R + P - 1) / P);
+  const long units = (long)B * ((R * R * R + K::points - 1) / K::points);
   long per_head = (long)occ.per_sm * occ.sms / E;
   per_head = per_head < 1 ? 1 : per_head;
-  const long needed = (units + WARPS - 1) / WARPS;
+  const long needed = (units + K::warps - 1) / K::warps;
   info[0] = occ.per_sm;
   info[1] = occ.sms;
   info[2] = (int)(per_head < needed ? per_head : needed);
   info[3] = E;
-  info[4] = THREADS;
-  info[5] = (int)shared_bytes(NB);
+  info[4] = K::threads;
+  info[5] = (int)K::shared(NB);
   return 0;
 }
 
-template <bool kPointMajor>
-int launch(const float* px, const float* py, const float* pz, const float* pxz,
-           const float* pxy, const float* pyz, const float* w0, const float* b0,
-           const float* w1, const float* b1, const float* wout, const float* bout,
+template <bool kPointMajor, typename T>
+int launch(const T* px, const T* py, const T* pz, const T* pxz, const T* pxy, const T* pyz,
+           const T* w0, const T* b0, const T* w1, const T* b1, const T* wout, const T* bout,
            float* out, int B, int R, int E, int NB, void* stream) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   int info[6];
-  int err = configure<kPointMajor>(B, R, E, NB, info);
+  int err = configure<kBf16, kPointMajor>(B, R, E, NB, info);
   if (err) return err;
   dim3 grid(info[2], E);
-  dense_decode_kernel<kPointMajor><<<grid, THREADS, info[5], (cudaStream_t)stream>>>(
-      px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
+  if constexpr (kBf16)
+    dense_decode_bf16_kernel<kPointMajor><<<grid, BF_THREADS, info[5], (cudaStream_t)stream>>>(
+        px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
+  else
+    dense_decode_kernel<kPointMajor><<<grid, THREADS, info[5], (cudaStream_t)stream>>>(
+        px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
   return (int)cudaGetLastError();
 }
 
@@ -265,10 +393,39 @@ extern "C" int dense_decode_single_f32(const float* px, const float* py, const f
                       1, R, E, NB, stream);
 }
 
+// K2 in the bf16 mode: every input bf16 (shapes as dense_decode_f32's) ->
+// out (B, E*OE, R^3) float32.
+extern "C" int dense_decode_bf16(const bf16* px, const bf16* py, const bf16* pz,
+                                 const bf16* pxz, const bf16* pxy, const bf16* pyz,
+                                 const bf16* w0, const bf16* b0, const bf16* w1, const bf16* b1,
+                                 const bf16* wout, const bf16* bout, float* out, int B, int R,
+                                 int E, int NB, void* stream) {
+  return launch<false>(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out,
+                       B, R, E, NB, stream);
+}
+
+// K3 in the bf16 mode -> out (R, R, R, E*OE) float32.
+extern "C" int dense_decode_single_bf16(const bf16* px, const bf16* py, const bf16* pz,
+                                        const bf16* pxz, const bf16* pxy, const bf16* pyz,
+                                        const bf16* w0, const bf16* b0, const bf16* w1,
+                                        const bf16* b1, const bf16* wout, const bf16* bout,
+                                        float* out, int R, int E, int NB, void* stream) {
+  return launch<true>(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out,
+                      1, R, E, NB, stream);
+}
+
 // The launch configuration K2 (point_major 0) or K3 (1) takes for these
 // shapes, into info[6] (see configure).
 extern "C" int dense_decode_config(int point_major, int B, int R, int E, int NB, int* info) {
-  return point_major ? configure<true>(B, R, E, NB, info) : configure<false>(B, R, E, NB, info);
+  return point_major ? configure<false, true>(B, R, E, NB, info)
+                     : configure<false, false>(B, R, E, NB, info);
+}
+
+// The same for the bf16 mode.
+extern "C" int dense_decode_bf16_config(int point_major, int B, int R, int E, int NB,
+                                        int* info) {
+  return point_major ? configure<true, true>(B, R, E, NB, info)
+                     : configure<true, false>(B, R, E, NB, info);
 }
 
 extern "C" int dense_decode_hidden() { return H; }

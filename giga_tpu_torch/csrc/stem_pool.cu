@@ -1,4 +1,11 @@
-// Fused conv stem + triplane axis-mean pooling, fp32, for Hopper (sm_90a).
+// Fused conv stem + triplane axis-mean pooling, for Hopper (sm_90a), in two
+// modes: stem_pool_f32 (float32 TSDF, weights and planes) and stem_pool_bf16
+// (the TPU kernel's compute_dtype=bf16: bf16 TSDF and weights, widened to
+// float32 as they are loaded, which is exact, so every product is the bf16
+// product and every sum, the bias, the ReLU and the means stay float32; the
+// planes are rounded to bf16 as they are written, the U-Net's input dtype).
+// Both modes run the same code on float32 values in shared memory: only the
+// loads from and the stores to device memory differ.
 //
 // Replaces the TPU kernel giga_tpu/ops/pallas/stem_kernel.py::
 // fused_stem_pool_batched (pallas_call at :120, body _stem_pool_kernel :37):
@@ -56,6 +63,7 @@
 // loads the taps share with it: fewer pooling warps leave the tap warps
 // waiting at the barrier, 8-z micro-tiles spill.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -95,6 +103,31 @@ struct Layout {
 static_assert(CB % SUMS == 0 && SUMS % 4 == 0 && TZ % 4 == 0,
               "whole float4s of channels and z");
 
+// Device-memory element types: a value widened to float32, four consecutive
+// values as a float4 (one 16-byte or 8-byte load), and the stores back.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -102,10 +135,11 @@ __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
-stem_pool_kernel(const float* __restrict__ tsdf, const float* __restrict__ weight,
-                 const float* __restrict__ bias, float* __restrict__ xz,
-                 float* __restrict__ xy, float* __restrict__ yz, int X, int Y, int Z, int C) {
+stem_pool_kernel(const T* __restrict__ tsdf, const T* __restrict__ weight,
+                 const T* __restrict__ bias, T* __restrict__ xz,
+                 T* __restrict__ xy, T* __restrict__ yz, int X, int Y, int Z, int C) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(Y, Z);
   float* wsh = smem;                     // (27, CB): tap-major, the CB channels contiguous
@@ -120,15 +154,15 @@ stem_pool_kernel(const float* __restrict__ tsdf, const float* __restrict__ weigh
   const int pool0 = (ntaps + 31) / 32 * 32;  // the first of the pooling warps
   const bool taps = tid < ntaps;
   const int y = tid / L.nzr, z0 = (tid - y * L.nzr) * TZ;  // a tap thread's (y, z-run)
-  const float* vol = tsdf + (size_t)b * X * Y * Z;
-  // rows of the TSDF are read as float4s where every row start is 16-byte aligned
-  const bool vec = Z % 4 == 0 && reinterpret_cast<size_t>(tsdf) % 16 == 0;
+  const T* vol = tsdf + (size_t)b * X * Y * Z;
+  // rows of the TSDF are read four values at a time where every row start is aligned
+  const bool vec = Z % 4 == 0 && reinterpret_cast<size_t>(tsdf) % (4 * sizeof(T)) == 0;
 
   for (int i = tid; i < 27 * CB; i += blockDim.x) {
     const int t = i / CB, c = i % CB;
-    wsh[i] = weight[(c0 + c) * 27 + t];
+    wsh[i] = widen(weight[(c0 + c) * 27 + t]);
   }
-  for (int c = tid; c < CB; c += blockDim.x) bsh[c] = bias[c0 + c];
+  for (int c = tid; c < CB; c += blockDim.x) bsh[c] = widen(bias[c0 + c]);
   for (int i = tid; i < RING * L.slab; i += blockDim.x) ring[i] = 0.f;
 
   // this thread's z-run of slab xx (zeros past Z and outside 0 .. X-1)
@@ -136,18 +170,18 @@ stem_pool_kernel(const float* __restrict__ tsdf, const float* __restrict__ weigh
 #pragma unroll
     for (int j = 0; j < TZ; ++j) v[j] = 0.f;
     if (xx < 0 || xx >= X) return;
-    const float* src = vol + ((size_t)xx * Y + y) * Z + z0;
+    const T* src = vol + ((size_t)xx * Y + y) * Z + z0;
     if (vec) {  // Z % 4 == 0: a quad of the run lies wholly inside or outside the row
 #pragma unroll
       for (int q = 0; q < TZ / 4; ++q) {
         if (z0 + 4 * q >= Z) break;
-        const float4 u = __ldg(reinterpret_cast<const float4*>(src) + q);
+        const float4 u = load4(src + 4 * q);
         v[4 * q] = u.x, v[4 * q + 1] = u.y, v[4 * q + 2] = u.z, v[4 * q + 3] = u.w;
       }
     } else {
 #pragma unroll
       for (int j = 0; j < TZ; ++j)
-        if (z0 + j < Z) v[j] = __ldg(src + j);
+        if (z0 + j < Z) v[j] = widen(__ldg(src + j));
     }
   };
   // slab row y + 1 holds y; row entry z + 1 holds z (entries past Z stay zero)
@@ -197,11 +231,11 @@ stem_pool_kernel(const float* __restrict__ tsdf, const float* __restrict__ weigh
         for (; z < Z; ++z)
 #pragma unroll
           for (int k = 0; k < SUMS; ++k) sum[k] += row[k * L.zt + z];
-        float4* dst = reinterpret_cast<float4*>(xy + (((size_t)b * Y + yy) * X + xp) * C + c0 + c);
+        T* dst = xy + (((size_t)b * Y + yy) * X + xp) * C + c0 + c;
 #pragma unroll
         for (int q = 0; q < QS; ++q)
-          dst[q] = make_float4(sum[4 * q] / (float)Z, sum[4 * q + 1] / (float)Z,
-                               sum[4 * q + 2] / (float)Z, sum[4 * q + 3] / (float)Z);
+          store4(dst + 4 * q, make_float4(sum[4 * q] / (float)Z, sum[4 * q + 1] / (float)Z,
+                                          sum[4 * q + 2] / (float)Z, sum[4 * q + 3] / (float)Z));
       } else {
         const int k = task - nxy, c = k / nzg, zq = (k - c * nzg) * SUMS;
         const float* col = tile + c * L.zt + zq;
@@ -220,7 +254,8 @@ stem_pool_kernel(const float* __restrict__ tsdf, const float* __restrict__ weigh
         }
 #pragma unroll
         for (int j = 0; j < SUMS; ++j)
-          if (zq + j < Z) xz[(((size_t)b * Z + zq + j) * X + xp) * C + c0 + c] = sum[j] / (float)Y;
+          if (zq + j < Z)
+            store1(xz + (((size_t)b * Z + zq + j) * X + xp) * C + c0 + c, sum[j] / (float)Y);
       }
     }
   };
@@ -295,11 +330,12 @@ stem_pool_kernel(const float* __restrict__ tsdf, const float* __restrict__ weigh
 #pragma unroll
   for (int j = 0; j < TZ; ++j) {
     if (z0 + j >= Z) break;
-    float4* dst = reinterpret_cast<float4*>(yz + (((size_t)b * Z + z0 + j) * Y + y) * C + c0);
+    T* dst = yz + (((size_t)b * Z + z0 + j) * Y + y) * C + c0;
 #pragma unroll
     for (int q = 0; q < CB / 4; ++q)
-      dst[q] = make_float4(pool_yz[j][4 * q] / (float)X, pool_yz[j][4 * q + 1] / (float)X,
-                           pool_yz[j][4 * q + 2] / (float)X, pool_yz[j][4 * q + 3] / (float)X);
+      store4(dst + 4 * q,
+             make_float4(pool_yz[j][4 * q] / (float)X, pool_yz[j][4 * q + 1] / (float)X,
+                         pool_yz[j][4 * q + 2] / (float)X, pool_yz[j][4 * q + 3] / (float)X));
   }
 }
 
@@ -322,16 +358,35 @@ extern "C" int stem_pool_config(int B, int X, int Y, int Z, int C, int* info) {
   return 0;
 }
 
-extern "C" int stem_pool_f32(const float* tsdf, const float* weight, const float* bias,
-                             float* xz, float* xy, float* yz, int B, int X, int Y, int Z,
-                             int C, void* stream) {
+namespace {
+
+// The kernel of element type T on a stream, configured by stem_pool_config.
+template <typename T>
+int launch(const T* tsdf, const T* weight, const T* bias, T* xz, T* xy, T* yz, int B, int X,
+           int Y, int Z, int C, void* stream) {
   int info[4];
   int err = stem_pool_config(B, X, Y, Z, C, info);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(stem_pool_kernel,
+  cudaError_t e = cudaFuncSetAttribute(stem_pool_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, info[2]);
   if (e != cudaSuccess) return (int)e;
-  stem_pool_kernel<<<info[0], info[1], info[2], (cudaStream_t)stream>>>(
+  stem_pool_kernel<T><<<info[0], info[1], info[2], (cudaStream_t)stream>>>(
       tsdf, weight, bias, xz, xy, yz, X, Y, Z, C);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int stem_pool_f32(const float* tsdf, const float* weight, const float* bias,
+                             float* xz, float* xy, float* yz, int B, int X, int Y, int Z,
+                             int C, void* stream) {
+  return launch(tsdf, weight, bias, xz, xy, yz, B, X, Y, Z, C, stream);
+}
+
+// bf16 TSDF (B, X, Y, Z), weights (C, 27) and bias (C) -> bf16 planes.
+extern "C" int stem_pool_bf16(const __nv_bfloat16* tsdf, const __nv_bfloat16* weight,
+                              const __nv_bfloat16* bias, __nv_bfloat16* xz, __nv_bfloat16* xy,
+                              __nv_bfloat16* yz, int B, int X, int Y, int Z, int C,
+                              void* stream) {
+  return launch(tsdf, weight, bias, xz, xy, yz, B, X, Y, Z, C, stream);
 }

@@ -1,0 +1,265 @@
+// Tensor-core per-head ResnetBlockFC trunk of the GIGA affordance decoder in
+// the TPU kernels' bf16 mode (dense_decode.cu: K2 and K3 bf16): the operands
+// of every product are bf16, the sums float32; the plane-row assembly, the
+// biases and the residual stream stay float32.
+//
+// One warp carries a tile of P = 16 * MT lattice points through one head's
+// H = 32 columns with mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
+// a product (P, 32) @ (32, 32) is MT x 4 n-tiles x 2 k-steps = 16 MMAs at
+// MT = 2. Each lane holds the tile in the MMA accumulator layout
+// (Tile::v[m][n][r]: point 16 m + g + 8 (r / 2), column 8 n + 2 t + r % 2,
+// g = lane / 4, t = lane % 4), and that layout is also the A operand's: the
+// accumulators of n-tiles 2 s and 2 s + 1 are, rounded to bf16 in pairs, the
+// A fragment of k-step s. So a layer's output feeds the next product from
+// registers, with no activation buffer, no shared-memory round trip and no
+// __syncwarp; ReLU and the rounding are one cvt.rn.relu.bf16x2 per pair. The weights sit in shared memory as bf16 in B-fragment order,
+// each lane's two registers of a (k-step, n-tile) one 8-byte load, the
+// warp's 32 loads 256 contiguous bytes.
+//
+// Sums: the products of bf16 values are exact in float32; the tensor core
+// adds them in its own order, so outputs agree with a float32 sum of the
+// same products to float32 rounding, not bit for bit.
+
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include "trunk.cuh"
+
+namespace tc {
+
+using trunk::H;
+using trunk::OE;
+
+constexpr int NT = H / 8;   // n-tiles of 8 columns across a head
+constexpr int KS = H / 16;  // k-steps of 16 in a product
+constexpr int FRAG_WORDS = KS * NT * 32 * 2;  // 32-bit words of one (H, H) matrix's fragments
+constexpr int HEAD_WORDS = KS * 32 * 2;       // the head's (H, OE) matrix, padded to 8 columns
+static_assert(H % 16 == 0 && OE <= 8, "whole k-steps; one n-tile of head outputs");
+
+// 32-bit words of one head's trunk weights in shared memory at NB blocks:
+// the fragments of w0 and w1 per block and of wout, then the float biases
+// b0 and b1 per block and bout.
+__host__ __device__ inline int weight_words(int NB) {
+  return NB * 2 * FRAG_WORDS + HEAD_WORDS + NB * 2 * H + OE;
+}
+
+struct Weights {
+  const uint2* w0;  // (NB) x fragments
+  const uint2* w1;
+  const uint2* wo;
+  const float* b0;  // (NB, H)
+  const float* b1;  // (NB, H)
+  const float* bo;  // (OE)
+};
+
+// bf16x2 of relu(lo), relu(hi), rounded to nearest, in one conversion (ReLU
+// commutes with rounding, so this is relu then round).
+__device__ __forceinline__ unsigned pack_relu(float lo, float hi) {
+  unsigned d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+__device__ __forceinline__ unsigned pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Word w of the B fragments of a (K = H, N = cols) matrix W (row-major,
+// ld = cols; columns past cols are zero), n-tiles per k-step nt: lane l's
+// register r of (k-step s, n-tile n) holds W[16 s + 8 r + 2 t + {0, 1}][8 n + g].
+__device__ __forceinline__ unsigned fragment_word(const __nv_bfloat16* __restrict__ W, int cols,
+                                                  int nt, int w) {
+  const int r = w % 2, lane = (w / 2) % 32, j = w / 64;
+  const int s = j / nt, n = 8 * (j % nt) + lane / 4;
+  const int k = 16 * s + 8 * r + 2 * (lane % 4);
+  if (n >= cols) return 0u;
+  return pack(W[k * cols + n], W[(k + 1) * cols + n]);
+}
+
+// Copy head e's weights from the per-head bf16 stacks w0/w1 (NB, E, H, H),
+// b0/b1 (NB, E, H), wout (E, H, OE), bout (E, OE) into `smem` (16-byte
+// aligned). Every thread of the block calls it; the caller synchronises
+// before reading.
+__device__ inline Weights load_weights(unsigned* smem, const __nv_bfloat16* __restrict__ w0,
+                                       const __nv_bfloat16* __restrict__ b0,
+                                       const __nv_bfloat16* __restrict__ w1,
+                                       const __nv_bfloat16* __restrict__ b1,
+                                       const __nv_bfloat16* __restrict__ wout,
+                                       const __nv_bfloat16* __restrict__ bout, int e, int E,
+                                       int NB) {
+  unsigned* f0 = smem;
+  unsigned* f1 = f0 + NB * FRAG_WORDS;
+  unsigned* fo = f1 + NB * FRAG_WORDS;
+  float* sb0 = reinterpret_cast<float*>(fo + HEAD_WORDS);
+  float* sb1 = sb0 + NB * H;
+  float* sbo = sb1 + NB * H;
+  for (int i = threadIdx.x; i < NB * FRAG_WORDS; i += blockDim.x) {
+    const int blk = i / FRAG_WORDS, w = i % FRAG_WORDS;
+    const size_t m = ((size_t)blk * E + e) * H * H;
+    f0[i] = fragment_word(w0 + m, H, NT, w);
+    f1[i] = fragment_word(w1 + m, H, NT, w);
+  }
+  for (int i = threadIdx.x; i < HEAD_WORDS; i += blockDim.x)
+    fo[i] = fragment_word(wout + (size_t)e * H * OE, OE, 1, i);
+  for (int i = threadIdx.x; i < NB * H; i += blockDim.x) {
+    const int blk = i / H, r = i % H;
+    sb0[i] = __bfloat162float(b0[((size_t)blk * E + e) * H + r]);
+    sb1[i] = __bfloat162float(b1[((size_t)blk * E + e) * H + r]);
+  }
+  if (threadIdx.x < OE) sbo[threadIdx.x] = __bfloat162float(bout[e * OE + threadIdx.x]);
+  return {reinterpret_cast<const uint2*>(f0), reinterpret_cast<const uint2*>(f1),
+          reinterpret_cast<const uint2*>(fo), sb0, sb1, sbo};
+}
+
+// d = a @ b + d on one m16n8k16 tile (bf16 operands, float32 accumulators).
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+template <int MT>
+struct Tile {
+  static constexpr int P = 16 * MT;  // lattice points of a warp tile
+  float v[MT][NT][4];
+};
+
+// Point (0 .. P-1) of the tile that register pair (m, h) of lane `lane` holds.
+__device__ __forceinline__ int point(int m, int h, int lane) { return 16 * m + 8 * h + lane / 4; }
+
+// net[m][n][2h + {0, 1}] (+)= row_{m,h}[8 n + 2 t + {0, 1}], where row_{m,h}
+// = plane + idx[m][h] * F: a lane's two columns of each n-tile, one 4-byte
+// load each (plane and F keep every row 4-byte aligned). Rows are addressed
+// from their index, not held as pointers: a pointer costs two registers.
+template <bool kSet, int MT>
+__device__ __forceinline__ void rows(Tile<MT>& net, const __nv_bfloat16* __restrict__ plane,
+                                     const int (&idx)[MT][2], int F, int lane) {
+  const __nv_bfloat16* lane_plane = plane + 2 * (lane % 4);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat16* row = lane_plane + (size_t)idx[m][h] * F;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 u =
+            __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(row + 8 * n)));
+        if (kSet) {
+          net.v[m][n][2 * h] = u.x;
+          net.v[m][n][2 * h + 1] = u.y;
+        } else {
+          net.v[m][n][2 * h] += u.x;
+          net.v[m][n][2 * h + 1] += u.y;
+        }
+      }
+    }
+}
+
+// a[m][s] = the A fragments of bf16(relu(v + bias)) with kBias, else of
+// bf16(relu(v)); bias indexed by column.
+template <bool kBias, int MT>
+__device__ __forceinline__ void operand(unsigned (&a)[MT][KS][4], const Tile<MT>& x,
+                                        const float* bias, int lane) {
+  const int t = lane % 4;
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = 2 * s + half;
+      const float c0 = kBias ? bias[8 * n + 2 * t] : 0.f;
+      const float c1 = kBias ? bias[8 * n + 2 * t + 1] : 0.f;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* v = x.v[m][n];
+        if (kBias) {
+          a[m][s][2 * half] = pack_relu(v[0] + c0, v[1] + c1);
+          a[m][s][2 * half + 1] = pack_relu(v[2] + c0, v[3] + c1);
+        } else {
+          a[m][s][2 * half] = pack_relu(v[0], v[1]);
+          a[m][s][2 * half + 1] = pack_relu(v[2], v[3]);
+        }
+      }
+    }
+}
+
+// acc = A @ W from zero, W's fragments in shared memory.
+template <int MT>
+__device__ __forceinline__ void product(Tile<MT>& acc, const unsigned (&a)[MT][KS][4],
+                                        const uint2* W, int lane) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc.v[m][n][r] = 0.f;
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const uint2 b = W[(s * NT + n) * 32 + lane];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma(acc.v[m][n], a[m][s], b);
+    }
+}
+
+// One ResnetBlockFC on the warp's tile:
+// net += relu(bf16(relu(net)) @ w0 + b0) rounded to bf16 @ w1 + b1.
+template <int MT>
+__device__ __forceinline__ void resnet_block(Tile<MT>& net, const Weights& s, int blk,
+                                             int lane) {
+  unsigned a[MT][KS][4];
+  Tile<MT> acc;
+  operand<false>(a, net, nullptr, lane);
+  product(acc, a, s.w0 + blk * (FRAG_WORDS / 2), lane);
+  operand<true>(a, acc, s.b0 + blk * H, lane);
+  product(acc, a, s.w1 + blk * (FRAG_WORDS / 2), lane);
+  const int t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float c0 = s.b1[blk * H + 8 * n + 2 * t], c1 = s.b1[blk * H + 8 * n + 2 * t + 1];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      net.v[m][n][0] = net.v[m][n][0] + (acc.v[m][n][0] + c0);
+      net.v[m][n][1] = net.v[m][n][1] + (acc.v[m][n][1] + c1);
+      net.v[m][n][2] = net.v[m][n][2] + (acc.v[m][n][2] + c0);
+      net.v[m][n][3] = net.v[m][n][3] + (acc.v[m][n][3] + c1);
+    }
+  }
+}
+
+// The head: o[m][r] = (bf16(relu(net)) @ wout + bout) for point
+// 16 m + g + 8 (r / 2) and output 2 t + r % 2; lanes with t >= OE / 2 hold
+// padding columns, which the caller drops.
+template <int MT>
+__device__ __forceinline__ void head_out(float (&o)[MT][4], const Tile<MT>& net,
+                                         const Weights& s, int lane) {
+  unsigned a[MT][KS][4];
+  operand<false>(a, net, nullptr, lane);
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[m][r] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint2 b = s.wo[ks * 32 + lane];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) mma(o[m], a[m][ks], b);
+  }
+  const int c = 2 * (lane % 4);
+  const float c0 = c < OE ? s.bo[c] : 0.f, c1 = c + 1 < OE ? s.bo[c + 1] : 0.f;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    o[m][0] += c0;
+    o[m][1] += c1;
+    o[m][2] += c0;
+    o[m][3] += c1;
+  }
+}
+
+}  // namespace tc

@@ -16,11 +16,19 @@ Precision: the fp32 plan turns TF32 off for cuDNN convolutions and CUDA
 matmuls while it runs (``full_precision``), the counterpart of the JAX
 plan's ``default_matmul_precision("highest")`` pin. The flags are
 process-wide; they are restored when the last running plan ends.
+
+``GIGAPlanner(precision="bf16")`` serves the JAX package's bf16
+configuration (its TPU program, ``_maybe_cast``): a bf16 copy of the net,
+the network's TSDF input cast to bf16 inside the program, the kernels in
+their bf16 modes (bf16 operands, float32 sums), and the heads, masking and
+the rest of the postprocess in float32, still under ``full_precision``.
+The program's precision is the net's parameter dtype.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 import time
 from collections import deque
@@ -112,6 +120,14 @@ def lattice_positions(coords: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1)
 
 
+PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def net_dtype(net) -> torch.dtype:
+    """The dtype a program runs the network in: its parameters' dtype."""
+    return next(net.parameters()).dtype
+
+
 class _Lattice:
     """The lattice coords (R,) and positions (R, R, R, 3), made once per
     device: a copy from host memory inside a program would wait for the
@@ -137,13 +153,15 @@ def build_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig
     It encodes with ``net.encode``, as the JAX package's single-scene
     program does. ``use_kernels`` decodes through K3; without it the program
     decodes through the module path, the reference the kernel's program is
-    checked against.
+    checked against. A bf16 net runs the bf16 program: the TSDF cast to
+    bf16 for the network, K3's bf16 mode, a float32 postprocess.
     """
     voxel_size = size / planner_cfg.resolution
     R = planner_cfg.resolution
     P = model_cfg.encoder.plane_resolution
     n_blocks = model_cfg.decoder.n_blocks
     lattice = _Lattice(R)
+    dtype = net_dtype(net)
 
     def plan(tsdf: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
         if tuple(tsdf.shape) != (P, P, P):
@@ -153,13 +171,15 @@ def build_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig
                              f"got {tuple(tsdf_process.shape)}")
         coords, positions = lattice(tsdf.device)
         with torch.inference_mode(), full_precision():
-            planes = {t: v[0] for t, v in net.encode(tsdf[None]).items()}
+            planes = {t: v[0] for t, v in net.encode(tsdf[None].to(dtype)).items()}
             feats = sample_planes_on_lattice(planes, coords, P, model_cfg.decoder.padding)
             dec = net.decoder_aff.params()
             if use_kernels:
-                qual, rot, width = decode_affordance_dense_kernel(dec, feats, coords, n_blocks)
+                qual, rot, width = decode_affordance_dense_kernel(dec, feats, coords, n_blocks,
+                                                                  dtype)
             else:
-                qual, rot, width = decode_affordance_dense(dec, feats, coords, n_blocks)
+                qual, rot, width = (v.float() for v in
+                                    decode_affordance_dense(dec, feats, coords, n_blocks))
             masked = mask_quality(qual, tsdf_process, width, planner_cfg)
             masked = bound_quality(masked, voxel_size, planner_cfg)
             return select_grasps(masked, rot, width, positions, planner_cfg)
@@ -175,13 +195,16 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     P is the encoder's plane resolution, R the planner's lattice resolution.
     ``use_kernels`` runs K1 and K2; without it the program runs the module
     path (the counterpart of the JAX package's XLA path), which serves as
-    the reference the kernels' program is checked against.
+    the reference the kernels' program is checked against. A bf16 net runs
+    the bf16 program: the TSDFs cast to bf16 for the network, K1's and K2's
+    bf16 modes, a float32 postprocess.
     """
     voxel_size = size / planner_cfg.resolution
     R = planner_cfg.resolution
     P = model_cfg.encoder.plane_resolution
     n_blocks = model_cfg.decoder.n_blocks
     lattice = _Lattice(R)
+    dtype = net_dtype(net)
 
     def plan(tsdfs: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
         if tsdfs.ndim != 4 or tuple(tsdfs.shape[1:]) != (P, P, P):
@@ -192,16 +215,17 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
         coords, positions = lattice(tsdfs.device)
         with torch.inference_mode(), full_precision():
             if use_kernels and can_encode_fused(model_cfg.encoder, tsdfs.shape):
-                planes = encode_planes_fused(net.encoder, tsdfs)
+                planes = encode_planes_fused(net.encoder, tsdfs.to(dtype))
             else:
-                planes = net.encode(tsdfs)
+                planes = net.encode(tsdfs.to(dtype))
             feats = sample_planes_on_lattice_batched(
                 planes, coords, P, model_cfg.decoder.padding)
             if use_kernels:
                 qual, rot, width = decode_affordance_dense_kernel_batched(
-                    net.decoder_aff.params(), feats, coords, n_blocks)
+                    net.decoder_aff.params(), feats, coords, n_blocks, dtype)
             else:
-                qual, rot, width = net.decode_affordance_lattice(feats, coords)
+                qual, rot, width = (v.float() for v in
+                                    net.decode_affordance_lattice(feats, coords))
             masked = mask_quality(qual, tsdf_process, width, planner_cfg)
             masked = bound_quality(masked, voxel_size, planner_cfg)
             return select_grasps_batched(masked, rot, width, positions, planner_cfg)
@@ -254,7 +278,8 @@ class GIGAPlanner:
     detection_implicit.py:62-76). ``device=None`` runs on the card and
     raises without one; pass ``device="cpu"`` to plan on the CPU.
     Weights come from ``model_path`` (.msgpack), a flax ``params`` tree, or
-    a ready ``net``.
+    a ready ``net``. ``precision="bf16"`` plans with a bf16 copy of the net,
+    made once here (a ``net`` passed in is not changed), in both programs.
     """
 
     def __init__(
@@ -277,8 +302,8 @@ class GIGAPlanner:
         precision: str = "fp32",
         device=None,
     ):
-        if precision != "fp32":
-            raise NotImplementedError(f"precision={precision!r}: only fp32 is ported")
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
         if isinstance(params, (list, tuple)):
             raise NotImplementedError("checkpoint ensembles are not ported")
         if visualize:
@@ -291,7 +316,10 @@ class GIGAPlanner:
             net.load_state_dict(flax_to_state_dict(params))
         elif net is None:
             net, model_cfg = load_network(model_path, model_type)
-        self.net = net.to(self.device).eval()
+        net = net.to(self.device).eval()
+        if precision != "fp32":
+            net = copy.deepcopy(net).to(PRECISIONS[precision])
+        self.net = net
         self.model_cfg = model_cfg if model_cfg is not None else net.cfg
         self.planner_cfg = PlannerConfig(
             resolution=resolution,

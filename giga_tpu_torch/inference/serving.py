@@ -105,8 +105,9 @@ class PlannerService:
     """Micro-batching front-end over a GIGAPlanner's batched program.
 
     Args:
-        planner: a ``GIGAPlanner`` (its postprocess config and weights are
-            served as-is; results match ``planner.plan_batch``).
+        planner: a ``GIGAPlanner`` (its postprocess config, weights and
+            precision are served as-is: its batched program is the one
+            ``plan_batch`` runs, so results match ``planner.plan_batch``).
         batch_size: device batch B — every batch runs at this shape.
         max_wait_ms: max time the batcher waits for a batch to fill before
             dispatching a padded partial batch.

@@ -22,6 +22,13 @@ F-wide layout (head e owns columns e*H .. e*H + H - 1).
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``) for CPU tensors; there is no other fallback.
+
+K2 and K3 have two modes, chosen by the inputs' dtype: float32, and
+bfloat16 (the TPU kernels' ``compute_dtype=bf16``, with K2's projections
+stored in bf16): every input bf16, the assembly, biases and residual stream
+float32, and the operands of each product rounded to bf16 with float32
+sums. ``prepare_projections(_batched)(..., dtype=torch.bfloat16)`` makes
+those inputs as the JAX package's bf16 program does.
 """
 
 from __future__ import annotations
@@ -79,10 +86,17 @@ def _project(f: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def prepare_projections_batched(dec: dict, feats: dict, coords: torch.Tensor,
-                                n_blocks: int = 5):
+                                n_blocks: int = 5, dtype: torch.dtype = torch.float32):
     """feats {t: (B, R, R, C)} -> K2's inputs: px/py/pz (R, F); pxz/pxy/pyz
     (B, n_blocks, R, R, F), the fc_c bias in pxz; the per-head trunk and
-    head weights (``_trunk_weights``)."""
+    head weights (``_trunk_weights``).
+
+    ``dtype=torch.bfloat16`` casts the weights and features to bf16 and
+    computes every input in bf16, as the JAX package's bf16 program does:
+    the coords too, each product rounded once, then the bias add rounded."""
+    if dtype != torch.float32:
+        dec = {k: v.to(dtype) for k, v in dec.items()}
+        feats = {t: v.to(dtype) for t, v in feats.items()}
     px, py, pz = prepare_axis_terms(dec, coords)
     wxz, wxy, wyz, bc = _fc_c_splits(dec, n_blocks)
     pxz = torch.stack([_project(feats["xz"], wxz[i]) + bc[i] for i in range(n_blocks)], 1)
@@ -91,11 +105,12 @@ def prepare_projections_batched(dec: dict, feats: dict, coords: torch.Tensor,
     return (px, py, pz, pxz, pxy, pyz, *_trunk_weights(dec, n_blocks))
 
 
-def prepare_projections(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+def prepare_projections(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5,
+                        dtype: torch.dtype = torch.float32):
     """Single-scene ``prepare_projections_batched``: feats {t: (R, R, C)} ->
     K3's inputs, pxz/pxy/pyz (n_blocks, R, R, F)."""
     inputs = prepare_projections_batched(dec, {t: v[None] for t, v in feats.items()},
-                                         coords, n_blocks)
+                                         coords, n_blocks, dtype)
     return inputs[:3] + tuple(p[0] for p in inputs[3:6]) + inputs[6:]
 
 
@@ -121,51 +136,71 @@ def prepare_hybrid_inputs(dec: dict, feats: dict, coords: torch.Tensor, n_blocks
 
 # -- plain versions -----------------------------------------------------------
 
-def _trunk_plain(net, block_input, w0, b0, w1, b1, wout, bout):
-    """The per-head trunk on a (..., F) residual stream: block i first adds
-    ``block_input(net, i)``'s plane terms, then runs its ResnetBlockFC.
-    Returns (..., heads*O)."""
+def _trunk_plain(net, block_input, w0, b0, w1, b1, wout, bout,
+                 compute_dtype: torch.dtype = torch.float32):
+    """The per-head trunk on a (..., F) float32 residual stream: block i
+    first adds ``block_input(net, i)``'s plane terms, then runs its
+    ResnetBlockFC. Returns (..., heads*O) float32. With ``compute_dtype``
+    bf16 both operands of each product are rounded to bf16 and the product
+    runs in float32: exact products, float32 sums, as the TPU kernel's bf16
+    mode computes them."""
+    def operand(a):
+        return a.float() if compute_dtype == torch.float32 else a.to(compute_dtype).float()
+
     n_blocks, E, H, _ = w0.shape
     lead = net.shape[:-1]
+    w0, w1, wout = operand(w0), operand(w1), operand(wout)
+    b0, b1, bout = b0.float(), b1.float(), bout.float()
     for i in range(n_blocks):
         net = block_input(net, i)
         heads = net.reshape(*lead, E, H)
-        hid = torch.einsum("...ek,ekj->...ej", torch.relu(heads), w0[i]) + b0[i]
-        dx = torch.einsum("...ek,ekj->...ej", torch.relu(hid), w1[i]) + b1[i]
+        hid = torch.einsum("...ek,ekj->...ej", operand(torch.relu(heads)), w0[i]) + b0[i]
+        dx = torch.einsum("...ek,ekj->...ej", operand(torch.relu(hid)), w1[i]) + b1[i]
         net = net + dx.reshape(*lead, E * H)
     heads = net.reshape(*lead, E, H)
-    out = torch.einsum("...ek,eko->...eo", torch.relu(heads), wout) + bout
+    out = torch.einsum("...ek,eko->...eo", operand(torch.relu(heads)), wout) + bout
     return out.reshape(*lead, -1)
 
 
 def _lattice_start(px, py, pz, B: int):
-    """(B, R, R, R, F) block-0 input (px[x] + py[y]) + pz[z]."""
+    """(B, R, R, R, F) float32 block-0 input (px[x] + py[y]) + pz[z]."""
+    px, py, pz = px.float(), py.float(), pz.float()
     R, F = px.shape
     net = (px[:, None, None, :] + py[None, :, None, :]) + pz[None, None, :, :]
     return net.expand(B, R, R, R, F)
 
 
-def dense_decode_plain(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
-    """Plain PyTorch version of K2 on the same inputs -> (B, heads*O, R^3),
-    rows flattened as (x*R + y)*R + z."""
+def dense_decode_plain(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout,
+                       compute_dtype: torch.dtype | None = None):
+    """Plain PyTorch version of K2 on the same inputs -> (B, heads*O, R^3)
+    float32, rows flattened as (x*R + y)*R + z. ``compute_dtype`` (float32
+    or bfloat16) defaults to the projections' dtype."""
     B, R = pxz.shape[0], px.shape[0]
+    compute_dtype = compute_dtype or pxz.dtype
+    pxz, pxy, pyz = pxz.float(), pxy.float(), pyz.float()
 
     def block_input(net, i):
         return (net + pxz[:, i][:, :, None, :, :] + pxy[:, i][:, :, :, None, :]
                 + pyz[:, i][:, None, :, :, :])
 
-    out = _trunk_plain(_lattice_start(px, py, pz, B), block_input, w0, b0, w1, b1, wout, bout)
+    out = _trunk_plain(_lattice_start(px, py, pz, B), block_input, w0, b0, w1, b1, wout, bout,
+                       compute_dtype)
     return out.reshape(B, R ** 3, -1).permute(0, 2, 1).contiguous()
 
 
-def fused_dense_decode_plain(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
+def fused_dense_decode_plain(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout,
+                             compute_dtype: torch.dtype | None = None):
     """Plain PyTorch version of K3: one scene, pxz/pxy/pyz (n_blocks, R, R, F)
-    -> (R, R, R, heads*O) indexed [x, y, z, o]."""
+    -> (R, R, R, heads*O) float32 indexed [x, y, z, o]. ``compute_dtype``
+    defaults to the projections' dtype."""
+    compute_dtype = compute_dtype or pxz.dtype
+    pxz, pxy, pyz = pxz.float(), pxy.float(), pyz.float()
+
     def block_input(net, i):
         return net + pxz[i][:, None, :, :] + pxy[i][:, :, None, :] + pyz[i][None, :, :, :]
 
     return _trunk_plain(_lattice_start(px, py, pz, 1)[0], block_input,
-                        w0, b0, w1, b1, wout, bout)
+                        w0, b0, w1, b1, wout, bout, compute_dtype)
 
 
 def dense_decode_feats_plain(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
@@ -194,16 +229,27 @@ def dense_decode_hybrid_plain(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1, b
 
 # -- kernel wrappers ----------------------------------------------------------
 
-def _check(what: str, expect: dict, args, device) -> None:
+def _check(what: str, expect: dict, args, device, dtype=torch.float32) -> None:
     """Raise ValueError unless every tensor has its expected shape and is
-    contiguous, 16-byte aligned float32 on ``device``."""
+    contiguous, 16-byte aligned ``dtype`` on ``device``."""
     for (name, shape), t in zip(expect.items(), args):
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
-        if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
+        if (t.device != device or t.dtype != dtype or not t.is_contiguous()
                 or t.data_ptr() % 16):
             raise ValueError(f"{what}: {name} must be contiguous, 16-byte aligned "
-                             f"float32 on {device}")
+                             f"{dtype} on {device}")
+
+
+# K2's and K3's library entry points for each input dtype
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _mode(what: str, t: torch.Tensor) -> str:
+    """The entry-point suffix for inputs of ``t``'s dtype."""
+    if t.dtype not in SUFFIX:
+        raise ValueError(f"{what}: unsupported dtype {t.dtype}")
+    return SUFFIX[t.dtype]
 
 
 def _trunk_shapes(w0, wout):
@@ -233,23 +279,25 @@ def _device(what: str, t: torch.Tensor):
 
 
 def dense_decode_batched(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
-    """K2 trunk -> (B, heads*O, R^3); the CUDA kernel for CUDA tensors."""
+    """K2 trunk -> (B, heads*O, R^3) float32; the CUDA kernel for CUDA
+    tensors, in the inputs' dtype's mode (all float32 or all bfloat16)."""
     args = (px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout)
     device = _device("dense_decode_batched", pxz)
     if device is None:
         return dense_decode_plain(*args)
+    entry = "dense_decode_" + _mode("dense_decode_batched", pxz)
     R, F = px.shape
     B = pxz.shape[0]
     n_blocks, E, H, O = _trunk_shapes(w0, wout)
     plane = (B, n_blocks, R, R, E * H)
     _check("dense_decode_batched",
            {"px": (R, E * H), "py": (R, E * H), "pz": (R, E * H), "pxz": plane, "pxy": plane,
-            "pyz": plane, **_trunk_expect(n_blocks, E, H, O)}, args, device)
+            "pyz": plane, **_trunk_expect(n_blocks, E, H, O)}, args, device, pxz.dtype)
     out = torch.empty((B, E * O, R ** 3), device=device, dtype=torch.float32)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _lib().dense_decode_f32(*(t.data_ptr() for t in args), out.data_ptr(),
-                                  B, R, E, n_blocks, stream)
-    _build.check(err, "dense_decode_f32")
+    err = getattr(_lib(), entry)(*(t.data_ptr() for t in args), out.data_ptr(),
+                                 B, R, E, n_blocks, stream)
+    _build.check(err, entry)
     dense_decode_batched.launches += 1
     return out
 
@@ -259,22 +307,24 @@ dense_decode_batched.launches = 0
 
 def fused_dense_decode(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
     """K3 trunk for one scene, pxz/pxy/pyz (n_blocks, R, R, F) ->
-    (R, R, R, heads*O) indexed [x, y, z, o]; the CUDA kernel for CUDA tensors."""
+    (R, R, R, heads*O) float32 indexed [x, y, z, o]; the CUDA kernel for
+    CUDA tensors, in the inputs' dtype's mode."""
     args = (px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout)
     device = _device("fused_dense_decode", pxz)
     if device is None:
         return fused_dense_decode_plain(*args)
+    entry = "dense_decode_single_" + _mode("fused_dense_decode", pxz)
     R = px.shape[0]
     n_blocks, E, H, O = _trunk_shapes(w0, wout)
     plane = (n_blocks, R, R, E * H)
     _check("fused_dense_decode",
            {"px": (R, E * H), "py": (R, E * H), "pz": (R, E * H), "pxz": plane, "pxy": plane,
-            "pyz": plane, **_trunk_expect(n_blocks, E, H, O)}, args, device)
+            "pyz": plane, **_trunk_expect(n_blocks, E, H, O)}, args, device, pxz.dtype)
     out = torch.empty((R, R, R, E * O), device=device, dtype=torch.float32)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _lib().dense_decode_single_f32(*(t.data_ptr() for t in args), out.data_ptr(),
-                                         R, E, n_blocks, stream)
-    _build.check(err, "dense_decode_single_f32")
+    err = getattr(_lib(), entry)(*(t.data_ptr() for t in args), out.data_ptr(),
+                                 R, E, n_blocks, stream)
+    _build.check(err, entry)
     fused_dense_decode.launches += 1
     return out
 
@@ -380,19 +430,21 @@ def _heads(dec: dict) -> int:
 
 
 def decode_affordance_dense_kernel_batched(dec: dict, feats: dict, coords: torch.Tensor,
-                                           n_blocks: int = 5):
-    """Batched (qual, rot, width) through K2: qual (B,R,R,R), rot (B,4,R^3),
-    width (B,R,R,R)."""
-    inputs = prepare_projections_batched(dec, feats, coords, n_blocks)
+                                           n_blocks: int = 5,
+                                           compute_dtype: torch.dtype = torch.float32):
+    """Batched (qual, rot, width) through K2 in ``compute_dtype``'s mode:
+    float32 qual (B,R,R,R), rot (B,4,R^3), width (B,R,R,R)."""
+    inputs = prepare_projections_batched(dec, feats, coords, n_blocks, compute_dtype)
     out = dense_decode_batched(*inputs)
     return split_heads_transposed(out, _heads(dec), coords.shape[0])
 
 
 def decode_affordance_dense_kernel(dec: dict, feats: dict, coords: torch.Tensor,
-                                   n_blocks: int = 5):
-    """Single-scene (qual, rot, width) through K3, feats {t: (R, R, C)}:
-    qual (R,R,R), rot (R,R,R,4), width (R,R,R)."""
-    out = fused_dense_decode(*prepare_projections(dec, feats, coords, n_blocks))
+                                   n_blocks: int = 5, compute_dtype: torch.dtype = torch.float32):
+    """Single-scene (qual, rot, width) through K3 in ``compute_dtype``'s
+    mode, feats {t: (R, R, C)}: float32 qual (R,R,R), rot (R,R,R,4), width
+    (R,R,R)."""
+    out = fused_dense_decode(*prepare_projections(dec, feats, coords, n_blocks, compute_dtype))
     return split_heads(out, _heads(dec))
 
 
@@ -413,14 +465,16 @@ def decode_affordance_dense_kernel_hybrid_batched(dec: dict, feats: dict, coords
 
 
 def dense_decode_launch_config(B: int, R: int, heads: int, n_blocks: int,
-                               point_major: bool = False) -> dict:
+                               point_major: bool = False,
+                               dtype: torch.dtype = torch.float32) -> dict:
     """The launch K2 (or K3, ``point_major``) makes for these shapes on the
-    current card: resident blocks per SM (cudaOccupancyMaxActiveBlocksPer-
-    Multiprocessor), SMs, grid (blocks per head x heads), threads and dynamic
-    shared bytes per block."""
+    current card in ``dtype``'s mode: resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs, grid (blocks per
+    head x heads), threads and dynamic shared bytes per block."""
+    entry = "dense_decode_config" if dtype == torch.float32 else "dense_decode_bf16_config"
     info = (ctypes.c_int * 6)()
-    err = _lib().dense_decode_config(int(point_major), B, R, heads, n_blocks, info)
-    _build.check(err, "dense_decode_config")
+    err = getattr(_lib(), entry)(int(point_major), B, R, heads, n_blocks, info)
+    _build.check(err, entry)
     return {"blocks_per_sm": info[0], "sms": info[1], "grid": (info[2], info[3]),
             "threads": info[4], "shared_bytes": info[5]}
 
@@ -443,12 +497,14 @@ def _lib() -> ctypes.CDLL:
     """K2/K3's library, built and loaded on first use, its C signatures bound."""
     lib = _build.load("dense_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dense_decode_f32.argtypes = [p] * 13 + [i, i, i, i, p]
-    lib.dense_decode_f32.restype = i
-    lib.dense_decode_single_f32.argtypes = [p] * 13 + [i, i, i, p]
-    lib.dense_decode_single_f32.restype = i
-    lib.dense_decode_config.argtypes = [i] * 5 + [ctypes.POINTER(i)]
-    lib.dense_decode_config.restype = i
+    for suffix in SUFFIX.values():
+        getattr(lib, f"dense_decode_{suffix}").argtypes = [p] * 13 + [i, i, i, i, p]
+        getattr(lib, f"dense_decode_{suffix}").restype = i
+        getattr(lib, f"dense_decode_single_{suffix}").argtypes = [p] * 13 + [i, i, i, p]
+        getattr(lib, f"dense_decode_single_{suffix}").restype = i
+    for entry in ("dense_decode_config", "dense_decode_bf16_config"):
+        getattr(lib, entry).argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        getattr(lib, entry).restype = i
     lib.dense_decode_hidden.argtypes = []
     lib.dense_decode_hidden.restype = i
     lib.dense_decode_outputs.argtypes = []

@@ -3,6 +3,12 @@
 Counterpart of giga_tpu/ops/pallas/stem_kernel.py. ``stem_pool_batched``
 launches the CUDA kernel for CUDA tensors and runs ``stem_pool_plain`` for
 CPU tensors; there is no other fallback.
+
+Two modes, chosen by the inputs' dtype: float32 (``stem_pool_f32``), and
+bfloat16 TSDF, weights and bias (``stem_pool_bf16``, the TPU kernel's
+``compute_dtype=bf16``): the conv runs on the bf16 operands with float32
+sums, bias, ReLU and means stay float32, and the planes come out bf16 for
+the U-Net.
 """
 
 from __future__ import annotations
@@ -15,6 +21,9 @@ import torch.nn.functional as F
 
 from giga_tpu_torch.ops.kernels import _build
 
+# the library's entry point for each input dtype
+ENTRY = {torch.float32: "stem_pool_f32", torch.bfloat16: "stem_pool_bf16"}
+
 
 def axis_mean_planes(feat: torch.Tensor, plane_types=("xz", "xy", "yz")) -> dict:
     """(B, C, X, Y, Z) voxel features -> {t: (B, H, W, C)}: the mean over the
@@ -25,15 +34,21 @@ def axis_mean_planes(feat: torch.Tensor, plane_types=("xz", "xy", "yz")) -> dict
 
 def stem_pool_plain(weight: torch.Tensor, bias: torch.Tensor, tsdfs: torch.Tensor) -> dict:
     """Plain PyTorch version of K1: relu(conv3d(tsdf) + bias), then the three
-    axis means. weight (C, 1, k, k, k), bias (C,), tsdfs (B, X, Y, Z)."""
+    axis means. weight (C, 1, k, k, k), bias (C,), tsdfs (B, X, Y, Z). For
+    bf16 inputs the conv, bias, ReLU and means run in float32 on the bf16
+    values (products of bf16 values are exact in float32) and the planes
+    are rounded to bf16."""
     k = weight.shape[-1]
-    feat = F.relu(F.conv3d(tsdfs[:, None], weight, bias, padding=k // 2))
-    return axis_mean_planes(feat)
+    feat = F.relu(F.conv3d(tsdfs[:, None].float(), weight.float(), bias.float(),
+                           padding=k // 2))
+    planes = axis_mean_planes(feat)
+    return {t: v.to(tsdfs.dtype) for t, v in planes.items()}
 
 
 def stem_pool_batched(weight: torch.Tensor, bias: torch.Tensor, tsdfs: torch.Tensor) -> dict:
     """(B, X, Y, Z) TSDF -> {'xz': (B, Z, X, C), 'xy': (B, Y, X, C),
-    'yz': (B, Z, Y, C)} pooled planes; the CUDA kernel for CUDA tensors."""
+    'yz': (B, Z, Y, C)} pooled planes in the inputs' dtype (float32 or
+    bfloat16); the CUDA kernel for CUDA tensors."""
     if tsdfs.device.type == "cpu":
         return stem_pool_plain(weight, bias, tsdfs)
     if tsdfs.device.type != "cuda":
@@ -42,20 +57,23 @@ def stem_pool_batched(weight: torch.Tensor, bias: torch.Tensor, tsdfs: torch.Ten
     if tsdfs.ndim != 4 or weight.shape[1:] != (1, 3, 3, 3) or bias.shape != (C,):
         raise ValueError(f"stem_pool_batched: shapes weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)}, tsdfs {tuple(tsdfs.shape)}")
+    dtype = tsdfs.dtype
+    if dtype not in ENTRY:
+        raise ValueError(f"stem_pool_batched: unsupported dtype {dtype}")
     for name, t in (("weight", weight), ("bias", bias), ("tsdfs", tsdfs)):
-        if t.device != tsdfs.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"stem_pool_batched: {name} must be contiguous float32 "
+        if t.device != tsdfs.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"stem_pool_batched: {name} must be contiguous {dtype} "
                              f"on {tsdfs.device}")
     B, X, Y, Z = tsdfs.shape
     stem_pool_launch_config(B, X, Y, Z, C)
-    xz = torch.empty((B, Z, X, C), device=tsdfs.device, dtype=torch.float32)
-    xy = torch.empty((B, Y, X, C), device=tsdfs.device, dtype=torch.float32)
-    yz = torch.empty((B, Z, Y, C), device=tsdfs.device, dtype=torch.float32)
+    xz = torch.empty((B, Z, X, C), device=tsdfs.device, dtype=dtype)
+    xy = torch.empty((B, Y, X, C), device=tsdfs.device, dtype=dtype)
+    yz = torch.empty((B, Z, Y, C), device=tsdfs.device, dtype=dtype)
     stream = torch.cuda.current_stream(tsdfs.device).cuda_stream
-    err = _lib().stem_pool_f32(tsdfs.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                               xz.data_ptr(), xy.data_ptr(), yz.data_ptr(),
-                               B, X, Y, Z, C, stream)
-    _build.check(err, "stem_pool_f32")
+    err = getattr(_lib(), ENTRY[dtype])(tsdfs.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                                        xz.data_ptr(), xy.data_ptr(), yz.data_ptr(),
+                                        B, X, Y, Z, C, stream)
+    _build.check(err, ENTRY[dtype])
     stem_pool_batched.launches += 1
     return {"xz": xz, "xy": xy, "yz": yz}
 
@@ -81,8 +99,9 @@ def _lib() -> ctypes.CDLL:
     """The kernel library, built and loaded on first use, its C signatures bound."""
     lib = _build.load("stem_pool")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.stem_pool_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.stem_pool_f32.restype = i
+    for entry in ENTRY.values():
+        getattr(lib, entry).argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        getattr(lib, entry).restype = i
     lib.stem_pool_config.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.stem_pool_config.restype = i
     return lib

@@ -2,7 +2,7 @@
 """A/B of the dense-decode trunk kernel's designs (K2 and K3) on the card.
 
     python3 -m giga_tpu_torch.scripts.ab_dense_decode [--tree NAME=DIR ...]
-        [--builds NAME ...] [--rounds 4]
+        [--builds NAME ...] [--rounds 4] [--bf16]
 
 Run from the repository root. Each build in ``DESIGNS`` and ``ABLATIONS``
 (by default all of them) is a copy of ``giga_tpu_torch/csrc/dense_decode.cu``
@@ -16,6 +16,13 @@ and its headers, edited in ``build/giga_tpu_torch/ab/``:
   product's result added into the residual instead so that ptxas keeps the
   product; the second product of each block) to show what each costs. Its
   outputs are wrong by construction and are not checked.
+
+With ``--bf16`` the builds are ``BF16_DESIGNS`` instead, the designs of
+the bf16 mode's tensor-core kernel (``dense_decode_bf16``,
+``dense_decode_single_bf16``): m16 tiles a warp carries (``BF_MT``), warps
+per block and resident blocks per SM asked of ptxas, and each operand's
+ReLU apart from its bf16 conversion; its inputs are the bf16 ones the bf16
+program makes, and its bound is at 989 TFLOP/s.
 
 Each ``--tree NAME=DIR`` adds ``DIR/giga_tpu_torch/csrc/dense_decode.cu`` as
 it stands, for example the parent commit unpacked by ``git archive``. All
@@ -150,6 +157,33 @@ __device__ __forceinline__ void add_staged(float (&net)[TP][TC], const float* st
 ]
 
 
+def _bf16_design(mt: int, warps: int, blocks: int) -> tuple:
+    return {"BF_MT": mt, "BF_WARPS": warps, "BF_MIN_BLOCKS": blocks}, {}
+
+
+# each operand pair's ReLU as two fmaxf before the conversion, as the first
+# bf16 design had it, instead of inside cvt.rn.relu.bf16x2
+_RELU_APART = {"trunk_mma.cuh": [
+    ("a[m][s][2 * half] = pack_relu(v[0] + c0, v[1] + c1);",
+     "a[m][s][2 * half] = pack_relu(fmaxf(v[0] + c0, 0.f), fmaxf(v[1] + c1, 0.f));"),
+    ("a[m][s][2 * half + 1] = pack_relu(v[2] + c0, v[3] + c1);",
+     "a[m][s][2 * half + 1] = pack_relu(fmaxf(v[2] + c0, 0.f), fmaxf(v[3] + c1, 0.f));"),
+    ("a[m][s][2 * half] = pack_relu(v[0], v[1]);",
+     "a[m][s][2 * half] = pack_relu(fmaxf(v[0], 0.f), fmaxf(v[1], 0.f));"),
+    ("a[m][s][2 * half + 1] = pack_relu(v[2], v[3]);",
+     "a[m][s][2 * half + 1] = pack_relu(fmaxf(v[2], 0.f), fmaxf(v[3], 0.f));")]}
+
+# name -> (design constants, {file: edits}) of the bf16 mode's kernel
+BF16_DESIGNS = {
+    "bf16: 32-point tiles, 16 x 1 (shipped)": ({}, {}),
+    "bf16: 32-point tiles, 16 x 1, ReLU apart from the conversion": ({}, _RELU_APART),
+    "bf16: 64-point tiles, 8 x 1": _bf16_design(4, 8, 1),
+    "bf16: 32-point tiles, 8 x 2": _bf16_design(2, 8, 2),
+    "bf16: 32-point tiles, 8 x 3": _bf16_design(2, 8, 3),
+    "bf16: 16-point tiles, 16 x 2": _bf16_design(1, 16, 2),
+}
+
+
 def _replace_once(text: str, old: str, new: str, what: str) -> str:
     if text.count(old) != 1:
         raise AssertionError(f"{what}: {old.strip()[:60]!r} found {text.count(old)} times")
@@ -180,7 +214,10 @@ def edited_copy(directory: Path, source: str, constants: dict, edits: dict) -> P
 
 
 def build_edits(name: str) -> tuple:
-    """(design constants, {file: edits}) of one of ``DESIGNS`` or ``ABLATIONS``."""
+    """(design constants, {file: edits}) of one of ``DESIGNS``, ``ABLATIONS``
+    or ``BF16_DESIGNS``."""
+    if name in BF16_DESIGNS:
+        return BF16_DESIGNS[name]
     constants, staged = DESIGNS.get(name, ({}, False))
     edits = dict(ABLATIONS.get(name, {}))
     if staged:
@@ -209,15 +246,19 @@ def build(sources: dict, stem: str = "dense_decode") -> dict:
 
 
 def main() -> int:
-    builds = {**DESIGNS, **ABLATIONS}
     ap = argparse.ArgumentParser(description="A/B the dense-decode trunk kernel's designs.")
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a tree whose giga_tpu_torch/csrc/dense_decode.cu joins the A/B")
-    ap.add_argument("--builds", nargs="*", choices=list(builds), default=list(builds))
+    ap.add_argument("--builds", nargs="*",
+                    choices=list({**DESIGNS, **ABLATIONS, **BF16_DESIGNS}))
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--bf16", action="store_true",
+                    help="time the bf16 mode's designs (BF16_DESIGNS) instead")
     args = ap.parse_args()
+    if args.builds is None:
+        args.builds = list(BF16_DESIGNS if args.bf16 else {**DESIGNS, **ABLATIONS})
 
     import torch
 
@@ -249,11 +290,19 @@ def main() -> int:
     nb = cfg.decoder.n_blocks
     coords = lattice_coords(R, "cuda")
     tsdfs = torch.from_numpy(chip_smoke.make_scenes(B)).cuda()
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    suffix, kernel, config = (("bf16", "dense_decode_bf16_kernel", "dense_decode_bf16_config")
+                              if args.bf16 else
+                              ("f32", "dense_decode_kernel", "dense_decode_config"))
     with torch.inference_mode(), full_precision():
+        if args.bf16:
+            net = net.to(dtype)
+            tsdfs = tsdfs.to(dtype)
         feats = sample_planes_on_lattice_batched(net.encode(tsdfs), coords,
                                                  cfg.encoder.plane_resolution,
                                                  cfg.decoder.padding)
-        inputs = dk.prepare_projections_batched(net.decoder_aff.params(), feats, coords, nb)
+        inputs = dk.prepare_projections_batched(net.decoder_aff.params(), feats, coords, nb,
+                                                dtype)
         inputs3 = inputs[:3] + tuple(p[0].contiguous() for p in inputs[3:6]) + inputs[6:]
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         out2 = torch.empty((B, E * O, R ** 3), device="cuda")
@@ -262,11 +311,12 @@ def main() -> int:
         ptrs3 = [ctypes.c_void_p(t.data_ptr()) for t in (*inputs3, out3)]
 
         def k2(lib):
-            _build.check(lib.dense_decode_f32(*ptrs2, B, R, E, nb, stream), "dense_decode_f32")
+            _build.check(getattr(lib, f"dense_decode_{suffix}")(*ptrs2, B, R, E, nb, stream),
+                         f"dense_decode_{suffix}")
 
         def k3(lib):
-            _build.check(lib.dense_decode_single_f32(*ptrs3, R, E, nb, stream),
-                         "dense_decode_single_f32")
+            _build.check(getattr(lib, f"dense_decode_single_{suffix}")(*ptrs3, R, E, nb, stream),
+                         f"dense_decode_single_{suffix}")
 
         ref2 = dk.dense_decode_batched(*inputs)
         ref3 = dk.fused_dense_decode(*inputs3)
@@ -277,12 +327,12 @@ def main() -> int:
             k3(lib)
             torch.cuda.synchronize()
             same = torch.equal(out2, ref2) and torch.equal(out3, ref3)
-            res = {k: chip_smoke.kernel_resources(log, f"dense_decode_kernelILb{i}E")
+            res = {k: chip_smoke.kernel_resources(log, f"{kernel}ILb{i}E")
                    for k, i in (("K2", 0), ("K3", 1))}
             cfg_line = ""
-            if hasattr(lib, "dense_decode_config"):
+            if hasattr(lib, config):
                 info = (ctypes.c_int * 6)()
-                _build.check(lib.dense_decode_config(0, B, R, E, nb, info), "dense_decode_config")
+                _build.check(getattr(lib, config)(0, B, R, E, nb, info), config)
                 cfg_line = (f"; grid ({info[2]}, {info[3]}), {info[0]} blocks of {info[4]} "
                             f"threads per SM, {info[5]} B shared per block")
             print(f"{name}: K2 and K3 outputs equal the shipped library's bit for bit: {same}; "
@@ -298,10 +348,11 @@ def main() -> int:
                 lib = libs[name][0]
                 times[name]["K2"].append(chip_smoke.cuda_ms(lambda: k2(lib), args.iters))
                 times[name]["K3"].append(chip_smoke.cuda_ms(lambda: k3(lib), 5 * args.iters))
+    peak = chip_smoke.PEAK_BF16_FLOPS if args.bf16 else chip_smoke.PEAK_FP32_FLOPS
     b2 = chip_smoke.bound(chip_smoke.trunk_flops(B * R ** 3, E, 32, nb, O),
-                          chip_smoke.nbytes(*inputs) + 4 * B * E * O * R ** 3)
+                          chip_smoke.nbytes(*inputs) + 4 * B * E * O * R ** 3, peak)
     b3 = chip_smoke.bound(chip_smoke.trunk_flops(R ** 3, E, 32, nb, O),
-                          chip_smoke.nbytes(*inputs3, out3))
+                          chip_smoke.nbytes(*inputs3, out3), peak)
     for name, t in times.items():
         for kern, bnd in (("K2", b2), ("K3", b3)):
             ms = t[kern]

@@ -84,6 +84,12 @@ ABLATIONS = {
 }
 
 
+def _fp32_kernel(log: str) -> str:
+    """K1's float32 kernel by its mangled name: a template instance since
+    the bf16 mode, a plain function in earlier trees (``--tree``)."""
+    return "stem_pool_kernelIfE" if "stem_pool_kernelIfE" in log else "stem_pool_kernel"
+
+
 def build_edits(name: str) -> tuple:
     """(design constants, {file: edits}) of one of ``DESIGNS`` or ``ABLATIONS``."""
     constants, edits = DESIGNS.get(name, ({}, []))
@@ -148,7 +154,7 @@ def main() -> int:
             err = max(float((outs[t] - plain[t]).abs().max()) for t in ref)
             print(f"{name}: xz, xy, yz equal the shipped library's bit for bit: {same}; max abs "
                   f"err vs the plain version {err:.3g}; ptxas "
-                  f"{chip_smoke.kernel_resources(log, 'stem_pool_kernel')}", flush=True)
+                  f"{chip_smoke.kernel_resources(log, _fp32_kernel(log))}", flush=True)
             if not same and name not in ABLATIONS:
                 raise AssertionError(f"{name} gives other outputs than the shipped library")
 

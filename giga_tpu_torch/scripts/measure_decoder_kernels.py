@@ -14,8 +14,8 @@ events after a synchronize:
   * K5's path: pyz materialised by PyTorch, the xz/xy rows in the kernel.
 Each decode's three outputs are summed into one device scalar, so nothing
 goes unused, and its largest difference from the module path is printed.
-Every line carries the card's name and power limit. fp32 only: bf16 is not
-ported yet.
+Every line carries the card's name and power limit. fp32 only: the bf16
+modes of K4 and K5 are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
     if args.dtype == "bf16":
-        raise NotImplementedError("the bf16 decodes are not ported yet")
+        raise NotImplementedError("the bf16 modes of K4 and K5 are not ported yet")
 
     import torch
 

@@ -2,6 +2,7 @@
 """Where the time of the port's planning goes, on the card.
 
     python3 -m giga_tpu_torch.scripts.profile_planner [--batch 64] [--iters 10]
+        [--precision fp32|bf16]
 
 Run from the repository root. Loads the shipped checkpoint, plans
 chip_smoke's seeded scenes with the batched program (kernels K1 and K2 on
@@ -21,6 +22,8 @@ the card), and prints, each line beside the card's name and power limit:
     kernel, idle share), the call's latency split (upload, program, fetch of
     candidates), and beside it the batched program at B=1 (K1 + K2) timed
     the same way, the two in turns.
+``--precision bf16`` profiles GIGAPlanner(precision="bf16"), whose programs
+run the bf16 modes of K1, K2 and K3.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Profile the port's planning on the card.")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--precision", choices=["fp32", "bf16"], default="fp32")
     args = ap.parse_args()
 
     import numpy as np
@@ -58,7 +62,9 @@ def main() -> int:
     card = chip_smoke.card_line()
     net, cfg = load_network(ROOT / chip_smoke.CHECKPOINT)
     planner = GIGAPlanner(net=net, model_cfg=cfg, size=chip_smoke.SIZE,
-                          rng=np.random.RandomState(0), **chip_smoke.PLANNER_KW)
+                          rng=np.random.RandomState(0), precision=args.precision,
+                          **chip_smoke.PLANNER_KW)
+    card = f"{card}, {args.precision}"
     fn = planner._ensure_batched_fn()
     scenes = chip_smoke.make_scenes(args.batch)
     tsdfs = torch.from_numpy(scenes).cuda()

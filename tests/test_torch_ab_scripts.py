@@ -1,6 +1,6 @@
 """The design A/B scripts' builds apply to the shipped CUDA sources.
 
-Each build of ``ab_dense_decode`` (K2/K3), ``ab_stem_pool`` (K1) and
+Each build of ``ab_dense_decode`` (K2/K3, both modes), ``ab_stem_pool`` (K1) and
 ``ab_dense_decode_feats`` (K4) is an edited copy of a shipped source: design
 constants rewritten, statements deleted or patched, each edit's old text
 found exactly once. An edit of a kernel that renames a constant or rewrites
@@ -18,7 +18,7 @@ SCRIPTS = {
     "ab_dense_decode_feats": (ab_dense_decode_feats, "dense_decode_feats.cu"),
 }
 CASES = [(script, name) for script, (module, _) in SCRIPTS.items()
-         for name in {**module.DESIGNS, **module.ABLATIONS}]
+         for name in {**module.DESIGNS, **module.ABLATIONS, **getattr(module, "BF16_DESIGNS", {})}]
 
 
 @pytest.mark.parametrize("script,name", CASES)
@@ -36,6 +36,7 @@ def test_ab_build_applies_to_the_shipped_source(tmp_path, script, name):
 def test_each_script_times_the_shipped_design_first():
     """The first design of each script is the shipped source unedited."""
     for module, _ in SCRIPTS.values():
-        first = next(iter(module.DESIGNS))
-        constants, edits = module.build_edits(first)
-        assert "(shipped)" in first and not constants and not any(edits.values())
+        for designs in (module.DESIGNS, getattr(module, "BF16_DESIGNS", module.DESIGNS)):
+            first = next(iter(designs))
+            constants, edits = module.build_edits(first)
+            assert "(shipped)" in first and not constants and not any(edits.values())

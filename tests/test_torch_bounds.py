@@ -24,13 +24,14 @@ import chip_smoke  # noqa: E402
 R, NB, E, H, O = 40, 5, 3, 32, 4
 
 
-def _dense_decode_bytes(B: int) -> int:
+def _dense_decode_bytes(B: int, elem: int = 4) -> int:
     """Bytes K2 (B scenes) or K3 (B = 1) must move: px/py/pz, the three
-    plane projections, the trunk weights read once, the outputs written once."""
+    plane projections, the trunk weights read once (``elem`` bytes a value,
+    2 in the bf16 mode), the float32 outputs written once."""
     F = E * H
     weights = 2 * NB * E * H * H + 2 * NB * E * H + E * H * O + E * O
     inputs = 3 * R * F + 3 * B * NB * R * R * F + weights
-    return 4 * (inputs + B * E * O * R ** 3)
+    return elem * inputs + 4 * B * E * O * R ** 3
 
 
 @pytest.mark.parametrize("kernel,B,gflop,ms", [("K2", 64, 267, 3.992), ("K3", 1, 4.18, 0.0624)])
@@ -140,3 +141,54 @@ def test_kernel_resources_reads_the_stem_and_feats_kernels(kernel, expected):
 def test_kernel_resources_refuses_an_ambiguous_name():
     with pytest.raises(AssertionError, match="2 kernels"):
         chip_smoke.kernel_resources(LOG, "dense_decode_kernel")
+
+
+# -- the bf16 modes -------------------------------------------------------------
+
+def test_bf16_bounds_are_what_perf_md_quotes():
+    """The bf16 modes' bounds: operations at the H100's 989 TFLOP/s dense
+    bf16 rate, bytes read at 2 a value where the mode reads bf16 (K1's TSDF,
+    weights and planes; K2's and K3's every input) and K2/K3's float32
+    outputs at 4."""
+    peak = chip_smoke.PEAK_BF16_FLOPS
+    flops, nbytes = chip_smoke.stem_pool_work(64, R, 32, elem=2)
+    assert round(nbytes / 1e6, 1) == 27.9
+    assert tuple(round(x, 4) if isinstance(x, float) else x
+                 for x in chip_smoke.bound(flops, nbytes, peak)) == (0.0083, "bytes")
+    for B, ms in ((64, 0.2704), (1, 0.0042)):
+        flops = chip_smoke.trunk_flops(B * R ** 3, E, H, NB, O)
+        bound_ms, by = chip_smoke.bound(flops, _dense_decode_bytes(B, elem=2), peak)
+        assert (round(bound_ms, 4), by) == (ms, "operations")
+    assert [round(_dense_decode_bytes(64, e) / 1e6) for e in (2, 4)] == [492, 787]
+
+
+LOG_BF16 = """\
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__41ea8798_12_stem_pool_cu_f3fe8c6616stem_pool_kernelI13__nv_bfloat16EEvPKT_S4_S4_PS2_S5_S5_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__41ea8798_12_stem_pool_cu_f3fe8c6616stem_pool_kernelI13__nv_bfloat16EEvPKT_S4_S4_PS2_S5_S5_iiii
+    88 bytes stack frame, 84 bytes spill stores, 56 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 88 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__41ea8798_12_stem_pool_cu_f3fe8c6616stem_pool_kernelIfEEvPKT_S3_S3_PS1_S4_S4_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__41ea8798_12_stem_pool_cu_f3fe8c6616stem_pool_kernelIfEEvPKT_S3_S3_PS1_S4_S4_iiii
+    88 bytes stack frame, 84 bytes spill stores, 56 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 88 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__f57dc4bd_15_dense_decode_cu_a7e05b3624dense_decode_bf16_kernelILb1EEEvPK13__nv_bfloat16S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_Pfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__f57dc4bd_15_dense_decode_cu_a7e05b3624dense_decode_bf16_kernelILb1EEEvPK13__nv_bfloat16S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_Pfiiii
+    88 bytes stack frame, 56 bytes spill stores, 88 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 88 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__f57dc4bd_15_dense_decode_cu_a7e05b3619dense_decode_kernelILb0EEEvPKfS2_S2_S2_S2_S2_S2_S2_S2_S2_S2_S2_Pfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__f57dc4bd_15_dense_decode_cu_a7e05b3619dense_decode_kernelILb0EEEvPKfS2_S2_S2_S2_S2_S2_S2_S2_S2_S2_S2_Pfiiii
+    272 bytes stack frame, 268 bytes spill stores, 276 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 272 bytes cumulative stack size
+"""
+
+
+@pytest.mark.parametrize("kernel,expected", [
+    ("stem_pool_kernelI13__nv_bfloat16E", "96 registers, 84/56 bytes spill stores/loads"),
+    ("stem_pool_kernelIfE", "96 registers, 84/56 bytes spill stores/loads"),
+    ("dense_decode_bf16_kernelILb1E", "255 registers, 56/88 bytes spill stores/loads"),
+    ("dense_decode_kernelILb0E", "168 registers, 268/276 bytes spill stores/loads"),
+])
+def test_kernel_resources_tells_the_modes_apart(kernel, expected):
+    """The names chip_smoke.py asks for pick one mode's kernel from a build
+    log that holds both: K1's template instances, K2/K3's two kernels."""
+    assert chip_smoke.kernel_resources(LOG_BF16, kernel) == expected

@@ -7,6 +7,8 @@ file imports no JAX, so it also runs on a machine that has none:
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,8 +27,15 @@ from giga_tpu_torch.ops.kernels import decoder as dk
 from giga_tpu_torch.ops.kernels.decoder import dense_decode_batched, dense_decode_plain
 from giga_tpu_torch.ops.kernels.stem import stem_pool_batched, stem_pool_plain
 
+REPO = Path(__file__).resolve().parents[1]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
 TOL_STEM = 2e-5
 TOL_KERNEL = 1e-5
+BF16 = torch.bfloat16
 
 
 @pytest.fixture
@@ -97,12 +106,12 @@ def test_stem_kernel_scenes_are_independent(cuda_device, R):
 RAGGED = [(B, R, nb) for R in (7, 13, 40) for B in (1, 3) for nb in (1, 5)]
 
 
-def _decode_args(rng, B, R, nb, E=3, H=32, O=4):
+def _decode_args(rng, B, R, nb, E=3, H=32, O=4, s=0.5):
+    """K2's inputs; ``s`` bounds the trunk weights."""
     F = E * H
     return [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F),
             _u(rng, B, nb, R, R, F), _u(rng, B, nb, R, R, F), _u(rng, B, nb, R, R, F),
-            _u(rng, nb, E, H, H), _u(rng, nb, E, H), _u(rng, nb, E, H, H), _u(rng, nb, E, H),
-            _u(rng, E, H, O), _u(rng, E, O)]
+            *_trunk(rng, nb, E, H, O, s)]
 
 
 @pytest.mark.cuda
@@ -217,9 +226,9 @@ def test_service_pipelined_batches_match_plan_batch(cuda_device):
         np.testing.assert_allclose(scores, ref_scores, atol=1e-6)
 
 
-def _trunk(rng, nb, E=3, H=32, O=4):
-    return [_u(rng, nb, E, H, H), _u(rng, nb, E, H), _u(rng, nb, E, H, H), _u(rng, nb, E, H),
-            _u(rng, E, H, O), _u(rng, E, O)]
+def _trunk(rng, nb, E=3, H=32, O=4, s=0.5):
+    return [_u(rng, nb, E, H, H, s=s), _u(rng, nb, E, H, s=s), _u(rng, nb, E, H, H, s=s),
+            _u(rng, nb, E, H, s=s), _u(rng, E, H, O, s=s), _u(rng, E, O, s=s)]
 
 
 @pytest.mark.cuda
@@ -363,3 +372,113 @@ def test_plan_stream_fetch_does_not_wait_for_the_next_scene(cuda_device):
     for (g1, s1), (g2, s2) in zip(got, ref + ref):
         assert len(g1) == len(g2)
         np.testing.assert_allclose(s1, s2, atol=1e-6)
+
+
+# -- the bf16 modes (check_bf16: at least 99.9 % of outputs within 1e-5 of the
+# plain version, all within 2e-2 * (1 + |plain|)) -----------------------------
+
+# Trunk weights for the bf16 modes at nn.Linear's initial scale, 1/sqrt(H):
+# at +-0.5, five blocks grow the outputs large out of terms that cancel, and
+# a float32 sum taken in another order moves some outputs past
+# 2e-2 * (1 + |plain|) in any mode that rounds activations to bf16, the
+# plain version summed in float64 included.
+BF16_W = 32 ** -0.5
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,C", [(2, 16, 8), (1, 7, 32), (3, 13, 8), (2, 40, 32)])
+def test_stem_bf16_kernel_matches_plain(cuda_device, B, R, C):
+    """K1's bf16 entry point: bf16 TSDF, weights and bias in, bf16 planes out."""
+    rng = np.random.RandomState(10)
+    w, b, t = (a.to(BF16) for a in _stem_args(rng, C, (B, R, R, R), cuda_device))
+    n = stem_pool_batched.launches
+    got = stem_pool_batched(w, b, t)
+    ref = stem_pool_plain(w, b, t)
+    assert stem_pool_batched.launches == n + 1
+    for k in ref:
+        assert got[k].dtype == BF16 and got[k].shape == ref[k].shape
+        chip_smoke.check_bf16(got[k], ref[k], f"K1 bf16 {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,nb", [(2, 12, 5), (1, 7, 2)] + RAGGED)
+def test_decode_bf16_kernel_matches_plain(cuda_device, B, R, nb):
+    """K2's bf16 entry point (tensor cores) against its plain version."""
+    rng = np.random.RandomState(11)
+    args = [a.to(cuda_device).to(BF16) for a in _decode_args(rng, B, R, nb, s=BF16_W)]
+    n = dense_decode_batched.launches
+    got = dense_decode_batched(*args)
+    ref = dense_decode_plain(*args)
+    assert dense_decode_batched.launches == n + 1 and got.dtype == torch.float32
+    chip_smoke.check_bf16(got, ref, "K2 bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,nb", [(40, 5), (7, 1), (13, 5)])
+def test_single_scene_bf16_kernel_matches_plain(cuda_device, R, nb):
+    """K3's bf16 entry point, [x, y, z, o] output, ragged last tiles."""
+    rng = np.random.RandomState(12)
+    F = 96
+    args = [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F), _u(rng, nb, R, R, F),
+            _u(rng, nb, R, R, F), _u(rng, nb, R, R, F), *_trunk(rng, nb, s=BF16_W)]
+    args = [a.to(cuda_device).to(BF16) for a in args]
+    n = dk.fused_dense_decode.launches
+    got = dk.fused_dense_decode(*args)
+    assert dk.fused_dense_decode.launches == n + 1 and tuple(got.shape) == (R, R, R, 12)
+    chip_smoke.check_bf16(got, dk.fused_dense_decode_plain(*args), "K3 bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,nb", [(13, 5), (40, 2)])
+def test_decode_bf16_scenes_are_independent(cuda_device, R, nb):
+    """The bf16 kernel's scenes are independent, and K3's bf16 entry gives
+    K2's bf16 bytes for one scene."""
+    rng = np.random.RandomState(13)
+    args = [a.to(cuda_device).to(BF16) for a in _decode_args(rng, 3, R, nb)]
+    together = dense_decode_batched(*args)
+    for b in range(3):
+        one = args[:3] + [p[b:b + 1].contiguous() for p in args[3:6]] + args[6:]
+        assert torch.equal(dense_decode_batched(*one)[0], together[b])
+        single = args[:3] + [p[b].contiguous() for p in args[3:6]] + args[6:]
+        assert torch.equal(dk.fused_dense_decode(*single).reshape(R ** 3, -1).T, together[b])
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_refuse_mixed_dtypes(cuda_device):
+    """A mode takes all its inputs in one dtype: bf16 projections beside
+    float32 weights, or a float32 bias beside a bf16 TSDF, raise."""
+    rng = np.random.RandomState(14)
+    args = [a.to(cuda_device) for a in _decode_args(rng, 1, 8, 2)]
+    mixed = args[:3] + [p.to(BF16) for p in args[3:6]] + args[6:]
+    with pytest.raises(ValueError, match="bfloat16"):
+        dense_decode_batched(*mixed)
+    with pytest.raises(ValueError, match="bfloat16"):
+        dk.fused_dense_decode(*mixed[:3], *(p[0] for p in mixed[3:6]), *mixed[6:])
+    w, b, t = _stem_args(rng, 8, (1, 8, 8, 8), cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        stem_pool_batched(w.to(BF16), b, t.to(BF16))
+    with pytest.raises(ValueError, match="dtype"):
+        stem_pool_batched(w.half(), b.half(), t.half())
+
+
+@pytest.mark.cuda
+def test_bf16_programs_queue_without_waiting_for_the_card(cuda_device):
+    """Once warm, the bf16 programs (K1 + K2 batched, K3 single-scene) make
+    no synchronizing CUDA call, and launch the bf16 kernels."""
+    net, cfg, pcfg, grids = _random_giga(cuda_device)
+    net = net.to(BF16)
+    batched = build_batched_giga_planner_fn(net, cfg, pcfg, 0.3, use_kernels=True)
+    single = build_giga_planner_fn(net, cfg, pcfg, 0.3, use_kernels=True)
+    batched(grids, grids)
+    single(grids[0], grids[0])
+    torch.cuda.synchronize()
+    n = (stem_pool_batched.launches, dense_decode_batched.launches, dk.fused_dense_decode.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cands = batched(grids, grids)
+        one = single(grids[0], grids[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (stem_pool_batched.launches, dense_decode_batched.launches,
+            dk.fused_dense_decode.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert int(cands.count.sum()) > 0 and int(one.count) > 0
+    assert cands.scores.dtype == torch.float32

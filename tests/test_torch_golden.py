@@ -1,9 +1,12 @@
-"""The JAX golden file that chip_smoke.py holds the card's plan against.
+"""The JAX golden files that chip_smoke.py holds the card's plans against.
 
 The card has no JAX, so ``giga_tpu_torch/testdata/golden_plan_giga.npz``
 carries the JAX package's candidates for the first chip_smoke scenes,
-planned on the CPU with the shipped checkpoint. This test regenerates them
-and asserts the committed file is current. Rewrite the file with
+planned on the CPU with the shipped checkpoint, and
+``golden_plan_giga_bf16.npz`` those of the JAX package's TPU bf16 program
+on the same scenes (composed from its functions with the Pallas kernels in
+interpret mode, tests/test_torch_bf16.py). These tests regenerate both and
+assert the committed files are current. Rewrite them with
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
 """
@@ -21,6 +24,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from test_torch_bf16 import jax_tpu_bf16_reference  # noqa: E402
 from giga_tpu.core.config import PlannerConfig  # noqa: E402
 from giga_tpu.inference.planner import build_batched_giga_planner_fn  # noqa: E402
 from giga_tpu.models.registry import get_network, load_params  # noqa: E402
@@ -43,12 +47,20 @@ def golden_arrays() -> dict:
     return out
 
 
-def test_golden_file_is_current():
+def golden_bf16_arrays() -> dict:
+    """The JAX TPU bf16 program's candidates for the first N_SCENES
+    chip_smoke scenes."""
+    tsdf, (cands, _), _ = jax_tpu_bf16_reference(N_SCENES)
+    out = {f: np.asarray(getattr(cands, f)) for f in FIELDS}
+    out["tsdf"] = tsdf
+    return out
+
+
+def _assert_current(path: str, fresh: dict):
     """Regenerated candidates equal the committed ones: same counts and
     positions, scores/widths/rotations within 1e-6 (the CPU XLA build may
     reassociate sums; the file is meant to be bit-stable in practice)."""
-    stored = np.load(REPO / chip_smoke.GOLDEN)
-    fresh = golden_arrays()
+    stored = np.load(REPO / path)
     np.testing.assert_array_equal(stored["count"], fresh["count"])
     np.testing.assert_allclose(stored["tsdf"], fresh["tsdf"], atol=1e-6)
     for i, n in enumerate(fresh["count"]):
@@ -56,6 +68,14 @@ def test_golden_file_is_current():
         for f in ("scores", "widths", "rotations"):
             np.testing.assert_allclose(stored[f][i, :n], fresh[f][i, :n], atol=1e-6)
     assert fresh["count"].sum() > 0
+
+
+def test_golden_file_is_current():
+    _assert_current(chip_smoke.GOLDEN, golden_arrays())
+
+
+def test_bf16_golden_file_is_current():
+    _assert_current(chip_smoke.GOLDEN_BF16, golden_bf16_arrays())
 
 
 def test_golden_scenes_are_planner_tsdfs():
@@ -70,5 +90,7 @@ def test_golden_scenes_are_planner_tsdfs():
 
 
 if __name__ == "__main__" and "--write" in sys.argv:
-    np.savez_compressed(REPO / chip_smoke.GOLDEN, **golden_arrays())
-    print("wrote", chip_smoke.GOLDEN)
+    for path, arrays in ((chip_smoke.GOLDEN, golden_arrays),
+                         (chip_smoke.GOLDEN_BF16, golden_bf16_arrays)):
+        np.savez_compressed(REPO / path, **arrays())
+        print("wrote", path)

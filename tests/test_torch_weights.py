@@ -151,11 +151,13 @@ def test_planner_without_card_raises(monkeypatch):
 
 
 def test_planner_rejects_unported_options():
+    """bf16 is ported: it constructs, with a bf16 net. Checkpoint ensembles
+    are not, and raise."""
     from giga_tpu_torch.inference.planner import GIGAPlanner
 
     path = REPO / CHECKPOINTS[0]
-    with pytest.raises(NotImplementedError):
-        GIGAPlanner(path, precision="bf16", device="cpu")
+    planner = GIGAPlanner(path, precision="bf16", device="cpu")
+    assert next(planner.net.parameters()).dtype == torch.bfloat16
     with pytest.raises(NotImplementedError):
         GIGAPlanner(params=[load_params(path)] * 2, device="cpu")
 
