@@ -26,11 +26,12 @@ Phases (any failure exits non-zero; nothing is caught):
      file's scenes with K3's counter zeroed just before: each equals the
      golden candidates and plan_batch's grasps, one K3 launch per call;
  10. run plan_stream over 8 scenes and hold it against per-scene calls;
- 11. hold kernels K4 (raw-feature trunk) and K5 (hybrid trunk) against their
-     plain versions at B=64, R=40, and their decodes against K2's; plan the
-     batch from K4's volumes and hold it against plan_batch; drive the two
-     decode entry points with the counters zeroed; time kernels, plain
-     versions and bounds; print K4's resources, launch and share of bound;
+ 11. hold kernels K4 (raw-feature trunk) and K5 (hybrid trunk; both their
+     projections, then the tiled trunk) against their plain versions at
+     B=64, R=40, and their decodes against K2's; plan the batch from K4's
+     volumes and hold it against plan_batch; drive the two decode entry
+     points with the counters zeroed; time kernels, plain versions and
+     bounds; print K4's and K5's resources, launches and shares of bound;
  12. print timings (kernels, plan_batch scenes/s at B=64, __call__ of one
      scene), each beside the card's name and power limit; then K2's and K3's
      resources: ptxas registers and spills, shared memory per block, the
@@ -44,8 +45,16 @@ Phases (any failure exits non-zero; nothing is caught):
      and one K2 launch), held by tests/test_bf16_serving.py's four decision
      gates against the float32 plan and against the committed JAX TPU bf16
      golden file (golden_plan_giga_bf16.npz); PlannerService equal to it;
-     __call__ on the golden scenes (one K3 launch each) by the same gates;
-     plan_stream equal to per-scene calls; the bf16 programs' timings.
+     __call__ on the golden scenes (one K3 launch each) by the same gates
+     against the float32 plan and against the committed golden file of
+     JAX's GIGAPlanner(precision="bf16").__call__ (golden_call_giga_bf16.npz);
+     plan_stream equal to per-scene calls; the bf16 programs' timings;
+ 18. the bf16 decode A/B's kernels (``bf16_decode_phase``): the bf16 modes of
+     K4 and K5 against their plain versions at B=64, R=40 on the bf16 net's
+     lattice features; the two bf16 decode entry points with the counters
+     zeroed just before (one launch each), their raw qual held against K2
+     bf16's decode (within 4e-2 at most, 3e-3 at the median); their
+     resources, times and shares of bound at 989 TFLOP/s.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -70,6 +79,7 @@ SEED = 0
 CHECKPOINT = "checkpoints/synthetic_giga_best.msgpack"
 GOLDEN = "giga_tpu_torch/testdata/golden_plan_giga.npz"
 GOLDEN_BF16 = "giga_tpu_torch/testdata/golden_plan_giga_bf16.npz"
+GOLDEN_CALL_BF16 = "giga_tpu_torch/testdata/golden_call_giga_bf16.npz"
 PLANNER_KW = dict(best=True, force_detection=True, low_th=0.1, qual_th=0.8)
 
 # published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
@@ -90,6 +100,13 @@ TOL_POS = 1e-6      # candidate positions (lattice coordinates), absolute
 TOL_BF16_CLOSE = 1e-5
 BF16_SHARE = 0.999
 TOL_BF16_FAR = 2e-2
+# raw qual of one bf16 program against another (the port's against the JAX
+# package's, one decode against another): each bf16 program keeps qual
+# within 2e-2 of the float32 program at most and 3e-3 at the median
+# (tests/test_pallas_kernel.py:91-92), so two of them can be up to twice
+# the maximum apart; the median keeps its 3e-3
+TOL_QUAL_BF16_MAX = 4e-2
+TOL_QUAL_BF16_MEDIAN = 3e-3
 
 
 def make_scenes(n: int, seed: int = SEED, resolution: int = RESOLUTION,
@@ -195,6 +212,23 @@ def dense_decode_feats_work(B: int, R: int, C: int, heads: int, H: int, n_blocks
     return flops, 4 * (inputs + B * R ** 3 * heads * O)
 
 
+def dense_decode_hybrid_work(B: int, R: int, C: int, heads: int, H: int, n_blocks: int,
+                             O: int, pyz_elem: int = 4):
+    """(operations, bytes) of K5: the per-head trunk, and each block's xz
+    and xy C -> heads*H projections counted once per plane row; px/py/pz,
+    the raw (B, R, R, C) xz and xy features and every weight read once in
+    float32, pyz (B, n_blocks, R, R, heads*H) once at ``pyz_elem`` bytes a
+    value (2 in the bf16 mode), the float32 (B, R, R, R, heads*O) output
+    written once. ``bound(*dense_decode_hybrid_work(...))`` is K5's bound."""
+    F = heads * H
+    proj = B * R * R * n_blocks * 2 * C * F
+    flops = trunk_flops(B * R ** 3, heads, H, n_blocks, O) + 2 * proj
+    weights = 2 * n_blocks * F * H + 2 * n_blocks * F + F * O + heads * O
+    inputs = 3 * R * F + 2 * B * R * R * C + 2 * n_blocks * C * F + weights
+    return (flops, 4 * (inputs + B * R ** 3 * heads * O)
+            + pyz_elem * B * n_blocks * R * R * F)
+
+
 def ptxas_resources(log: str) -> dict:
     """{kernel name: "N registers, S/L bytes spill stores/loads"} from an
     nvcc -Xptxas -v build log."""
@@ -216,11 +250,17 @@ def ptxas_resources(log: str) -> dict:
             for k, v in found.items()}
 
 
-def kernel_resources(log: str, kernel: str) -> str:
-    """ptxas_resources of the one kernel whose mangled name contains ``kernel``."""
-    hits = [v for k, v in ptxas_resources(log).items() if kernel in k]
+def kernel_resources(log: str, kernel: str, *older: str) -> str:
+    """ptxas_resources of the one kernel whose mangled name contains
+    ``kernel``; in the log of an older source that names none, of the one
+    that contains the first of ``older`` to name one."""
+    found = ptxas_resources(log)
+    for name in (kernel, *older):
+        hits = [v for k, v in found.items() if name in k]
+        if hits:
+            break
     if len(hits) != 1:
-        raise AssertionError(f"ptxas log names {len(hits)} kernels like {kernel!r}")
+        raise AssertionError(f"ptxas log names {len(hits)} kernels like {name!r}")
     return hits[0]
 
 
@@ -254,6 +294,19 @@ def check_bf16(got, ref, what: str):
         raise AssertionError(f"{what}: {share:.5f} of outputs within {TOL_BF16_CLOSE} (need "
                              f"{BF16_SHARE}), max err/(1+|ref|) {rel:.3g} (tol {TOL_BF16_FAR})")
     return share, rel, float(d.max())
+
+
+def check_qual_bf16(got, ref, what: str):
+    """(max, median) of |got - ref| over two bf16 programs' raw qual
+    volumes; raises past TOL_QUAL_BF16_MAX or TOL_QUAL_BF16_MEDIAN or on
+    non-finite values."""
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    worst, median = float(d.max()), float(np.median(d))
+    if not (worst <= TOL_QUAL_BF16_MAX and median <= TOL_QUAL_BF16_MEDIAN):
+        raise AssertionError(f"{what}: raw qual differs by {worst:.4g} at most (tol "
+                             f"{TOL_QUAL_BF16_MAX}), {median:.3g} at the median (tol "
+                             f"{TOL_QUAL_BF16_MEDIAN})")
+    return worst, median
 
 
 def bf16_gates(ref, got, voxel: float, what: str) -> dict:
@@ -461,21 +514,28 @@ def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
     print(f"phase 15: bf16 PlannerService served {n_req} requests, each equal to bf16 plan_batch")
 
     # 16. bf16 __call__ on the golden scenes (K3 bf16) and plan_stream
+    golden_call = np.load(Path(__file__).resolve().parent / GOLDEN_CALL_BF16)
+    np.testing.assert_allclose(golden_call["tsdf"], scenes[:n_gold], atol=1e-6)
+    gc = GraspCandidates(*(golden_call[f] for f in GraspCandidates._fields))
+    call_grasps = [planner._to_grasps(GraspCandidates(*(np.asarray(x[i]) for x in gc)))
+                   for i in range(n_gold)]
     dk.fused_dense_decode.launches = 0
     called = [planner(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)]
     torch.cuda.synchronize()
     if dk.fused_dense_decode.launches != n_gold:
         raise AssertionError(f"bf16 __call__ launched K3 {dk.fused_dense_decode.launches} times "
                              f"in {n_gold} calls")
-    gates_call = bf16_gates(golden_grasps, called, voxel, "bf16 __call__ vs JAX bf16 golden")
+    gates_call = bf16_gates(call_grasps, called, voxel,
+                            "bf16 __call__ vs JAX bf16 GIGAPlanner.__call__ golden")
     gates_call32 = bf16_gates(fp32_results[:n_gold], called, voxel, "bf16 __call__ vs float32")
     n_stream = 8
     for i, got in enumerate(planner.plan_stream(scenes[:n_stream])):
         compare_grasps(got, planner(State(tsdf=scenes[i]))[:2], voxel,
                        f"bf16 plan_stream vs __call__, scene {i}", tol=1e-6)
     print(f"phase 16: bf16 __call__ on {n_gold} golden scenes, K3 bf16 launches {n_gold}: against "
-          f"the JAX TPU bf16 golden {gates_call}, against float32 plan_batch {gates_call32}; "
-          f"plan_stream over {n_stream} scenes equals per-scene __call__")
+          f"the golden of JAX's bf16 GIGAPlanner.__call__ {gates_call}, against float32 "
+          f"plan_batch {gates_call32}; plan_stream over {n_stream} scenes equals per-scene "
+          f"__call__")
 
     # 17. timings of the bf16 programs
     fn = planner._ensure_batched_fn()
@@ -504,7 +564,89 @@ def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
                 ("K1", "stem_pool", "stem_pool.cu", "stem_kernel.py:120"),
                 ("K2", "dense_decode", "dense_decode.cu", "decoder_kernel.py:348"),
                 ("K3", "fused_dense_decode", "dense_decode.cu", "decoder_kernel.py:153"))]
+    rows += bf16_decode_phase(dec, feats, coords, cfg, card, fp32_ms)
     return {"plan_ms": plan_ms, "sps": sps, "call_ms": call_ms}, rows
+
+
+def bf16_decode_phase(dec, feats, coords, cfg, card, fp32_ms):
+    """Phase 18, the bf16 decode A/B's kernels on the bf16 net's decoder
+    params ``dec`` and bf16 lattice features ``feats`` {t: (B, R, R, C)}:
+    the bf16 modes of K4 and K5 against their plain versions; the two bf16
+    decode entry points with the counters zeroed just before; their raw qual
+    against K2 bf16's decode. Returns the kernels' rows for the kernels
+    line."""
+    import torch
+
+    from giga_tpu_torch.inference.planner import full_precision
+    from giga_tpu_torch.ops.kernels import _build
+    from giga_tpu_torch.ops.kernels import decoder as dk
+
+    bf = torch.bfloat16
+    B, R, _, C = feats["xz"].shape
+    n_blocks, H = cfg.decoder.n_blocks, cfg.decoder.hidden_size
+    heads, O = 3, 4
+    with torch.inference_mode(), full_precision():
+        inputs4 = dk.prepare_feats_inputs(dec, feats, coords, n_blocks)
+        inputs5 = dk.prepare_hybrid_inputs(dec, feats, coords, n_blocks, bf)
+        errs = {"K4": check_bf16(dk.dense_decode_feats_batched(*inputs4, compute_dtype=bf),
+                                 dk.dense_decode_feats_plain(*inputs4, compute_dtype=bf),
+                                 "K4 bf16"),
+                "K5": check_bf16(dk.dense_decode_hybrid_batched(*inputs5),
+                                 dk.dense_decode_hybrid_plain(*inputs5), "K5 bf16")}
+        qual2 = dk.decode_affordance_dense_kernel_batched(dec, feats, coords, n_blocks, bf)[0]
+        # the bf16 decode entry points, counters zeroed just before
+        dk.dense_decode_feats_batched.launches = 0
+        dk.dense_decode_hybrid_batched.launches = 0
+        vols = {"K4": dk.decode_affordance_dense_kernel_feats_batched(dec, feats, coords, n_blocks,
+                                                                      compute_dtype=bf),
+                "K5": dk.decode_affordance_dense_kernel_hybrid_batched(dec, feats, coords, n_blocks,
+                                                                       compute_dtype=bf)}
+        torch.cuda.synchronize()
+        launches = {"K4": dk.dense_decode_feats_batched.launches,
+                    "K5": dk.dense_decode_hybrid_batched.launches}
+        if launches != {"K4": 1, "K5": 1}:
+            raise AssertionError(f"the bf16 decode entry points launched {launches}")
+        quals = {}
+        for k, vol in vols.items():
+            if not all(bool(torch.isfinite(v).all()) for v in vol):
+                raise AssertionError(f"{k} bf16's decode gave non-finite volumes")
+            quals[k] = check_qual_bf16(vol[0].cpu().numpy(), qual2.cpu().numpy(),
+                                       f"{k} bf16 decode vs K2 bf16's")
+        del vols, qual2
+        times = {"K4": (cuda_ms(lambda: dk.dense_decode_feats_batched(*inputs4, compute_dtype=bf),
+                                20),
+                        cuda_ms(lambda: dk.dense_decode_feats_plain(*inputs4, compute_dtype=bf),
+                                3, warmup=1)),
+                 "K5": (cuda_ms(lambda: dk.dense_decode_hybrid_batched(*inputs5), 20),
+                        cuda_ms(lambda: dk.dense_decode_hybrid_plain(*inputs5), 3, warmup=1))}
+    bounds = {"K4": bound(*dense_decode_feats_work(B, R, C, heads, H, n_blocks, O),
+                          peak=PEAK_BF16_FLOPS),
+              "K5": bound(*dense_decode_hybrid_work(B, R, C, heads, H, n_blocks, O, pyz_elem=2),
+                          peak=PEAK_BF16_FLOPS)}
+    print(f"phase 18: K4 and K5 bf16 against their plain versions (share within "
+          f"{TOL_BF16_CLOSE}, max err/(1+|plain|), max abs err): "
+          f"{ {k: tuple(round(x, 6) for x in e) for k, e in errs.items()} }; their bf16 decode "
+          f"entry points launched {launches}, raw qual against K2 bf16's decode (max, median; "
+          f"tol {TOL_QUAL_BF16_MAX}, {TOL_QUAL_BF16_MEDIAN}): "
+          f"{ {k: tuple(round(x, 6) for x in q) for k, q in quals.items()} }")
+    log = _build.build_log("dense_decode_feats")
+    for k, hybrid, trunk in (("K4", False, "dense_decode_feats_bf16_kernelIfLb1E"),
+                             ("K5", True, "dense_decode_feats_bf16_kernelI13__nv_bfloat16Lb0E")):
+        lc = dk.dense_decode_feats_launch_config(B, R, C, heads, n_blocks,
+                                                 R if hybrid else dk.FEATS_X_CHUNK, hybrid, bf)
+        ms, plain = times[k]
+        bnd = bounds[k]
+        print(f"phase 18: {k} bf16 resources: trunk {kernel_resources(log, trunk)}, projections "
+              f"{kernel_resources(log, 'project_kernelILb1E')}; trunk {lc['shared_bytes']} bytes "
+              f"shared per block, grid {lc['grid'][0]}x{lc['grid'][1]} blocks of "
+              f"{lc['threads']} threads, {lc['blocks_per_sm']} resident blocks per SM on "
+              f"{lc['sms']} SMs, {lc['passes']} passes; {ms:.4f} ms (plain {plain:.4f} ms, "
+              f"float32 mode {fp32_ms[k]:.4f} ms), {bnd[0] / ms:.1%} of its bound "
+              f"({bnd[0]:.4f} ms by {bnd[1]}) B={B} R={R} | {card}")
+    return [(f"{name}_bf16", "dense_decode_feats.cu", replaces, launches[k], errs[k][2],
+             *times[k], bounds[k])
+            for k, name, replaces in (("K4", "dense_decode_feats", "decoder_kernel.py:608"),
+                                      ("K5", "dense_decode_hybrid", "decoder_kernel.py:447"))]
 
 
 def main() -> int:
@@ -695,7 +837,10 @@ def main() -> int:
         err4, rel4 = check_close(k4, dk.dense_decode_feats_plain(*inputs4), TOL_DECODE, "K4")
         inputs5 = dk.prepare_hybrid_inputs(dec, feats, coords, n_blocks)
         k5 = dk.dense_decode_hybrid_batched(*inputs5)
-        err5, rel5 = check_close(k5, dk.dense_decode_hybrid_plain(*inputs5), TOL_DECODE, "K5")
+        p5 = dk.dense_decode_hybrid_plain(*inputs5)
+        err5, rel5 = check_close(k5, p5, TOL_DECODE, "K5")
+        equal5 = bool(torch.equal(k5, p5))
+        del p5
         torch.cuda.synchronize()
         ref2 = dk.split_heads_transposed(k2, heads, R)
         ref2 = (ref2[0], ref2[1].permute(0, 2, 1).reshape(B, R, R, R, 4), ref2[2])
@@ -729,25 +874,24 @@ def main() -> int:
         plain4 = cuda_ms(lambda: dk.dense_decode_feats_plain(*inputs4), 3, warmup=1)
         ms5 = cuda_ms(lambda: dk.dense_decode_hybrid_batched(*inputs5), 10)
         plain5 = cuda_ms(lambda: dk.dense_decode_hybrid_plain(*inputs5), 3, warmup=1)
-    out_bytes = 4 * B * N * heads * O
     bound4 = bound(*dense_decode_feats_work(B, R, C, heads, H, n_blocks, O))
-    # in-kernel projections counted once per plane row: 2*C*F per row and block
-    proj = B * R * R * n_blocks * 2 * C * heads * H
-    bound5 = bound(trunk_flops(B * N, heads, H, n_blocks, O) + 2 * proj,
-                   nbytes(*inputs5) + out_bytes)
+    bound5 = bound(*dense_decode_hybrid_work(B, R, C, heads, H, n_blocks, O))
     print(f"phase 11: K4 max abs err {err4:.3g}, max err/(1+|plain|) {rel4:.3g}; K5 max abs "
-          f"err {err5:.3g}, max err/(1+|plain|) {rel5:.3g} (tol {TOL_DECODE}); both within "
+          f"err {err5:.3g}, max err/(1+|plain|) {rel5:.3g} (tol {TOL_DECODE}), equal to its "
+          f"plain version: {equal5}; both within "
           f"{TOL_VOLUME} of K2's volumes; planning from K4's volumes equals plan_batch (max "
           f"diffs {worst11}); launches on the decode entry points {launches45}")
-    lc4 = dk.dense_decode_feats_launch_config(B, R, C, heads, n_blocks, dk.FEATS_X_CHUNK)
     log4 = _build.build_log("dense_decode_feats")
-    print(f"phase 11: K4 resources: trunk {kernel_resources(log4, 'dense_decode_feats_kernel')}, "
-          f"projections {kernel_resources(log4, 'project_kernel')}; "
-          f"trunk {lc4['shared_bytes']} bytes shared per block, grid {lc4['grid'][0]}x"
-          f"{lc4['grid'][1]} blocks of {lc4['threads']} threads, {lc4['blocks_per_sm']} resident "
-          f"blocks per SM on {lc4['sms']} SMs, {lc4['passes']} passes of x_chunk "
-          f"{dk.FEATS_X_CHUNK}; {ms4:.4f} ms, {bound4[0] / ms4:.1%} of its bound "
-          f"({bound4[0]:.4f} ms by {bound4[1]}) | {card}")
+    for k, hybrid, ms, bnd in (("K4", False, ms4, bound4), ("K5", True, ms5, bound5)):
+        lc = dk.dense_decode_feats_launch_config(B, R, C, heads, n_blocks,
+                                                 R if hybrid else dk.FEATS_X_CHUNK, hybrid)
+        trunk = kernel_resources(log4, f"dense_decode_feats_kernelILb{int(not hybrid)}E")
+        print(f"phase 11: {k} resources: trunk {trunk}, projections "
+              f"{kernel_resources(log4, 'project_kernelILb0E')}; trunk {lc['shared_bytes']} bytes "
+              f"shared per block, grid {lc['grid'][0]}x{lc['grid'][1]} blocks of "
+              f"{lc['threads']} threads, {lc['blocks_per_sm']} resident blocks per SM on "
+              f"{lc['sms']} SMs, {lc['passes']} passes; {ms:.4f} ms, {bnd[0] / ms:.1%} of its "
+              f"bound ({bnd[0]:.4f} ms by {bnd[1]}) | {card}")
 
     # 12. timings
     plan_ms = cuda_ms(lambda: kern_fn(tsdfs, tsdfs), 10)
@@ -786,7 +930,7 @@ def main() -> int:
               f"{bnd[0] / ms:.1%} of its bound ({bnd[0]:.4f} ms / {ms:.4f} ms) | {card}")
 
     bf16_rows, bf16_kernels = bf16_phases(
-        net, cfg, scenes, results, card, {"K1": ms1, "K2": ms2, "K3": ms3})
+        net, cfg, scenes, results, card, {"K1": ms1, "K2": ms2, "K3": ms3, "K4": ms4, "K5": ms5})
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")

@@ -1,18 +1,14 @@
-// Per-head ResnetBlockFC trunk of the GIGA affordance decoder, fp32: the
-// device code shared by the dense-decode kernels (dense_decode.cu: K2, K3;
-// dense_decode_feats.cu: K4, K5).
+// Per-head ResnetBlockFC trunk of the GIGA affordance decoder: the widths
+// and the float32 weight layout shared by the dense-decode kernels' trunks
+// (trunk_tiled.cuh: K2-K5 in float32; trunk_mma.cuh: their bf16 modes).
 //
-// One thread carries one lattice point of one head: its H-wide residual
-// stream `net` and the hidden activations stay in registers. The head's
-// trunk weights (~43 KB at 5 blocks) sit in shared memory; every thread of
-// a warp reads the same weight address, so the loads are broadcasts and
-// each 16-byte load feeds four FMAs. No tensor cores: fp32 parity with the
-// reference is the contract, and TF32 would break it.
-//
-// Sums run in the reference's order, one rounding per add:
+// The trunk of one lattice point and head, in the order every float32
+// kernel sums it, one rounding per add:
 //   net  = (px + py) + pz, then per block the plane terms one at a time,
 //   hid  = relu(net) @ w0 + b0, dx = relu(hid) @ w1 + b1, net = net + dx,
 //   out  = relu(net) @ wout + bout.
+// A head's trunk weights (~43 KB at 5 blocks) sit in shared memory as
+// load_weights lays them out.
 
 #pragma once
 
@@ -66,85 +62,6 @@ __device__ inline Weights load_weights(float* smem, const float* __restrict__ w0
   for (int i = threadIdx.x; i < H * OE; i += blockDim.x) swo[i] = wout[(size_t)e * H * OE + i];
   if (threadIdx.x < OE) sbo[threadIdx.x] = bout[e * OE + threadIdx.x];
   return {sw0, sw1, sb0, sb1, swo, sbo};
-}
-
-// net = row (H floats, 16-byte aligned)
-__device__ __forceinline__ void set_row(float (&net)[H], const float* row) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int q = 0; q < H / 4; ++q) {
-    float4 u = r[q];
-    net[4 * q + 0] = u.x;
-    net[4 * q + 1] = u.y;
-    net[4 * q + 2] = u.z;
-    net[4 * q + 3] = u.w;
-  }
-}
-
-// net += row (H floats, 16-byte aligned)
-__device__ __forceinline__ void add_row(float (&net)[H], const float* row) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int q = 0; q < H / 4; ++q) {
-    float4 u = r[q];
-    net[4 * q + 0] += u.x;
-    net[4 * q + 1] += u.y;
-    net[4 * q + 2] += u.z;
-    net[4 * q + 3] += u.w;
-  }
-}
-
-// One ResnetBlockFC on the residual stream: net += relu(relu(net) @ w0 + b0) @ w1 + b1.
-__device__ __forceinline__ void resnet_block(float (&net)[H], const Weights& s, int blk) {
-  float hid[H];
-#pragma unroll
-  for (int j = 0; j < H; ++j) hid[j] = 0.f;
-  const float4* W0 = reinterpret_cast<const float4*>(s.w0 + blk * H * H);
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    float v = fmaxf(net[k], 0.f);
-#pragma unroll
-    for (int q = 0; q < H / 4; ++q) {
-      float4 w = W0[k * (H / 4) + q];
-      hid[4 * q + 0] = fmaf(v, w.x, hid[4 * q + 0]);
-      hid[4 * q + 1] = fmaf(v, w.y, hid[4 * q + 1]);
-      hid[4 * q + 2] = fmaf(v, w.z, hid[4 * q + 2]);
-      hid[4 * q + 3] = fmaf(v, w.w, hid[4 * q + 3]);
-    }
-  }
-  float dx[H];
-#pragma unroll
-  for (int j = 0; j < H; ++j) dx[j] = 0.f;
-  const float4* W1 = reinterpret_cast<const float4*>(s.w1 + blk * H * H);
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    float v = fmaxf(hid[k] + s.b0[blk * H + k], 0.f);
-#pragma unroll
-    for (int q = 0; q < H / 4; ++q) {
-      float4 w = W1[k * (H / 4) + q];
-      dx[4 * q + 0] = fmaf(v, w.x, dx[4 * q + 0]);
-      dx[4 * q + 1] = fmaf(v, w.y, dx[4 * q + 1]);
-      dx[4 * q + 2] = fmaf(v, w.z, dx[4 * q + 2]);
-      dx[4 * q + 3] = fmaf(v, w.w, dx[4 * q + 3]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < H; ++j) net[j] = net[j] + (dx[j] + s.b1[blk * H + j]);
-}
-
-// The head's OE outputs: relu(net) @ wout + bout.
-__device__ __forceinline__ float4 head_out(const float (&net)[H], const Weights& s) {
-  float o[OE];
-#pragma unroll
-  for (int j = 0; j < OE; ++j) o[j] = 0.f;
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    float v = fmaxf(net[k], 0.f);
-#pragma unroll
-    for (int j = 0; j < OE; ++j) o[j] = fmaf(v, s.wo[k * OE + j], o[j]);
-  }
-  static_assert(OE == 4, "head_out returns one float4");
-  return make_float4(o[0] + s.bo[0], o[1] + s.bo[1], o[2] + s.bo[2], o[3] + s.bo[3]);
 }
 
 }  // namespace trunk

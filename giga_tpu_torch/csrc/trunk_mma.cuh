@@ -1,7 +1,11 @@
 // Tensor-core per-head ResnetBlockFC trunk of the GIGA affordance decoder in
-// the TPU kernels' bf16 mode (dense_decode.cu: K2 and K3 bf16): the operands
-// of every product are bf16, the sums float32; the plane-row assembly, the
-// biases and the residual stream stay float32.
+// the TPU kernels' bf16 mode (dense_decode.cu: K2 and K3 bf16;
+// dense_decode_feats.cu: K4 and K5 bf16): the operands of every product are
+// bf16, the sums float32; the plane-row assembly, the biases and the
+// residual stream stay float32. Rows and weights come in bf16 (K2, K3) or
+// float32 (K4, K5, whose inputs the TPU kernels take in float32): float32
+// rows are added as they are, float32 weights rounded to bf16 once, as they
+// are copied to shared memory, and float32 biases kept.
 //
 // One warp carries a tile of P = 16 * MT lattice points through one head's
 // H = 32 columns with mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
@@ -68,29 +72,44 @@ __device__ __forceinline__ unsigned pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
+// A weight as a product operand (bf16, rounded to nearest from float32) and
+// as a bias (float32).
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+// Two consecutive row values (8-byte aligned for float32, 4 for bf16) as
+// float32, read through the read-only cache.
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
 // Word w of the B fragments of a (K = H, N = cols) matrix W (row-major,
 // ld = cols; columns past cols are zero), n-tiles per k-step nt: lane l's
 // register r of (k-step s, n-tile n) holds W[16 s + 8 r + 2 t + {0, 1}][8 n + g].
-__device__ __forceinline__ unsigned fragment_word(const __nv_bfloat16* __restrict__ W, int cols,
-                                                  int nt, int w) {
+template <typename T>
+__device__ __forceinline__ unsigned fragment_word(const T* __restrict__ W, int cols, int nt,
+                                                  int w) {
   const int r = w % 2, lane = (w / 2) % 32, j = w / 64;
   const int s = j / nt, n = 8 * (j % nt) + lane / 4;
   const int k = 16 * s + 8 * r + 2 * (lane % 4);
   if (n >= cols) return 0u;
-  return pack(W[k * cols + n], W[(k + 1) * cols + n]);
+  return pack(to_bf16(W[k * cols + n]), to_bf16(W[(k + 1) * cols + n]));
 }
 
-// Copy head e's weights from the per-head bf16 stacks w0/w1 (NB, E, H, H),
-// b0/b1 (NB, E, H), wout (E, H, OE), bout (E, OE) into `smem` (16-byte
-// aligned). Every thread of the block calls it; the caller synchronises
-// before reading.
-__device__ inline Weights load_weights(unsigned* smem, const __nv_bfloat16* __restrict__ w0,
-                                       const __nv_bfloat16* __restrict__ b0,
-                                       const __nv_bfloat16* __restrict__ w1,
-                                       const __nv_bfloat16* __restrict__ b1,
-                                       const __nv_bfloat16* __restrict__ wout,
-                                       const __nv_bfloat16* __restrict__ bout, int e, int E,
-                                       int NB) {
+// Copy head e's weights from the per-head stacks (T bf16 or float32)
+// w0/w1 (NB, E, H, H), b0/b1 (NB, E, H), wout (E, H, OE), bout (E, OE) into
+// `smem` (16-byte aligned). Every thread of the block calls it; the caller
+// synchronises before reading.
+template <typename T>
+__device__ inline Weights load_weights(unsigned* smem, const T* __restrict__ w0,
+                                       const T* __restrict__ b0, const T* __restrict__ w1,
+                                       const T* __restrict__ b1, const T* __restrict__ wout,
+                                       const T* __restrict__ bout, int e, int E, int NB) {
   unsigned* f0 = smem;
   unsigned* f1 = f0 + NB * FRAG_WORDS;
   unsigned* fo = f1 + NB * FRAG_WORDS;
@@ -107,10 +126,10 @@ __device__ inline Weights load_weights(unsigned* smem, const __nv_bfloat16* __re
     fo[i] = fragment_word(wout + (size_t)e * H * OE, OE, 1, i);
   for (int i = threadIdx.x; i < NB * H; i += blockDim.x) {
     const int blk = i / H, r = i % H;
-    sb0[i] = __bfloat162float(b0[((size_t)blk * E + e) * H + r]);
-    sb1[i] = __bfloat162float(b1[((size_t)blk * E + e) * H + r]);
+    sb0[i] = to_float(b0[((size_t)blk * E + e) * H + r]);
+    sb1[i] = to_float(b1[((size_t)blk * E + e) * H + r]);
   }
-  if (threadIdx.x < OE) sbo[threadIdx.x] = __bfloat162float(bout[e * OE + threadIdx.x]);
+  if (threadIdx.x < OE) sbo[threadIdx.x] = to_float(bout[e * OE + threadIdx.x]);
   return {reinterpret_cast<const uint2*>(f0), reinterpret_cast<const uint2*>(f1),
           reinterpret_cast<const uint2*>(fo), sb0, sb1, sbo};
 }
@@ -134,22 +153,22 @@ struct Tile {
 __device__ __forceinline__ int point(int m, int h, int lane) { return 16 * m + 8 * h + lane / 4; }
 
 // net[m][n][2h + {0, 1}] (+)= row_{m,h}[8 n + 2 t + {0, 1}], where row_{m,h}
-// = plane + idx[m][h] * F: a lane's two columns of each n-tile, one 4-byte
-// load each (plane and F keep every row 4-byte aligned). Rows are addressed
-// from their index, not held as pointers: a pointer costs two registers.
-template <bool kSet, int MT>
-__device__ __forceinline__ void rows(Tile<MT>& net, const __nv_bfloat16* __restrict__ plane,
+// = plane + idx[m][h] * F: a lane's two columns of each n-tile, one load
+// each, of 4 bytes (bf16 rows) or 8 (float32 rows); plane and F keep every
+// row aligned to it. Rows are addressed from their index, not held as
+// pointers: a pointer costs two registers.
+template <bool kSet, int MT, typename T>
+__device__ __forceinline__ void rows(Tile<MT>& net, const T* __restrict__ plane,
                                      const int (&idx)[MT][2], int F, int lane) {
-  const __nv_bfloat16* lane_plane = plane + 2 * (lane % 4);
+  const T* lane_plane = plane + 2 * (lane % 4);
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const __nv_bfloat16* row = lane_plane + (size_t)idx[m][h] * F;
+      const T* row = lane_plane + (size_t)idx[m][h] * F;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        const float2 u =
-            __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(row + 8 * n)));
+        const float2 u = load_pair(row + 8 * n);
         if (kSet) {
           net.v[m][n][2 * h] = u.x;
           net.v[m][n][2 * h + 1] = u.y;
@@ -159,6 +178,24 @@ __device__ __forceinline__ void rows(Tile<MT>& net, const __nv_bfloat16* __restr
         }
       }
     }
+}
+
+// net[m][n][2h + {0, 1}] += col[8 n + 2 t + {0, 1}] for every point of the
+// tile: one float32 row the tile shares (a bias; 8-byte aligned).
+template <int MT>
+__device__ __forceinline__ void add_columns(Tile<MT>& net, const float* col, int lane) {
+  const int t = lane % 4;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 c = *reinterpret_cast<const float2*>(col + 8 * n + 2 * t);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      net.v[m][n][0] += c.x;
+      net.v[m][n][1] += c.y;
+      net.v[m][n][2] += c.x;
+      net.v[m][n][3] += c.y;
+    }
+  }
 }
 
 // a[m][s] = the A fragments of bf16(relu(v + bias)) with kBias, else of

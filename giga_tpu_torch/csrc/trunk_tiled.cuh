@@ -1,6 +1,7 @@
 // Register-tiled per-head ResnetBlockFC trunk of the GIGA affordance
 // decoder, fp32: one warp carries a tile of P lattice points through one
-// head's H = 32 columns (dense_decode.cu: K2, K3).
+// head's H = 32 columns (dense_decode.cu: K2, K3; dense_decode_feats.cu:
+// K4, K5).
 //
 // Each lane holds a TP x TC micro-tile (TP points x TC columns) of the
 // residual stream `net` and of the layer's accumulators. The warp's 32 lanes
@@ -10,7 +11,7 @@
 // floats per feature). Per k a lane loads its TP activations and its TC
 // weights (16-byte loads; the warp shares each weight load) for TP * TC
 // FMAs: at 8 x 8 that is 16 floats per 64 FMAs, at 4 x 8 12 per 32, against
-// 32 per 32 when a thread carries a whole point (trunk.cuh). An SM moves
+// 32 per 32 when a thread carries a whole point. An SM moves
 // 128 bytes a clock from shared memory into registers and issues 128 FMAs a
 // clock, so a micro-tile under 4 FMAs per float loaded cannot keep its FMA
 // lanes busy: 8 x 8 is the smallest that can.
@@ -26,7 +27,7 @@
 // tile is its own, and no block-wide barrier runs inside the trunk.
 //
 // Sums run in the order of trunk.cuh, one fmaf per term with k ascending,
-// so the outputs equal the one-point-per-thread trunk's bit for bit:
+// so the outputs equal a one-point-per-thread trunk's bit for bit:
 //   net = (px + py) + pz, then per block ((net + pxz) + pxy) + pyz,
 //   hid = relu(net) @ w0, dx = relu(hid + b0) @ w1, net = net + (dx + b1),
 //   out = relu(net) @ wout + bout.

@@ -155,6 +155,18 @@ def build_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig
     decodes through the module path, the reference the kernel's program is
     checked against. A bf16 net runs the bf16 program: the TSDF cast to
     bf16 for the network, K3's bf16 mode, a float32 postprocess.
+
+    In bf16 this is the counterpart of the JAX package's
+    ``build_giga_planner_fn(use_pallas=True, dtype=bf16)``: K3's bf16 mode
+    takes bf16 operands in its products but keeps their sums, the residual
+    stream, the sigmoid and the quaternion norm in float32. JAX's
+    ``GIGAPlanner(precision="bf16")`` builds its program without
+    ``use_pallas``, so its ``__call__`` decodes with the XLA
+    ``decode_affordance_dense``, all in bf16, on the TPU as on the CPU. The
+    two bf16 programs are held together by tests/test_torch_bf16.py (raw
+    qual within 4e-2 at most and 3e-3 at the median, and
+    tests/test_bf16_serving.py's four decision gates) and on the card by
+    chip_smoke.py against a golden file of JAX's ``__call__``.
     """
     voxel_size = size / planner_cfg.resolution
     R = planner_cfg.resolution

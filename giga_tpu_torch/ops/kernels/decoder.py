@@ -23,12 +23,16 @@ F-wide layout (head e owns columns e*H .. e*H + H - 1).
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``) for CPU tensors; there is no other fallback.
 
-K2 and K3 have two modes, chosen by the inputs' dtype: float32, and
-bfloat16 (the TPU kernels' ``compute_dtype=bf16``, with K2's projections
-stored in bf16): every input bf16, the assembly, biases and residual stream
-float32, and the operands of each product rounded to bf16 with float32
-sums. ``prepare_projections(_batched)(..., dtype=torch.bfloat16)`` makes
-those inputs as the JAX package's bf16 program does.
+Every kernel has two modes, float32 and the TPU kernels'
+``compute_dtype=bf16``: the assembly, biases and residual stream float32,
+and the operands of each product (the trunk's, and K4's and K5's in-kernel
+projections) rounded to bf16 with float32 sums. K2 and K3 pick the mode by
+their inputs' dtype: in bf16 every input is bf16 (K2's projections stored
+in bf16), made by ``prepare_projections(_batched)(..., dtype=torch.bfloat16)``
+as the JAX package's bf16 program makes them. K4 takes float32 inputs in
+both modes and a ``compute_dtype``; K5 takes float32 inputs but for pyz,
+which ``prepare_hybrid_inputs(..., dtype=torch.bfloat16)`` stores in bf16,
+and its mode follows pyz's dtype.
 """
 
 from __future__ import annotations
@@ -115,37 +119,50 @@ def prepare_projections(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: 
 
 
 def prepare_feats_inputs(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
-    """K4's inputs: px/py/pz (R, F); the raw features fxz/fxy/fyz
-    (B, R, R, C); wxz/wxy/wyz (n_blocks, C, F); bc (n_blocks, F); the
-    per-head trunk and head weights."""
+    """K4's inputs, all float32 whatever the dtype of ``dec`` and ``feats``
+    (as the JAX package's ``_as_f32``): px/py/pz (R, F), computed in the
+    params' dtype; the raw features fxz/fxy/fyz (B, R, R, C); wxz/wxy/wyz
+    (n_blocks, C, F); bc (n_blocks, F); the per-head trunk and head
+    weights."""
     px, py, pz = prepare_axis_terms(dec, coords)
-    return (px, py, pz, *(feats[t].contiguous() for t in ("xz", "xy", "yz")),
-            *_fc_c_splits(dec, n_blocks), *_trunk_weights(dec, n_blocks))
+    return tuple(t.float().contiguous() for t in (
+        px, py, pz, *(feats[t] for t in ("xz", "xy", "yz")), *_fc_c_splits(dec, n_blocks),
+        *_trunk_weights(dec, n_blocks)))
 
 
-def prepare_hybrid_inputs(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+def prepare_hybrid_inputs(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5,
+                          dtype: torch.dtype = torch.float32):
     """K5's inputs: px/py/pz (R, F); fxz/fxy (B, R, R, C); pyz
     (B, n_blocks, R, R, F) with the fc_c biases folded in; wxz/wxy
-    (n_blocks, C, F); the per-head trunk and head weights."""
+    (n_blocks, C, F); the per-head trunk and head weights. Everything is
+    computed in the dtype of ``dec`` and ``feats`` and returned float32 (as
+    the JAX package's ``_as_f32``) but pyz, which is stored in ``dtype``
+    (the JAX package's ``proj_dtype``: bf16 for K5's bf16 mode)."""
     px, py, pz = prepare_axis_terms(dec, coords)
     wxz, wxy, wyz, bc = _fc_c_splits(dec, n_blocks)
     pyz = torch.stack([_project(feats["yz"], wyz[i]) + bc[i] for i in range(n_blocks)], 1)
-    return (px, py, pz, feats["xz"].contiguous(), feats["xy"].contiguous(), pyz, wxz, wxy,
-            *_trunk_weights(dec, n_blocks))
+    out = tuple(t.float().contiguous() for t in (
+        px, py, pz, feats["xz"], feats["xy"], pyz, wxz, wxy, *_trunk_weights(dec, n_blocks)))
+    return out[:5] + (out[5].to(dtype),) + out[6:]
 
 
 # -- plain versions -----------------------------------------------------------
+
+def _operand(a: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """A product's operand in float32: as it is, or rounded to bf16 first
+    (``compute_dtype`` bf16), so that the float32 product of two operands
+    is exact and only the sums round, as in the TPU kernels' bf16 mode."""
+    return a.float() if compute_dtype == torch.float32 else a.to(compute_dtype).float()
+
 
 def _trunk_plain(net, block_input, w0, b0, w1, b1, wout, bout,
                  compute_dtype: torch.dtype = torch.float32):
     """The per-head trunk on a (..., F) float32 residual stream: block i
     first adds ``block_input(net, i)``'s plane terms, then runs its
     ResnetBlockFC. Returns (..., heads*O) float32. With ``compute_dtype``
-    bf16 both operands of each product are rounded to bf16 and the product
-    runs in float32: exact products, float32 sums, as the TPU kernel's bf16
-    mode computes them."""
+    bf16 both operands of each product are rounded to bf16 (``_operand``)."""
     def operand(a):
-        return a.float() if compute_dtype == torch.float32 else a.to(compute_dtype).float()
+        return _operand(a, compute_dtype)
 
     n_blocks, E, H, _ = w0.shape
     lead = net.shape[:-1]
@@ -204,27 +221,40 @@ def fused_dense_decode_plain(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bo
 
 
 def dense_decode_feats_plain(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
-                             w0, b0, w1, b1, wout, bout):
-    """Plain PyTorch version of K4 -> (B, R, R, R, heads*O): block i adds
-    fxz @ wxz[i], fxy @ wxy[i], fyz @ wyz[i] and bc[i], in that order."""
+                             w0, b0, w1, b1, wout, bout,
+                             compute_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of K4 -> (B, R, R, R, heads*O) float32: block i
+    adds fxz @ wxz[i], fxy @ wxy[i], fyz @ wyz[i] and bc[i], in that order.
+    With ``compute_dtype`` bf16 the projections' operands are rounded to
+    bf16 too; their float32 rows are added as they are."""
+    def project(f, w):
+        return _project(_operand(f, compute_dtype), _operand(w, compute_dtype))
+
     def block_input(net, i):
-        return (net + _project(fxz, wxz[i])[:, :, None, :, :]
-                + _project(fxy, wxy[i])[:, :, :, None, :]
-                + _project(fyz, wyz[i])[:, None, :, :, :] + bc[i])
+        return (net + project(fxz, wxz[i])[:, :, None, :, :]
+                + project(fxy, wxy[i])[:, :, :, None, :]
+                + project(fyz, wyz[i])[:, None, :, :, :] + bc[i].float())
 
     return _trunk_plain(_lattice_start(px, py, pz, fxz.shape[0]), block_input,
-                        w0, b0, w1, b1, wout, bout)
+                        w0, b0, w1, b1, wout, bout, compute_dtype)
 
 
 def dense_decode_hybrid_plain(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1, b1, wout, bout):
-    """Plain PyTorch version of K5 -> (B, R, R, R, heads*O): block i adds
-    fxz @ wxz[i], fxy @ wxy[i] and pyz[:, i], in that order."""
+    """Plain PyTorch version of K5 -> (B, R, R, R, heads*O) float32: block i
+    adds fxz @ wxz[i], fxy @ wxy[i] and pyz[:, i] (widened to float32), in
+    that order, in the mode of pyz's dtype: bf16 rounds the operands of the
+    projections and the trunk as ``dense_decode_feats_plain`` does."""
+    compute_dtype = pyz.dtype
+
+    def project(f, w):
+        return _project(_operand(f, compute_dtype), _operand(w, compute_dtype))
+
     def block_input(net, i):
-        return (net + _project(fxz, wxz[i])[:, :, None, :, :]
-                + _project(fxy, wxy[i])[:, :, :, None, :] + pyz[:, i][:, None, :, :, :])
+        return (net + project(fxz, wxz[i])[:, :, None, :, :]
+                + project(fxy, wxy[i])[:, :, :, None, :] + pyz[:, i].float()[:, None, :, :, :])
 
     return _trunk_plain(_lattice_start(px, py, pz, fxz.shape[0]), block_input,
-                        w0, b0, w1, b1, wout, bout)
+                        w0, b0, w1, b1, wout, bout, compute_dtype)
 
 
 # -- kernel wrappers ----------------------------------------------------------
@@ -245,11 +275,11 @@ def _check(what: str, expect: dict, args, device, dtype=torch.float32) -> None:
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _mode(what: str, t: torch.Tensor) -> str:
-    """The entry-point suffix for inputs of ``t``'s dtype."""
-    if t.dtype not in SUFFIX:
-        raise ValueError(f"{what}: unsupported dtype {t.dtype}")
-    return SUFFIX[t.dtype]
+def _mode(what: str, dtype: torch.dtype) -> str:
+    """The entry-point suffix of ``dtype``'s mode."""
+    if dtype not in SUFFIX:
+        raise ValueError(f"{what}: unsupported dtype {dtype}")
+    return SUFFIX[dtype]
 
 
 def _trunk_shapes(w0, wout):
@@ -285,7 +315,7 @@ def dense_decode_batched(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
     device = _device("dense_decode_batched", pxz)
     if device is None:
         return dense_decode_plain(*args)
-    entry = "dense_decode_" + _mode("dense_decode_batched", pxz)
+    entry = "dense_decode_" + _mode("dense_decode_batched", pxz.dtype)
     R, F = px.shape
     B = pxz.shape[0]
     n_blocks, E, H, O = _trunk_shapes(w0, wout)
@@ -313,7 +343,7 @@ def fused_dense_decode(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
     device = _device("fused_dense_decode", pxz)
     if device is None:
         return fused_dense_decode_plain(*args)
-    entry = "dense_decode_single_" + _mode("fused_dense_decode", pxz)
+    entry = "dense_decode_single_" + _mode("fused_dense_decode", pxz.dtype)
     R = px.shape[0]
     n_blocks, E, H, O = _trunk_shapes(w0, wout)
     plane = (n_blocks, R, R, E * H)
@@ -333,8 +363,10 @@ fused_dense_decode.launches = 0
 
 
 def dense_decode_feats_batched(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
-                               w0, b0, w1, b1, wout, bout, x_chunk: int = FEATS_X_CHUNK):
-    """K4 trunk from raw features -> (B, R, R, R, heads*O); the CUDA kernels
+                               w0, b0, w1, b1, wout, bout, x_chunk: int = FEATS_X_CHUNK,
+                               compute_dtype: torch.dtype = torch.float32):
+    """K4 trunk from raw features -> (B, R, R, R, heads*O) float32, in
+    ``compute_dtype``'s mode (every input float32 in both); the CUDA kernels
     for CUDA tensors. ``x_chunk`` is the run of x-slabs one pass of the
     kernels covers: the xz and xy projection rows of a pass are held in
     scratch of (B, n_blocks, x_chunk, R, heads*H) floats each (the outputs do
@@ -342,7 +374,8 @@ def dense_decode_feats_batched(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
     args = (px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc, w0, b0, w1, b1, wout, bout)
     device = _device("dense_decode_feats_batched", fxz)
     if device is None:
-        return dense_decode_feats_plain(*args)
+        return dense_decode_feats_plain(*args, compute_dtype=compute_dtype)
+    entry = "dense_decode_feats_" + _mode("dense_decode_feats_batched", compute_dtype)
     R = px.shape[0]
     B, C = fxz.shape[0], fxz.shape[-1]
     n_blocks, E, H, O = _trunk_shapes(w0, wout)
@@ -361,10 +394,10 @@ def dense_decode_feats_batched(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
     sxz, sxy = (torch.empty((B, n_blocks, XR, R, F), device=device, dtype=torch.float32)
                 for _ in range(2))
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _feats_lib().dense_decode_feats_f32(*(t.data_ptr() for t in args), out.data_ptr(),
-                                              sxz.data_ptr(), sxy.data_ptr(), syz.data_ptr(),
-                                              B, R, C, E, n_blocks, XR, stream)
-    _build.check(err, "dense_decode_feats_f32")
+    err = getattr(_feats_lib(), entry)(*(t.data_ptr() for t in args), out.data_ptr(),
+                                       sxz.data_ptr(), sxy.data_ptr(), syz.data_ptr(),
+                                       B, R, C, E, n_blocks, XR, stream)
+    _build.check(err, entry)
     dense_decode_feats_batched.launches += 1
     return out
 
@@ -373,25 +406,35 @@ dense_decode_feats_batched.launches = 0
 
 
 def dense_decode_hybrid_batched(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1, b1, wout, bout):
-    """K5 trunk, xz/xy rows projected in-kernel -> (B, R, R, R, heads*O);
-    the CUDA kernel for CUDA tensors."""
+    """K5 trunk, xz/xy rows projected in-kernel -> (B, R, R, R, heads*O)
+    float32, in the mode of pyz's dtype (float32, or bf16 for the bf16
+    mode; every other input float32); the CUDA kernels for CUDA tensors.
+    The xz and xy rows of all x-slabs are held in scratch of
+    (B, n_blocks, R, R, heads*H) floats each."""
     args = (px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1, b1, wout, bout)
     device = _device("dense_decode_hybrid_batched", fxz)
     if device is None:
         return dense_decode_hybrid_plain(*args)
+    entry = "dense_decode_hybrid_" + _mode("dense_decode_hybrid_batched", pyz.dtype)
     R = px.shape[0]
     B, C = fxz.shape[0], fxz.shape[-1]
     n_blocks, E, H, O = _trunk_shapes(w0, wout)
     F = E * H
     _check("dense_decode_hybrid_batched",
-           {"px": (R, F), "py": (R, F), "pz": (R, F), "fxz": (B, R, R, C), "fxy": (B, R, R, C),
-            "pyz": (B, n_blocks, R, R, F), "wxz": (n_blocks, C, F), "wxy": (n_blocks, C, F),
-            **_trunk_expect(n_blocks, E, H, O)}, args, device)
+           {"px": (R, F), "py": (R, F), "pz": (R, F), "fxz": (B, R, R, C), "fxy": (B, R, R, C)},
+           args[:5], device)
+    _check("dense_decode_hybrid_batched", {"pyz": (B, n_blocks, R, R, F)}, (pyz,), device,
+           pyz.dtype)
+    _check("dense_decode_hybrid_batched",
+           {"wxz": (n_blocks, C, F), "wxy": (n_blocks, C, F), **_trunk_expect(n_blocks, E, H, O)},
+           args[6:], device)
     out = torch.empty((B, R, R, R, E * O), device=device, dtype=torch.float32)
+    sxz, sxy = (torch.empty((B, n_blocks, R, R, F), device=device, dtype=torch.float32)
+                for _ in range(2))
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _feats_lib().dense_decode_hybrid_f32(*(t.data_ptr() for t in args), out.data_ptr(),
-                                               B, R, C, E, n_blocks, stream)
-    _build.check(err, "dense_decode_hybrid_f32")
+    err = getattr(_feats_lib(), entry)(*(t.data_ptr() for t in args), out.data_ptr(),
+                                       sxz.data_ptr(), sxy.data_ptr(), B, R, C, E, n_blocks, stream)
+    _build.check(err, entry)
     dense_decode_hybrid_batched.launches += 1
     return out
 
@@ -449,18 +492,22 @@ def decode_affordance_dense_kernel(dec: dict, feats: dict, coords: torch.Tensor,
 
 
 def decode_affordance_dense_kernel_feats_batched(dec: dict, feats: dict, coords: torch.Tensor,
-                                                 n_blocks: int = 5, x_chunk: int = FEATS_X_CHUNK):
-    """Batched (qual, rot, width) through K4: qual (B,R,R,R), rot
-    (B,R,R,R,4), width (B,R,R,R)."""
+                                                 n_blocks: int = 5, x_chunk: int = FEATS_X_CHUNK,
+                                                 compute_dtype: torch.dtype = torch.float32):
+    """Batched (qual, rot, width) through K4 in ``compute_dtype``'s mode:
+    float32 qual (B,R,R,R), rot (B,R,R,R,4), width (B,R,R,R)."""
     inputs = prepare_feats_inputs(dec, feats, coords, n_blocks)
-    return split_heads(dense_decode_feats_batched(*inputs, x_chunk=x_chunk), _heads(dec))
+    out = dense_decode_feats_batched(*inputs, x_chunk=x_chunk, compute_dtype=compute_dtype)
+    return split_heads(out, _heads(dec))
 
 
 def decode_affordance_dense_kernel_hybrid_batched(dec: dict, feats: dict, coords: torch.Tensor,
-                                                  n_blocks: int = 5):
-    """Batched (qual, rot, width) through K5: qual (B,R,R,R), rot
-    (B,R,R,R,4), width (B,R,R,R)."""
-    inputs = prepare_hybrid_inputs(dec, feats, coords, n_blocks)
+                                                  n_blocks: int = 5,
+                                                  compute_dtype: torch.dtype = torch.float32):
+    """Batched (qual, rot, width) through K5 in ``compute_dtype``'s mode (pyz
+    stored in it): float32 qual (B,R,R,R), rot (B,R,R,R,4), width
+    (B,R,R,R)."""
+    inputs = prepare_hybrid_inputs(dec, feats, coords, n_blocks, compute_dtype)
     return split_heads(dense_decode_hybrid_batched(*inputs), _heads(dec))
 
 
@@ -480,13 +527,16 @@ def dense_decode_launch_config(B: int, R: int, heads: int, n_blocks: int,
 
 
 def dense_decode_feats_launch_config(B: int, R: int, C: int, heads: int, n_blocks: int,
-                                     x_chunk: int) -> dict:
-    """The launches K4 makes for these shapes on the current card: its trunk
-    kernel's resident blocks per SM, SMs, grid (blocks per head x heads),
-    threads and dynamic shared bytes per block, and the passes of x_chunk
-    x-slabs."""
+                                     x_chunk: int, hybrid: bool = False,
+                                     dtype: torch.dtype = torch.float32) -> dict:
+    """The launches K4 (or K5, ``hybrid``, which runs one pass: x_chunk R)
+    makes for these shapes on the current card in ``dtype``'s mode: its
+    trunk kernel's resident blocks per SM, SMs, grid (blocks per head x
+    heads), threads and dynamic shared bytes per block, and the passes of
+    x_chunk x-slabs."""
+    mode = int(hybrid) + 2 * (_mode("dense_decode_feats_launch_config", dtype) == "bf16")
     info = (ctypes.c_int * 7)()
-    err = _feats_lib().dense_decode_feats_config(B, R, C, heads, n_blocks, x_chunk, info)
+    err = _feats_lib().dense_decode_feats_config(mode, B, R, C, heads, n_blocks, x_chunk, info)
     _build.check(err, "dense_decode_feats_config")
     return {"blocks_per_sm": info[0], "sms": info[1], "grid": (info[2], info[3]),
             "threads": info[4], "shared_bytes": info[5], "passes": info[6]}
@@ -517,10 +567,11 @@ def _feats_lib() -> ctypes.CDLL:
     """K4/K5's library, built and loaded on first use, its C signatures bound."""
     lib = _build.load("dense_decode_feats")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dense_decode_feats_f32.argtypes = [p] * 20 + [i] * 6 + [p]
-    lib.dense_decode_feats_f32.restype = i
-    lib.dense_decode_feats_config.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    for suffix in SUFFIX.values():
+        getattr(lib, f"dense_decode_feats_{suffix}").argtypes = [p] * 20 + [i] * 6 + [p]
+        getattr(lib, f"dense_decode_feats_{suffix}").restype = i
+        getattr(lib, f"dense_decode_hybrid_{suffix}").argtypes = [p] * 17 + [i] * 5 + [p]
+        getattr(lib, f"dense_decode_hybrid_{suffix}").restype = i
+    lib.dense_decode_feats_config.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     lib.dense_decode_feats_config.restype = i
-    lib.dense_decode_hybrid_f32.argtypes = [p] * 15 + [i] * 5 + [p]
-    lib.dense_decode_hybrid_f32.restype = i
     return lib

@@ -17,12 +17,14 @@ Run from the repository root. Each build in ``DESIGNS`` and ``ABLATIONS``
 - an ablation deletes work to show what it costs: the xz and xy row
   projections of every pass (the trunk then reads the scratch as it was),
   the pyz projection with the trunk's pyz add, or the trunk's fc_c bias
-  add. Its outputs are wrong by construction and are not checked.
+  add. Its outputs are wrong by construction and are not checked. K5
+  shares the edited trunk and projections but is not timed here.
 
 Each ``--tree NAME=DIR`` adds ``DIR/giga_tpu_torch/csrc/dense_decode_feats.cu``
 as it stands, for example the parent commit unpacked by ``git archive`` (a
 source without ``dense_decode_feats_config`` is called with the earlier
-signature, which takes no scratch). All builds compile at once, one nvcc each.
+signature, which takes no scratch; a source whose trunk kernel is no
+template is read by its plain name in the ptxas log). All builds compile at once, one nvcc each.
 On chip_smoke's seeded scenes (B=64, R=40) through the shipped checkpoint's
 encoder, every build but the ablations must give an output equal,
 ``torch.equal``, to the shipped library's at every ``--chunks`` x_chunk; then
@@ -53,11 +55,13 @@ def _design(tp: int, tc: int, warps: int, blocks: int, unroll: int) -> dict:
 # biases through L1, as K4's first design did, instead of from shared memory
 _BIAS_L1 = [
     ("  float* bsh = smem + trunk::weight_floats(NB) + WARPS * Lane::ACT_FLOATS;  // (NB, H): head "
-     "e's bc\n  for (int i = threadIdx.x; i < NB * H; i += blockDim.x)\n"
-     "    bsh[i] = bc[(size_t)(i / H) * F + e * H + i % H];\n", ""),
-    ("        const float4 v = *reinterpret_cast<const float4*>(bsh + blk * H + ln.column(4 * q));\n",
-     "        const float4 v = __ldg(reinterpret_cast<const float4*>(bc + (size_t)blk * F + col +\n"
-     "                                                               ln.column(4 * q)));\n"),
+     "e's bc\n  if (kBias)\n    for (int i = threadIdx.x; i < NB * H; i += blockDim.x)\n"
+     "      bsh[i] = bc[(size_t)(i / H) * F + e * H + i % H];\n", ""),
+    ("          const float4 v = *reinterpret_cast<const float4*>(bsh + blk * H + "
+     "ln.column(4 * q));\n",
+     "          const float4 v = __ldg(reinterpret_cast<const float4*>(bc + (size_t)blk * F + "
+     "col +\n                                                                 "
+     "ln.column(4 * q)));\n"),
 ]
 # ... and that index the projections' job parameter by blockIdx.y (ptxas then
 # copies it to local memory), as K4's first design did
@@ -83,12 +87,12 @@ _PROJECT_ROWS = [
     ("    jobs.job[n++] = {fxy, wxy, sxy, x0, xr};\n", ""),
 ]
 _PYZ = [
-    ("    if (x0 == 0) jobs.job[n++] = {fyz, wyz, syz, 0, R};\n", ""),
+    ("    if (kK4 && x0 == 0) jobs.job[n++] = {fyz, wyz, syz, 0, R};\n", ""),
     ("      tiled::add_rows(net, rows[2], ln);\n", ""),
 ]
-_BIAS = [("      for (int p = 0; p < TP; ++p)\n#pragma unroll\n"
-          "        for (int c = 0; c < TC; ++c) net[p][c] += bias[c];\n",
-          "      for (int p = 0; p < TP; ++p) {}\n")]
+_BIAS = [("        for (int p = 0; p < TP; ++p)\n#pragma unroll\n"
+          "          for (int c = 0; c < TC; ++c) net[p][c] += bias[c];\n",
+          "        for (int p = 0; p < TP; ++p) {}\n")]
 
 # name -> [(old, new) edits of dense_decode_feats.cu], on the shipped design
 ABLATIONS = {
@@ -175,9 +179,10 @@ def main() -> int:
                 k4(lib, c)
                 torch.cuda.synchronize()
                 same = same and torch.equal(out, refs[c])
+            res = chip_smoke.kernel_resources(log, "dense_decode_feats_kernelILb1E",
+                                              "dense_decode_feats_kernel")
             print(f"{name}: K4 output equals the shipped library's bit for bit at x_chunk "
-                  f"{args.chunks}: {same}; ptxas trunk "
-                  f"{chip_smoke.kernel_resources(log, 'dense_decode_feats_kernel')}", flush=True)
+                  f"{args.chunks}: {same}; ptxas trunk {res}", flush=True)
             if not same and name not in ABLATIONS:
                 raise AssertionError(f"{name} gives other outputs than the shipped library")
 

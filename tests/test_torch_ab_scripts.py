@@ -1,4 +1,4 @@
-"""The design A/B scripts' builds apply to the shipped CUDA sources.
+"""The A/B scripts, on the CPU.
 
 Each build of ``ab_dense_decode`` (K2/K3, both modes), ``ab_stem_pool`` (K1) and
 ``ab_dense_decode_feats`` (K4) is an edited copy of a shipped source: design
@@ -6,11 +6,30 @@ constants rewritten, statements deleted or patched, each edit's old text
 found exactly once. An edit of a kernel that renames a constant or rewrites
 a patched statement would otherwise break its script only on the card. Here
 every build's copy is made on the CPU.
+
+``measure_decoder_kernels`` (the decode A/B) takes ``--dtype bf16``; its
+four bf16 decodes run here on CPU tensors (the kernels' plain versions) at
+a small size, held as the script holds them on the card.
 """
 
-import pytest
+import sys
+from pathlib import Path
 
-from giga_tpu_torch.scripts import ab_dense_decode, ab_dense_decode_feats, ab_stem_pool
+import numpy as np
+import pytest
+import torch
+
+from giga_tpu_torch.core import config as tcfg
+from giga_tpu_torch.inference.dense_decode import lattice_coords
+from giga_tpu_torch.models.conv_onet import GIGANet
+from giga_tpu_torch.scripts import (
+    ab_dense_decode, ab_dense_decode_feats, ab_stem_pool, measure_decoder_kernels)
+
+REPO = Path(__file__).resolve().parents[1]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
 
 SCRIPTS = {
     "ab_dense_decode": (ab_dense_decode, "dense_decode.cu"),
@@ -40,3 +59,59 @@ def test_each_script_times_the_shipped_design_first():
             first = next(iter(designs))
             constants, edits = module.build_edits(first)
             assert "(shipped)" in first and not constants and not any(edits.values())
+
+
+@pytest.mark.parametrize("argv,dtype", [([], "fp32"), (["--dtype", "fp32"], "fp32"),
+                                        (["--dtype", "bf16", "--chunks", "4"], "bf16")])
+def test_measure_decoder_kernels_parses_dtype(argv, dtype):
+    args = measure_decoder_kernels.parse_args(argv)
+    assert args.dtype == dtype and args.batch == 64
+
+
+def test_measure_decoder_kernels_refuses_other_dtypes():
+    with pytest.raises(SystemExit):
+        measure_decoder_kernels.parse_args(["--dtype", "fp16"])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_measure_decoder_kernels_needs_a_card(monkeypatch, capsys, dtype):
+    """Without a card the script exits 2 in either mode, timing nothing
+    (bf16 no longer raises)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert measure_decoder_kernels.main(["--dtype", dtype]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_measure_decoder_kernels_bf16_decodes_on_cpu():
+    """The four bf16 decodes of the A/B (module path on bf16 params, K2, K4
+    at two x_chunks and K5 in their bf16 modes) on bf16 lattice features,
+    here through the plain versions: float32 volumes of one shape, raw qual
+    within the A/B's gates of K2 bf16's."""
+    cfg = tcfg.GIGAConfig(
+        encoder=tcfg.EncoderConfig(c_dim=8, plane_resolution=8,
+                                   unet=tcfg.UNet2DConfig(depth=2, start_filts=4)),
+        decoder=tcfg.DecoderConfig(c_dim=8, hidden_size=32, n_blocks=2))
+    net = GIGANet(cfg)  # zeros until a checkpoint is loaded: seeded weights instead
+    rng = np.random.RandomState(3)
+    with torch.no_grad():
+        for w in net.parameters():
+            w.copy_(torch.from_numpy(rng.uniform(-0.2, 0.2, tuple(w.shape)).astype(np.float32)))
+    net = net.to(torch.bfloat16)
+    R = 8
+    coords = lattice_coords(R)
+    feats = {t: torch.from_numpy(rng.randn(2, R, R, 8).astype(np.float32)).to(torch.bfloat16)
+             for t in ("xz", "xy", "yz")}
+    paths = measure_decoder_kernels.decode_paths(net.decoder_aff.params(), coords, 2, [4, 8],
+                                                 torch.bfloat16)
+    assert list(paths) == ["module path", "K2 projections + trunk", "K4 raw features, x_chunk=4",
+                           "K4 raw features, x_chunk=8", "K5 hybrid"]
+    with torch.inference_mode():
+        ref = paths["K2 projections + trunk"](feats)
+        for name, fn in paths.items():
+            qual, rot, width = fn(feats)
+            assert all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+                       for v in (qual, rot, width)), name
+            assert qual.shape == width.shape == (2, R, R, R)
+            worst, _ = chip_smoke.check_qual_bf16(qual.numpy(), ref[0].numpy(), name)
+            # bf16 decodes of another design differ somewhere
+            assert worst > 0 or name == "K2 projections + trunk", name

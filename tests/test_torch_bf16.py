@@ -1,20 +1,31 @@
-"""bf16 serving of the PyTorch port, ``GIGAPlanner(precision="bf16")``, held
-against the JAX package's TPU bf16 program on the CPU.
+"""bf16 serving of the PyTorch port, ``GIGAPlanner(precision="bf16")``, and
+the bf16 modes of its kernels, held against the JAX package on the CPU.
 
-The reference is what the JAX planner runs on a TPU with ``precision="bf16"``
-(giga_tpu/inference/planner.py:276-347 batched, :95-129 single-scene with the
-Pallas decode): params and the network's TSDF cast to bf16, kernels K1-K3 in
-their ``compute_dtype=bf16`` modes, a float32 postprocess. On the CPU that
-program takes the XLA path, so the tests compose it from the JAX package's
-own functions with the Pallas kernels in interpret mode.
+The references are the programs the JAX planner runs on a TPU with
+``precision="bf16"``: params and the network's TSDF cast to bf16, a float32
+postprocess.
+  * Batched (``plan_batch``; giga_tpu/inference/planner.py:276-347): the
+    Pallas kernels K1 and K2 in their ``compute_dtype=bf16`` modes. On the
+    CPU that program takes the XLA path, so the tests compose it from the
+    JAX package's own functions with the Pallas kernels in interpret mode.
+  * Single-scene (``__call__``, ``plan_stream``): ``GIGAPlanner`` builds it
+    without ``use_pallas`` (planner.py:584-585, :76), so it decodes with
+    the XLA ``decode_affordance_dense``, all in bf16 (its residual stream,
+    sigmoid and quaternion norm too), on the TPU as on the CPU. The tests
+    run that planner itself. The port's bf16 ``__call__`` runs K3's bf16
+    mode instead (float32 sums, residual stream and heads), the counterpart
+    of ``build_giga_planner_fn(use_pallas=True, dtype=bf16)``.
 
 Tolerances: the kernels' bf16 plain versions against the Pallas kernels on
 the same inputs keep at least 99.9 % of raw outputs within 1e-5 and every
 output within 2e-2 * (1 + |ref|) (chip_smoke.check_bf16: a float32 sum in
-another order may flip one bf16 rounding of an activation). The programs
-keep raw qual within 2e-2 at most and 3e-3 at the median
-(tests/test_pallas_kernel.py:91-92) and pass tests/test_bf16_serving.py's
-four decision gates (chip_smoke.bf16_gates).
+another order may flip one bf16 rounding of an activation). The batched
+program keeps raw qual within 2e-2 at most and 3e-3 at the median of the
+JAX batched program (tests/test_pallas_kernel.py:91-92); the single-scene
+program, a bf16 program of another design, within 4e-2 at most and 3e-3 at
+the median of JAX's (chip_smoke.check_qual_bf16: each is within 2e-2 of
+float32). Both pass tests/test_bf16_serving.py's four decision gates
+(chip_smoke.bf16_gates).
 """
 
 import copy
@@ -32,9 +43,11 @@ import chip_smoke
 from giga_tpu.core import config as jcfg
 from giga_tpu.inference import dense_decode as jdd
 from giga_tpu.inference import postprocess as jpp
+from giga_tpu.inference.planner import GIGAPlanner as JGIGAPlanner
+from giga_tpu.inference.planner import State as JState
 from giga_tpu.inference.planner import _lattice_positions, _maybe_cast
 from giga_tpu.models.conv_onet import GIGANet as JGIGANet
-from giga_tpu.models.registry import load_params
+from giga_tpu.models.registry import get_network, load_params
 from giga_tpu.ops.pallas import decoder_kernel as jdk
 from giga_tpu.ops.pallas.stem_kernel import encode_planes_fused as jax_encode_fused
 from giga_tpu.ops.pallas.stem_kernel import fused_stem_pool_batched
@@ -46,7 +59,7 @@ from giga_tpu_torch.models.encoder import encode_planes_fused
 from giga_tpu_torch.models.registry import load_network
 from giga_tpu_torch.ops.kernels import decoder as tdk
 from giga_tpu_torch.ops.kernels.stem import stem_pool_batched, stem_pool_plain
-from test_torch_kernels import _jax_trunk
+from test_torch_kernels import _feats_case, _jax_trunk, _torch
 
 REPO = Path(__file__).resolve().parents[1]
 BF16 = torch.bfloat16
@@ -130,6 +143,40 @@ def test_fused_decode_bf16_plain_matches_pallas_interpret(R, nb):
     chip_smoke.check_bf16(got, ref, "K3 bf16 plain")
 
 
+@pytest.mark.parametrize("B,R,C,nb,x_chunk", [(2, 8, 4, 2, 4), (1, 6, 8, 1, 6)])
+def test_feats_decode_bf16_plain_matches_pallas_interpret(B, R, C, nb, x_chunk):
+    """K4's bf16 mode: every input float32; the operands of the in-kernel
+    projections and of the trunk's products rounded to bf16, float32 sums,
+    projection rows, assembly and residual stream."""
+    d, t = _feats_case(90 + R, B, R, C, nb)
+    ref = np.asarray(jdk.fused_dense_decode_feats_batched(
+        *(jnp.asarray(v) for v in d.values()), *_jax_trunk(t), n_blocks=nb, x_chunk=x_chunk,
+        compute_dtype=jnp.bfloat16, interpret=True))
+    got = tdk.dense_decode_feats_plain(*_torch(d), *_torch(t), compute_dtype=BF16)
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (B, R, R, R, 12)
+    chip_smoke.check_bf16(got, ref, "K4 bf16 plain")
+    # the float32 mode on the same inputs is another function
+    assert not torch.equal(got, tdk.dense_decode_feats_plain(*_torch(d), *_torch(t)))
+
+
+@pytest.mark.parametrize("B,R,C,nb", [(2, 8, 4, 2), (1, 6, 8, 1)])
+def test_hybrid_decode_bf16_plain_matches_pallas_interpret(B, R, C, nb):
+    """K5's bf16 mode: pyz stored in bf16 and widened as it is added last,
+    every other input float32; the xz/xy projections' and the trunk's
+    operands rounded to bf16."""
+    d, t = _feats_case(100 + R, B, R, C, nb)
+    pyz = _bf16(np.random.RandomState(110 + R).uniform(-0.5, 0.5, (B, nb, R, R, 12)))
+    args = [d["px"], d["py"], d["pz"], d["fxz"], d["fxy"], pyz, d["wxz"], d["wxy"]]
+    ref = np.asarray(jdk.fused_dense_decode_hybrid_batched(
+        *(jnp.asarray(v, jnp.bfloat16 if i == 5 else jnp.float32) for i, v in enumerate(args)),
+        *_jax_trunk(t), n_blocks=nb, compute_dtype=jnp.bfloat16, interpret=True))
+    targs = [torch.from_numpy(v) for v in args]
+    targs[5] = targs[5].to(BF16)
+    got = tdk.dense_decode_hybrid_plain(*targs, *_torch(t))
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (B, R, R, R, 12)
+    chip_smoke.check_bf16(got, ref, "K5 bf16 plain")
+
+
 def test_prepare_projections_bf16_matches_jax():
     """The bf16 inputs of K2 and K3 equal the JAX package's: px/py/pz and
     the projections computed in bf16, the weights cast."""
@@ -202,22 +249,15 @@ def test_bf16_wrappers_on_cpu_take_the_plain_versions():
     assert (stem_pool_batched.launches, tdk.dense_decode_batched.launches) == n
 
 
-# -- the programs against the JAX package's TPU bf16 program -------------------
+# -- the programs against the JAX package's TPU bf16 programs ------------------
 
-def jax_tpu_bf16_programs(model_cfg, planner_cfg, size):
-    """(batched, single-scene) jitted JAX TPU bf16 programs, each
-    (params, tsdf, tsdf_process) -> (GraspCandidates, float32 raw (qual, rot,
-    width)); rot is (B, 4, R^3) in the batched one, as its transposed head
-    write leaves it."""
+def jax_tpu_bf16_batched_program(model_cfg, planner_cfg, size):
+    """The JAX package's jitted TPU bf16 batched program (params, tsdfs,
+    tsdf_process) -> (GraspCandidates, float32 raw (qual, rot, width)); rot
+    is (B, 4, R^3), as its transposed head write leaves it."""
     voxel = size / planner_cfg.resolution
     R, P = planner_cfg.resolution, model_cfg.encoder.plane_resolution
     nb, padding = model_cfg.decoder.n_blocks, model_cfg.decoder.padding
-    net = JGIGANet(model_cfg)
-
-    def postprocess(raw, proc, select, positions):
-        q, r, w = raw
-        masked = jpp.bound_quality(jpp.mask_quality(q, proc, w, planner_cfg), voxel, planner_cfg)
-        return select(masked, r, w, positions, planner_cfg), raw
 
     @jax.jit
     def batched(params, tsdfs, proc):
@@ -230,36 +270,38 @@ def jax_tpu_bf16_programs(model_cfg, planner_cfg, size):
             p["decoder_aff"], feats, coords, nb, compute_dtype=jnp.bfloat16, interpret=True,
             transposed=True)
         raw = tuple(x.astype(jnp.float32) for x in raw)
-        return postprocess(raw, proc, jpp.select_grasps_batched, _lattice_positions(coords))
+        q, r, w = raw
+        masked = jpp.bound_quality(jpp.mask_quality(q, proc, w, planner_cfg), voxel, planner_cfg)
+        return jpp.select_grasps_batched(masked, r, w, _lattice_positions(coords), planner_cfg), raw
 
-    @jax.jit
-    def single(params, tsdf, proc):
-        p, t = _maybe_cast(params["params"], tsdf, jnp.bfloat16)
-        planes = net.apply({"params": {"encoder": p["encoder"]}}, t[None], method="encode")
-        coords = jdd.lattice_coords(R)
-        feats = jdd.sample_planes_on_lattice({k: v[0] for k, v in planes.items()}, coords, P,
-                                             padding)
-        raw = jdk.decode_affordance_dense_pallas(p["decoder_aff"], feats, coords, nb,
-                                                 compute_dtype=jnp.bfloat16, interpret=True)
-        raw = tuple(x.astype(jnp.float32) for x in raw)
-        return postprocess(raw, proc, jpp.select_grasps, _lattice_positions(coords))
-
-    return batched, single
+    return batched
 
 
 @functools.cache
-def jax_tpu_bf16_reference(n_scenes: int, single_scenes: int = 0):
-    """The JAX TPU bf16 programs on chip_smoke's first scenes with the shipped
-    checkpoint: (scenes, batched (cands, raw), [single (cands, raw)])."""
+def jax_tpu_bf16_reference(n_scenes: int):
+    """The JAX TPU bf16 batched program on chip_smoke's first scenes with the
+    shipped checkpoint: (scenes, (cands, raw))."""
     scenes = chip_smoke.make_scenes(n_scenes)
     params = load_params(REPO / chip_smoke.CHECKPOINT)
-    batched, single = jax_tpu_bf16_programs(jcfg.giga(),
-                                            jcfg.PlannerConfig(**chip_smoke.PLANNER_KW),
-                                            chip_smoke.SIZE)
-    b = jax.device_get(batched(params, jnp.asarray(scenes), jnp.asarray(scenes)))
-    s = [jax.device_get(single(params, jnp.asarray(x), jnp.asarray(x)))
-         for x in scenes[:single_scenes]]
-    return scenes, b, s
+    batched = jax_tpu_bf16_batched_program(
+        jcfg.giga(), jcfg.PlannerConfig(**chip_smoke.PLANNER_KW), chip_smoke.SIZE)
+    return scenes, jax.device_get(batched(params, jnp.asarray(scenes), jnp.asarray(scenes)))
+
+
+@functools.cache
+def jax_bf16_planner_reference(n_scenes: int):
+    """JAX's ``GIGAPlanner(precision="bf16")`` on chip_smoke's first scenes
+    with the shipped checkpoint: (scenes, per scene its single-scene
+    program's (cands, float32 raw (qual, rot, width)), per scene its
+    ``__call__``'s (grasps, scores))."""
+    net, cfg = get_network("giga")
+    planner = JGIGAPlanner(net=net, model_cfg=cfg, params=load_params(REPO / chip_smoke.CHECKPOINT),
+                           precision="bf16", size=chip_smoke.SIZE, **chip_smoke.PLANNER_KW)
+    scenes = chip_smoke.make_scenes(n_scenes)
+    programs = [jax.device_get(planner._fn(planner.params, jnp.asarray(s), jnp.asarray(s)))
+                for s in scenes]
+    called = [planner(JState(tsdf=s[None]))[:2] for s in scenes]
+    return scenes, programs, called
 
 
 @pytest.fixture(scope="module")
@@ -294,7 +336,7 @@ def test_bf16_batched_program_matches_jax_tpu_bf16(planners):
     """plan_batch in bf16 (K1 and K2's plain versions on the CPU) against
     the JAX TPU bf16 batched program: raw volumes and decisions."""
     _, bf16 = planners
-    scenes, (ref_cands, ref_raw), _ = jax_tpu_bf16_reference(4)
+    scenes, (ref_cands, ref_raw) = jax_tpu_bf16_reference(4)
     net, cfg = bf16.net, bf16.model_cfg
     t = torch.from_numpy(scenes)
     with torch.inference_mode():
@@ -311,26 +353,32 @@ def test_bf16_batched_program_matches_jax_tpu_bf16(planners):
 
 
 def test_bf16_single_scene_program_matches_jax_tpu_bf16(planners):
-    """__call__ in bf16 (the module encoder in bf16, K3's bf16 plain version)
-    against the JAX TPU bf16 single-scene program, and plan_stream equal to
-    per-scene calls."""
+    """__call__ in bf16 (the module encoder in bf16, K3's bf16 plain
+    version) against JAX's GIGAPlanner(precision="bf16") on the four golden
+    scenes: its single-scene program's raw volumes (qual by
+    chip_smoke.check_qual_bf16; rot and width finite, of its shapes), and
+    its __call__'s grasps by the four gates, for __call__ and plan_stream;
+    plan_stream equals per-scene calls."""
     _, bf16 = planners
-    scenes, _, singles = jax_tpu_bf16_reference(4, single_scenes=2)
+    scenes, programs, ref = jax_bf16_planner_reference(4)
     net, cfg = bf16.net, bf16.model_cfg
     coords = tdd.lattice_coords(40)
-    got, ref = [], []
-    for scene, (ref_cands, ref_raw) in zip(scenes, singles):
+    got = []
+    for scene, (_, ref_raw) in zip(scenes, programs):
         with torch.inference_mode():
             tsdf = torch.from_numpy(scene)[None].to(BF16)
             planes = {k: v[0] for k, v in net.encode(tsdf).items()}
             feats = tdd.sample_planes_on_lattice(planes, coords, 40, 0.0)
             raw = tdk.decode_affordance_dense_kernel(net.decoder_aff.params(), feats, coords,
                                                      cfg.decoder.n_blocks, BF16)
-        _assert_raw_close([v.numpy() for v in raw], ref_raw, rot_axis=-1)
+        chip_smoke.check_qual_bf16(raw[0].numpy(), ref_raw[0], "bf16 __call__ raw qual")
+        for g, r in zip(raw[1:], ref_raw[1:]):
+            assert tuple(g.shape) == r.shape and bool(torch.isfinite(g).all())
         got.append(bf16(State(tsdf=scene[None]))[:2])
-        ref.append(_grasps(bf16, jax.tree.map(lambda a: np.asarray(a)[None], ref_cands), 0))
-    chip_smoke.bf16_gates(ref, got, VOXEL, "bf16 __call__ vs JAX TPU bf16")
-    for (g1, s1), (g2, s2) in zip(bf16.plan_stream(scenes[:2]), got):
+    chip_smoke.bf16_gates(ref, got, VOXEL, "bf16 __call__ vs JAX bf16 GIGAPlanner")
+    streamed = bf16.plan_stream(scenes)
+    chip_smoke.bf16_gates(ref, streamed, VOXEL, "bf16 plan_stream vs JAX bf16 GIGAPlanner")
+    for (g1, s1), (g2, s2) in zip(streamed, got):
         np.testing.assert_array_equal(s1, s2)
         assert [g.pose.translation.tolist() for g in g1] == [g.pose.translation.tolist()
                                                             for g in g2]

@@ -2,8 +2,8 @@
 
 PERF.md reads each kernel's time against its bound: the least time an H100
 could take for the work, from ``chip_smoke.trunk_flops``,
-``chip_smoke.stem_pool_work``, ``chip_smoke.dense_decode_feats_work`` and
-``chip_smoke.bound``. A redesigned kernel's target is half of that bound, so
+``chip_smoke.stem_pool_work``, ``chip_smoke.dense_decode_feats_work``,
+``chip_smoke.dense_decode_hybrid_work`` and ``chip_smoke.bound``. A redesigned kernel's target is half of that bound, so
 the numbers PERF.md quotes are pinned here, on the CPU, from the shapes of
 the serving path (B=64, R=40, C=32, 5 blocks, 3 heads of 32 columns, 4
 outputs each). Also checked: the ptxas log parser that chip_smoke.py uses to
@@ -46,10 +46,11 @@ def test_trunk_bound_is_what_perf_md_quotes(kernel, B, gflop, ms):
 @pytest.mark.parametrize("kernel,work,gflop,mb,ms", [
     ("K1", lambda: chip_smoke.stem_pool_work(64, R, 32), 7.60, 55.7, 0.1135),
     ("K4", lambda: chip_smoke.dense_decode_feats_work(64, R, 32, E, H, NB, O), 278.8, 236, 4.162),
+    ("K5", lambda: chip_smoke.dense_decode_hybrid_work(64, R, 32, E, H, NB, O), 273.7, 420, 4.085),
 ])
 def test_stem_and_feats_bounds_are_what_perf_md_quotes(kernel, work, gflop, mb, ms):
-    """K1 at B=64, R=40, C=32 and K4 at B=64 on 32-channel features: both
-    bound by operations."""
+    """K1 at B=64, R=40, C=32, and K4 and K5 at B=64 on 32-channel
+    features: all bound by operations."""
     flops, nbytes = work()
     assert round(flops / 1e9, 2 if kernel == "K1" else 1) == gflop
     assert round(nbytes / 1e6, 1 if kernel == "K1" else 0) == mb
@@ -75,6 +76,21 @@ def test_feats_work_adds_the_projections_once_per_plane_row():
     weights = 2 * NB * E * H * H + 2 * NB * E * H + E * H * O + E * O
     assert nbytes == 4 * (3 * R * E * H + 3 * B * R * R * C + 3 * NB * C * E * H + NB * E * H
                           + weights + B * R ** 3 * E * O)
+
+
+def test_hybrid_work_adds_two_projections_and_reads_pyz():
+    """K5's operations are the trunk's (pyz carries the fc_c bias) plus the
+    xz and xy planes' projections; it reads two raw feature planes, pyz at
+    its storage width and two fc_c weight splits."""
+    B, C = 2, 8
+    F = E * H
+    for elem in (4, 2):
+        flops, nbytes = chip_smoke.dense_decode_hybrid_work(B, R, C, E, H, NB, O, pyz_elem=elem)
+        trunk = chip_smoke.trunk_flops(B * R ** 3, E, H, NB, O)
+        assert flops - trunk == 2 * B * R * R * NB * 2 * C * F
+        weights = 2 * NB * F * H + 2 * NB * F + F * O + E * O
+        assert nbytes == (4 * (3 * R * F + 2 * B * R * R * C + 2 * NB * C * F + weights
+                               + B * R ** 3 * E * O) + elem * B * NB * R * R * F)
 
 
 def test_trunk_flops_count_per_point_and_head():
@@ -138,6 +154,19 @@ def test_kernel_resources_reads_the_stem_and_feats_kernels(kernel, expected):
     assert chip_smoke.kernel_resources(LOG, kernel) == expected
 
 
+def test_kernel_resources_falls_back_to_an_older_name():
+    """A parent tree's build names K4's trunk without its template argument:
+    the A/B scripts ask for the template instance, then the plain name."""
+    names = ("dense_decode_feats_kernelILb1E", "dense_decode_feats_kernel")
+    assert (chip_smoke.kernel_resources(LOG, *names)
+            == "168 registers, 328/332 bytes spill stores/loads")
+    templated = LOG.replace("25dense_decode_feats_kernelE", "25dense_decode_feats_kernelILb1EEv")
+    assert chip_smoke.kernel_resources(templated, *names[:1]) == chip_smoke.kernel_resources(
+        LOG, *names)
+    with pytest.raises(AssertionError, match="0 kernels"):
+        chip_smoke.kernel_resources(LOG, "dense_decode_feats_bf16_kernel")
+
+
 def test_kernel_resources_refuses_an_ambiguous_name():
     with pytest.raises(AssertionError, match="2 kernels"):
         chip_smoke.kernel_resources(LOG, "dense_decode_kernel")
@@ -160,6 +189,21 @@ def test_bf16_bounds_are_what_perf_md_quotes():
         bound_ms, by = chip_smoke.bound(flops, _dense_decode_bytes(B, elem=2), peak)
         assert (round(bound_ms, 4), by) == (ms, "operations")
     assert [round(_dense_decode_bytes(64, e) / 1e6) for e in (2, 4)] == [492, 787]
+
+
+@pytest.mark.parametrize("kernel,work,gflop,mb,ms", [
+    ("K4", lambda: chip_smoke.dense_decode_feats_work(64, R, 32, E, H, NB, O), 278.8, 236, 0.2819),
+    ("K5", lambda: chip_smoke.dense_decode_hybrid_work(64, R, 32, E, H, NB, O, pyz_elem=2),
+     273.7, 321, 0.2768),
+])
+def test_feats_bf16_bounds_are_what_perf_md_quotes(kernel, work, gflop, mb, ms):
+    """K4's and K5's bf16 modes: the float32 modes' operations at 989
+    TFLOP/s; K4 reads float32 features as in its float32 mode, K5 its pyz in
+    bf16. Both bound by the tensor cores, not by their bytes."""
+    flops, nbytes = work()
+    assert (round(flops / 1e9, 1), round(nbytes / 1e6)) == (gflop, mb)
+    bound_ms, by = chip_smoke.bound(flops, nbytes, chip_smoke.PEAK_BF16_FLOPS)
+    assert (round(bound_ms, 4), by) == (ms, "operations")
 
 
 LOG_BF16 = """\

@@ -247,10 +247,18 @@ def test_single_scene_kernel_matches_plain(cuda_device, R, nb):
     torch.testing.assert_close(got, ref, atol=TOL_KERNEL, rtol=TOL_KERNEL)
 
 
-def _feats_args(rng, B, R, C, nb, F=96):
+def _feats_args(rng, B, R, C, nb, F=96, s=0.5):
+    """K4's inputs; ``s`` bounds the fc_c and trunk weights."""
     return [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F), _u(rng, B, R, R, C),
-            _u(rng, B, R, R, C), _u(rng, B, R, R, C), _u(rng, nb, C, F), _u(rng, nb, C, F),
-            _u(rng, nb, C, F), _u(rng, nb, F), *_trunk(rng, nb)]
+            _u(rng, B, R, R, C), _u(rng, B, R, R, C), _u(rng, nb, C, F, s=s),
+            _u(rng, nb, C, F, s=s), _u(rng, nb, C, F, s=s), _u(rng, nb, F), *_trunk(rng, nb, s=s)]
+
+
+def _hybrid_args(rng, B, R, C, nb, F=96, s=0.5):
+    """K5's inputs (pyz float32); ``s`` bounds the fc_c and trunk weights."""
+    return [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F), _u(rng, B, R, R, C),
+            _u(rng, B, R, R, C), _u(rng, B, nb, R, R, F), _u(rng, nb, C, F, s=s),
+            _u(rng, nb, C, F, s=s), *_trunk(rng, nb, s=s)]
 
 
 @pytest.mark.cuda
@@ -272,20 +280,23 @@ def test_feats_kernel_matches_plain(cuda_device, B, R, C, nb, x_chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R,C,nb", [(2, 40, 32, 5), (1, 7, 8, 2)])
+@pytest.mark.parametrize("B,R,C,nb", [(2, 40, 32, 5), (1, 7, 8, 2)]
+                         + [(B, R, 32, 5) for R in (17, 40) for B in (1, 3)])
 def test_hybrid_kernel_matches_plain(cuda_device, B, R, C, nb):
-    """K5; R = 7 (49 points) leaves most threads of a block idle."""
+    """K5 (its projections, then the tiled trunk), equal to its plain
+    version bit for bit at 32 channels, as its order (each row a dot over c
+    ascending from zero, ((net + xz) + xy) + pyz) is the plain version's
+    there; R = 7 (343 points a scene) and R = 17 (4,913) end on ragged
+    64-point tiles."""
     rng = np.random.RandomState(6)
-    F = 96
-    args = [_u(rng, R, F), _u(rng, R, F), _u(rng, R, F), _u(rng, B, R, R, C),
-            _u(rng, B, R, R, C), _u(rng, B, nb, R, R, F), _u(rng, nb, C, F),
-            _u(rng, nb, C, F), *_trunk(rng, nb)]
-    args = [a.to(cuda_device) for a in args]
+    args = [a.to(cuda_device) for a in _hybrid_args(rng, B, R, C, nb)]
     n = dk.dense_decode_hybrid_batched.launches
     got = dk.dense_decode_hybrid_batched(*args)
     ref = dk.dense_decode_hybrid_plain(*args)
     assert dk.dense_decode_hybrid_batched.launches == n + 1
     torch.testing.assert_close(got, ref, atol=TOL_KERNEL, rtol=TOL_KERNEL)
+    if C == 32:
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
@@ -482,3 +493,57 @@ def test_bf16_programs_queue_without_waiting_for_the_card(cuda_device):
             dk.fused_dense_decode.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
     assert int(cands.count.sum()) > 0 and int(one.count) > 0
     assert cands.scores.dtype == torch.float32
+
+
+# K4's and K5's bf16 modes: float32 inputs but for K5's bf16 pyz; R = 17
+# ends on a ragged 32-point tile, x_chunk 8 on a ragged last pass.
+FEATS_BF16 = [(B, R) for R in (17, 40) for B in (1, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R", FEATS_BF16)
+@pytest.mark.parametrize("x_chunk", [1, 8, 40])
+def test_feats_bf16_kernel_matches_plain(cuda_device, B, R, x_chunk):
+    """K4's bf16 entry point (bf16-operand projections, tensor-core trunk)
+    against its plain version, equal bit for bit at every x_chunk."""
+    rng = np.random.RandomState(15)
+    args = [a.to(cuda_device) for a in _feats_args(rng, B, R, 32, 5, s=BF16_W)]
+    n = dk.dense_decode_feats_batched.launches
+    got = dk.dense_decode_feats_batched(*args, x_chunk=x_chunk, compute_dtype=BF16)
+    assert dk.dense_decode_feats_batched.launches == n + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, R, R, R, 12)
+    chip_smoke.check_bf16(got, dk.dense_decode_feats_plain(*args, compute_dtype=BF16), "K4 bf16")
+    assert torch.equal(dk.dense_decode_feats_batched(*args, x_chunk=1, compute_dtype=BF16), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R", FEATS_BF16)
+def test_hybrid_bf16_kernel_matches_plain(cuda_device, B, R):
+    """K5's bf16 entry point (bf16 pyz) against its plain version."""
+    rng = np.random.RandomState(16)
+    args = [a.to(cuda_device) for a in _hybrid_args(rng, B, R, 32, 5, s=BF16_W)]
+    args[5] = args[5].to(BF16)
+    n = dk.dense_decode_hybrid_batched.launches
+    got = dk.dense_decode_hybrid_batched(*args)
+    assert dk.dense_decode_hybrid_batched.launches == n + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, R, R, R, 12)
+    chip_smoke.check_bf16(got, dk.dense_decode_hybrid_plain(*args), "K5 bf16")
+
+
+@pytest.mark.cuda
+def test_feats_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """K4's bf16 mode takes float32 inputs and a bf16 or float32 mode; K5's
+    takes float32 inputs beside its bf16 pyz."""
+    rng = np.random.RandomState(17)
+    args = [a.to(cuda_device) for a in _feats_args(rng, 1, 8, 8, 2)]
+    with pytest.raises(ValueError, match="dtype"):
+        dk.dense_decode_feats_batched(*args, compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32"):
+        dk.dense_decode_feats_batched(*args[:3], args[3].to(BF16), *args[4:],
+                                      compute_dtype=BF16)
+    hybrid = [a.to(cuda_device) for a in _hybrid_args(rng, 1, 8, 8, 2)]
+    hybrid[5] = hybrid[5].to(BF16)
+    with pytest.raises(ValueError, match="float32"):
+        dk.dense_decode_hybrid_batched(*hybrid[:3], hybrid[3].to(BF16), *hybrid[4:])
+    with pytest.raises(ValueError, match="dtype"):
+        dk.dense_decode_hybrid_batched(*hybrid[:5], hybrid[5].half(), *hybrid[6:])

@@ -2,11 +2,13 @@
 
 The card has no JAX, so ``giga_tpu_torch/testdata/golden_plan_giga.npz``
 carries the JAX package's candidates for the first chip_smoke scenes,
-planned on the CPU with the shipped checkpoint, and
-``golden_plan_giga_bf16.npz`` those of the JAX package's TPU bf16 program
-on the same scenes (composed from its functions with the Pallas kernels in
-interpret mode, tests/test_torch_bf16.py). These tests regenerate both and
-assert the committed files are current. Rewrite them with
+planned on the CPU with the shipped checkpoint; ``golden_plan_giga_bf16.npz``
+those of the JAX package's TPU bf16 batched program on the same scenes
+(composed from its functions with the Pallas kernels in interpret mode,
+tests/test_torch_bf16.py); and ``golden_call_giga_bf16.npz`` those of the
+single-scene program of JAX's ``GIGAPlanner(precision="bf16")``, which its
+``__call__`` runs, scene by scene. These tests regenerate them and assert
+the committed files are current. Rewrite them with
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
 """
@@ -24,7 +26,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from test_torch_bf16 import jax_tpu_bf16_reference  # noqa: E402
+from test_torch_bf16 import jax_bf16_planner_reference, jax_tpu_bf16_reference  # noqa: E402
 from giga_tpu.core.config import PlannerConfig  # noqa: E402
 from giga_tpu.inference.planner import build_batched_giga_planner_fn  # noqa: E402
 from giga_tpu.models.registry import get_network, load_params  # noqa: E402
@@ -48,10 +50,21 @@ def golden_arrays() -> dict:
 
 
 def golden_bf16_arrays() -> dict:
-    """The JAX TPU bf16 program's candidates for the first N_SCENES
+    """The JAX TPU bf16 batched program's candidates for the first N_SCENES
     chip_smoke scenes."""
-    tsdf, (cands, _), _ = jax_tpu_bf16_reference(N_SCENES)
+    tsdf, (cands, _) = jax_tpu_bf16_reference(N_SCENES)
     out = {f: np.asarray(getattr(cands, f)) for f in FIELDS}
+    out["tsdf"] = tsdf
+    return out
+
+
+def golden_call_bf16_arrays() -> dict:
+    """The candidates of JAX's bf16 ``GIGAPlanner`` single-scene program for
+    the first N_SCENES chip_smoke scenes, one scene a call, stacked as the
+    batched files are."""
+    tsdf, programs, _ = jax_bf16_planner_reference(N_SCENES)
+    out = {f: np.stack([np.asarray(getattr(cands, f)) for cands, _ in programs])
+           for f in FIELDS}
     out["tsdf"] = tsdf
     return out
 
@@ -78,6 +91,10 @@ def test_bf16_golden_file_is_current():
     _assert_current(chip_smoke.GOLDEN_BF16, golden_bf16_arrays())
 
 
+def test_bf16_call_golden_file_is_current():
+    _assert_current(chip_smoke.GOLDEN_CALL_BF16, golden_call_bf16_arrays())
+
+
 def test_golden_scenes_are_planner_tsdfs():
     """chip_smoke's analytic scenes follow the planner's TSDF convention:
     values in [0, 1], saturated far from surfaces, some voxels inside."""
@@ -91,6 +108,7 @@ def test_golden_scenes_are_planner_tsdfs():
 
 if __name__ == "__main__" and "--write" in sys.argv:
     for path, arrays in ((chip_smoke.GOLDEN, golden_arrays),
-                         (chip_smoke.GOLDEN_BF16, golden_bf16_arrays)):
+                         (chip_smoke.GOLDEN_BF16, golden_bf16_arrays),
+                         (chip_smoke.GOLDEN_CALL_BF16, golden_call_bf16_arrays)):
         np.savez_compressed(REPO / path, **arrays())
         print("wrote", path)

@@ -7,6 +7,9 @@ tests/test_torch_cuda.py holds the CUDA kernels against the plain
 versions on the card.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -31,8 +34,15 @@ from giga_tpu_torch.ops.kernels.decoder import (
 )
 from giga_tpu_torch.ops.kernels.stem import stem_pool_batched, stem_pool_plain
 
+REPO = Path(__file__).resolve().parents[1]
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
 TOL_STEM = 2e-5    # tests/test_stem_kernel.py
 TOL_KERNEL = 1e-5  # tests/test_pallas_kernel.py
+BF16 = torch.bfloat16
 
 
 def _stem_inputs(seed=0, B=2, R=8, C=4):
@@ -379,5 +389,70 @@ def test_cpu_decode_wrappers_launch_nothing(small_decoder):
     fin = tdk.prepare_feats_inputs(tdec, _tfeats(feats), c, 2)
     assert torch.equal(tdk.dense_decode_feats_batched(*fin), tdk.dense_decode_feats_plain(*fin))
     hin = tdk.prepare_hybrid_inputs(tdec, _tfeats(feats), c, 2)
+    assert torch.equal(tdk.dense_decode_hybrid_batched(*hin), tdk.dense_decode_hybrid_plain(*hin))
+    assert [w.launches for w in wrappers] == before
+
+
+# -- K4's and K5's bf16 modes through their inputs and entry points -------------
+
+def _in_dtype(small_decoder, params_dtype: str):
+    """small_decoder's params and features, as they are or cast to bf16 in
+    both packages (the decode A/B's bf16 net and lattice features)."""
+    jdec, tdec, coords, feats = small_decoder
+    jf, tf = _jfeats(feats), _tfeats(feats)
+    if params_dtype == "bfloat16":
+        jdec = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jdec)
+        tdec = {k: v.to(BF16) for k, v in tdec.items()}
+        jf = {k: v.astype(jnp.bfloat16) for k, v in jf.items()}
+        tf = {k: v.to(BF16) for k, v in tf.items()}
+    return jdec, tdec, jnp.asarray(coords), torch.from_numpy(coords), jf, tf
+
+
+@pytest.mark.parametrize("params_dtype", ["float32", "bfloat16"])
+def test_prepare_hybrid_inputs_bf16_matches_jax(small_decoder, params_dtype):
+    """prepare_hybrid_inputs(dtype=bf16): pyz rounded to bf16, equal to the
+    JAX package's (``proj_dtype=bf16``); every other input float32 as in
+    the float32 mode, computed in the params' dtype."""
+    jdec, tdec, jc, tc, jf, tf = _in_dtype(small_decoder, params_dtype)
+    ref = jdk.prepare_hybrid_inputs(jdec, jf, jc, 2, proj_dtype=jnp.bfloat16)
+    got = tdk.prepare_hybrid_inputs(tdec, tf, tc, 2, BF16)
+    assert got[5].dtype == BF16 and all(g.dtype == torch.float32 for g in got[:5] + got[6:])
+    assert np.asarray(ref[5]).dtype == jnp.bfloat16
+    assert torch.equal(got[5], torch.from_numpy(np.asarray(ref[5], np.float32)).to(BF16))
+    _assert_same_inputs(ref[:5] + ref[6:], got[:5] + got[6:], 3, trunk_at=7)
+
+
+@pytest.mark.parametrize("entry", ["feats", "hybrid"])
+@pytest.mark.parametrize("params_dtype", ["float32", "bfloat16"])
+def test_bf16_decode_entry_points_match_pallas(small_decoder, entry, params_dtype):
+    """K4's and K5's entry points with compute_dtype=bf16 on CPU tensors
+    (their bf16 plain versions) against the JAX package's with the Pallas
+    kernels in interpret mode: qual, rot and width by check_bf16."""
+    jdec, tdec, jc, tc, jf, tf = _in_dtype(small_decoder, params_dtype)
+    if entry == "feats":
+        ref = jdk.decode_affordance_dense_pallas_feats_batched(
+            jdec, jf, jc, 2, compute_dtype=jnp.bfloat16, x_chunk=4, interpret=True)
+        got = tdk.decode_affordance_dense_kernel_feats_batched(tdec, tf, tc, 2, compute_dtype=BF16)
+    else:
+        ref = jdk.decode_affordance_dense_pallas_hybrid_batched(
+            jdec, jf, jc, 2, compute_dtype=jnp.bfloat16, interpret=True)
+        got = tdk.decode_affordance_dense_kernel_hybrid_batched(tdec, tf, tc, 2,
+                                                                compute_dtype=BF16)
+    for name, r, g in zip(("qual", "rot", "width"), ref, got):
+        assert g.dtype == torch.float32 and tuple(g.shape) == r.shape
+        chip_smoke.check_bf16(g, np.asarray(r), f"{entry} {name}")
+
+
+def test_cpu_bf16_decode_wrappers_launch_nothing(small_decoder):
+    """K4's and K5's wrappers in the bf16 mode handed CPU tensors run the
+    bf16 plain versions and launch nothing."""
+    _, tdec, coords, feats = small_decoder
+    c = torch.from_numpy(coords)
+    wrappers = (tdk.dense_decode_feats_batched, tdk.dense_decode_hybrid_batched)
+    before = [w.launches for w in wrappers]
+    fin = tdk.prepare_feats_inputs(tdec, _tfeats(feats), c, 2)
+    assert torch.equal(tdk.dense_decode_feats_batched(*fin, compute_dtype=BF16),
+                       tdk.dense_decode_feats_plain(*fin, compute_dtype=BF16))
+    hin = tdk.prepare_hybrid_inputs(tdec, _tfeats(feats), c, 2, BF16)
     assert torch.equal(tdk.dense_decode_hybrid_batched(*hin), tdk.dense_decode_hybrid_plain(*hin))
     assert [w.launches for w in wrappers] == before
