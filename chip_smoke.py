@@ -54,7 +54,19 @@ Phases (any failure exits non-zero; nothing is caught):
      lattice features; the two bf16 decode entry points with the counters
      zeroed just before (one launch each), their raw qual held against K2
      bf16's decode (within 4e-2 at most, 3e-3 at the median); their
-     resources, times and shares of bound at 989 TFLOP/s.
+     resources, times and shares of bound at 989 TFLOP/s;
+ 19. K2's numeric options (``options_phase``): fold_b1 (float32 and bf16)
+     and resident_bf16 (with and without fold_b1) against their plain
+     versions at B=64, R=40 (the resident mode's far bound
+     TOL_BF16_RESIDENT_FAR), the resident mode not equal to the default
+     one, hidden_bf16's volumes equal to the bf16 mode's; the batched
+     program with fold_b1 (float32; equal to the JAX golden and to the
+     default program) and with fold_b1 and hidden_bf16 (bf16; the four
+     gates and raw qual against golden_plan_giga_bf16_fold.npz), counters
+     zeroed just before (one K1 and one option launch each); return_raw's
+     candidates equal to the program's; resident_bf16 through the decode
+     entry point (one launch each); every K2 mode's resources, time and
+     share of bound beside the default modes'.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -72,6 +84,8 @@ from pathlib import Path
 
 import numpy as np
 
+from giga_tpu_torch.ops.kernels.decoder import trunk_flops
+
 SIZE = 0.3
 RESOLUTION = 40
 BATCH = 64
@@ -80,6 +94,7 @@ CHECKPOINT = "checkpoints/synthetic_giga_best.msgpack"
 GOLDEN = "giga_tpu_torch/testdata/golden_plan_giga.npz"
 GOLDEN_BF16 = "giga_tpu_torch/testdata/golden_plan_giga_bf16.npz"
 GOLDEN_CALL_BF16 = "giga_tpu_torch/testdata/golden_call_giga_bf16.npz"
+GOLDEN_BF16_FOLD = "giga_tpu_torch/testdata/golden_plan_giga_bf16_fold.npz"
 PLANNER_KW = dict(best=True, force_detection=True, low_th=0.1, qual_th=0.8)
 
 # published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
@@ -100,6 +115,15 @@ TOL_POS = 1e-6      # candidate positions (lattice coordinates), absolute
 TOL_BF16_CLOSE = 1e-5
 BF16_SHARE = 0.999
 TOL_BF16_FAR = 2e-2
+# K2's resident_bf16 mode also rounds the residual stream itself, five times
+# a block: a flip there moves net by a bf16 step of |net|, which the head
+# carries to the outputs. Two plain versions of a bf16 mode that differ
+# only in the order of their float32 sums already lie up to ~1.7e-2 *
+# (1 + |ref|) apart on the serving data at B=64, and the resident kernel
+# read 2.07e-2 from its plain version there (giga_tpu_torch.scripts.
+# bf16_sum_order; PERF.md §6): its far bound is twice the other
+# modes', its share gate the same
+TOL_BF16_RESIDENT_FAR = 4e-2
 # raw qual of one bf16 program against another (the port's against the JAX
 # package's, one decode against another): each bf16 program keeps qual
 # within 2e-2 of the float32 program at most and 3e-3 at the median
@@ -175,16 +199,6 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     is the operations' rate (PEAK_BF16_FLOPS for a bf16 mode's)."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def trunk_flops(points: int, heads: int, H: int, n_blocks: int, O: int,
-                extra_adds: int = 0) -> int:
-    """fp32 operations of the per-head trunk (the fused trunk's off-diagonal
-    zeros are no work): per point and head the fc_p sum (2H), per block the
-    three plane adds, the fc0 and fc1 products and three bias/residual adds
-    (4H^2 + 6H, plus ``extra_adds`` * H), then the head (2HO + O)."""
-    per_block = 4 * H * H + (6 + extra_adds) * H
-    return points * heads * (2 * H + n_blocks * per_block + 2 * H * O + O)
 
 
 def stem_pool_work(B: int, R: int, C: int, elem: int = 4):
@@ -264,6 +278,18 @@ def kernel_resources(log: str, kernel: str, *older: str) -> str:
     return hits[0]
 
 
+def k2_kernel(bf16: bool, point_major: bool = False, fold_b1: bool = False,
+              resident_bf16: bool = False) -> str:
+    """The mangled name's start of one instance of K2's (K3's, with
+    ``point_major``) kernel template in dense_decode.cu, for
+    ``kernel_resources``: dense_decode_kernel<kPointMajor, kFoldB1> in
+    float32, dense_decode_bf16_kernel<kPointMajor, kFoldB1, kResident> in
+    bf16."""
+    flags = [point_major, fold_b1] + ([resident_bf16] if bf16 else [])
+    return (f"dense_decode{'_bf16' * bf16}_kernelI"
+            + "".join(f"Lb{int(f)}E" for f in flags))
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -280,19 +306,20 @@ def check_close(got, ref, tol: float, what: str):
     return err, rel
 
 
-def check_bf16(got, ref, what: str):
+def check_bf16(got, ref, what: str, far: float = TOL_BF16_FAR):
     """(share of outputs within TOL_BF16_CLOSE, max |a - b| / (1 + |b|), max
     |a - b|) of a bf16 mode's outputs against a reference on the same
-    inputs; raises past the bf16 tolerance or on non-finite values."""
+    inputs; raises past the bf16 tolerance (``far``: TOL_BF16_RESIDENT_FAR
+    for the resident mode) or on non-finite values."""
     import torch
 
     got, ref = torch.as_tensor(got).float(), torch.as_tensor(ref).float()
     d = (got - ref).abs()
     share = float((d <= TOL_BF16_CLOSE).double().mean())
     rel = float((d / (1.0 + ref.abs())).max())
-    if not (share >= BF16_SHARE and rel <= TOL_BF16_FAR and bool(torch.isfinite(got).all())):
+    if not (share >= BF16_SHARE and rel <= far and bool(torch.isfinite(got).all())):
         raise AssertionError(f"{what}: {share:.5f} of outputs within {TOL_BF16_CLOSE} (need "
-                             f"{BF16_SHARE}), max err/(1+|ref|) {rel:.3g} (tol {TOL_BF16_FAR})")
+                             f"{BF16_SHARE}), max err/(1+|ref|) {rel:.3g} (tol {far})")
     return share, rel, float(d.max())
 
 
@@ -470,8 +497,8 @@ def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
                      f"{lc['grid'][1]} blocks of {lc['threads']} threads, {lc['blocks_per_sm']} "
                      f"resident blocks per SM on {lc['sms']} SMs")
     mangled = {"K1": ("stem_pool", "stem_pool_kernelI13__nv_bfloat16E"),
-               "K2": ("dense_decode", "dense_decode_bf16_kernelILb0E"),
-               "K3": ("dense_decode", "dense_decode_bf16_kernelILb1E")}
+               "K2": ("dense_decode", k2_kernel(True)),
+               "K3": ("dense_decode", k2_kernel(True, point_major=True))}
     for k, (lib, name) in mangled.items():
         ms, plain = times[k]
         bnd = bounds[k]
@@ -647,6 +674,193 @@ def bf16_decode_phase(dec, feats, coords, cfg, card, fp32_ms):
              *times[k], bounds[k])
             for k, name, replaces in (("K4", "dense_decode_feats", "decoder_kernel.py:608"),
                                       ("K5", "dense_decode_hybrid", "decoder_kernel.py:447"))]
+
+
+def options_phase(net, cfg, scenes, feats, default_cands, card):
+    """Phase 19, K2's numeric options (the TPU kernel's fold_b1, hidden_bf16
+    and resident_bf16) at B=64, R=40: each option's kernel against its plain
+    version; the batched program with fold_b1 (float32) and with fold_b1 and
+    hidden_bf16 (bf16), counters zeroed just before each, against the golden
+    files and the default program, and return_raw's candidates equal to the
+    program's; resident_bf16 through the decode entry point, counters
+    zeroed; each option's kernel timed beside K2's default mode. Returns the
+    kernels' rows for the kernels line."""
+    import copy
+
+    import torch
+
+    from giga_tpu_torch.inference.dense_decode import (
+        lattice_coords, sample_planes_on_lattice_batched)
+    from giga_tpu_torch.inference.planner import (
+        GIGAPlanner, build_batched_giga_planner_fn, candidates_to_host, full_precision)
+    from giga_tpu_torch.inference.postprocess import GraspCandidates
+    from giga_tpu_torch.models.encoder import encode_planes_fused
+    from giga_tpu_torch.ops.kernels import _build
+    from giga_tpu_torch.ops.kernels import decoder as dk
+    from giga_tpu_torch.ops.kernels.stem import stem_pool_batched
+
+    bf = torch.bfloat16
+    B, R, N = len(scenes), RESOLUTION, RESOLUTION ** 3
+    n_blocks, H, P = cfg.decoder.n_blocks, cfg.decoder.hidden_size, cfg.encoder.plane_resolution
+    heads, O = 3, 4
+    voxel = SIZE / R
+    coords = lattice_coords(R, "cuda")
+    tsdfs = torch.from_numpy(scenes).cuda()
+    bnet = copy.deepcopy(net).to(bf)
+    dec, bdec = net.decoder_aff.params(), bnet.decoder_aff.params()
+    planner = GIGAPlanner(net=net, model_cfg=cfg, size=SIZE, rng=np.random.RandomState(0),
+                          **PLANNER_KW)
+    pcfg = planner.planner_cfg
+
+    def grasps(cands, n):
+        return [planner._to_grasps(GraspCandidates(*(np.asarray(x[i]) for x in cands)))
+                for i in range(n)]
+
+    def zero_counters():
+        stem_pool_batched.launches = 0
+        dk.dense_decode_batched.entry_launches.clear()
+
+    def counters():
+        return {"stem_pool": stem_pool_batched.launches, **dk.dense_decode_batched.entry_launches}
+
+    # each option's kernel against its plain version; (inputs, fold_b1, resident_bf16)
+    with torch.inference_mode(), full_precision():
+        bfeats = sample_planes_on_lattice_batched(encode_planes_fused(bnet.encoder, tsdfs.to(bf)),
+                                                  coords, P, cfg.decoder.padding)
+        inputs = {(torch.float32, fold): dk.prepare_projections_batched(
+                      dec, feats, coords, n_blocks, fold_b1=fold) for fold in (False, True)}
+        inputs.update({(bf, fold): dk.prepare_projections_batched(
+                           bdec, bfeats, coords, n_blocks, bf, fold_b1=fold)
+                       for fold in (False, True)})
+        modes = {dk.dense_decode_entry(dtype, fold, res): (dtype, fold, res)
+                 for dtype, fold, res in dk.K2_MODES}
+        errs, outs = {}, {}
+        for entry, (dtype, fold, res) in modes.items():
+            args = inputs[dtype, fold]
+            outs[entry] = dk.dense_decode_batched(*args, fold_b1=fold, resident_bf16=res)
+            plain = dk.dense_decode_plain(*args, fold_b1=fold, resident_bf16=res)
+            if dtype == torch.float32:
+                errs[entry] = check_close(outs[entry], plain, TOL_DECODE, entry)
+            else:
+                errs[entry] = check_bf16(outs[entry], plain, entry,
+                                         TOL_BF16_RESIDENT_FAR if res else TOL_BF16_FAR)
+            del plain
+        if torch.equal(outs["dense_decode_bf16_resident"], outs["dense_decode_bf16"]):
+            raise AssertionError("resident_bf16 gave the default bf16 mode's outputs")
+        hidden = [dk.decode_affordance_dense_kernel_batched(bdec, bfeats, coords, n_blocks, bf,
+                                                            fold_b1=True, hidden_bf16=h)
+                  for h in (True, False)]
+        if not all(torch.equal(a, b) for a, b in zip(*hidden)):
+            raise AssertionError("hidden_bf16 changed the bf16 mode's volumes")
+        del outs, hidden
+    print(f"phase 19: K2's options against their plain versions (float32: max abs err, max "
+          f"err/(1+|plain|), tol {TOL_DECODE}; bf16: share within {TOL_BF16_CLOSE}, max "
+          f"err/(1+|plain|), max abs err; tol {BF16_SHARE} and {TOL_BF16_FAR}, resident "
+          f"{TOL_BF16_RESIDENT_FAR}): "
+          f"{ {k: tuple(round(x, 6) for x in e) for k, e in errs.items()} }; resident_bf16 "
+          f"differs from the default bf16 mode; hidden_bf16's volumes torch.equal to fold_b1's")
+
+    # the main path with the options, counters zeroed just before each program
+    fns = {name: build_batched_giga_planner_fn(n, cfg, pcfg, SIZE, use_kernels=True, fold_b1=True,
+                                               hidden_bf16=name == "bf16")
+           for name, n in (("fp32", net), ("bf16", bnet))}
+    launches, cands = {}, {}
+    for name, fn in fns.items():
+        zero_counters()
+        cands[name] = candidates_to_host(fn(tsdfs, tsdfs))
+        torch.cuda.synchronize()
+        launches[name] = counters()
+    expect = {"fp32": {"stem_pool": 1, "dense_decode_f32_fold": 1},
+              "bf16": {"stem_pool": 1, "dense_decode_bf16_fold": 1}}
+    if launches != expect:
+        raise AssertionError(f"the option programs launched {launches}, expected {expect}")
+    root = Path(__file__).resolve().parent
+    golden = np.load(root / GOLDEN)
+    gc = GraspCandidates(*(golden[f] for f in GraspCandidates._fields))
+    n_gold = len(gc.count)
+    worst_gold = compare_candidates(cands["fp32"], gc, range(n_gold), R,
+                                    "fold_b1 plan vs JAX golden")
+    worst_default = compare_candidates(cands["fp32"], default_cands, range(B), R,
+                                       "fold_b1 plan vs the default plan")
+    golden_fold = np.load(root / GOLDEN_BF16_FOLD)
+    np.testing.assert_allclose(golden_fold["tsdf"], scenes[:n_gold], atol=1e-6)
+    gf = GraspCandidates(*(golden_fold[f] for f in GraspCandidates._fields))
+    gates = bf16_gates(grasps(gf, n_gold), grasps(cands["bf16"], n_gold), voxel,
+                       "bf16 fold_b1 + hidden_bf16 plan vs JAX golden")
+    raw_fns = {name: build_batched_giga_planner_fn(n, cfg, pcfg, SIZE, use_kernels=True,
+                                                   fold_b1=True, hidden_bf16=name == "bf16",
+                                                   return_raw=True)
+               for name, n in (("fp32", net), ("bf16", bnet))}
+    raws = {}
+    for name, fn in raw_fns.items():
+        got, raws[name] = fn(tsdfs, tsdfs)
+        got = candidates_to_host(got)
+        if not all(np.array_equal(a, b) for a, b in zip(got, cands[name])):
+            raise AssertionError(f"{name} return_raw changed the candidates")
+        shapes = [tuple(v.shape) for v in raws[name]]
+        if (shapes != [(B, R, R, R), (B, 4, N), (B, R, R, R)]
+                or any(v.dtype != torch.float32 for v in raws[name])):
+            raise AssertionError(f"{name} return_raw gave {shapes}")
+    qual_gold = check_qual_bf16(raws["bf16"][0][:n_gold].cpu().numpy(), golden_fold["qual"],
+                                "bf16 fold_b1 + hidden_bf16 raw qual vs JAX golden")
+    print(f"phase 19: batched program with fold_b1, launches {launches['fp32']}, "
+          f"{int(cands['fp32'].count.sum())} candidates: equal to the JAX golden (max diffs "
+          f"{worst_gold}) and to the default program on {B} scenes (max diffs {worst_default}); "
+          f"bf16 with fold_b1 and hidden_bf16, launches {launches['bf16']}: against the JAX TPU "
+          f"bf16 fold golden {gates}, raw qual (max, median) {qual_gold}; return_raw: candidates "
+          f"equal in both, volumes of shapes {shapes}")
+    del raws
+
+    # resident_bf16 through the decode entry point, counters zeroed just before
+    with torch.inference_mode(), full_precision():
+        qual = dk.decode_affordance_dense_kernel_batched(bdec, bfeats, coords, n_blocks, bf)[0]
+        zero_counters()
+        vols = [dk.decode_affordance_dense_kernel_batched(bdec, bfeats, coords, n_blocks, bf,
+                                                          fold_b1=fold, resident_bf16=True)
+                for fold in (False, True)]
+        torch.cuda.synchronize()
+        launches_res = counters()
+        del launches_res["stem_pool"]
+        if launches_res != {"dense_decode_bf16_resident": 1, "dense_decode_bf16_resident_fold": 1}:
+            raise AssertionError(f"the resident_bf16 decodes launched {launches_res}")
+        if not all(bool(torch.isfinite(v).all()) for vol in vols for v in vol):
+            raise AssertionError("a resident_bf16 decode gave non-finite volumes")
+        qual_res = [check_qual_bf16(vol[0].cpu().numpy(), qual.cpu().numpy(),
+                                    "resident_bf16 qual vs the default bf16 mode's")
+                    for vol in vols]
+        del vols, qual
+        times = {}
+        for entry, (dtype, fold, res) in modes.items():
+            args = inputs[dtype, fold]
+            times[entry] = (
+                cuda_ms(lambda: dk.dense_decode_batched(*args, fold_b1=fold, resident_bf16=res),
+                        20),
+                cuda_ms(lambda: dk.dense_decode_plain(*args, fold_b1=fold, resident_bf16=res), 3,
+                        warmup=1))
+    print(f"phase 19: resident_bf16 decode entry point, launches {launches_res}; raw qual "
+          f"against the default bf16 mode's (max, median; without and with fold_b1): "
+          f"{[tuple(round(x, 6) for x in q) for q in qual_res]}")
+    log = _build.build_log("dense_decode")
+    rows, n_launch = [], {**launches["fp32"], **launches["bf16"], **launches_res}
+    for entry, (dtype, fold, res) in modes.items():
+        is_bf16 = dtype == bf
+        bnd = bound(trunk_flops(B * N, heads, H, n_blocks, O, fold_b1=fold),
+                    nbytes(*inputs[dtype, fold]) + 4 * B * heads * O * N,
+                    peak=PEAK_BF16_FLOPS if is_bf16 else PEAK_FP32_FLOPS)
+        lc = dk.dense_decode_launch_config(B, R, heads, n_blocks, dtype=dtype, fold_b1=fold,
+                                           resident_bf16=res)
+        ms, plain = times[entry]
+        print(f"phase 19: {entry}: {kernel_resources(log, k2_kernel(is_bf16, False, fold, res))}, "
+              f"{lc['shared_bytes']} bytes shared per block, grid {lc['grid'][0]}x"
+              f"{lc['grid'][1]} blocks of {lc['threads']} threads, {lc['blocks_per_sm']} resident "
+              f"blocks per SM; {ms:.4f} ms (plain {plain:.4f} ms), {bnd[0] / ms:.1%} of its bound "
+              f"({bnd[0]:.4f} ms by {bnd[1]}) B={B} R={R} | {card}")
+        if fold or res:
+            err = errs[entry][0] if dtype == torch.float32 else errs[entry][2]
+            name = entry.replace("_f32", "")
+            rows.append((name, "dense_decode.cu", "decoder_kernel.py:348", n_launch[entry], err,
+                         ms, plain, bnd))
+    return rows
 
 
 def main() -> int:
@@ -923,7 +1137,7 @@ def main() -> int:
     for name, point_major, batch, ms, bnd in (("K2", False, B, ms2, bound2),
                                               ("K3", True, 1, ms3, bound3)):
         lc = dk.dense_decode_launch_config(batch, R, heads, n_blocks, point_major=point_major)
-        res = kernel_resources(log2, f"dense_decode_kernelILb{int(point_major)}E")
+        res = kernel_resources(log2, k2_kernel(False, point_major))
         print(f"{name} resources: {res}, {lc['shared_bytes']} bytes shared per block, "
               f"grid {lc['grid'][0]}x{lc['grid'][1]} blocks of {lc['threads']} threads, "
               f"{lc['blocks_per_sm']} resident blocks per SM on {lc['sms']} SMs; "
@@ -931,6 +1145,7 @@ def main() -> int:
 
     bf16_rows, bf16_kernels = bf16_phases(
         net, cfg, scenes, results, card, {"K1": ms1, "K2": ms2, "K3": ms3, "K4": ms4, "K5": ms5})
+    option_kernels = options_phase(net, cfg, scenes, feats, ck, card)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -954,7 +1169,7 @@ def main() -> int:
               launches45["dense_decode_feats"], err4, ms4, plain4, bound4),
         entry("dense_decode_hybrid", "dense_decode_feats.cu", "decoder_kernel.py:447",
               launches45["dense_decode_hybrid"], err5, ms5, plain5, bound5),
-        *(entry(*k) for k in bf16_kernels),
+        *(entry(*k) for k in bf16_kernels + option_kernels),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,23 @@
 //      kernels' compute_dtype=bf16 mode (every input bf16, the products'
 //      operands bf16, their sums float32; the output float32), on the
 //      tensor cores: see "bf16 mode" below.
+//   K2's numeric options, as fused_dense_decode_batched takes them (K3 has
+//   none): dense_decode_f32_fold and dense_decode_bf16_fold (fold_b1: the
+//   caller folded block i's b1 into block i+1's pxz, so every block but the
+//   last skips its b1 add); dense_decode_bf16_resident and
+//   dense_decode_bf16_resident_fold (resident_bf16: the residual stream held
+//   in bf16, rounded after the block-0 assembly, after each plane add and
+//   after each residual add). hidden_bf16 is the bf16 mode's own function
+//   (trunk_mma.cuh), so it has no entry point. Each option is a template
+//   instance of its mode's kernel; fold_b1 picks the instance of the tiled
+//   trunk per block, the mma trunk takes a flag (the faster of the two
+//   forms for each, by ab_dense_decode.py --options). At B=64, R=40 on an
+//   NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 19; ptxas for sm_90a):
+//   f32_fold 168 registers, 308/364 bytes of spills, 7.66 ms (default
+//   7.61); bf16_fold 128 registers, 8/16 bytes, 2.15-2.17 ms (default
+//   2.22-2.23); bf16_resident and bf16_resident_fold 128 registers, no
+//   spills, 2.78 and 2.71 ms: the resident stream's five roundings a block
+//   cost ~0.55 ms.
 //
 // For every point (x, y, z) of the R^3 query lattice of scene b, and every
 // head e (qual, rot, width):
@@ -92,7 +109,7 @@ size_t shared_bytes(int NB) {
   return ((size_t)trunk::weight_floats(NB) + (size_t)WARPS * Lane::ACT_FLOATS) * sizeof(float);
 }
 
-template <bool kPointMajor>
+template <bool kPointMajor, bool kFoldB1>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 dense_decode_kernel(const float* __restrict__ px, const float* __restrict__ py,
                     const float* __restrict__ pz, const float* __restrict__ pxz,
@@ -149,7 +166,10 @@ dense_decode_kernel(const float* __restrict__ px, const float* __restrict__ py,
       tiled::add_rows(net, rows[0], ln);
       tiled::add_rows(net, rows[1], ln);
       tiled::add_rows(net, rows[2], ln);
-      tiled::resnet_block(net, act, s, blk, ln);
+      if (kFoldB1 && blk < NB - 1)
+        tiled::resnet_block<true>(net, act, s, blk, ln);
+      else
+        tiled::resnet_block<false>(net, act, s, blk, ln);
     }
     float4 o[Lane::OUTS];
     tiled::head_out(o, net, act, s, ln, lane);
@@ -197,7 +217,7 @@ static_assert(OE % 2 == 0, "head outputs in pairs");
 
 size_t bf16_shared_bytes(int NB) { return (size_t)tc::weight_words(NB) * sizeof(unsigned); }
 
-template <bool kPointMajor>
+template <bool kPointMajor, bool kFoldB1, bool kResident>
 __global__ void __launch_bounds__(BF_THREADS, BF_MIN_BLOCKS)
 dense_decode_bf16_kernel(const bf16* __restrict__ px, const bf16* __restrict__ py,
                          const bf16* __restrict__ pz, const bf16* __restrict__ pxz,
@@ -238,13 +258,17 @@ dense_decode_bf16_kernel(const bf16* __restrict__ px, const bf16* __restrict__ p
       tc::rows<true>(net, px + col, ix, F, lane);
       tc::rows<false>(net, py + col, iy, F, lane);
       tc::rows<false>(net, pz + col, iz, F, lane);
+      if (kResident) tc::round_tile(net);
     }
     for (int k = 0; k < NB; ++k) {
       const size_t first = (((size_t)b * NB + k) * RR) * F + col;
       tc::rows<false>(net, pxz + first, ixz, F, lane);
+      if (kResident) tc::round_tile(net);
       tc::rows<false>(net, pxy + first, ixy, F, lane);
+      if (kResident) tc::round_tile(net);
       tc::rows<false>(net, pyz + first, iyz, F, lane);
-      tc::resnet_block(net, s, k, lane);
+      if (kResident) tc::round_tile(net);
+      tc::resnet_block<kFoldB1, kResident>(net, s, k, lane, k == NB - 1);
     }
     float o[BF_MT][4];
     tc::head_out(o, net, s, lane);
@@ -271,18 +295,20 @@ dense_decode_bf16_kernel(const bf16* __restrict__ px, const bf16* __restrict__ p
 }
 
 // A kernel and its launch shape: kBf16 picks the bf16 mode, kPointMajor
-// K3's output layout.
-template <bool kBf16, bool kPointMajor>
+// K3's output layout, kFoldB1 and kResident K2's options.
+template <bool kBf16, bool kPointMajor, bool kFoldB1 = false, bool kResident = false>
 struct Kernel {
+  static_assert(kBf16 || !kResident, "the resident stream is a bf16 mode's");
   static constexpr int threads = kBf16 ? BF_THREADS : THREADS;
   static constexpr int warps = kBf16 ? BF_WARPS : WARPS;
   static constexpr int points = kBf16 ? BF_P : P;  // lattice points of a warp tile
   static size_t shared(int NB) { return kBf16 ? bf16_shared_bytes(NB) : shared_bytes(NB); }
   static const void* function() {
     if constexpr (kBf16)
-      return reinterpret_cast<const void*>(dense_decode_bf16_kernel<kPointMajor>);
+      return reinterpret_cast<const void*>(
+          dense_decode_bf16_kernel<kPointMajor, kFoldB1, kResident>);
     else
-      return reinterpret_cast<const void*>(dense_decode_kernel<kPointMajor>);
+      return reinterpret_cast<const void*>(dense_decode_kernel<kPointMajor, kFoldB1>);
   }
 };
 
@@ -294,9 +320,8 @@ struct Occupancy {
   int nb = -1, per_sm = 0, sms = 0;
 };
 
-template <bool kBf16, bool kPointMajor>
+template <class K>
 int occupancy(int NB, Occupancy* occ) {
-  using K = Kernel<kBf16, kPointMajor>;
   constexpr int kDevices = 16;
   static std::mutex mu;
   static Occupancy cached[kDevices];
@@ -334,11 +359,10 @@ int occupancy(int NB, Occupancy* occ) {
 
 // Launch configuration: info = {resident blocks per SM, SMs, blocks per head
 // (grid.x), heads (grid.y), threads per block, dynamic shared bytes}.
-template <bool kBf16, bool kPointMajor>
+template <class K>
 int configure(int B, int R, int E, int NB, int* info) {
-  using K = Kernel<kBf16, kPointMajor>;
   Occupancy occ;
-  const int err = occupancy<kBf16, kPointMajor>(NB, &occ);
+  const int err = occupancy<K>(NB, &occ);
   if (err) return err;
   const long units = (long)B * ((R * R * R + K::points - 1) / K::points);
   long per_head = (long)occ.per_sm * occ.sms / E;
@@ -353,20 +377,21 @@ int configure(int B, int R, int E, int NB, int* info) {
   return 0;
 }
 
-template <bool kPointMajor, typename T>
+template <bool kPointMajor, bool kFoldB1 = false, bool kResident = false, typename T>
 int launch(const T* px, const T* py, const T* pz, const T* pxz, const T* pxy, const T* pyz,
            const T* w0, const T* b0, const T* w1, const T* b1, const T* wout, const T* bout,
            float* out, int B, int R, int E, int NB, void* stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   int info[6];
-  int err = configure<kBf16, kPointMajor>(B, R, E, NB, info);
+  int err = configure<Kernel<kBf16, kPointMajor, kFoldB1, kResident>>(B, R, E, NB, info);
   if (err) return err;
   dim3 grid(info[2], E);
   if constexpr (kBf16)
-    dense_decode_bf16_kernel<kPointMajor><<<grid, BF_THREADS, info[5], (cudaStream_t)stream>>>(
-        px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
+    dense_decode_bf16_kernel<kPointMajor, kFoldB1, kResident>
+        <<<grid, BF_THREADS, info[5], (cudaStream_t)stream>>>(
+            px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
   else
-    dense_decode_kernel<kPointMajor><<<grid, THREADS, info[5], (cudaStream_t)stream>>>(
+    dense_decode_kernel<kPointMajor, kFoldB1><<<grid, THREADS, info[5], (cudaStream_t)stream>>>(
         px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
   return (int)cudaGetLastError();
 }
@@ -404,6 +429,47 @@ extern "C" int dense_decode_bf16(const bf16* px, const bf16* py, const bf16* pz,
                        B, R, E, NB, stream);
 }
 
+// K2 with fold_b1, float32 and bf16: inputs from prepare_projections_batched(
+// fold_b1=True), every block but the last without its b1 add.
+extern "C" int dense_decode_f32_fold(const float* px, const float* py, const float* pz,
+                                     const float* pxz, const float* pxy, const float* pyz,
+                                     const float* w0, const float* b0, const float* w1,
+                                     const float* b1, const float* wout, const float* bout,
+                                     float* out, int B, int R, int E, int NB, void* stream) {
+  return launch<false, true>(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out,
+                             B, R, E, NB, stream);
+}
+
+extern "C" int dense_decode_bf16_fold(const bf16* px, const bf16* py, const bf16* pz,
+                                      const bf16* pxz, const bf16* pxy, const bf16* pyz,
+                                      const bf16* w0, const bf16* b0, const bf16* w1,
+                                      const bf16* b1, const bf16* wout, const bf16* bout,
+                                      float* out, int B, int R, int E, int NB, void* stream) {
+  return launch<false, true>(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out,
+                             B, R, E, NB, stream);
+}
+
+// K2 bf16 with resident_bf16, without and with fold_b1.
+extern "C" int dense_decode_bf16_resident(const bf16* px, const bf16* py, const bf16* pz,
+                                          const bf16* pxz, const bf16* pxy, const bf16* pyz,
+                                          const bf16* w0, const bf16* b0, const bf16* w1,
+                                          const bf16* b1, const bf16* wout, const bf16* bout,
+                                          float* out, int B, int R, int E, int NB,
+                                          void* stream) {
+  return launch<false, false, true>(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out,
+                                    B, R, E, NB, stream);
+}
+
+extern "C" int dense_decode_bf16_resident_fold(const bf16* px, const bf16* py, const bf16* pz,
+                                               const bf16* pxz, const bf16* pxy,
+                                               const bf16* pyz, const bf16* w0, const bf16* b0,
+                                               const bf16* w1, const bf16* b1,
+                                               const bf16* wout, const bf16* bout, float* out,
+                                               int B, int R, int E, int NB, void* stream) {
+  return launch<false, true, true>(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out,
+                                   B, R, E, NB, stream);
+}
+
 // K3 in the bf16 mode -> out (R, R, R, E*OE) float32.
 extern "C" int dense_decode_single_bf16(const bf16* px, const bf16* py, const bf16* pz,
                                         const bf16* pxz, const bf16* pxy, const bf16* pyz,
@@ -414,18 +480,28 @@ extern "C" int dense_decode_single_bf16(const bf16* px, const bf16* py, const bf
                       1, R, E, NB, stream);
 }
 
-// The launch configuration K2 (point_major 0) or K3 (1) takes for these
-// shapes, into info[6] (see configure).
-extern "C" int dense_decode_config(int point_major, int B, int R, int E, int NB, int* info) {
-  return point_major ? configure<false, true>(B, R, E, NB, info)
-                     : configure<false, false>(B, R, E, NB, info);
+// The launch configuration a kernel takes for these shapes, into info[6]
+// (see configure). `mode` picks the kernel: 0 K2, 1 K3 (point-major), 2 K2
+// with fold_b1; in the bf16 mode also 4 K2 with resident_bf16, 6 with both.
+extern "C" int dense_decode_config(int mode, int B, int R, int E, int NB, int* info) {
+  switch (mode) {
+    case 0: return configure<Kernel<false, false>>(B, R, E, NB, info);
+    case 1: return configure<Kernel<false, true>>(B, R, E, NB, info);
+    case 2: return configure<Kernel<false, false, true>>(B, R, E, NB, info);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The same for the bf16 mode.
-extern "C" int dense_decode_bf16_config(int point_major, int B, int R, int E, int NB,
-                                        int* info) {
-  return point_major ? configure<true, true>(B, R, E, NB, info)
-                     : configure<true, false>(B, R, E, NB, info);
+extern "C" int dense_decode_bf16_config(int mode, int B, int R, int E, int NB, int* info) {
+  switch (mode) {
+    case 0: return configure<Kernel<true, false>>(B, R, E, NB, info);
+    case 1: return configure<Kernel<true, true>>(B, R, E, NB, info);
+    case 2: return configure<Kernel<true, false, true>>(B, R, E, NB, info);
+    case 4: return configure<Kernel<true, false, false, true>>(B, R, E, NB, info);
+    case 6: return configure<Kernel<true, false, true, true>>(B, R, E, NB, info);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int dense_decode_hidden() { return H; }

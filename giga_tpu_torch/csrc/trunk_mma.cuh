@@ -23,6 +23,13 @@
 // Sums: the products of bf16 values are exact in float32; the tensor core
 // adds them in its own order, so outputs agree with a float32 sum of the
 // same products to float32 rounding, not bit for bit.
+//
+// K2 bf16 takes two of the TPU kernel's options as template flags of
+// resnet_block: kFoldB1 (b1 folded into the next block's pxz) and
+// kResident (the residual stream rounded to bf16 after every add). Its
+// third, hidden_bf16, rounds the hidden stream to bf16 before its ReLU,
+// where this trunk rounds relu(hidden): ReLU commutes with rounding, so
+// that is this trunk's function as it stands.
 
 #pragma once
 
@@ -245,27 +252,68 @@ __device__ __forceinline__ void product(Tile<MT>& acc, const unsigned (&a)[MT][K
     }
 }
 
+// lo, hi rounded to bf16 (to nearest) and widened back, in one conversion.
+__device__ __forceinline__ void round_pair(float& lo, float& hi) {
+  const float2 r = __bfloat1622float2(__floats2bfloat162_rn(lo, hi));
+  lo = r.x;
+  hi = r.y;
+}
+
+// Every value of the tile rounded to bf16 and widened back: the residual
+// stream of the resident mode, held as bf16 values in float32 registers.
+template <int MT>
+__device__ __forceinline__ void round_tile(Tile<MT>& x) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      round_pair(x.v[m][n][0], x.v[m][n][1]);
+      round_pair(x.v[m][n][2], x.v[m][n][3]);
+    }
+}
+
 // One ResnetBlockFC on the warp's tile:
 // net += relu(bf16(relu(net)) @ w0 + b0) rounded to bf16 @ w1 + b1.
-template <int MT>
+// Options, the TPU kernel's: kFoldB1 drops the b1 add of every block but
+// the `last` (the caller folded b1 into the next block's pxz); kResident
+// keeps the residual stream in bf16, net = bf16(net + bf16(dx)), the caller
+// rounding it after each of its own adds (its relu(net) operand is then
+// exact).
+template <bool kFoldB1 = false, bool kResident = false, int MT>
 __device__ __forceinline__ void resnet_block(Tile<MT>& net, const Weights& s, int blk,
-                                             int lane) {
+                                             int lane, bool last = true) {
   unsigned a[MT][KS][4];
   Tile<MT> acc;
   operand<false>(a, net, nullptr, lane);
   product(acc, a, s.w0 + blk * (FRAG_WORDS / 2), lane);
   operand<true>(a, acc, s.b0 + blk * H, lane);
   product(acc, a, s.w1 + blk * (FRAG_WORDS / 2), lane);
-  const int t = lane % 4;
+  if constexpr (kFoldB1 || kResident) {
+    // dx = acc (+ b1), rounded with kResident; then net + dx, rounded
+    if (!kFoldB1 || last) add_columns(acc, s.b1 + blk * H, lane);
+    if (kResident) round_tile(acc);
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const float c0 = s.b1[blk * H + 8 * n + 2 * t], c1 = s.b1[blk * H + 8 * n + 2 * t + 1];
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      net.v[m][n][0] = net.v[m][n][0] + (acc.v[m][n][0] + c0);
-      net.v[m][n][1] = net.v[m][n][1] + (acc.v[m][n][1] + c1);
-      net.v[m][n][2] = net.v[m][n][2] + (acc.v[m][n][2] + c0);
-      net.v[m][n][3] = net.v[m][n][3] + (acc.v[m][n][3] + c1);
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) net.v[m][n][r] = net.v[m][n][r] + acc.v[m][n][r];
+    if (kResident) round_tile(net);
+  } else {
+    // the default mode's same sums, kept in the form it was tuned in: with
+    // the b1 add moved into acc as above, ptxas spilled 24/40 bytes here
+    // and K2 bf16 slowed by ~2 % (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6)
+    const int t = lane % 4;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float c0 = s.b1[blk * H + 8 * n + 2 * t], c1 = s.b1[blk * H + 8 * n + 2 * t + 1];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        net.v[m][n][0] = net.v[m][n][0] + (acc.v[m][n][0] + c0);
+        net.v[m][n][1] = net.v[m][n][1] + (acc.v[m][n][1] + c1);
+        net.v[m][n][2] = net.v[m][n][2] + (acc.v[m][n][2] + c0);
+        net.v[m][n][3] = net.v[m][n][3] + (acc.v[m][n][3] + c1);
+      }
     }
   }
 }

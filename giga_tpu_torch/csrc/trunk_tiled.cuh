@@ -30,7 +30,8 @@
 // so the outputs equal a one-point-per-thread trunk's bit for bit:
 //   net = (px + py) + pz, then per block ((net + pxz) + pxy) + pyz,
 //   hid = relu(net) @ w0, dx = relu(hid + b0) @ w1, net = net + (dx + b1),
-//   out = relu(net) @ wout + bout.
+//   out = relu(net) @ wout + bout;
+// with b1 folded into the next block's pxz (kNoB1), net = net + dx.
 // The weights sit in shared memory in trunk.cuh's layout (trunk::Weights).
 
 #pragma once
@@ -155,8 +156,13 @@ __device__ __forceinline__ void product(float (&acc)[TP][TC], const float* act, 
 }
 
 // One ResnetBlockFC on the warp's tile:
-// net += relu(relu(net) @ w0 + b0) @ w1 + b1.
-template <int TP, int TC, int KU>
+// net += relu(relu(net) @ w0 + b0) @ w1 + b1. With kNoB1 the block adds no
+// b1: the caller folded it into the next block's pxz (the TPU kernel's
+// fold_b1), so net += relu(relu(net) @ w0 + b0) @ w1. The caller picks the
+// instance per block: a runtime flag here instead made K2's fold instance
+// spill 40 more bytes and take 0.3 ms longer at B=64 (NVIDIA H100 80GB
+// HBM3, 700 W; ab_dense_decode --options, PERF.md §6).
+template <bool kNoB1 = false, int TP, int TC, int KU>
 __device__ __forceinline__ void resnet_block(float (&net)[TP][TC], float* act,
                                              const trunk::Weights& s, int blk,
                                              const Lane<TP, TC, KU>& ln) {
@@ -169,6 +175,13 @@ __device__ __forceinline__ void resnet_block(float (&net)[TP][TC], float* act,
   store_act(act, acc, s.b0 + blk * H, ln);
   __syncwarp();
   product(acc, act, s.w1 + blk * H * H, ln);
+  if (kNoB1) {
+#pragma unroll
+    for (int p = 0; p < TP; ++p)
+#pragma unroll
+      for (int c = 0; c < TC; ++c) net[p][c] = net[p][c] + acc[p][c];
+    return;
+  }
 #pragma unroll
   for (int c = 0; c < TC; ++c) {
     const float b = s.b1[blk * H + ln.column(c)];

@@ -200,7 +200,8 @@ def build_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig
 
 
 def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig,
-                                  size: float, use_kernels: bool = False):
+                                  size: float, use_kernels: bool = False, fold_b1: bool = False,
+                                  hidden_bf16: bool = False, return_raw: bool = False):
     """Batched serving program: (tsdfs (B,P,P,P), tsdf_process (B,R,R,R)) ->
     GraspCandidates with a leading batch axis, left on the tensors' device.
 
@@ -210,6 +211,16 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     the reference the kernels' program is checked against. A bf16 net runs
     the bf16 program: the TSDFs cast to bf16 for the network, K1's and K2's
     bf16 modes, a float32 postprocess.
+
+    ``fold_b1`` and ``hidden_bf16`` are the JAX package's ``pallas_fold_b1``
+    and ``pallas_hidden_bf16``: K2's options (``hidden_bf16`` in bf16 only),
+    applied on the kernels' path; the module path ignores them, as the
+    JAX package's XLA path does. ``return_raw`` makes the program return
+    ``(cands, (qual, rot, width))``, the float32 volumes the candidates were
+    selected from, rot (B, 4, R^3) on the kernels' path and (B, R, R, R, 4)
+    on the module path, as in the JAX package's Pallas and XLA paths. The
+    candidates are the same either way. Without it the program returns the
+    candidates alone, where the JAX package's returns ``(cands, None)``.
     """
     voxel_size = size / planner_cfg.resolution
     R = planner_cfg.resolution
@@ -234,13 +245,15 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
                 planes, coords, P, model_cfg.decoder.padding)
             if use_kernels:
                 qual, rot, width = decode_affordance_dense_kernel_batched(
-                    net.decoder_aff.params(), feats, coords, n_blocks, dtype)
+                    net.decoder_aff.params(), feats, coords, n_blocks, dtype, fold_b1=fold_b1,
+                    hidden_bf16=hidden_bf16)
             else:
                 qual, rot, width = (v.float() for v in
                                     net.decode_affordance_lattice(feats, coords))
             masked = mask_quality(qual, tsdf_process, width, planner_cfg)
             masked = bound_quality(masked, voxel_size, planner_cfg)
-            return select_grasps_batched(masked, rot, width, positions, planner_cfg)
+            cands = select_grasps_batched(masked, rot, width, positions, planner_cfg)
+            return (cands, (qual, rot, width)) if return_raw else cands
 
     return plan
 

@@ -33,12 +33,22 @@ as the JAX package's bf16 program makes them. K4 takes float32 inputs in
 both modes and a ``compute_dtype``; K5 takes float32 inputs but for pyz,
 which ``prepare_hybrid_inputs(..., dtype=torch.bfloat16)`` stores in bf16,
 and its mode follows pyz's dtype.
+
+K2 also takes the TPU kernel's numeric options (K3-K5 have none):
+``fold_b1`` (``prepare_projections_batched(fold_b1=True)`` folds block i's
+fc_1 bias into block i+1's pxz; every block but the last then skips its b1
+add) in both modes, and ``resident_bf16`` (the residual stream held in
+bf16, rounded after every add) in the bf16 mode. The third,
+``hidden_bf16``, rounds the hidden stream to bf16 before its ReLU where the
+bf16 mode rounds relu(hidden): ReLU commutes with rounding, so it is the
+bf16 mode's own function and has no kernel of its own.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
@@ -90,19 +100,28 @@ def _project(f: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def prepare_projections_batched(dec: dict, feats: dict, coords: torch.Tensor,
-                                n_blocks: int = 5, dtype: torch.dtype = torch.float32):
+                                n_blocks: int = 5, dtype: torch.dtype = torch.float32,
+                                fold_b1: bool = False):
     """feats {t: (B, R, R, C)} -> K2's inputs: px/py/pz (R, F); pxz/pxy/pyz
     (B, n_blocks, R, R, F), the fc_c bias in pxz; the per-head trunk and
     head weights (``_trunk_weights``).
 
     ``dtype=torch.bfloat16`` casts the weights and features to bf16 and
     computes every input in bf16, as the JAX package's bf16 program does:
-    the coords too, each product rounded once, then the bias add rounded."""
+    the coords too, each product rounded once, then the bias add rounded.
+
+    ``fold_b1`` adds block i-1's fc_1 bias to block i's fc_c bias (i > 0)
+    before that sum is added to pxz, in ``dtype`` as the JAX package does:
+    in bf16 the folded bias is rounded once as a sum of biases and once in
+    pxz. K2 then runs with ``fold_b1=True``."""
     if dtype != torch.float32:
         dec = {k: v.to(dtype) for k, v in dec.items()}
         feats = {t: v.to(dtype) for t, v in feats.items()}
     px, py, pz = prepare_axis_terms(dec, coords)
     wxz, wxy, wyz, bc = _fc_c_splits(dec, n_blocks)
+    if fold_b1:
+        b1 = torch.stack([dec[f"block{i}_fc1_bias"].reshape(-1) for i in range(n_blocks - 1)])
+        bc = torch.cat([bc[:1], bc[1:] + b1])
     pxz = torch.stack([_project(feats["xz"], wxz[i]) + bc[i] for i in range(n_blocks)], 1)
     pxy = torch.stack([_project(feats["xy"], wxy[i]) for i in range(n_blocks)], 1)
     pyz = torch.stack([_project(feats["yz"], wyz[i]) for i in range(n_blocks)], 1)
@@ -155,12 +174,26 @@ def _operand(a: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     return a.float() if compute_dtype == torch.float32 else a.to(compute_dtype).float()
 
 
+def _identity(a: torch.Tensor) -> torch.Tensor:
+    return a
+
+
+def _round_bf16(a: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bf16, as float32."""
+    return a.to(torch.bfloat16).float()
+
+
 def _trunk_plain(net, block_input, w0, b0, w1, b1, wout, bout,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, fold_b1: bool = False,
+                 residual=_identity):
     """The per-head trunk on a (..., F) float32 residual stream: block i
     first adds ``block_input(net, i)``'s plane terms, then runs its
     ResnetBlockFC. Returns (..., heads*O) float32. With ``compute_dtype``
-    bf16 both operands of each product are rounded to bf16 (``_operand``)."""
+    bf16 both operands of each product are rounded to bf16 (``_operand``).
+    ``fold_b1`` drops the b1 add of every block but the last (its bias is
+    in the next block's plane terms). ``residual`` rounds the residual
+    add's two terms, dx and the sum (``_round_bf16``: K2's resident
+    stream)."""
     def operand(a):
         return _operand(a, compute_dtype)
 
@@ -172,8 +205,10 @@ def _trunk_plain(net, block_input, w0, b0, w1, b1, wout, bout,
         net = block_input(net, i)
         heads = net.reshape(*lead, E, H)
         hid = torch.einsum("...ek,ekj->...ej", operand(torch.relu(heads)), w0[i]) + b0[i]
-        dx = torch.einsum("...ek,ekj->...ej", operand(torch.relu(hid)), w1[i]) + b1[i]
-        net = net + dx.reshape(*lead, E * H)
+        dx = torch.einsum("...ek,ekj->...ej", operand(torch.relu(hid)), w1[i])
+        if not fold_b1 or i == n_blocks - 1:
+            dx = dx + b1[i]
+        net = residual(net + residual(dx.reshape(*lead, E * H)))
     heads = net.reshape(*lead, E, H)
     out = torch.einsum("...ek,eko->...eo", operand(torch.relu(heads)), wout) + bout
     return out.reshape(*lead, -1)
@@ -187,21 +222,38 @@ def _lattice_start(px, py, pz, B: int):
     return net.expand(B, R, R, R, F)
 
 
+def _check_resident(what: str, resident_bf16: bool, dtype: torch.dtype) -> None:
+    if resident_bf16 and dtype != torch.bfloat16:
+        raise ValueError(f"{what}: resident_bf16 holds the residual stream in bf16 and is a "
+                         f"bf16 mode's option, not {dtype}'s")
+
+
 def dense_decode_plain(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout,
-                       compute_dtype: torch.dtype | None = None):
+                       compute_dtype: torch.dtype | None = None, fold_b1: bool = False,
+                       resident_bf16: bool = False):
     """Plain PyTorch version of K2 on the same inputs -> (B, heads*O, R^3)
     float32, rows flattened as (x*R + y)*R + z. ``compute_dtype`` (float32
-    or bfloat16) defaults to the projections' dtype."""
+    or bfloat16) defaults to the projections' dtype.
+
+    ``fold_b1``: every block but the last skips its b1 add (inputs from
+    ``prepare_projections_batched(fold_b1=True)``). ``resident_bf16`` (bf16
+    only) rounds the residual stream to bf16 where the TPU kernel holds it
+    in bf16: after the block-0 assembly (px + py) + pz, after each plane
+    add, and in each residual add net + bf16(dx) after dx and after the
+    sum."""
     B, R = pxz.shape[0], px.shape[0]
     compute_dtype = compute_dtype or pxz.dtype
+    _check_resident("dense_decode_plain", resident_bf16, compute_dtype)
+    rnd = _round_bf16 if resident_bf16 else _identity
     pxz, pxy, pyz = pxz.float(), pxy.float(), pyz.float()
 
     def block_input(net, i):
-        return (net + pxz[:, i][:, :, None, :, :] + pxy[:, i][:, :, :, None, :]
-                + pyz[:, i][:, None, :, :, :])
+        net = rnd(net + pxz[:, i][:, :, None, :, :])
+        net = rnd(net + pxy[:, i][:, :, :, None, :])
+        return rnd(net + pyz[:, i][:, None, :, :, :])
 
-    out = _trunk_plain(_lattice_start(px, py, pz, B), block_input, w0, b0, w1, b1, wout, bout,
-                       compute_dtype)
+    out = _trunk_plain(rnd(_lattice_start(px, py, pz, B)), block_input, w0, b0, w1, b1, wout,
+                       bout, compute_dtype, fold_b1, rnd)
     return out.reshape(B, R ** 3, -1).permute(0, 2, 1).contiguous()
 
 
@@ -273,6 +325,10 @@ def _check(what: str, expect: dict, args, device, dtype=torch.float32) -> None:
 
 # K2's and K3's library entry points for each input dtype
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# K2's modes with their options: (dtype, fold_b1, resident_bf16)
+K2_MODES = ((torch.float32, False, False), (torch.float32, True, False),
+            (torch.bfloat16, False, False), (torch.bfloat16, True, False),
+            (torch.bfloat16, False, True), (torch.bfloat16, True, True))
 
 
 def _mode(what: str, dtype: torch.dtype) -> str:
@@ -308,14 +364,18 @@ def _device(what: str, t: torch.Tensor):
     return t.device
 
 
-def dense_decode_batched(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
+def dense_decode_batched(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout,
+                         fold_b1: bool = False, resident_bf16: bool = False):
     """K2 trunk -> (B, heads*O, R^3) float32; the CUDA kernel for CUDA
-    tensors, in the inputs' dtype's mode (all float32 or all bfloat16)."""
+    tensors, in the inputs' dtype's mode (all float32 or all bfloat16),
+    with the options ``fold_b1`` and (bf16 only) ``resident_bf16`` as
+    ``dense_decode_plain`` takes them. ``launches`` counts every launch,
+    ``entry_launches`` each entry point's (one per mode and option set)."""
     args = (px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout)
     device = _device("dense_decode_batched", pxz)
     if device is None:
-        return dense_decode_plain(*args)
-    entry = "dense_decode_" + _mode("dense_decode_batched", pxz.dtype)
+        return dense_decode_plain(*args, fold_b1=fold_b1, resident_bf16=resident_bf16)
+    entry = dense_decode_entry(pxz.dtype, fold_b1, resident_bf16)
     R, F = px.shape
     B = pxz.shape[0]
     n_blocks, E, H, O = _trunk_shapes(w0, wout)
@@ -329,10 +389,21 @@ def dense_decode_batched(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
                                  B, R, E, n_blocks, stream)
     _build.check(err, entry)
     dense_decode_batched.launches += 1
+    dense_decode_batched.entry_launches[entry] += 1
     return out
 
 
 dense_decode_batched.launches = 0
+dense_decode_batched.entry_launches = Counter()
+
+
+def dense_decode_entry(dtype: torch.dtype, fold_b1: bool = False,
+                       resident_bf16: bool = False) -> str:
+    """The name of K2's entry point for a mode and its options, e.g.
+    ``dense_decode_bf16_resident_fold``."""
+    _check_resident("dense_decode_batched", resident_bf16, dtype)
+    return ("dense_decode_" + _mode("dense_decode_batched", dtype)
+            + "_resident" * resident_bf16 + "_fold" * fold_b1)
 
 
 def fused_dense_decode(px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout):
@@ -442,6 +513,18 @@ def dense_decode_hybrid_batched(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1,
 dense_decode_hybrid_batched.launches = 0
 
 
+def trunk_flops(points: int, heads: int, H: int, n_blocks: int, O: int,
+                extra_adds: int = 0, fold_b1: bool = False) -> int:
+    """fp32 operations of the per-head trunk (the fused trunk's off-diagonal
+    zeros are no work): per point and head the fc_p sum (2H), per block the
+    three plane adds, the fc0 and fc1 products and three bias/residual adds
+    (4H^2 + 6H, plus ``extra_adds`` * H), then the head (2HO + O). With
+    ``fold_b1`` every block but the last adds no b1 (H fewer each)."""
+    per_block = 4 * H * H + (6 + extra_adds) * H
+    folded = (n_blocks - 1) * H if fold_b1 else 0
+    return points * heads * (2 * H + n_blocks * per_block - folded + 2 * H * O + O)
+
+
 # -- head splits and the decode entry points ----------------------------------
 
 def split_heads(out: torch.Tensor, heads: int):
@@ -474,11 +557,20 @@ def _heads(dec: dict) -> int:
 
 def decode_affordance_dense_kernel_batched(dec: dict, feats: dict, coords: torch.Tensor,
                                            n_blocks: int = 5,
-                                           compute_dtype: torch.dtype = torch.float32):
+                                           compute_dtype: torch.dtype = torch.float32,
+                                           fold_b1: bool = False, hidden_bf16: bool = False,
+                                           resident_bf16: bool = False):
     """Batched (qual, rot, width) through K2 in ``compute_dtype``'s mode:
-    float32 qual (B,R,R,R), rot (B,4,R^3), width (B,R,R,R)."""
-    inputs = prepare_projections_batched(dec, feats, coords, n_blocks, compute_dtype)
-    out = dense_decode_batched(*inputs)
+    float32 qual (B,R,R,R), rot (B,4,R^3), width (B,R,R,R).
+
+    The options of the JAX package's ``decode_affordance_dense_pallas_batched``:
+    ``fold_b1`` in both modes; ``hidden_bf16`` and ``resident_bf16`` apply in
+    bf16 only, as there. ``hidden_bf16`` is the bf16 mode's own function
+    (ReLU commutes with its rounding), so it selects no other kernel."""
+    del hidden_bf16  # the bf16 mode computes what it asks for
+    inputs = prepare_projections_batched(dec, feats, coords, n_blocks, compute_dtype, fold_b1)
+    out = dense_decode_batched(*inputs, fold_b1=fold_b1,
+                               resident_bf16=resident_bf16 and compute_dtype == torch.bfloat16)
     return split_heads_transposed(out, _heads(dec), coords.shape[0])
 
 
@@ -513,14 +605,16 @@ def decode_affordance_dense_kernel_hybrid_batched(dec: dict, feats: dict, coords
 
 def dense_decode_launch_config(B: int, R: int, heads: int, n_blocks: int,
                                point_major: bool = False,
-                               dtype: torch.dtype = torch.float32) -> dict:
+                               dtype: torch.dtype = torch.float32, fold_b1: bool = False,
+                               resident_bf16: bool = False) -> dict:
     """The launch K2 (or K3, ``point_major``) makes for these shapes on the
-    current card in ``dtype``'s mode: resident blocks per SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs, grid (blocks per
-    head x heads), threads and dynamic shared bytes per block."""
+    current card in ``dtype``'s mode, with K2's options: resident blocks per
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs, grid (blocks
+    per head x heads), threads and dynamic shared bytes per block."""
     entry = "dense_decode_config" if dtype == torch.float32 else "dense_decode_bf16_config"
+    mode = int(point_major) + 2 * int(fold_b1) + 4 * int(resident_bf16)
     info = (ctypes.c_int * 6)()
-    err = getattr(_lib(), entry)(int(point_major), B, R, heads, n_blocks, info)
+    err = getattr(_lib(), entry)(mode, B, R, heads, n_blocks, info)
     _build.check(err, entry)
     return {"blocks_per_sm": info[0], "sms": info[1], "grid": (info[2], info[3]),
             "threads": info[4], "shared_bytes": info[5]}
@@ -547,9 +641,11 @@ def _lib() -> ctypes.CDLL:
     """K2/K3's library, built and loaded on first use, its C signatures bound."""
     lib = _build.load("dense_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
+    for dtype, fold, resident in K2_MODES:
+        entry = getattr(lib, dense_decode_entry(dtype, fold, resident))
+        entry.argtypes = [p] * 13 + [i, i, i, i, p]
+        entry.restype = i
     for suffix in SUFFIX.values():
-        getattr(lib, f"dense_decode_{suffix}").argtypes = [p] * 13 + [i, i, i, i, p]
-        getattr(lib, f"dense_decode_{suffix}").restype = i
         getattr(lib, f"dense_decode_single_{suffix}").argtypes = [p] * 13 + [i, i, i, p]
         getattr(lib, f"dense_decode_single_{suffix}").restype = i
     for entry in ("dense_decode_config", "dense_decode_bf16_config"):

@@ -17,6 +17,12 @@ and its headers, edited in ``build/giga_tpu_torch/ab/``:
   product; the second product of each block) to show what each costs. Its
   outputs are wrong by construction and are not checked.
 
+With ``--options`` the builds are ``OPTION_DESIGNS``, the code forms of
+K2's option instances (``fold_b1`` as a per-block trunk instance or as a
+runtime flag, in each trunk): every K2 entry point, default and option
+modes in both dtypes, is held ``torch.equal`` to the shipped library's
+and timed in turns, with each instance's ptxas registers and spills.
+
 With ``--bf16`` the builds are ``BF16_DESIGNS`` instead, the designs of
 the bf16 mode's tensor-core kernel (``dense_decode_bf16``,
 ``dense_decode_single_bf16``): m16 tiles a warp carries (``BF_MT``), warps
@@ -145,14 +151,20 @@ __device__ __forceinline__ void add_staged(float (&net)[TP][TC], const float* st
     ("""      tiled::add_rows(net, rows[0], ln);
       tiled::add_rows(net, rows[1], ln);
       tiled::add_rows(net, rows[2], ln);
-      tiled::resnet_block(net, act, s, blk, ln);
+      if (kFoldB1 && blk < NB - 1)
+        tiled::resnet_block<true>(net, act, s, blk, ln);
+      else
+        tiled::resnet_block<false>(net, act, s, blk, ln);
 """, """      stage_rows(stage, rows, ln, lane);
     };
     stage_block(0);
     for (int blk = 0; blk < NB; ++blk) {
       add_staged(net, stage, lane);
       if (blk + 1 < NB) stage_block(blk + 1);
-      tiled::resnet_block(net, act, s, blk, ln);
+      if (kFoldB1 && blk < NB - 1)
+        tiled::resnet_block<true>(net, act, s, blk, ln);
+      else
+        tiled::resnet_block<false>(net, act, s, blk, ln);
 """),
 ]
 
@@ -181,6 +193,33 @@ BF16_DESIGNS = {
     "bf16: 32-point tiles, 8 x 2": _bf16_design(2, 8, 2),
     "bf16: 32-point tiles, 8 x 3": _bf16_design(2, 8, 3),
     "bf16: 16-point tiles, 16 x 2": _bf16_design(1, 16, 2),
+}
+
+
+# fold_b1's b1 skip in the tiled (fp32) trunk as a runtime flag, as the mma
+# trunk takes it, instead of a per-block trunk instance
+_FOLD_FLAG_TILED = {
+    "trunk_tiled.cuh": [
+        ("const Lane<TP, TC, KU>& ln) {\n  float acc[TP][TC];",
+         "const Lane<TP, TC, KU>& ln, bool last = true) {\n  float acc[TP][TC];"),
+        ("  if (kNoB1) {\n", "  if (kNoB1 && !last) {\n")],
+    "dense_decode.cu": [
+        ("      if (kFoldB1 && blk < NB - 1)\n        tiled::resnet_block<true>(net, act, s, blk, ln);\n"
+         "      else\n        tiled::resnet_block<false>(net, act, s, blk, ln);\n",
+         "      tiled::resnet_block<kFoldB1>(net, act, s, blk, ln, blk == NB - 1);\n")]}
+# the mma (bf16) trunk's b1 skip as a per-block instance, as the tiled one
+_FOLD_PER_BLOCK_MMA = {
+    "trunk_mma.cuh": [("    if (!kFoldB1 || last) add_columns", "    if (!kFoldB1) add_columns")],
+    "dense_decode.cu": [
+        ("      tc::resnet_block<kFoldB1, kResident>(net, s, k, lane, k == NB - 1);\n",
+         "      if (kFoldB1 && k < NB - 1)\n        tc::resnet_block<true, kResident>(net, s, k, lane);\n"
+         "      else\n        tc::resnet_block<false, kResident>(net, s, k, lane);\n")]}
+
+# name -> (design constants, {file: edits}) of K2's option instances
+OPTION_DESIGNS = {
+    "options: fp32 fold per block, bf16 fold by flag (shipped)": ({}, {}),
+    "options: fold by flag in both trunks": ({}, _FOLD_FLAG_TILED),
+    "options: fold per block in both trunks": ({}, _FOLD_PER_BLOCK_MMA),
 }
 
 
@@ -214,10 +253,12 @@ def edited_copy(directory: Path, source: str, constants: dict, edits: dict) -> P
 
 
 def build_edits(name: str) -> tuple:
-    """(design constants, {file: edits}) of one of ``DESIGNS``, ``ABLATIONS``
-    or ``BF16_DESIGNS``."""
+    """(design constants, {file: edits}) of one of ``DESIGNS``, ``ABLATIONS``,
+    ``BF16_DESIGNS`` or ``OPTION_DESIGNS``."""
     if name in BF16_DESIGNS:
         return BF16_DESIGNS[name]
+    if name in OPTION_DESIGNS:
+        return OPTION_DESIGNS[name]
     constants, staged = DESIGNS.get(name, ({}, False))
     edits = dict(ABLATIONS.get(name, {}))
     if staged:
@@ -250,15 +291,20 @@ def main() -> int:
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a tree whose giga_tpu_torch/csrc/dense_decode.cu joins the A/B")
     ap.add_argument("--builds", nargs="*",
-                    choices=list({**DESIGNS, **ABLATIONS, **BF16_DESIGNS}))
+                    choices=list({**DESIGNS, **ABLATIONS, **BF16_DESIGNS, **OPTION_DESIGNS}))
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--bf16", action="store_true",
                     help="time the bf16 mode's designs (BF16_DESIGNS) instead")
+    ap.add_argument("--options", action="store_true",
+                    help="time the code forms of K2's option instances (OPTION_DESIGNS)")
     args = ap.parse_args()
+    if args.options and args.tree:
+        ap.error("--options takes no --tree: an older tree may lack the option entry points")
     if args.builds is None:
-        args.builds = list(BF16_DESIGNS if args.bf16 else {**DESIGNS, **ABLATIONS})
+        args.builds = list(OPTION_DESIGNS if args.options else
+                           BF16_DESIGNS if args.bf16 else {**DESIGNS, **ABLATIONS})
 
     import torch
 
@@ -283,6 +329,8 @@ def main() -> int:
         name, path = tree.split("=", 1)
         sources[name] = Path(path).resolve() / "giga_tpu_torch" / "csrc" / "dense_decode.cu"
     libs = build(sources)
+    if args.options:
+        return time_options(libs, args, card)
 
     net, cfg = load_network(ROOT / chip_smoke.CHECKPOINT)
     net = net.cuda().eval()
@@ -327,7 +375,9 @@ def main() -> int:
             k3(lib)
             torch.cuda.synchronize()
             same = torch.equal(out2, ref2) and torch.equal(out3, ref3)
-            res = {k: chip_smoke.kernel_resources(log, f"{kernel}ILb{i}E")
+            # the default instances; an older tree's kernels had no options
+            res = {k: chip_smoke.kernel_resources(log, chip_smoke.k2_kernel(args.bf16, bool(i)),
+                                                  f"{kernel}ILb{i}E")
                    for k, i in (("K2", 0), ("K3", 1))}
             cfg_line = ""
             if hasattr(lib, config):
@@ -360,6 +410,75 @@ def main() -> int:
                   f"[{', '.join(f'{m:.4f}' for m in ms)}] bound {bnd[0]:.4f} ms by {bnd[1]} "
                   f"({bnd[0] / min(ms):.1%} of it at best) B={B if kern == 'K2' else 1} R={R} "
                   f"| {card}")
+    return 0
+
+
+def time_options(libs: dict, args, card: str) -> int:
+    """Hold every K2 entry point (``decoder.K2_MODES``) of each build
+    ``torch.equal`` to the shipped library's on the serving inputs, print
+    each instance's ptxas registers and spills, and time each in turns."""
+    import copy
+
+    import torch
+
+    import chip_smoke
+    from giga_tpu_torch.inference.dense_decode import (
+        lattice_coords, sample_planes_on_lattice_batched)
+    from giga_tpu_torch.inference.planner import full_precision
+    from giga_tpu_torch.models.encoder import encode_planes_fused
+    from giga_tpu_torch.models.registry import load_network
+    from giga_tpu_torch.ops.kernels import _build
+    from giga_tpu_torch.ops.kernels import decoder as dk
+
+    bf = torch.bfloat16
+    net, cfg = load_network(ROOT / chip_smoke.CHECKPOINT)
+    net = net.cuda().eval()
+    bnet = copy.deepcopy(net).to(bf)
+    R, B, E, nb = chip_smoke.RESOLUTION, args.batch, 3, cfg.decoder.n_blocks
+    P, pad = cfg.encoder.plane_resolution, cfg.decoder.padding
+    coords = lattice_coords(R, "cuda")
+    tsdfs = torch.from_numpy(chip_smoke.make_scenes(B)).cuda()
+    out = torch.empty((B, E * 4, R ** 3), device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    with torch.inference_mode(), full_precision():
+        feats = {torch.float32: sample_planes_on_lattice_batched(net.encode(tsdfs), coords, P, pad),
+                 bf: sample_planes_on_lattice_batched(
+                     encode_planes_fused(bnet.encoder, tsdfs.to(bf)), coords, P, pad)}
+        decs = {torch.float32: net.decoder_aff.params(), bf: bnet.decoder_aff.params()}
+        inputs = {(dtype, fold): dk.prepare_projections_batched(decs[dtype], feats[dtype], coords,
+                                                                 nb, dtype, fold_b1=fold)
+                  for dtype in (torch.float32, bf) for fold in (False, True)}
+        ref = {m: dk.dense_decode_batched(*inputs[m[:2]], fold_b1=m[1], resident_bf16=m[2])
+               for m in dk.K2_MODES}
+
+        def call(lib, mode):
+            fn = getattr(lib, dk.dense_decode_entry(*mode))
+            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*inputs[mode[:2]], out)]
+            return lambda: _build.check(fn(*ptrs, B, R, E, nb, stream), "dense_decode")
+
+        for name, (lib, log) in libs.items():
+            for mode in dk.K2_MODES:
+                out.fill_(float("nan"))
+                call(lib, mode)()
+                torch.cuda.synchronize()
+                same = torch.equal(out, ref[mode])
+                res = chip_smoke.kernel_resources(log, chip_smoke.k2_kernel(mode[0] == bf, False,
+                                                                            *mode[1:]))
+                print(f"{name}: {dk.dense_decode_entry(*mode)} equal to the shipped library's bit "
+                      f"for bit: {same}; ptxas {res}", flush=True)
+                if not same:
+                    raise AssertionError(f"{name} gives other outputs than the shipped library")
+        times = {(name, mode): [] for name in libs for mode in dk.K2_MODES}
+        order = list(libs)
+        for r in range(args.rounds):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                for mode in dk.K2_MODES:
+                    times[name, mode].append(chip_smoke.cuda_ms(call(libs[name][0], mode),
+                                                                args.iters))
+    for (name, mode), ms in times.items():
+        print(f"{name:58s} {dk.dense_decode_entry(*mode):32s} {min(ms):.4f}-{max(ms):.4f} ms "
+              f"[{', '.join(f'{m:.4f}' for m in ms)}] B={B} R={R} | {card}")
     return 0
 
 

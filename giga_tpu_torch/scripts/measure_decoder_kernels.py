@@ -12,7 +12,11 @@ events after a synchronize:
   * K2's path: projections materialised by PyTorch, then the trunk kernel;
   * K4's path: all three projections formed in the kernel from the raw
     features, at each ``--chunks`` run of x-slabs per block;
-  * K5's path: pyz materialised by PyTorch, the xz/xy rows in the kernel.
+  * K5's path: pyz materialised by PyTorch, the xz/xy rows in the kernel;
+  * K2's path with the TPU kernel's numeric options: ``fold_b1`` (in bf16
+    with ``hidden_bf16``, the serving flags' pair), and in bf16 also
+    ``resident_bf16``. Each one's raw qual is held against K2's default
+    path: within 1e-5 in fp32, and in bf16 within the bf16 gates below.
 Each decode's three outputs are summed into one device scalar, so nothing
 goes unused.
 
@@ -34,6 +38,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
+# K2 with an option against K2's default path, raw qual, float32
+TOL_OPTION = 1e-5
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -48,12 +54,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def decode_paths(dec: dict, coords, n_blocks: int, chunks, dtype) -> dict:
-    """{name: feats -> float32 (qual, rot, width)} of the four decodes in
-    ``dtype``'s mode (torch.float32 or torch.bfloat16), on the decoder
-    params ``dec``. K2's rot is (B, 4, R^3), the others' (B, R, R, R, 4)."""
+    """{name: feats -> float32 (qual, rot, width)} of the four decodes and
+    K2's option rows in ``dtype``'s mode (torch.float32 or torch.bfloat16),
+    on the decoder params ``dec``. K2's rot is (B, 4, R^3), the others'
+    (B, R, R, R, 4)."""
+    import torch
+
     from giga_tpu_torch.inference.dense_decode import decode_affordance_dense_batched
     from giga_tpu_torch.ops.kernels import decoder as dk
 
+    if dtype == torch.bfloat16:
+        options = {"K2 + fold_b1, hidden_bf16": dict(fold_b1=True, hidden_bf16=True),
+                   "K2 + resident_bf16": dict(resident_bf16=True)}
+    else:
+        options = {"K2 + fold_b1": dict(fold_b1=True)}
     return {
         "module path": lambda f: tuple(
             v.float() for v in decode_affordance_dense_batched(dec, f, coords, n_blocks)),
@@ -64,6 +78,8 @@ def decode_paths(dec: dict, coords, n_blocks: int, chunks, dtype) -> dict:
                dec, f, coords, n_blocks, x_chunk=c, compute_dtype=dtype)) for c in chunks},
         "K5 hybrid": lambda f: dk.decode_affordance_dense_kernel_hybrid_batched(
             dec, f, coords, n_blocks, compute_dtype=dtype),
+        **{name: (lambda f, o=o: dk.decode_affordance_dense_kernel_batched(
+            dec, f, coords, n_blocks, dtype, **o)) for name, o in options.items()},
     }
 
 
@@ -98,6 +114,7 @@ def main(argv=None) -> int:
                                                  cfg.decoder.padding)
         ref_name = "K2 projections + trunk" if bf16 else "module path"
         ref = paths[ref_name](feats)
+        k2_qual = paths["K2 projections + trunk"](feats)[0]
         total = torch.zeros((), device="cuda")
 
         def reduced(fn):
@@ -118,6 +135,12 @@ def main(argv=None) -> int:
                     rot = rot.permute(0, 2, 1).reshape(ref[1].shape)
                 diff = max(float((a - b).abs().max()) for a, b in zip((qual, rot, width), ref))
                 against = f"max |diff| vs module path {diff:.3g}"
+                if name.startswith("K2 +"):
+                    option = float((qual - k2_qual).abs().max())
+                    if not option <= TOL_OPTION:
+                        raise AssertionError(f"{name}: raw qual differs from K2's default path "
+                                             f"by {option} > {TOL_OPTION}")
+                    against += f", raw qual vs K2 default {option:.3g}"
             print(f"{name:28s} {ms:9.3f} ms/batch  {args.batch / ms * 1e3:9.1f} scenes/s  "
                   f"{against}  B={args.batch} R={R} {args.dtype} | {card}", flush=True)
         torch.cuda.synchronize()

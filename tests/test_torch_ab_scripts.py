@@ -23,7 +23,7 @@ from giga_tpu_torch.core import config as tcfg
 from giga_tpu_torch.inference.dense_decode import lattice_coords
 from giga_tpu_torch.models.conv_onet import GIGANet
 from giga_tpu_torch.scripts import (
-    ab_dense_decode, ab_dense_decode_feats, ab_stem_pool, measure_decoder_kernels)
+    ab_dense_decode, ab_dense_decode_feats, ab_stem_pool, bf16_sum_order, measure_decoder_kernels)
 
 REPO = Path(__file__).resolve().parents[1]
 if str(REPO) not in sys.path:
@@ -37,7 +37,8 @@ SCRIPTS = {
     "ab_dense_decode_feats": (ab_dense_decode_feats, "dense_decode_feats.cu"),
 }
 CASES = [(script, name) for script, (module, _) in SCRIPTS.items()
-         for name in {**module.DESIGNS, **module.ABLATIONS, **getattr(module, "BF16_DESIGNS", {})}]
+         for name in {**module.DESIGNS, **module.ABLATIONS, **getattr(module, "BF16_DESIGNS", {}),
+                      **getattr(module, "OPTION_DESIGNS", {})}]
 
 
 @pytest.mark.parametrize("script,name", CASES)
@@ -55,7 +56,8 @@ def test_ab_build_applies_to_the_shipped_source(tmp_path, script, name):
 def test_each_script_times_the_shipped_design_first():
     """The first design of each script is the shipped source unedited."""
     for module, _ in SCRIPTS.values():
-        for designs in (module.DESIGNS, getattr(module, "BF16_DESIGNS", module.DESIGNS)):
+        for designs in (module.DESIGNS, getattr(module, "BF16_DESIGNS", module.DESIGNS),
+                        getattr(module, "OPTION_DESIGNS", module.DESIGNS)):
             first = next(iter(designs))
             constants, edits = module.build_edits(first)
             assert "(shipped)" in first and not constants and not any(edits.values())
@@ -84,7 +86,8 @@ def test_measure_decoder_kernels_needs_a_card(monkeypatch, capsys, dtype):
 
 def test_measure_decoder_kernels_bf16_decodes_on_cpu():
     """The four bf16 decodes of the A/B (module path on bf16 params, K2, K4
-    at two x_chunks and K5 in their bf16 modes) on bf16 lattice features,
+    at two x_chunks and K5 in their bf16 modes) and K2's option rows (fold_b1
+    with hidden_bf16, resident_bf16) on bf16 lattice features,
     here through the plain versions: float32 volumes of one shape, raw qual
     within the A/B's gates of K2 bf16's."""
     cfg = tcfg.GIGAConfig(
@@ -104,7 +107,8 @@ def test_measure_decoder_kernels_bf16_decodes_on_cpu():
     paths = measure_decoder_kernels.decode_paths(net.decoder_aff.params(), coords, 2, [4, 8],
                                                  torch.bfloat16)
     assert list(paths) == ["module path", "K2 projections + trunk", "K4 raw features, x_chunk=4",
-                           "K4 raw features, x_chunk=8", "K5 hybrid"]
+                           "K4 raw features, x_chunk=8", "K5 hybrid",
+                           "K2 + fold_b1, hidden_bf16", "K2 + resident_bf16"]
     with torch.inference_mode():
         ref = paths["K2 projections + trunk"](feats)
         for name, fn in paths.items():
@@ -115,3 +119,48 @@ def test_measure_decoder_kernels_bf16_decodes_on_cpu():
             worst, _ = chip_smoke.check_qual_bf16(qual.numpy(), ref[0].numpy(), name)
             # bf16 decodes of another design differ somewhere
             assert worst > 0 or name == "K2 projections + trunk", name
+
+
+def test_measure_decoder_kernels_fp32_option_row_on_cpu():
+    """The fp32 A/B's K2 + fold_b1 row, here through the plain versions:
+    raw qual within the script's 1e-5 of K2's default path."""
+    cfg = tcfg.GIGAConfig(
+        encoder=tcfg.EncoderConfig(c_dim=8, plane_resolution=8,
+                                   unet=tcfg.UNet2DConfig(depth=2, start_filts=4)),
+        decoder=tcfg.DecoderConfig(c_dim=8, hidden_size=32, n_blocks=3))
+    net = GIGANet(cfg)
+    rng = np.random.RandomState(4)
+    with torch.no_grad():
+        for w in net.parameters():
+            w.copy_(torch.from_numpy(rng.uniform(-0.2, 0.2, tuple(w.shape)).astype(np.float32)))
+    R = 8
+    feats = {t: torch.from_numpy(rng.randn(2, R, R, 8).astype(np.float32))
+             for t in ("xz", "xy", "yz")}
+    paths = measure_decoder_kernels.decode_paths(net.decoder_aff.params(), lattice_coords(R), 3,
+                                                 [8], torch.float32)
+    assert list(paths)[-1] == "K2 + fold_b1"
+    with torch.inference_mode():
+        fold = paths["K2 + fold_b1"](feats)[0]
+        default = paths["K2 projections + trunk"](feats)[0]
+    diff = float((fold - default).abs().max())
+    assert 0 < diff <= measure_decoder_kernels.TOL_OPTION
+
+
+def test_bf16_sum_order_runs_on_the_cpu(capsys):
+    """The sum-order script at one scene on the CPU: one line per bf16 mode
+    of K2, the plain versions' float32 against float64 sums, finite and
+    within the resident mode's far bound."""
+    assert bf16_sum_order.main(["--device", "cpu", "--batch", "1"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in lines] == ["dense_decode_bf16", "dense_decode_bf16_fold",
+                                               "dense_decode_bf16_resident",
+                                               "dense_decode_bf16_resident_fold"]
+    for ln in lines:
+        rel = float(ln.split("max err/(1+|ref|) ")[1].split(",")[0])
+        assert 0 < rel <= chip_smoke.TOL_BF16_RESIDENT_FAR
+
+
+def test_bf16_sum_order_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bf16_sum_order.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err

@@ -28,6 +28,7 @@ float32). Both pass tests/test_bf16_serving.py's four decision gates
 (chip_smoke.bf16_gates).
 """
 
+import contextlib
 import copy
 import functools
 from pathlib import Path
@@ -251,40 +252,53 @@ def test_bf16_wrappers_on_cpu_take_the_plain_versions():
 
 # -- the programs against the JAX package's TPU bf16 programs ------------------
 
-def jax_tpu_bf16_batched_program(model_cfg, planner_cfg, size):
-    """The JAX package's jitted TPU bf16 batched program (params, tsdfs,
-    tsdf_process) -> (GraspCandidates, float32 raw (qual, rot, width)); rot
-    is (B, 4, R^3), as its transposed head write leaves it."""
+def jax_tpu_batched_program(model_cfg, planner_cfg, size, precision: str = "bf16",
+                            fold_b1: bool = False, hidden_bf16: bool = False):
+    """The JAX package's jitted TPU batched program (params, tsdfs,
+    tsdf_process) -> (GraspCandidates, float32 raw (qual, rot, width)) in
+    ``precision`` ("bf16", or "fp32" at the "highest" matmul precision) with
+    its decode options ``pallas_fold_b1`` / ``pallas_hidden_bf16``
+    (giga_tpu/inference/planner.py:276-347 as it runs on a TPU: K1 and K2
+    Pallas, here in interpret mode); rot is (B, 4, R^3), as its transposed
+    head write leaves it."""
     voxel = size / planner_cfg.resolution
     R, P = planner_cfg.resolution, model_cfg.encoder.plane_resolution
     nb, padding = model_cfg.decoder.n_blocks, model_cfg.decoder.padding
+    bf16 = precision == "bf16"
+    compute = jnp.bfloat16 if bf16 else jnp.float32
 
     @jax.jit
     def batched(params, tsdfs, proc):
-        p, t = _maybe_cast(params["params"], tsdfs, jnp.bfloat16)
-        planes = jax_encode_fused(p["encoder"], t, model_cfg.encoder,
-                                  compute_dtype=jnp.bfloat16, interpret=True)
-        coords = jdd.lattice_coords(R)
-        feats = jdd.sample_planes_on_lattice_batched(planes, coords, P, padding)
-        raw = jdk.decode_affordance_dense_pallas_batched(
-            p["decoder_aff"], feats, coords, nb, compute_dtype=jnp.bfloat16, interpret=True,
-            transposed=True)
-        raw = tuple(x.astype(jnp.float32) for x in raw)
-        q, r, w = raw
-        masked = jpp.bound_quality(jpp.mask_quality(q, proc, w, planner_cfg), voxel, planner_cfg)
-        return jpp.select_grasps_batched(masked, r, w, _lattice_positions(coords), planner_cfg), raw
+        with contextlib.nullcontext() if bf16 else jax.default_matmul_precision("highest"):
+            p, t = _maybe_cast(params["params"], tsdfs, jnp.bfloat16 if bf16 else None)
+            planes = jax_encode_fused(p["encoder"], t, model_cfg.encoder, compute_dtype=compute,
+                                      interpret=True)
+            coords = jdd.lattice_coords(R)
+            feats = jdd.sample_planes_on_lattice_batched(planes, coords, P, padding)
+            raw = jdk.decode_affordance_dense_pallas_batched(
+                p["decoder_aff"], feats, coords, nb, compute_dtype=compute, interpret=True,
+                transposed=True, fold_b1=fold_b1, hidden_bf16=hidden_bf16)
+            raw = tuple(x.astype(jnp.float32) for x in raw)
+            q, r, w = raw
+            masked = jpp.bound_quality(jpp.mask_quality(q, proc, w, planner_cfg), voxel,
+                                       planner_cfg)
+            return (jpp.select_grasps_batched(masked, r, w, _lattice_positions(coords),
+                                              planner_cfg), raw)
 
     return batched
 
 
 @functools.cache
-def jax_tpu_bf16_reference(n_scenes: int):
-    """The JAX TPU bf16 batched program on chip_smoke's first scenes with the
-    shipped checkpoint: (scenes, (cands, raw))."""
+def jax_tpu_reference(n_scenes: int, precision: str = "bf16", fold_b1: bool = False,
+                      hidden_bf16: bool = False):
+    """The JAX TPU batched program (``jax_tpu_batched_program``) on
+    chip_smoke's first scenes with the shipped checkpoint: (scenes, (cands,
+    raw))."""
     scenes = chip_smoke.make_scenes(n_scenes)
     params = load_params(REPO / chip_smoke.CHECKPOINT)
-    batched = jax_tpu_bf16_batched_program(
-        jcfg.giga(), jcfg.PlannerConfig(**chip_smoke.PLANNER_KW), chip_smoke.SIZE)
+    batched = jax_tpu_batched_program(
+        jcfg.giga(), jcfg.PlannerConfig(**chip_smoke.PLANNER_KW), chip_smoke.SIZE, precision,
+        fold_b1, hidden_bf16)
     return scenes, jax.device_get(batched(params, jnp.asarray(scenes), jnp.asarray(scenes)))
 
 
@@ -336,7 +350,7 @@ def test_bf16_batched_program_matches_jax_tpu_bf16(planners):
     """plan_batch in bf16 (K1 and K2's plain versions on the CPU) against
     the JAX TPU bf16 batched program: raw volumes and decisions."""
     _, bf16 = planners
-    scenes, (ref_cands, ref_raw) = jax_tpu_bf16_reference(4)
+    scenes, (ref_cands, ref_raw) = jax_tpu_reference(4)
     net, cfg = bf16.net, bf16.model_cfg
     t = torch.from_numpy(scenes)
     with torch.inference_mode():

@@ -236,3 +236,55 @@ def test_kernel_resources_tells_the_modes_apart(kernel, expected):
     """The names chip_smoke.py asks for pick one mode's kernel from a build
     log that holds both: K1's template instances, K2/K3's two kernels."""
     assert chip_smoke.kernel_resources(LOG_BF16, kernel) == expected
+
+
+# -- K2's options ---------------------------------------------------------------
+
+def test_fold_skips_the_folded_bias_adds():
+    """fold_b1 drops one H-wide add for every block but the last, per point
+    and head; chip_smoke reckons with the package's trunk_flops."""
+    from giga_tpu_torch.ops.kernels.decoder import trunk_flops
+
+    assert chip_smoke.trunk_flops is trunk_flops
+    assert trunk_flops(1, 1, H, NB, O, fold_b1=True) == 21764 - (NB - 1) * H
+    assert trunk_flops(3, E, H, 1, O, fold_b1=True) == trunk_flops(3, E, H, 1, O)
+
+
+@pytest.mark.parametrize("elem,peak,gflop,ms", [
+    (4, chip_smoke.PEAK_FP32_FLOPS, 265.9, 3.968),
+    (2, chip_smoke.PEAK_BF16_FLOPS, 265.9, 0.2688),
+])
+def test_fold_bounds_are_what_perf_md_quotes(elem, peak, gflop, ms):
+    """K2 with fold_b1 at B=64: the default mode's bytes, 0.6 % fewer
+    operations; resident_bf16 does the default bf16 mode's operations (its
+    roundings are conversions, not operations at the tensor cores' rate)."""
+    flops = chip_smoke.trunk_flops(64 * R ** 3, E, H, NB, O, fold_b1=True)
+    assert round(flops / 1e9, 1) == gflop
+    bound_ms, by = chip_smoke.bound(flops, _dense_decode_bytes(64, elem), peak)
+    assert (round(bound_ms, 4 if elem == 2 else 3), by) == (ms, "operations")
+
+
+K2_INSTANCES = [  # (bf16, point_major, fold_b1, resident_bf16): every kernel of dense_decode.cu
+    (False, False, False, False), (False, True, False, False), (False, False, True, False),
+    (True, False, False, False), (True, True, False, False), (True, False, True, False),
+    (True, False, False, True), (True, False, True, True)]
+
+
+@pytest.mark.parametrize("instance,name", [
+    (K2_INSTANCES[0], "dense_decode_kernelILb0ELb0E"),
+    (K2_INSTANCES[1], "dense_decode_kernelILb1ELb0E"),
+    (K2_INSTANCES[2], "dense_decode_kernelILb0ELb1E"),
+    (K2_INSTANCES[3], "dense_decode_bf16_kernelILb0ELb0ELb0E"),
+    (K2_INSTANCES[7], "dense_decode_bf16_kernelILb0ELb1ELb1E"),
+])
+def test_k2_kernel_names_one_instance(instance, name):
+    """chip_smoke.k2_kernel names one template instance of dense_decode.cu's
+    kernels, which kernel_resources then finds alone in a log of all eight
+    (instance i given i registers here)."""
+    assert chip_smoke.k2_kernel(*instance) == name
+    log = "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{k}EEvPKfi' for 'sm_90a'\n"
+        f"ptxas info    : Used {i} registers\n"
+        for i, k in enumerate(chip_smoke.k2_kernel(*inst) for inst in K2_INSTANCES))
+    assert chip_smoke.kernel_resources(log, name).startswith(
+        f"{K2_INSTANCES.index(instance)} registers")

@@ -547,3 +547,84 @@ def test_feats_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         dk.dense_decode_hybrid_batched(*hybrid[:3], hybrid[3].to(BF16), *hybrid[4:])
     with pytest.raises(ValueError, match="dtype"):
         dk.dense_decode_hybrid_batched(*hybrid[:5], hybrid[5].half(), *hybrid[6:])
+
+
+# -- K2's numeric options: fold_b1 in both modes, resident_bf16 in bf16 ----------
+
+OPTIONS = [(torch.float32, True, False), (BF16, True, False), (BF16, False, True),
+           (BF16, True, True)]  # (dtype, fold_b1, resident_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,fold,resident", OPTIONS)
+@pytest.mark.parametrize("B,R,nb", [(2, 12, 5), (1, 7, 2), (3, 13, 1), (2, 40, 5)])
+def test_decode_option_kernels_match_plain(cuda_device, dtype, fold, resident, B, R, nb):
+    """Each option's entry point against its plain version (float32 within
+    1e-5, bf16 by check_bf16), one launch of that entry point."""
+    rng = np.random.RandomState(20)
+    s = BF16_W if dtype == BF16 else 0.5
+    args = [a.to(cuda_device).to(dtype) for a in _decode_args(rng, B, R, nb, s=s)]
+    entry = dk.dense_decode_entry(dtype, fold, resident)
+    n = dk.dense_decode_batched.entry_launches[entry]
+    got = dense_decode_batched(*args, fold_b1=fold, resident_bf16=resident)
+    ref = dense_decode_plain(*args, fold_b1=fold, resident_bf16=resident)
+    assert dk.dense_decode_batched.entry_launches[entry] == n + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=TOL_KERNEL, rtol=TOL_KERNEL)
+    else:
+        chip_smoke.check_bf16(got, ref, entry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,resident", [(torch.float32, False), (BF16, False),
+                                            (BF16, True)])
+def test_fold_kernel_equals_default_kernel_with_b1_zeroed(cuda_device, dtype, resident):
+    """The kFoldB1 instance skips b1 in every block but the last: the
+    instance without it, given those b1 as zeros, writes the same bytes."""
+    rng = np.random.RandomState(21)
+    args = [a.to(cuda_device).to(dtype) for a in _decode_args(rng, 2, 13, 5, s=BF16_W)]
+    b1 = args[9].clone()
+    b1[:-1] = 0
+    zeroed = args[:9] + [b1] + args[10:]
+    assert torch.equal(dense_decode_batched(*args, fold_b1=True, resident_bf16=resident),
+                       dense_decode_batched(*zeroed, resident_bf16=resident))
+
+
+@pytest.mark.cuda
+def test_resident_kernel_is_another_function(cuda_device):
+    """resident_bf16 rounds the residual stream: not the default bf16 bytes."""
+    rng = np.random.RandomState(22)
+    args = [a.to(cuda_device).to(BF16) for a in _decode_args(rng, 1, 12, 5, s=BF16_W)]
+    assert not torch.equal(dense_decode_batched(*args, resident_bf16=True),
+                           dense_decode_batched(*args))
+    with pytest.raises(ValueError, match="resident_bf16"):
+        dense_decode_batched(*(a.float() for a in args), resident_bf16=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_option_programs_queue_and_return_raw(cuda_device, dtype):
+    """The batched program with fold_b1 (and hidden_bf16 in bf16), once
+    warm, makes no synchronizing call and launches K1 and K2's fold entry
+    point once; return_raw leaves its candidates bit-equal."""
+    net, cfg, pcfg, grids = _random_giga(cuda_device)
+    net = net.to(dtype)
+    options = dict(fold_b1=True, hidden_bf16=dtype == BF16)
+    fn = build_batched_giga_planner_fn(net, cfg, pcfg, 0.3, use_kernels=True, **options)
+    raw_fn = build_batched_giga_planner_fn(net, cfg, pcfg, 0.3, use_kernels=True,
+                                           return_raw=True, **options)
+    fn(grids, grids)
+    torch.cuda.synchronize()
+    entry = dk.dense_decode_entry(dtype, fold_b1=True)
+    n = (stem_pool_batched.launches, dk.dense_decode_batched.entry_launches[entry])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cands = fn(grids, grids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (stem_pool_batched.launches,
+            dk.dense_decode_batched.entry_launches[entry]) == (n[0] + 1, n[1] + 1)
+    got, raw = raw_fn(grids, grids)
+    assert all(torch.equal(a, b) for a, b in zip(cands, got))
+    assert [tuple(v.shape) for v in raw] == [(2, 40, 40, 40), (2, 4, 40 ** 3), (2, 40, 40, 40)]
+    assert int(cands.count.sum()) > 0

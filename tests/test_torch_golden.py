@@ -5,7 +5,9 @@ carries the JAX package's candidates for the first chip_smoke scenes,
 planned on the CPU with the shipped checkpoint; ``golden_plan_giga_bf16.npz``
 those of the JAX package's TPU bf16 batched program on the same scenes
 (composed from its functions with the Pallas kernels in interpret mode,
-tests/test_torch_bf16.py); and ``golden_call_giga_bf16.npz`` those of the
+tests/test_torch_bf16.py); ``golden_plan_giga_bf16_fold.npz`` those and the
+raw qual of the same program with the decode options ``fold_b1`` and
+``hidden_bf16``; and ``golden_call_giga_bf16.npz`` those of the
 single-scene program of JAX's ``GIGAPlanner(precision="bf16")``, which its
 ``__call__`` runs, scene by scene. These tests regenerate them and assert
 the committed files are current. Rewrite them with
@@ -26,7 +28,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from test_torch_bf16 import jax_bf16_planner_reference, jax_tpu_bf16_reference  # noqa: E402
+from test_torch_bf16 import jax_bf16_planner_reference, jax_tpu_reference  # noqa: E402
 from giga_tpu.core.config import PlannerConfig  # noqa: E402
 from giga_tpu.inference.planner import build_batched_giga_planner_fn  # noqa: E402
 from giga_tpu.models.registry import get_network, load_params  # noqa: E402
@@ -52,8 +54,19 @@ def golden_arrays() -> dict:
 def golden_bf16_arrays() -> dict:
     """The JAX TPU bf16 batched program's candidates for the first N_SCENES
     chip_smoke scenes."""
-    tsdf, (cands, _) = jax_tpu_bf16_reference(N_SCENES)
+    tsdf, (cands, _) = jax_tpu_reference(N_SCENES)
     out = {f: np.asarray(getattr(cands, f)) for f in FIELDS}
+    out["tsdf"] = tsdf
+    return out
+
+
+def golden_bf16_fold_arrays() -> dict:
+    """The candidates and raw qual (N_SCENES, R, R, R) of the JAX TPU bf16
+    batched program with ``fold_b1`` and ``hidden_bf16`` for the first
+    N_SCENES chip_smoke scenes."""
+    tsdf, (cands, raw) = jax_tpu_reference(N_SCENES, "bf16", fold_b1=True, hidden_bf16=True)
+    out = {f: np.asarray(getattr(cands, f)) for f in FIELDS}
+    out["qual"] = np.asarray(raw[0], np.float32)
     out["tsdf"] = tsdf
     return out
 
@@ -81,6 +94,9 @@ def _assert_current(path: str, fresh: dict):
         for f in ("scores", "widths", "rotations"):
             np.testing.assert_allclose(stored[f][i, :n], fresh[f][i, :n], atol=1e-6)
     assert fresh["count"].sum() > 0
+    assert ("qual" in stored) == ("qual" in fresh)
+    if "qual" in fresh:
+        np.testing.assert_allclose(stored["qual"], fresh["qual"], atol=1e-6)
 
 
 def test_golden_file_is_current():
@@ -89,6 +105,10 @@ def test_golden_file_is_current():
 
 def test_bf16_golden_file_is_current():
     _assert_current(chip_smoke.GOLDEN_BF16, golden_bf16_arrays())
+
+
+def test_bf16_fold_golden_file_is_current():
+    _assert_current(chip_smoke.GOLDEN_BF16_FOLD, golden_bf16_fold_arrays())
 
 
 def test_bf16_call_golden_file_is_current():
@@ -109,6 +129,7 @@ def test_golden_scenes_are_planner_tsdfs():
 if __name__ == "__main__" and "--write" in sys.argv:
     for path, arrays in ((chip_smoke.GOLDEN, golden_arrays),
                          (chip_smoke.GOLDEN_BF16, golden_bf16_arrays),
+                         (chip_smoke.GOLDEN_BF16_FOLD, golden_bf16_fold_arrays),
                          (chip_smoke.GOLDEN_CALL_BF16, golden_call_bf16_arrays)):
         np.savez_compressed(REPO / path, **arrays())
         print("wrote", path)
