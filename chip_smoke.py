@@ -283,10 +283,10 @@ def k2_kernel(bf16: bool, point_major: bool = False, fold_b1: bool = False,
     """The mangled name's start of one instance of K2's (K3's, with
     ``point_major``) kernel template in dense_decode.cu, for
     ``kernel_resources``: dense_decode_kernel<kPointMajor, kFoldB1> in
-    float32, dense_decode_bf16_kernel<kPointMajor, kFoldB1, kResident> in
-    bf16."""
+    float32, dense_decode_bf16_tma_kernel<kPointMajor, kFoldB1, kResident>
+    in bf16."""
     flags = [point_major, fold_b1] + ([resident_bf16] if bf16 else [])
-    return (f"dense_decode{'_bf16' * bf16}_kernelI"
+    return (f"dense_decode{'_bf16_tma' * bf16}_kernelI"
             + "".join(f"Lb{int(f)}E" for f in flags))
 
 
@@ -494,7 +494,8 @@ def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
     for k, batch, point_major in (("K2", B, False), ("K3", 1, True)):
         lc = dk.dense_decode_launch_config(batch, R, heads, n_blocks, point_major, bf)
         shapes[k] = (f"{lc['shared_bytes']} bytes shared per block, grid {lc['grid'][0]}x"
-                     f"{lc['grid'][1]} blocks of {lc['threads']} threads, {lc['blocks_per_sm']} "
+                     f"{lc['grid'][1]} blocks of {lc['threads']} threads ({lc['warps']} warps "
+                     f"taking tiles, pyz ring of {lc['stages']} stages), {lc['blocks_per_sm']} "
                      f"resident blocks per SM on {lc['sms']} SMs")
     mangled = {"K1": ("stem_pool", "stem_pool_kernelI13__nv_bfloat16E"),
                "K2": ("dense_decode", k2_kernel(True)),

@@ -24,10 +24,8 @@
 //   forms for each, by ab_dense_decode.py --options). At B=64, R=40 on an
 //   NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 19; ptxas for sm_90a):
 //   f32_fold 168 registers, 308/364 bytes of spills, 7.66 ms (default
-//   7.61); bf16_fold 128 registers, 8/16 bytes, 2.15-2.17 ms (default
-//   2.22-2.23); bf16_resident and bf16_resident_fold 128 registers, no
-//   spills, 2.78 and 2.71 ms: the resident stream's five roundings a block
-//   cost ~0.55 ms.
+//   7.61). The bf16 instances share the bf16 kernel's design below; PERF.md
+//   §6 has their registers, spills and times.
 //
 // For every point (x, y, z) of the R^3 query lattice of scene b, and every
 // head e (qual, rot, width):
@@ -87,6 +85,8 @@
 #include <mutex>
 #include <type_traits>
 
+#include "rows_tma.cuh"
+#include "trunk_wgmma.cuh"
 #include "trunk_mma.cuh"
 #include "trunk_tiled.cuh"
 
@@ -190,85 +190,322 @@ dense_decode_kernel(const float* __restrict__ px, const float* __restrict__ py,
   }
 }
 
-// bf16 mode (trunk_mma.cuh). The same work on the tensor cores: 267 GFLOP at
-// B=64 is 0.270 ms at the H100's 989 TFLOP/s dense bf16 rate, against ~295
-// MB of bf16 inputs read and ~197 MB of float32 output written (0.147 ms at
-// 3.35 TB/s), so its bound is the tensor cores'. A warp carries 32 points x
-// a head's 32 columns through mma.sync m16n8k16 (bf16 operands, float32
-// accumulators), the residual stream in the accumulator layout, and each
-// layer's output rounds straight into the next product's A fragments: no
-// activation buffer, so a block's shared memory is its head's weights alone
-// (22.3 KB at 5 blocks: bf16 fragments, float biases). Rows are read as bf16
-// pairs, a lane's two columns of each 8-column n-tile, addressed from their
-// indices (pointers would cost registers). Blocks are persistent as in the
-// float32 mode. Resources at NB = 5 (ptxas for sm_90a): 128 registers, no
-// spills; 16 warps a block, one block an SM. The A/B (ab_dense_decode.py
-// --bf16, PERF.md) put 64-point tiles (244 registers, 8 warps an SM) and
-// 16-point tiles (spills at 64 registers) behind it; outputs are equal bit
-// for bit across the designs, since each output's sums are the same MMAs.
+// bf16 mode (trunk_mma.cuh, rows_tma.cuh). The same work on the tensor
+// cores: 267 GFLOP at B=64 is 0.270 ms at the H100's 989 TFLOP/s dense bf16
+// rate, against ~295 MB of bf16 inputs read and ~197 MB of float32 output
+// written (0.147 ms at 3.35 TB/s), so its bound is the tensor cores'. A warp
+// carries 32 points x a head's 32 columns through mma.sync m16n8k16 (bf16
+// operands, float32 accumulators), the residual stream in the accumulator
+// layout, each layer's output rounded straight into the next product's A
+// fragments (trunk_mma.cuh).
+//
+// The plane rows. Ablations of the design before this one (32-point tiles
+// in flattened order, each lane reading its rows as 4-byte bf16 pairs
+// through the read-only path) put ~1.0 of its 2.2 ms at B=64 in the row
+// loads, more than any other part (ab_dense_decode.py --bf16, PERF.md §6).
+// So the rows follow the lattice here:
+//  - A block works through a contiguous run of x-slabs (scene b, x) of one
+//    head; a warp's tile is 32 consecutive (y, z) points of one slab. Every
+//    point of a slab reads pxz[b,k,x,z] and pxy[b,k,x,y] from the slab's R
+//    rows of each: a producer warp brings those 2 x NB boxes in by TMA,
+//    once per slab, into a ring of BF_SLAB_STAGES slabs, each with a `full`
+//    mbarrier (the TMA's bytes) and an `empty` one (one arrival per
+//    consumer warp). Every consumer warp waits for each slab of its block's
+//    run in turn and releases it once past it, tiles or none: a warp then
+//    never waits on a stage's phase before the one it has seen complete,
+//    which is what a parity wait can tell apart.
+//  - pyz[b,k,y,z] of a tile is 32 consecutive rows, read once: each
+//    consumer warp's lane 0 brings them in by TMA, one box per (tile,
+//    block), into the warp's own ring of BF_PYZ_STAGES boxes, the next
+//    box in flight while the warp computes on this one. Tile and slab
+//    indices are 32-bit, the next tile's found once a tile: with 64-bit
+//    divisions in every step's fetch the kernel took ~0.1 ms longer.
+//  - px, py, pz (R rows each) are copied into shared memory once a block.
+//  - Every row reaches the registers by ldmatrix, already in the
+//    accumulator layout (rows_tma.cuh): one instruction per 16 x 16
+//    sub-tile and one shared address a lane per m-tile and plane.
+// The values and sums are the previous design's, in its order ((px + py) +
+// pz; per block + pxz, + pxy, + pyz; the same MMAs), so the outputs are
+// equal to it bit for bit. Resources at NB = 5, R = 40 (ptxas for sm_90a):
+// 128 registers, no spills, ~156 KB of shared memory; 15 consumer warps and
+// the producer, one block an SM. The A/B (PERF.md §6) put behind it: the
+// products on wgmma (BF_WGMMA; bit-equal to mma.sync, ~0.3 ms slower, its
+// warpgroups waiting on each other's products even with one m16 tile's
+// product overlapping the other's float work), slab rows widened to
+// float32 once by the producer (BF_SLAB_F32; no faster: it trades widening
+// instructions for shared-memory bandwidth, which the rows and mma.sync's
+// B fragments already nearly fill), 12 or 16 consumer warps, deeper rings.
 constexpr int BF_MT = 2;           // m16 tiles of a warp: 32 points
-constexpr int BF_WARPS = 16;       // warps per block
+constexpr int BF_WARPS = 15;       // consumer warps per block, beside one producer warp
 constexpr int BF_MIN_BLOCKS = 1;   // resident blocks per SM asked of ptxas
-constexpr int BF_THREADS = 32 * BF_WARPS;
+constexpr int BF_PYZ_STAGES = 2;   // pyz boxes of a consumer warp's ring
+constexpr int BF_SLAB_STAGES = 2;  // x-slabs of the block's ring
+constexpr int BF_SLAB_F32 = 0;     // A/B: slab rows (and px/py/pz) widened to float32 once
+constexpr int BF_WGMMA = 0;        // A/B: products by wgmma (warpgroups), else mma.sync
+constexpr int BF_THREADS = 32 * (BF_WARPS + 1);
+// warps that take their tiles together: a warpgroup for wgmma; a team's
+// tiles are consecutive tiles of one slab
+constexpr int BF_GROUP = BF_WGMMA ? 4 : 1;
+constexpr int BF_TEAMS = BF_WARPS / BF_GROUP;
+static_assert(BF_WARPS % BF_GROUP == 0, "whole warpgroups of consumers for wgmma");
 using BfTile = tc::Tile<BF_MT>;
 constexpr int BF_P = BfTile::P;
+constexpr int BF_PYZ_BYTES = BF_P * rows::ROW_BYTES;
 using bf16 = __nv_bfloat16;
 static_assert(OE % 2 == 0, "head outputs in pairs");
+static_assert(H * sizeof(bf16) == rows::ROW_BYTES, "a head's row is one 64-byte TMA row");
+static_assert(BF_PYZ_STAGES >= 2, "one pyz box in flight while another is read");
 
-size_t bf16_shared_bytes(int NB) { return (size_t)tc::weight_words(NB) * sizeof(unsigned); }
+// Byte offsets of the bf16 kernel's shared memory from its 1024-aligned
+// base: the head's weights (with BF_WGMMA also w0/w1 in wgmma's layout),
+// px/py/pz, the slab ring (each slab NB pxz boxes
+// then NB pxy boxes, `slab_box` bytes each), with BF_SLAB_F32 the
+// producer's two bf16 boxes the TMA fills, the consumer warps' pyz rings,
+// the mbarriers (full and empty per slab stage, one per staged box, one per
+// pyz box).
+struct BfLayout {
+  int box, slab_box, wgw, axes, slabs, staged, pyz, bars, bytes;
+  __host__ __device__ BfLayout(int R, int NB) {
+    box = rows::align_up(R * rows::ROW_BYTES, rows::ALIGN);
+    slab_box = BF_SLAB_F32 ? rows::align_up(R * rows::ROW_BYTES_F32, rows::ALIGN) : box;
+    wgw = rows::align_up(tc::weight_words(NB) * (int)sizeof(unsigned), rows::ALIGN);
+    axes = wgw + (BF_WGMMA ? wg::weight_bytes(NB) : 0);
+    slabs = axes + 3 * slab_box;
+    staged = slabs + BF_SLAB_STAGES * 2 * NB * slab_box;
+    pyz = staged + (BF_SLAB_F32 ? 2 * box : 0);
+    bars = pyz + BF_WARPS * BF_PYZ_STAGES * BF_PYZ_BYTES;
+    bytes = bars + 8 * (2 * BF_SLAB_STAGES + 2 + BF_WARPS * BF_PYZ_STAGES) + rows::ALIGN;
+  }
+};
+
+size_t bf16_shared_bytes(int R, int NB) { return (size_t)BfLayout(R, NB).bytes; }
 
 template <bool kPointMajor, bool kFoldB1, bool kResident>
 __global__ void __launch_bounds__(BF_THREADS, BF_MIN_BLOCKS)
-dense_decode_bf16_kernel(const bf16* __restrict__ px, const bf16* __restrict__ py,
-                         const bf16* __restrict__ pz, const bf16* __restrict__ pxz,
-                         const bf16* __restrict__ pxy, const bf16* __restrict__ pyz,
-                         const bf16* __restrict__ w0, const bf16* __restrict__ b0,
-                         const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                         const bf16* __restrict__ wout, const bf16* __restrict__ bout,
-                         float* __restrict__ out, int B, int R, int E, int NB) {
-  extern __shared__ __align__(16) unsigned wsmem[];
-  const int e = blockIdx.y, F = E * H;
-  const tc::Weights s = tc::load_weights(wsmem, w0, b0, w1, b1, wout, bout, e, E, NB);
+dense_decode_bf16_tma_kernel(const __grid_constant__ CUtensorMap mxz,
+                             const __grid_constant__ CUtensorMap mxy,
+                             const __grid_constant__ CUtensorMap myz,
+                             const bf16* __restrict__ px, const bf16* __restrict__ py,
+                             const bf16* __restrict__ pz, const bf16* __restrict__ w0,
+                             const bf16* __restrict__ b0, const bf16* __restrict__ w1,
+                             const bf16* __restrict__ b1, const bf16* __restrict__ wout,
+                             const bf16* __restrict__ bout, float* __restrict__ out, int B, int R,
+                             int E, int NB) {
+  extern __shared__ __align__(16) unsigned char bsmem[];
+  const unsigned raw = rows::smem_addr(bsmem);
+  const unsigned base = (raw + rows::ALIGN - 1) & ~(unsigned)(rows::ALIGN - 1);
+  unsigned char* gbase = bsmem + (base - raw);
+  const BfLayout L(R, NB);
+  const int e = blockIdx.y, F = E * H, col = e * H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int RR = R * R, N = RR * R, tps = (RR + BF_P - 1) / BF_P;  // tiles per slab
+  const int ups = (tps + BF_GROUP - 1) / BF_GROUP;  // units (a team's tiles) per slab
+  // the block's units: a contiguous run of the head's (slab, unit) order
+  const int units = B * R * ups;  // under 2^31 (configure checks)
+  const int U0 = (int)((long long)units * blockIdx.x / gridDim.x);
+  const int U1 = (int)((long long)units * (blockIdx.x + 1) / gridDim.x);
+  if (U0 >= U1) return;
+  const int S0 = U0 / ups, S1 = (U1 - 1) / ups;
+  const unsigned full = base + L.bars, empty = full + 8 * BF_SLAB_STAGES;
+  const unsigned staged = empty + 8 * BF_SLAB_STAGES, pyz_full = staged + 16;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < BF_SLAB_STAGES; ++i) {
+      // full: the TMA's bytes, or the producer's 32 lanes done widening
+      rows::bar_init(full + 8 * i, BF_SLAB_F32 ? 32 : 1);
+      rows::bar_init(empty + 8 * i, BF_WARPS);
+    }
+    rows::bar_init(staged, 1);
+    rows::bar_init(staged + 8, 1);
+    for (int i = 0; i < BF_WARPS * BF_PYZ_STAGES; ++i) rows::bar_init(pyz_full + 8 * i, 1);
+    rows::bar_init_fence();
+  }
+  const tc::Weights s = tc::load_weights(reinterpret_cast<unsigned*>(gbase), w0, b0, w1, b1,
+                                         wout, bout, e, E, NB);
+  if (BF_WGMMA) wg::load_weights(gbase + L.wgw, w0, w1, e, E, NB);
+  for (int i = threadIdx.x; i < 3 * R * 16; i += blockDim.x) {  // px, py, pz by bf16 pairs
+    const int a = i / (R * 16), r = (i / 16) % R, pair = i % 16;
+    const bf16* src = (a == 0 ? px : a == 1 ? py : pz) + (size_t)r * F + col + 2 * pair;
+    unsigned char* box = gbase + L.axes + a * L.slab_box;
+    if (BF_SLAB_F32) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+      *reinterpret_cast<float*>(box + rows::column_f32(r, 2 * pair)) = v.x;
+      *reinterpret_cast<float*>(box + rows::column_f32(r, 2 * pair + 1)) = v.y;
+    } else {
+      *reinterpret_cast<unsigned*>(box + rows::offset(r, pair / 4) + 4 * (pair % 4)) =
+          *reinterpret_cast<const unsigned*>(src);
+    }
+  }
   __syncthreads();
 
-  const int RR = R * R, N = RR * R;
-  const int tiles = (N + BF_P - 1) / BF_P;
-  const long units = (long)B * tiles;
-  const int col = e * H;
-  for (long u = (long)blockIdx.x * BF_WARPS + warp; u < units; u += (long)gridDim.x * BF_WARPS) {
-    const int b = (int)(u / tiles);
-    const int base = (int)(u % tiles) * BF_P;
-    int ixz[BF_MT][2], ixy[BF_MT][2], iyz[BF_MT][2];
-    BfTile net;
-    {
-      int ix[BF_MT][2], iy[BF_MT][2], iz[BF_MT][2];
-#pragma unroll
-      for (int m = 0; m < BF_MT; ++m)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = min(base + tc::point(m, h, lane), N - 1);  // clamped past N
-          ix[m][h] = n / RR;
-          iy[m][h] = (n / R) % R;
-          iz[m][h] = n % R;
-          ixz[m][h] = ix[m][h] * R + iz[m][h];
-          ixy[m][h] = ix[m][h] * R + iy[m][h];
-          iyz[m][h] = iy[m][h] * R + iz[m][h];
+  if (warp == BF_WARPS) {
+    // the producer: each slab's NB pxz and NB pxy boxes (box q of slab sl:
+    // plane q / NB, block q % NB), into a slab stage once the slab that used
+    // it before is released by every consumer warp
+    const int boxes = 2 * NB;
+    auto box_load = [&](int g, unsigned dst, unsigned bar) {  // g-th box of the run
+      const int sl = S0 + g / boxes, q = g % boxes, k = q % NB;
+      const int row = (sl / R * NB + k) * R + sl % R;
+      rows::load_3d(dst, q < NB ? &mxz : &mxy, bar, col, 0, row);
+    };
+    if constexpr (BF_SLAB_F32) {
+      // each box by TMA into one of two bf16 boxes, the next in flight while
+      // the warp widens this one into the slab stage
+      const int n_boxes = (S1 - S0 + 1) * boxes;
+      if (lane == 0)
+        for (int g = 0; g < 2 && g < n_boxes; ++g) {
+          rows::bar_expect(staged + 8 * g, R * rows::ROW_BYTES);
+          box_load(g, base + L.staged + g * L.box, staged + 8 * g);
         }
-      tc::rows<true>(net, px + col, ix, F, lane);
-      tc::rows<false>(net, py + col, iy, F, lane);
-      tc::rows<false>(net, pz + col, iz, F, lane);
-      if (kResident) tc::round_tile(net);
+      for (int g = 0; g < n_boxes; ++g) {
+        const int sl = S0 + g / boxes;
+        const int i = (sl - S0) % BF_SLAB_STAGES, q = g % boxes;
+        const int use = (sl - S0) / BF_SLAB_STAGES;
+        if (q == 0 && use > 0) rows::bar_wait(empty + 8 * i, (use - 1) & 1);
+        const unsigned src = base + L.staged + (g & 1) * L.box;
+        rows::bar_wait(staged + 8 * (g & 1), (unsigned)(g >> 1) & 1);
+        rows::widen_box(base + L.slabs + (i * boxes + q) * L.slab_box, src, R, lane);
+        __syncwarp();  // every lane is done reading the bf16 box
+        if (lane == 0 && g + 2 < n_boxes) {
+          rows::fence_async();
+          rows::bar_expect(staged + 8 * (g & 1), R * rows::ROW_BYTES);
+          box_load(g + 2, src, staged + 8 * (g & 1));
+        }
+        if (q == boxes - 1) rows::bar_arrive(full + 8 * i, 1);  // each lane's rows written
+      }
+    } else if (lane == 0) {
+      for (int sl = S0; sl <= S1; ++sl) {
+        const int i = (sl - S0) % BF_SLAB_STAGES, use = (sl - S0) / BF_SLAB_STAGES;
+        if (use > 0) rows::bar_wait(empty + 8 * i, (use - 1) & 1);
+        rows::bar_expect(full + 8 * i, boxes * R * rows::ROW_BYTES);
+        for (int q = 0; q < boxes; ++q)
+          box_load((sl - S0) * boxes + q, base + L.slabs + (i * boxes + q) * L.slab_box,
+                   full + 8 * i);
+      }
     }
-    for (int k = 0; k < NB; ++k) {
-      const size_t first = (((size_t)b * NB + k) * RR) * F + col;
-      tc::rows<false>(net, pxz + first, ixz, F, lane);
+    return;
+  }
+
+  // the team's units, the warp's tile of each
+  int u = U0 + warp / BF_GROUP;
+  const int member = warp % BF_GROUP;
+  // the slab whose rows the warp holds: waited for, not yet released
+  int held = S0 - 1;
+  auto next_slab = [&]() {
+    if (held >= S0) {
+      __syncwarp();  // every lane is done with the slab's rows
+      if (lane == 0) rows::bar_arrive(empty + 8 * ((held - S0) % BF_SLAB_STAGES), 1);
+    }
+    if (++held <= S1)
+      rows::bar_wait(full + 8 * ((held - S0) % BF_SLAB_STAGES),
+                     (unsigned)((held - S0) / BF_SLAB_STAGES) & 1);
+  };
+  const int chunk = rows::lane_chunk(lane);
+  unsigned off_p[BF_MT];  // a tile's pyz rows are its points
+#pragma unroll
+  for (int m = 0; m < BF_MT; ++m) off_p[m] = rows::offset(rows::lane_point(m, lane), chunk);
+  const unsigned axes = base + L.axes;
+  const unsigned pyz = base + L.pyz + warp * BF_PYZ_STAGES * BF_PYZ_BYTES;
+  const unsigned pyz_bar = pyz_full + 8 * BF_PYZ_STAGES * warp;
+  // where the warp's tile of unit uu lies: its slab, scene and x, its first
+  // (y, z) point (past RR: a padding tile of the team), and the first row
+  // of the pyz box it reads (a padding tile reads the slab's last tile)
+  struct At {
+    int sl, b, x, yz0, box;
+  };
+  auto at = [&](int uu) {
+    At a;
+    a.sl = uu / ups;
+    const int tile = BF_GROUP * (uu - a.sl * ups) + member;
+    a.b = a.sl / R;
+    a.x = a.sl - a.b * R;
+    a.yz0 = tile * BF_P;
+    a.box = min(tile, tps - 1) * BF_P;
+    return a;
+  };
+  // lane 0 brings in the pyz box of block k of a tile into a stage
+  auto fetch = [&](const At& a, int k, unsigned stage) {
+    rows::fence_async();
+    rows::bar_expect(pyz_bar + 8 * stage, BF_PYZ_BYTES);
+    rows::load_3d(pyz + stage * BF_PYZ_BYTES, &myz, pyz_bar + 8 * stage, col, a.box,
+                  a.b * NB + k);
+  };
+  // ... of the warp's step d steps after block k of unit uu, if it has one
+  auto fetch_ahead = [&](int uu, int k, int d, unsigned stage) {
+    for (k += d; k >= NB; k -= NB) uu += BF_TEAMS;
+    if (uu < U1) fetch(at(uu), k, stage);
+  };
+  constexpr int AHEAD = BF_PYZ_STAGES - 1;  // steps a fetch runs ahead
+  if (lane == 0)
+    for (int d = 0; d < AHEAD; ++d) fetch_ahead(u, 0, d, d);
+  unsigned step = 0;
+  At next = at(u);
+  for (; u < U1; u += BF_TEAMS) {
+    const At cur = next;
+    const bool more = u + BF_TEAMS < U1;
+    if (more) next = at(u + BF_TEAMS);
+    const int sl = cur.sl, b = cur.b, x = cur.x, yz0 = cur.yz0;
+    const int i = (sl - S0) % BF_SLAB_STAGES;
+    // each lane's ldmatrix rows of px/py/pz and the slab (float32 or bf16
+    // rows); points past the slab are clamped to its last
+    unsigned off_x[BF_MT], off_y[BF_MT], off_z[BF_MT];
+#pragma unroll
+    for (int m = 0; m < BF_MT; ++m) {
+      if (BF_SLAB_F32) {
+        const int yz = min(yz0 + rows::lane_point_f32(m, lane), RR - 1);
+        off_x[m] = rows::offset_f32(x, rows::lane_chunk_f32(lane));
+        off_y[m] = rows::offset_f32(yz / R, rows::lane_chunk_f32(lane));
+        off_z[m] = rows::offset_f32(yz % R, rows::lane_chunk_f32(lane));
+      } else {
+        const int yz = min(yz0 + rows::lane_point(m, lane), RR - 1);
+        off_x[m] = rows::offset(x, chunk);
+        off_y[m] = rows::offset(yz / R, chunk);
+        off_z[m] = rows::offset(yz % R, chunk);
+      }
+    }
+    BfTile net;
+    if (BF_SLAB_F32) {
+      rows::add_f32<true>(net, axes, off_x);
+      rows::add_f32<false>(net, axes + L.slab_box, off_y);
+      rows::add_f32<false>(net, axes + 2 * L.slab_box, off_z);
+    } else {
+      rows::add<true>(net, axes, off_x);
+      rows::add<false>(net, axes + L.box, off_y);
+      rows::add<false>(net, axes + 2 * L.box, off_z);
+    }
+    if (kResident) tc::round_tile(net);
+    while (held < sl) next_slab();
+    const unsigned slab = base + L.slabs + i * 2 * NB * L.slab_box;
+    for (int k = 0; k < NB; ++k, ++step) {
+      const unsigned stage = step % BF_PYZ_STAGES;
+      __syncwarp();  // the stage refilled now was read a step ago
+      if (lane == 0) {
+        const unsigned ahead = (step + AHEAD) % BF_PYZ_STAGES;
+        if (k + AHEAD < NB) {
+          fetch(cur, k + AHEAD, ahead);
+        } else if (k + AHEAD < 2 * NB) {
+          if (more) fetch(next, k + AHEAD - NB, ahead);
+        } else {
+          fetch_ahead(u, k, AHEAD, ahead);  // a ring deeper than a tile's blocks
+        }
+      }
+      if (BF_SLAB_F32)
+        rows::add_f32<false>(net, slab + k * L.slab_box, off_z);
+      else
+        rows::add<false>(net, slab + k * L.slab_box, off_z);
       if (kResident) tc::round_tile(net);
-      tc::rows<false>(net, pxy + first, ixy, F, lane);
+      if (BF_SLAB_F32)
+        rows::add_f32<false>(net, slab + (NB + k) * L.slab_box, off_y);
+      else
+        rows::add<false>(net, slab + (NB + k) * L.slab_box, off_y);
       if (kResident) tc::round_tile(net);
-      tc::rows<false>(net, pyz + first, iyz, F, lane);
+      rows::bar_wait(pyz_bar + 8 * stage, (step / BF_PYZ_STAGES) & 1);
+      rows::add<false>(net, pyz + stage * BF_PYZ_BYTES, off_p);
       if (kResident) tc::round_tile(net);
-      tc::resnet_block<kFoldB1, kResident>(net, s, k, lane, k == NB - 1);
+      if constexpr (BF_WGMMA) {
+        wg::resnet_block<kFoldB1, kResident>(net, s, base + L.wgw, k, lane, k == NB - 1);
+      } else {
+        tc::resnet_block<kFoldB1, kResident>(net, s, k, lane, k == NB - 1);
+      }
     }
     float o[BF_MT][4];
     tc::head_out(o, net, s, lane);
@@ -279,8 +516,9 @@ dense_decode_bf16_kernel(const bf16* __restrict__ px, const bf16* __restrict__ p
     for (int m = 0; m < BF_MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int n = base + tc::point(m, h, lane);
-        if (c < OE && n < N) {
+        const int yz = yz0 + tc::point(m, h, lane);
+        const int n = x * RR + yz;
+        if (c < OE && yz < RR) {
           if (kPointMajor) {
             reinterpret_cast<float2*>(out)[(((size_t)b * N + n) * E * OE + e * OE + c) / 2] =
                 make_float2(o[m][2 * h], o[m][2 * h + 1]);
@@ -292,6 +530,7 @@ dense_decode_bf16_kernel(const bf16* __restrict__ px, const bf16* __restrict__ p
         }
       }
   }
+  while (held <= S1) next_slab();  // release the rest of the run, tiles or none
 }
 
 // A kernel and its launch shape: kBf16 picks the bf16 mode, kPointMajor
@@ -299,29 +538,39 @@ dense_decode_bf16_kernel(const bf16* __restrict__ px, const bf16* __restrict__ p
 template <bool kBf16, bool kPointMajor, bool kFoldB1 = false, bool kResident = false>
 struct Kernel {
   static_assert(kBf16 || !kResident, "the resident stream is a bf16 mode's");
+  static constexpr bool bf16 = kBf16;
   static constexpr int threads = kBf16 ? BF_THREADS : THREADS;
-  static constexpr int warps = kBf16 ? BF_WARPS : WARPS;
-  static constexpr int points = kBf16 ? BF_P : P;  // lattice points of a warp tile
-  static size_t shared(int NB) { return kBf16 ? bf16_shared_bytes(NB) : shared_bytes(NB); }
+  static constexpr int warps = kBf16 ? BF_TEAMS : WARPS;  // warps (teams) that take tiles
+  static constexpr int stages = kBf16 ? BF_PYZ_STAGES : 0;  // a warp's ring of pyz boxes
+  static size_t shared(int R, int NB) {
+    return kBf16 ? bf16_shared_bytes(R, NB) : shared_bytes(NB);
+  }
+  // warp tiles of B scenes: R^3 points in 64-point runs (float32), R x-slabs
+  // of R^2 points in 32-point runs (bf16)
+  static long long units(int B, int R) {
+    if (kBf16) return (long long)B * R * (((R * R + BF_P - 1) / BF_P + BF_GROUP - 1) / BF_GROUP);
+    return (long long)B * ((R * R * R + P - 1) / P);
+  }
   static const void* function() {
     if constexpr (kBf16)
       return reinterpret_cast<const void*>(
-          dense_decode_bf16_kernel<kPointMajor, kFoldB1, kResident>);
+          dense_decode_bf16_tma_kernel<kPointMajor, kFoldB1, kResident>);
     else
       return reinterpret_cast<const void*>(dense_decode_kernel<kPointMajor, kFoldB1>);
   }
 };
 
-// Resident blocks per SM and SMs of the current device for a kernel at NB
-// blocks. The first launch on a device (or with another NB) sets the
-// kernel's shared-memory attributes and asks the occupancy; later launches
-// reuse the answer.
+// Resident blocks per SM and SMs of the current device for a kernel with
+// `shmem` bytes of shared memory a block. The first launch on a device (or
+// with another size) sets the kernel's shared-memory attributes and asks the
+// occupancy; later launches reuse the answer.
 struct Occupancy {
-  int nb = -1, per_sm = 0, sms = 0;
+  size_t shmem = 0;
+  int per_sm = 0, sms = 0;
 };
 
 template <class K>
-int occupancy(int NB, Occupancy* occ) {
+int occupancy(size_t shmem, Occupancy* occ) {
   constexpr int kDevices = 16;
   static std::mutex mu;
   static Occupancy cached[kDevices];
@@ -329,12 +578,11 @@ int occupancy(int NB, Occupancy* occ) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   std::lock_guard<std::mutex> lock(mu);
-  if (dev < kDevices && cached[dev].nb == NB) {
+  if (dev < kDevices && cached[dev].shmem == shmem) {
     *occ = cached[dev];
     return 0;
   }
   const void* kernel = K::function();
-  const size_t shmem = K::shared(NB);
   int per_sm = 0, sms = 0;
   // the blocks that registers and the largest carve-out allow; then ask for
   // the carve-out that holds them (1 KB reserved per block), leaving the
@@ -350,7 +598,7 @@ int occupancy(int NB, Occupancy* occ) {
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  occ->nb = NB;
+  occ->shmem = shmem;
   occ->per_sm = per_sm;
   occ->sms = sms;
   if (dev < kDevices) cached[dev] = *occ;
@@ -358,13 +606,15 @@ int occupancy(int NB, Occupancy* occ) {
 }
 
 // Launch configuration: info = {resident blocks per SM, SMs, blocks per head
-// (grid.x), heads (grid.y), threads per block, dynamic shared bytes}.
+// (grid.x), heads (grid.y), threads per block, dynamic shared bytes, warps
+// that take tiles, stages of a warp's pyz ring (0: none)}.
 template <class K>
 int configure(int B, int R, int E, int NB, int* info) {
   Occupancy occ;
-  const int err = occupancy<K>(NB, &occ);
+  const int err = occupancy<K>(K::shared(R, NB), &occ);
   if (err) return err;
-  const long units = (long)B * ((R * R * R + K::points - 1) / K::points);
+  const long long units = K::units(B, R);
+  if (K::bf16 && units > 0x7fffffff) return (int)cudaErrorInvalidValue;  // int indices
   long per_head = (long)occ.per_sm * occ.sms / E;
   per_head = per_head < 1 ? 1 : per_head;
   const long needed = (units + K::warps - 1) / K::warps;
@@ -373,7 +623,9 @@ int configure(int B, int R, int E, int NB, int* info) {
   info[2] = (int)(per_head < needed ? per_head : needed);
   info[3] = E;
   info[4] = K::threads;
-  info[5] = (int)K::shared(NB);
+  info[5] = (int)K::shared(R, NB);
+  info[6] = K::warps;
+  info[7] = K::stages;
   return 0;
 }
 
@@ -382,15 +634,24 @@ int launch(const T* px, const T* py, const T* pz, const T* pxz, const T* pxy, co
            const T* w0, const T* b0, const T* w1, const T* b1, const T* wout, const T* bout,
            float* out, int B, int R, int E, int NB, void* stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  int info[6];
+  int info[8];
   int err = configure<Kernel<kBf16, kPointMajor, kFoldB1, kResident>>(B, R, E, NB, info);
   if (err) return err;
   dim3 grid(info[2], E);
-  if constexpr (kBf16)
-    dense_decode_bf16_kernel<kPointMajor, kFoldB1, kResident>
+  if constexpr (kBf16) {
+    // the row boxes: pxz and pxy (B*NB*R x-rows of R rows) a slab's R rows
+    // at a time, pyz (B*NB planes of R^2 rows) a tile's BF_P
+    CUtensorMap mxz, mxy, myz;
+    const int F = E * H;
+    if ((err = rows::encode_rows(&mxz, pxz, F, R, (unsigned long long)B * NB * R, R)) ||
+        (err = rows::encode_rows(&mxy, pxy, F, R, (unsigned long long)B * NB * R, R)) ||
+        (err = rows::encode_rows(&myz, pyz, F, (unsigned long long)R * R,
+                                 (unsigned long long)B * NB, BF_P)))
+      return err;
+    dense_decode_bf16_tma_kernel<kPointMajor, kFoldB1, kResident>
         <<<grid, BF_THREADS, info[5], (cudaStream_t)stream>>>(
-            px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
-  else
+            mxz, mxy, myz, px, py, pz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
+  } else
     dense_decode_kernel<kPointMajor, kFoldB1><<<grid, THREADS, info[5], (cudaStream_t)stream>>>(
         px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
   return (int)cudaGetLastError();
@@ -480,7 +741,7 @@ extern "C" int dense_decode_single_bf16(const bf16* px, const bf16* py, const bf
                       1, R, E, NB, stream);
 }
 
-// The launch configuration a kernel takes for these shapes, into info[6]
+// The launch configuration a kernel takes for these shapes, into info[8]
 // (see configure). `mode` picks the kernel: 0 K2, 1 K3 (point-major), 2 K2
 // with fold_b1; in the bf16 mode also 4 K2 with resident_bf16, 6 with both.
 extern "C" int dense_decode_config(int mode, int B, int R, int E, int NB, int* info) {

@@ -23,22 +23,32 @@ runtime flag, in each trunk): every K2 entry point, default and option
 modes in both dtypes, is held ``torch.equal`` to the shipped library's
 and timed in turns, with each instance's ptxas registers and spills.
 
-With ``--bf16`` the builds are ``BF16_DESIGNS`` instead, the designs of
-the bf16 mode's tensor-core kernel (``dense_decode_bf16``,
-``dense_decode_single_bf16``): m16 tiles a warp carries (``BF_MT``), warps
-per block and resident blocks per SM asked of ptxas, and each operand's
-ReLU apart from its bf16 conversion; its inputs are the bf16 ones the bf16
-program makes, and its bound is at 989 TFLOP/s.
+With ``--bf16`` the builds are ``BF16_DESIGNS`` and ``BF16_ABLATIONS``
+instead, the designs of the bf16 mode's tensor-core kernel
+(``dense_decode_bf16``, ``dense_decode_single_bf16``): the MMA instruction
+(``BF_WGMMA``: wgmma or mma.sync), m16 tiles a warp carries (``BF_MT``),
+consumer warps a block, the stages of the rings of TMA boxes, the slab rows
+kept as bf16 or widened to float32 once (``BF_SLAB_F32``), each operand's
+ReLU apart from its bf16 conversion; and its ablations (no plane rows, no
+products, no operand conversions and bias adds, no residual add). Its
+inputs are the bf16 ones the bf16 program makes, and its bound is at 989
+TFLOP/s. ``--ablate-tree NAME=DIR`` adds ``TREE_BF16_ABLATIONS`` of a tree
+of the design before this one (the parent commit, unpacked).
 
 Each ``--tree NAME=DIR`` adds ``DIR/giga_tpu_torch/csrc/dense_decode.cu`` as
 it stands, for example the parent commit unpacked by ``git archive``. All
 builds compile at once, one nvcc each. On one set of inputs (chip_smoke's
 seeded scenes through the shipped checkpoint's encoder, B=64, R=40) every
 build but the ablations must give K2 and K3 (scene 0) outputs equal,
-``torch.equal``, to the shipped library's; then each is timed by CUDA events
-in turns (the builds in order, then in reverse, ``--rounds`` times). Prints
-each build's ptxas registers and spills, its launch configuration, every
-reading and its range, beside the card's name and power limit.
+``torch.equal``, to the shipped library's, except, in ``--bf16``, a tree
+or a design on another MMA instruction than the shipped one: the tensor
+cores sum each product in their own order, so those are held as the shipped
+kernel is, by ``chip_smoke.check_bf16`` against the plain versions, and
+their largest difference from the shipped library is printed. Then each
+build is timed by CUDA events in turns (the builds in order, then in
+reverse, ``--rounds`` times). Prints each build's ptxas registers and
+spills, its launch configuration, every reading and its range, beside the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -169,8 +179,8 @@ __device__ __forceinline__ void add_staged(float (&net)[TP][TC], const float* st
 ]
 
 
-def _bf16_design(mt: int, warps: int, blocks: int) -> tuple:
-    return {"BF_MT": mt, "BF_WARPS": warps, "BF_MIN_BLOCKS": blocks}, {}
+def _bf16_design(**constants) -> tuple:
+    return {f"BF_{k.upper()}": v for k, v in constants.items()}, {}
 
 
 # each operand pair's ReLU as two fmaxf before the conversion, as the first
@@ -185,14 +195,88 @@ _RELU_APART = {"trunk_mma.cuh": [
     ("a[m][s][2 * half + 1] = pack_relu(v[2], v[3]);",
      "a[m][s][2 * half + 1] = pack_relu(fmaxf(v[2], 0.f), fmaxf(v[3], 0.f));")]}
 
-# name -> (design constants, {file: edits}) of the bf16 mode's kernel
+# name -> (design constants, {file: edits}) of the bf16 mode's kernel: m16
+# tiles a warp carries, consumer warps a block, stages of a warp's pyz ring
+# and of the block's slab ring
 BF16_DESIGNS = {
-    "bf16: 32-point tiles, 16 x 1 (shipped)": ({}, {}),
-    "bf16: 32-point tiles, 16 x 1, ReLU apart from the conversion": ({}, _RELU_APART),
-    "bf16: 64-point tiles, 8 x 1": _bf16_design(4, 8, 1),
-    "bf16: 32-point tiles, 8 x 2": _bf16_design(2, 8, 2),
-    "bf16: 32-point tiles, 8 x 3": _bf16_design(2, 8, 3),
-    "bf16: 16-point tiles, 16 x 2": _bf16_design(1, 16, 2),
+    "bf16: mma.sync, 32-point tiles, 15 + 1 warps, bf16 slab ring 2, pyz ring 2 (shipped)":
+        ({}, {}),
+    "bf16: wgmma, 12 + 1 warps": _bf16_design(wgmma=1, warps=12),
+    "bf16: mma.sync, 16 + 1 warps": _bf16_design(warps=16),
+    "bf16: mma.sync, 12 + 1 warps": _bf16_design(warps=12),
+    "bf16: float32 slab rows, widened once by the producer": _bf16_design(slab_f32=1),
+    "bf16: ReLU apart from the conversion": ({}, _RELU_APART),
+    "bf16: 64-point tiles, 7 + 1 warps": _bf16_design(mt=4, warps=7),
+    "bf16: pyz ring 3": _bf16_design(pyz_stages=3),
+    "bf16: slab ring 3": _bf16_design(slab_stages=3),
+}
+
+# a constant added to every accumulator of the tile in place of a plane's rows
+_BF_CONST = ("for (int m = 0; m < BF_MT; ++m) for (int n = 0; n < tc::NT; ++n) "
+             "for (int r = 0; r < 4; ++r) net.v[m][n][r] += 0.125f;")
+# each product instruction replaced by moves of its A registers into its
+# accumulators (B's registers or descriptor folded into one of them): the
+# operands stay live, the tensor cores do nothing
+_NO_MMA_SYNC = [(
+    """  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));""",
+    """  d[0] = __uint_as_float(a[0] ^ b.x);
+  d[1] = __uint_as_float(a[1] ^ b.y);
+  d[2] = __uint_as_float(a[2]);
+  d[3] = __uint_as_float(a[3]);""")]
+_NO_WGMMA = [(
+    """      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));""",
+    """      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  for (int i = 0; i < 16; ++i) d[i] = __uint_as_float(a[i % 4]);
+  d[0] = __uint_as_float(a[0] ^ (unsigned)desc ^ (unsigned)scale_d);"""),
+    ("int scale_d) {\n  asm volatile(", "int scale_d) {\n  if (false) asm volatile(")]
+_BF_NO_PRODUCTS = {"trunk_mma.cuh": _NO_MMA_SYNC, "trunk_wgmma.cuh": _NO_WGMMA}
+# the A fragments taken from the accumulators' bits: no bias add, no ReLU,
+# no bf16 conversion
+_BF_NO_CONVERSIONS = {"trunk_mma.cuh": [
+    ("a[m][s][2 * half] = pack_relu(v[0] + c0, v[1] + c1);",
+     "a[m][s][2 * half] = __float_as_uint(v[0]);"),
+    ("a[m][s][2 * half + 1] = pack_relu(v[2] + c0, v[3] + c1);",
+     "a[m][s][2 * half + 1] = __float_as_uint(v[2]);"),
+    ("a[m][s][2 * half] = pack_relu(v[0], v[1]);", "a[m][s][2 * half] = __float_as_uint(v[0]);"),
+    ("a[m][s][2 * half + 1] = pack_relu(v[2], v[3]);",
+     "a[m][s][2 * half + 1] = __float_as_uint(v[2]);")]}
+# the block's output replaces the residual stream: no b1 add, no net + dx
+_BF_NO_RESIDUAL = {"trunk_mma.cuh": [
+    (f"net.v[m][n][{r}] = net.v[m][n][{r}] + (acc.v[m][n][{r}] + c{r % 2});",
+     f"net.v[m][n][{r}] = acc.v[m][n][{r}];") for r in range(4)]}
+
+# name -> {file: edits} of the bf16 mode's kernel: what each part of the
+# shipped design costs; outputs wrong by construction, not checked. Without
+# plane rows, the blocks' ldmatrix reads give way to a constant, and the
+# warps fetch and wait for no pyz box (the slabs' boxes still come in).
+BF16_ABLATIONS = {
+    "bf16 ablation: no plane-row loads": {"dense_decode.cu": [
+        ("rows::add_f32<false>(net, slab + k * L.slab_box, off_z);", _BF_CONST),
+        ("rows::add<false>(net, slab + k * L.slab_box, off_z);", _BF_CONST),
+        ("rows::add_f32<false>(net, slab + (NB + k) * L.slab_box, off_y);", _BF_CONST),
+        ("rows::add<false>(net, slab + (NB + k) * L.slab_box, off_y);", _BF_CONST),
+        ("rows::add<false>(net, pyz + stage * BF_PYZ_BYTES, off_p);", _BF_CONST),
+        ("rows::bar_wait(pyz_bar + 8 * stage, (step / BF_PYZ_STAGES) & 1);", ""),
+        ("      if (lane == 0) {\n        const unsigned ahead",
+         "      if (false) {\n        const unsigned ahead"),
+        ("for (int d = 0; d < AHEAD; ++d) fetch_ahead(u, 0, d, d);", ";")]},
+    "bf16 ablation: no products": _BF_NO_PRODUCTS,
+    "bf16 ablation: no operand conversions or bias adds": _BF_NO_CONVERSIONS,
+    "bf16 ablation: no residual add": _BF_NO_RESIDUAL,
+}
+# the same ablations of the design before this one (32-point tiles in
+# flattened order, rows read as bf16 pairs through the read-only path), for
+# a tree of it given by --ablate-tree: its rows came from tc::rows
+TREE_BF16_ABLATIONS = {
+    **BF16_ABLATIONS,
+    "bf16 ablation: no products": {"trunk_mma.cuh": _NO_MMA_SYNC},
+    "bf16 ablation: no plane-row loads": {"dense_decode.cu": [
+        (f"tc::rows<false>(net, {p} + first, i{p[1:]}, F, lane);", _BF_CONST)
+        for p in ("pxz", "pxy", "pyz")]},
 }
 
 
@@ -229,13 +313,14 @@ def _replace_once(text: str, old: str, new: str, what: str) -> str:
     return text.replace(old, new)
 
 
-def edited_copy(directory: Path, source: str, constants: dict, edits: dict) -> Path:
+def edited_copy(directory: Path, source: str, constants: dict, edits: dict,
+                csrc: Path = CSRC) -> Path:
     """Copy ``csrc/<source>`` and the headers into ``directory``, set the
     source's design constants (``constexpr int NAME = value;``) and apply
     ``edits`` {file: [(old, new)]}, each old text found exactly once; returns
     the copy of the source."""
     directory.mkdir(parents=True, exist_ok=True)
-    for f in [*CSRC.glob("*.cuh"), CSRC / source]:
+    for f in [*csrc.glob("*.cuh"), csrc / source]:
         shutil.copy(f, directory / f.name)
     src = (directory / source).read_text()
     for name, value in constants.items():
@@ -252,11 +337,22 @@ def edited_copy(directory: Path, source: str, constants: dict, edits: dict) -> P
     return directory / source
 
 
+def other_mma(name: str) -> bool:
+    """Whether bf16 design ``name`` takes its products by another MMA
+    instruction (wgmma or mma.sync) than the shipped source."""
+    shipped = re.search(r"^constexpr int BF_WGMMA = (\d);", (CSRC / "dense_decode.cu").read_text(),
+                        re.M).group(1)
+    constants = BF16_DESIGNS.get(name, ({}, {}))[0]
+    return str(constants.get("BF_WGMMA", shipped)) != shipped
+
+
 def build_edits(name: str) -> tuple:
     """(design constants, {file: edits}) of one of ``DESIGNS``, ``ABLATIONS``,
     ``BF16_DESIGNS`` or ``OPTION_DESIGNS``."""
     if name in BF16_DESIGNS:
         return BF16_DESIGNS[name]
+    if name in BF16_ABLATIONS:
+        return {}, BF16_ABLATIONS[name]
     if name in OPTION_DESIGNS:
         return OPTION_DESIGNS[name]
     constants, staged = DESIGNS.get(name, ({}, False))
@@ -290,8 +386,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="A/B the dense-decode trunk kernel's designs.")
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a tree whose giga_tpu_torch/csrc/dense_decode.cu joins the A/B")
+    ap.add_argument("--ablate-tree", action="append", default=[], metavar="NAME=DIR",
+                    help="with --bf16: TREE_BF16_ABLATIONS of a tree of the design before "
+                         "this one join the A/B")
     ap.add_argument("--builds", nargs="*",
-                    choices=list({**DESIGNS, **ABLATIONS, **BF16_DESIGNS, **OPTION_DESIGNS}))
+                    choices=list({**DESIGNS, **ABLATIONS, **BF16_DESIGNS, **BF16_ABLATIONS,
+                                  **OPTION_DESIGNS}))
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
@@ -304,7 +404,8 @@ def main() -> int:
         ap.error("--options takes no --tree: an older tree may lack the option entry points")
     if args.builds is None:
         args.builds = list(OPTION_DESIGNS if args.options else
-                           BF16_DESIGNS if args.bf16 else {**DESIGNS, **ABLATIONS})
+                           {**BF16_DESIGNS, **BF16_ABLATIONS} if args.bf16 else
+                           {**DESIGNS, **ABLATIONS})
 
     import torch
 
@@ -328,6 +429,14 @@ def main() -> int:
     for tree in args.tree:
         name, path = tree.split("=", 1)
         sources[name] = Path(path).resolve() / "giga_tpu_torch" / "csrc" / "dense_decode.cu"
+    tree_ablations = []
+    for tree in args.ablate_tree:
+        name, path = tree.split("=", 1)
+        for ablation, edits in TREE_BF16_ABLATIONS.items():
+            tree_ablations.append(f"{name} {ablation}")
+            sources[tree_ablations[-1]] = edited_copy(
+                _build.BUILD_DIR / "ab" / f"src{len(sources)}", "dense_decode.cu", {}, edits,
+                Path(path).resolve() / "giga_tpu_torch" / "csrc")
     libs = build(sources)
     if args.options:
         return time_options(libs, args, card)
@@ -368,6 +477,7 @@ def main() -> int:
 
         ref2 = dk.dense_decode_batched(*inputs)
         ref3 = dk.fused_dense_decode(*inputs3)
+        plain = None  # the plain versions' outputs, for builds on another MMA instruction
         for name, (lib, log) in libs.items():
             out2.fill_(float("nan"))
             out3.fill_(float("nan"))
@@ -375,21 +485,39 @@ def main() -> int:
             k3(lib)
             torch.cuda.synchronize()
             same = torch.equal(out2, ref2) and torch.equal(out3, ref3)
-            # the default instances; an older tree's kernels had no options
+            # the default instances; an older tree's kernels had other names
+            # (the bf16 kernel before its TMA rows) or no options
             res = {k: chip_smoke.kernel_resources(log, chip_smoke.k2_kernel(args.bf16, bool(i)),
+                                                  f"dense_decode_bf16_kernelILb{i}ELb0ELb0E",
                                                   f"{kernel}ILb{i}E")
                    for k, i in (("K2", 0), ("K3", 1))}
             cfg_line = ""
             if hasattr(lib, config):
-                info = (ctypes.c_int * 6)()
+                info = (ctypes.c_int * 8)()  # an older tree's fills the first 6
                 _build.check(getattr(lib, config)(0, B, R, E, nb, info), config)
                 cfg_line = (f"; grid ({info[2]}, {info[3]}), {info[0]} blocks of {info[4]} "
-                            f"threads per SM, {info[5]} B shared per block")
+                            f"threads per SM, {info[5]} B shared per block, {info[6]} warps "
+                            f"taking tiles, pyz ring {info[7]}")
             print(f"{name}: K2 and K3 outputs equal the shipped library's bit for bit: {same}; "
                   f"ptxas {', '.join(f'{k}: {v}' for k, v in res.items())}{cfg_line}",
                   flush=True)
-            if not same and name not in ABLATIONS:
+            if same or name in ABLATIONS or name in BF16_ABLATIONS or name in tree_ablations:
+                continue
+            if not (args.bf16 and (name in sources and name not in args.builds
+                                   or other_mma(name))):
                 raise AssertionError(f"{name} gives other outputs than the shipped library")
+            # another MMA instruction sums in another order: held as the
+            # shipped kernel is, by the bf16 gate against the plain versions
+            if plain is None:
+                plain = (dk.dense_decode_plain(*inputs), dk.fused_dense_decode_plain(*inputs3))
+            gates = [chip_smoke.check_bf16(o, p, f"{name} {k}")
+                     for k, o, p in (("K2", out2, plain[0]), ("K3", out3, plain[1]))]
+            print(f"{name}: another MMA instruction; against the plain versions (share within "
+                  f"{chip_smoke.TOL_BF16_CLOSE}, max err/(1+|plain|), max abs err) K2 "
+                  f"{tuple(round(x, 6) for x in gates[0])}, K3 "
+                  f"{tuple(round(x, 6) for x in gates[1])}; max abs difference from the "
+                  f"shipped library's K2 {float((out2 - ref2).abs().max()):.4g}, K3 "
+                  f"{float((out3 - ref3).abs().max()):.4g}", flush=True)
 
         times = {name: {"K2": [], "K3": []} for name in libs}
         order = list(libs)

@@ -38,6 +38,7 @@ SCRIPTS = {
 }
 CASES = [(script, name) for script, (module, _) in SCRIPTS.items()
          for name in {**module.DESIGNS, **module.ABLATIONS, **getattr(module, "BF16_DESIGNS", {}),
+                      **getattr(module, "BF16_ABLATIONS", {}),
                       **getattr(module, "OPTION_DESIGNS", {})}]
 
 
@@ -51,6 +52,36 @@ def test_ab_build_applies_to_the_shipped_source(tmp_path, script, name):
         assert f"constexpr int {constant} = {value};" in text
     shipped = (ab_dense_decode.CSRC / source).read_text()
     assert (text != shipped) == bool(constants or edits.get(source))
+
+
+@pytest.mark.parametrize("script", list(SCRIPTS))
+def test_build_names_are_unique(script):
+    """Every design and ablation of a script has a name of its own: the
+    script merges its tables into one, where a repeated name would drop a
+    build."""
+    module, _ = SCRIPTS[script]
+    tables = [module.DESIGNS, module.ABLATIONS, getattr(module, "BF16_DESIGNS", {}),
+              getattr(module, "BF16_ABLATIONS", {}), getattr(module, "OPTION_DESIGNS", {})]
+    names = [name for table in tables for name in table]
+    assert len(names) == len(set(names))
+
+
+@pytest.mark.parametrize("name", list(ab_dense_decode.TREE_BF16_ABLATIONS))
+def test_tree_ablations_edit_the_design_before_this_one(name):
+    """--ablate-tree applies TREE_BF16_ABLATIONS to a tree of the bf16
+    kernel before its TMA rows. Each edit of a shared header applies to the
+    shipped one as well; the row ablation's edits of dense_decode.cu name
+    that kernel's tc::rows calls, which the shipped source no longer has."""
+    for fname, pairs in ab_dense_decode.TREE_BF16_ABLATIONS[name].items():
+        shipped = (ab_dense_decode.CSRC / fname).read_text()
+        for old, _ in pairs:
+            assert shipped.count(old) == (0 if fname == "dense_decode.cu" else 1), old
+
+
+def test_other_mma_marks_the_wgmma_design():
+    """The wgmma design is the one held by the bf16 gate, not bit-equality."""
+    other = [n for n in ab_dense_decode.BF16_DESIGNS if ab_dense_decode.other_mma(n)]
+    assert other and all("wgmma" in n for n in other)
 
 
 def test_each_script_times_the_shipped_design_first():

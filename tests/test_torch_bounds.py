@@ -274,8 +274,8 @@ K2_INSTANCES = [  # (bf16, point_major, fold_b1, resident_bf16): every kernel of
     (K2_INSTANCES[0], "dense_decode_kernelILb0ELb0E"),
     (K2_INSTANCES[1], "dense_decode_kernelILb1ELb0E"),
     (K2_INSTANCES[2], "dense_decode_kernelILb0ELb1E"),
-    (K2_INSTANCES[3], "dense_decode_bf16_kernelILb0ELb0ELb0E"),
-    (K2_INSTANCES[7], "dense_decode_bf16_kernelILb0ELb1ELb1E"),
+    (K2_INSTANCES[3], "dense_decode_bf16_tma_kernelILb0ELb0ELb0E"),
+    (K2_INSTANCES[7], "dense_decode_bf16_tma_kernelILb0ELb1ELb1E"),
 ])
 def test_k2_kernel_names_one_instance(instance, name):
     """chip_smoke.k2_kernel names one template instance of dense_decode.cu's

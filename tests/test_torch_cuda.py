@@ -410,8 +410,16 @@ def test_stem_bf16_kernel_matches_plain(cuda_device, B, R, C):
         chip_smoke.check_bf16(got[k], ref[k], f"K1 bf16 {k}")
 
 
+# The bf16 kernel's tiles are 32 consecutive (y, z) points of an x-slab, a
+# block's tiles a contiguous run of them: R = 7, 13 and 40 end each slab on a
+# ragged tile (R^2 = 49, 169, 1600; 7 and 13 make tiles that span several
+# y-lines); B = 5 at R = 40 leaves the blocks' runs and the warps' last
+# tiles uneven, and B = 1 at R = 7 gives a block more warps than tiles.
+BF16_TILING = [(5, 40, 5), (2, 40, 3), (64, 13, 5)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R,nb", [(2, 12, 5), (1, 7, 2)] + RAGGED)
+@pytest.mark.parametrize("B,R,nb", [(2, 12, 5), (1, 7, 2)] + RAGGED + BF16_TILING)
 def test_decode_bf16_kernel_matches_plain(cuda_device, B, R, nb):
     """K2's bf16 entry point (tensor cores) against its plain version."""
     rng = np.random.RandomState(11)
@@ -424,7 +432,7 @@ def test_decode_bf16_kernel_matches_plain(cuda_device, B, R, nb):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,nb", [(40, 5), (7, 1), (13, 5)])
+@pytest.mark.parametrize("R,nb", [(40, 5), (7, 1), (13, 5), (7, 5), (13, 1), (40, 1), (12, 2)])
 def test_single_scene_bf16_kernel_matches_plain(cuda_device, R, nb):
     """K3's bf16 entry point, [x, y, z, o] output, ragged last tiles."""
     rng = np.random.RandomState(12)
@@ -439,18 +447,25 @@ def test_single_scene_bf16_kernel_matches_plain(cuda_device, R, nb):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,nb", [(13, 5), (40, 2)])
-def test_decode_bf16_scenes_are_independent(cuda_device, R, nb):
-    """The bf16 kernel's scenes are independent, and K3's bf16 entry gives
-    K2's bf16 bytes for one scene."""
+@pytest.mark.parametrize("fold,resident", [(False, False), (True, False), (False, True),
+                                           (True, True)])
+@pytest.mark.parametrize("R,nb", [(13, 5), (40, 2), (7, 1)])
+def test_decode_bf16_scenes_are_independent(cuda_device, R, nb, fold, resident):
+    """Each bf16 instance's scenes are independent: a scene decoded alone
+    gives its bytes in a batch (whichever block's run the scene's slabs fall
+    in), and K3's bf16 entry gives the default instance's bytes for one
+    scene."""
     rng = np.random.RandomState(13)
     args = [a.to(cuda_device).to(BF16) for a in _decode_args(rng, 3, R, nb)]
-    together = dense_decode_batched(*args)
+    options = dict(fold_b1=fold, resident_bf16=resident)
+    together = dense_decode_batched(*args, **options)
     for b in range(3):
         one = args[:3] + [p[b:b + 1].contiguous() for p in args[3:6]] + args[6:]
-        assert torch.equal(dense_decode_batched(*one)[0], together[b])
-        single = args[:3] + [p[b].contiguous() for p in args[3:6]] + args[6:]
-        assert torch.equal(dk.fused_dense_decode(*single).reshape(R ** 3, -1).T, together[b])
+        assert torch.equal(dense_decode_batched(*one, **options)[0], together[b])
+        if not (fold or resident):
+            single = args[:3] + [p[b].contiguous() for p in args[3:6]] + args[6:]
+            assert torch.equal(dk.fused_dense_decode(*single).reshape(R ** 3, -1).T,
+                               together[b])
 
 
 @pytest.mark.cuda
@@ -493,6 +508,47 @@ def test_bf16_programs_queue_without_waiting_for_the_card(cuda_device):
             dk.fused_dense_decode.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
     assert int(cands.count.sum()) > 0 and int(one.count) > 0
     assert cands.scores.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_launch_without_waiting_for_the_card(cuda_device):
+    """Each bf16 K2 instance and K3 bf16 encode their tensor maps on the
+    host at every launch: once built, no launch makes a synchronizing call."""
+    rng = np.random.RandomState(18)
+    args = [a.to(cuda_device).to(BF16) for a in _decode_args(rng, 2, 13, 5, s=BF16_W)]
+    single = args[:3] + [p[0].contiguous() for p in args[3:6]] + args[6:]
+    modes = [m for m in dk.K2_MODES if m[0] == BF16]
+    for _, fold, resident in modes:
+        dense_decode_batched(*args, fold_b1=fold, resident_bf16=resident)
+    dk.fused_dense_decode(*single)
+    torch.cuda.synchronize()
+    n = (dense_decode_batched.launches, dk.fused_dense_decode.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [dense_decode_batched(*args, fold_b1=fold, resident_bf16=resident)
+                for _, fold, resident in modes]
+        outs.append(dk.fused_dense_decode(*single))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (dense_decode_batched.launches, dk.fused_dense_decode.launches) == (
+        n[0] + len(modes), n[1] + 1)
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_raises_where_its_rows_do_not_fit(cuda_device):
+    """No fallback: at R = 200 a slab's pxz and pxy rows (2 x 5 x 200 rows of
+    64 bytes, two slabs) outgrow a block's shared memory, and the launch
+    raises instead of taking another path."""
+    rng = np.random.RandomState(19)
+    R, nb, F = 200, 5, 96
+    planes = [torch.zeros((1, nb, R, R, F), dtype=BF16, device=cuda_device) for _ in range(3)]
+    args = ([_u(rng, R, F).to(cuda_device).to(BF16) for _ in range(3)] + planes
+            + [a.to(cuda_device).to(BF16) for a in _trunk(rng, nb, s=BF16_W)])
+    n = dense_decode_batched.launches
+    with pytest.raises(RuntimeError, match="dense_decode_bf16 failed"):
+        dense_decode_batched(*args)
+    assert dense_decode_batched.launches == n
 
 
 # K4's and K5's bf16 modes: float32 inputs but for K5's bf16 pyz; R = 17
