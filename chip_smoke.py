@@ -495,7 +495,9 @@ def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
         lc = dk.dense_decode_launch_config(batch, R, heads, n_blocks, point_major, bf)
         shapes[k] = (f"{lc['shared_bytes']} bytes shared per block, grid {lc['grid'][0]}x"
                      f"{lc['grid'][1]} blocks of {lc['threads']} threads ({lc['warps']} warps "
-                     f"taking tiles, pyz ring of {lc['stages']} stages), {lc['blocks_per_sm']} "
+                     f"taking tiles, pyz ring of {lc['stages']} stages, slabs of "
+                     f"{lc['slab'][0]} z x {lc['slab'][1]} y in {lc['slab_stages']} stages), "
+                     f"{lc['blocks_per_sm']} "
                      f"resident blocks per SM on {lc['sms']} SMs")
     mangled = {"K1": ("stem_pool", "stem_pool_kernelI13__nv_bfloat16E"),
                "K2": ("dense_decode", k2_kernel(True)),

@@ -82,11 +82,11 @@
 // (PERF.md): at B=64 the plane-row loads cost K2 about 1.3 ms, the second
 // product of every block about 1.8 ms, the activation stores about 0.1 ms.
 
+#include <algorithm>
 #include <mutex>
 #include <type_traits>
 
 #include "rows_tma.cuh"
-#include "trunk_wgmma.cuh"
 #include "trunk_mma.cuh"
 #include "trunk_tiled.cuh"
 
@@ -204,308 +204,291 @@ dense_decode_kernel(const float* __restrict__ px, const float* __restrict__ py,
 // through the read-only path) put ~1.0 of its 2.2 ms at B=64 in the row
 // loads, more than any other part (ab_dense_decode.py --bf16, PERF.md §6).
 // So the rows follow the lattice here:
-//  - A block works through a contiguous run of x-slabs (scene b, x) of one
-//    head; a warp's tile is 32 consecutive (y, z) points of one slab. Every
-//    point of a slab reads pxz[b,k,x,z] and pxy[b,k,x,y] from the slab's R
-//    rows of each: a producer warp brings those 2 x NB boxes in by TMA,
-//    once per slab, into a ring of BF_SLAB_STAGES slabs, each with a `full`
-//    mbarrier (the TMA's bytes) and an `empty` one (one arrival per
-//    consumer warp). Every consumer warp waits for each slab of its block's
-//    run in turn and releases it once past it, tiles or none: a warp then
-//    never waits on a stage's phase before the one it has seen complete,
-//    which is what a parity wait can tell apart.
+//  - A slab is a chunk of an x-plane of one scene: Yc y-lines x Zc
+//    z-columns (BfShape). A block works through a contiguous run of the
+//    head's slabs; a warp's tile is 32 consecutive points of a slab in
+//    (y, z) order, so its 32 pyz rows are consecutive: either the slab
+//    spans whole z-lines (Zc = R) or a tile lies in one line (BF_P | Zc).
+//    Every point of a slab reads the same px row, its Yc py and pxy rows
+//    and its Zc pz and pxz rows: a producer warp brings those 3 + 2 x NB
+//    boxes in by TMA, once per slab, into a ring of slab stages, each with
+//    a `full` mbarrier (the TMA's bytes) and an `empty` one (one arrival
+//    per consumer warp). Every consumer warp waits for each slab of its
+//    block's run in turn and releases it once past it, tiles or none: a
+//    warp then never waits on a stage's phase before the one it has seen
+//    complete, which is what a parity wait can tell apart.
+//  - The slab's shape is the host's choice (bf16_shape): whole x-planes
+//    (Yc = Zc = R) in BF_SLAB_STAGES stages where they fit a block's shared
+//    memory, as at R = 40; else fewer stages, then fewer y-lines, then
+//    z-chunks of whole tiles. Only a shape whose weights and smallest
+//    slab outgrow the block (NB above ~22 at 15 consumer warps) is refused.
 //  - pyz[b,k,y,z] of a tile is 32 consecutive rows, read once: each
 //    consumer warp's lane 0 brings them in by TMA, one box per (tile,
 //    block), into the warp's own ring of BF_PYZ_STAGES boxes, the next
 //    box in flight while the warp computes on this one. Tile and slab
 //    indices are 32-bit, the next tile's found once a tile: with 64-bit
 //    divisions in every step's fetch the kernel took ~0.1 ms longer.
-//  - px, py, pz (R rows each) are copied into shared memory once a block.
 //  - Every row reaches the registers by ldmatrix, already in the
 //    accumulator layout (rows_tma.cuh): one instruction per 16 x 16
 //    sub-tile and one shared address a lane per m-tile and plane.
 // The values and sums are the previous design's, in its order ((px + py) +
 // pz; per block + pxz, + pxy, + pyz; the same MMAs), so the outputs are
-// equal to it bit for bit. Resources at NB = 5, R = 40 (ptxas for sm_90a):
-// 128 registers, no spills, ~156 KB of shared memory; 15 consumer warps and
-// the producer, one block an SM. The A/B (PERF.md §6) put behind it: the
-// products on wgmma (BF_WGMMA; bit-equal to mma.sync, ~0.3 ms slower, its
-// warpgroups waiting on each other's products even with one m16 tile's
-// product overlapping the other's float work), slab rows widened to
-// float32 once by the producer (BF_SLAB_F32; no faster: it trades widening
-// instructions for shared-memory bandwidth, which the rows and mma.sync's
-// B fragments already nearly fill), 12 or 16 consumer warps, deeper rings.
+// equal to it bit for bit. At NB = 5, R = 40: 15 consumer warps and the
+// producer, one block an SM (resources and times: PERF.md §6). The A/B
+// there put behind it products by wgmma (bit-equal, ~0.1-0.3 ms slower),
+// slab rows widened to float32 once by the producer (no faster), 12 or 16
+// consumer warps and deeper rings.
 constexpr int BF_MT = 2;           // m16 tiles of a warp: 32 points
 constexpr int BF_WARPS = 15;       // consumer warps per block, beside one producer warp
 constexpr int BF_MIN_BLOCKS = 1;   // resident blocks per SM asked of ptxas
 constexpr int BF_PYZ_STAGES = 2;   // pyz boxes of a consumer warp's ring
-constexpr int BF_SLAB_STAGES = 2;  // x-slabs of the block's ring
-constexpr int BF_SLAB_F32 = 0;     // A/B: slab rows (and px/py/pz) widened to float32 once
-constexpr int BF_WGMMA = 0;        // A/B: products by wgmma (warpgroups), else mma.sync
+constexpr int BF_SLAB_STAGES = 2;  // most slabs of the block's ring
 constexpr int BF_THREADS = 32 * (BF_WARPS + 1);
-// warps that take their tiles together: a warpgroup for wgmma; a team's
-// tiles are consecutive tiles of one slab
-constexpr int BF_GROUP = BF_WGMMA ? 4 : 1;
-constexpr int BF_TEAMS = BF_WARPS / BF_GROUP;
-static_assert(BF_WARPS % BF_GROUP == 0, "whole warpgroups of consumers for wgmma");
 using BfTile = tc::Tile<BF_MT>;
 constexpr int BF_P = BfTile::P;
 constexpr int BF_PYZ_BYTES = BF_P * rows::ROW_BYTES;
+constexpr int BF_MAX_BOX = 256;  // rows of a TMA box at most
 using bf16 = __nv_bfloat16;
 static_assert(OE % 2 == 0, "head outputs in pairs");
 static_assert(H * sizeof(bf16) == rows::ROW_BYTES, "a head's row is one 64-byte TMA row");
 static_assert(BF_PYZ_STAGES >= 2, "one pyz box in flight while another is read");
 
+// The slabs: zc z-columns (R, or a multiple of BF_P below R) x yc y-lines
+// of an x-plane, cz x cy of them a plane; `stages` slabs in the ring.
+struct BfShape {
+  int zc, yc, cz, cy, stages;
+};
+
 // Byte offsets of the bf16 kernel's shared memory from its 1024-aligned
-// base: the head's weights (with BF_WGMMA also w0/w1 in wgmma's layout),
-// px/py/pz, the slab ring (each slab NB pxz boxes
-// then NB pxy boxes, `slab_box` bytes each), with BF_SLAB_F32 the
-// producer's two bf16 boxes the TMA fills, the consumer warps' pyz rings,
-// the mbarriers (full and empty per slab stage, one per staged box, one per
-// pyz box).
+// base: the head's weights, the slab ring (each slab: the px box, the py
+// box and NB pxy boxes of yc rows, the pz box and NB pxz boxes of zc rows),
+// the consumer warps' pyz rings, the mbarriers (full and empty per slab
+// stage, one per pyz box).
 struct BfLayout {
-  int box, slab_box, wgw, axes, slabs, staged, pyz, bars, bytes;
-  __host__ __device__ BfLayout(int R, int NB) {
-    box = rows::align_up(R * rows::ROW_BYTES, rows::ALIGN);
-    slab_box = BF_SLAB_F32 ? rows::align_up(R * rows::ROW_BYTES_F32, rows::ALIGN) : box;
-    wgw = rows::align_up(tc::weight_words(NB) * (int)sizeof(unsigned), rows::ALIGN);
-    axes = wgw + (BF_WGMMA ? wg::weight_bytes(NB) : 0);
-    slabs = axes + 3 * slab_box;
-    staged = slabs + BF_SLAB_STAGES * 2 * NB * slab_box;
-    pyz = staged + (BF_SLAB_F32 ? 2 * box : 0);
+  int ybox, zbox, ys, zs, slab, slabs, pyz, bars, bytes;
+  __host__ __device__ BfLayout(const BfShape& s, int NB) {
+    ybox = rows::align_up(s.yc * rows::ROW_BYTES, rows::ALIGN);
+    zbox = rows::align_up(s.zc * rows::ROW_BYTES, rows::ALIGN);
+    ys = rows::ALIGN;  // after the px box
+    zs = ys + (NB + 1) * ybox;
+    slab = zs + (NB + 1) * zbox;
+    slabs = rows::align_up(tc::weight_words(NB) * (int)sizeof(unsigned), rows::ALIGN);
+    pyz = slabs + s.stages * slab;
     bars = pyz + BF_WARPS * BF_PYZ_STAGES * BF_PYZ_BYTES;
-    bytes = bars + 8 * (2 * BF_SLAB_STAGES + 2 + BF_WARPS * BF_PYZ_STAGES) + rows::ALIGN;
+    bytes = bars + 8 * (2 * s.stages + BF_WARPS * BF_PYZ_STAGES) + rows::ALIGN;
   }
 };
 
-size_t bf16_shared_bytes(int R, int NB) { return (size_t)BfLayout(R, NB).bytes; }
+// A slab's scene, x and first (y, z) point; slabs run (b, x, y chunk, z
+// chunk) with the z chunk fastest. Whole planes (cz = cy = 1) skip the
+// chunks' divisions, which every tile would pay.
+struct Slab {
+  int b, x, y0, z0;
+  __device__ Slab(int sl, int R, const BfShape& s) {
+    int zi = 0, yi = 0;
+    if (s.cz > 1) {
+      zi = sl % s.cz;
+      sl /= s.cz;
+    }
+    if (s.cy > 1) {
+      yi = sl % s.cy;
+      sl /= s.cy;
+    }
+    x = sl % R;
+    b = sl / R;
+    y0 = yi * s.yc;
+    z0 = zi * s.zc;
+  }
+};
+
+// The first slab shape in the order of preference above whose layout takes
+// at most `limit` bytes, or none (false).
+bool bf16_shape(int R, int NB, size_t limit, BfShape* out) {
+  int zcs[1 + BF_MAX_BOX / BF_P], n_z = 0;
+  if (R <= BF_MAX_BOX) zcs[n_z++] = R;
+  for (int c = BF_MAX_BOX / BF_P * BF_P; c >= BF_P; c -= BF_P)  // z-chunks of whole tiles
+    if (c < R) zcs[n_z++] = c;  // below R, the least padding past R first
+  std::stable_sort(zcs + (R <= BF_MAX_BOX), zcs + n_z,
+                   [R](int a, int b) { return (R + a - 1) / a * a < (R + b - 1) / b * b; });
+  for (int st = BF_SLAB_STAGES; st >= 1; --st)
+    for (int i = 0; i < n_z; ++i)
+      for (int cy = (R + BF_MAX_BOX - 1) / BF_MAX_BOX; cy <= R; ++cy) {
+        const int yc = (R + cy - 1) / cy;
+        if ((R + yc - 1) / yc != cy) continue;  // the same yc as a smaller cy
+        const BfShape s{zcs[i], yc, (R + zcs[i] - 1) / zcs[i], cy, st};
+        if ((size_t)BfLayout(s, NB).bytes <= limit) {
+          *out = s;
+          return true;
+        }
+      }
+  return false;
+}
 
 template <bool kPointMajor, bool kFoldB1, bool kResident>
 __global__ void __launch_bounds__(BF_THREADS, BF_MIN_BLOCKS)
-dense_decode_bf16_tma_kernel(const __grid_constant__ CUtensorMap mxz,
+dense_decode_bf16_tma_kernel(const __grid_constant__ CUtensorMap mx,
+                             const __grid_constant__ CUtensorMap my,
+                             const __grid_constant__ CUtensorMap mz,
+                             const __grid_constant__ CUtensorMap mxz,
                              const __grid_constant__ CUtensorMap mxy,
-                             const __grid_constant__ CUtensorMap myz,
-                             const bf16* __restrict__ px, const bf16* __restrict__ py,
-                             const bf16* __restrict__ pz, const bf16* __restrict__ w0,
+                             const __grid_constant__ CUtensorMap myz, const bf16* __restrict__ w0,
                              const bf16* __restrict__ b0, const bf16* __restrict__ w1,
                              const bf16* __restrict__ b1, const bf16* __restrict__ wout,
                              const bf16* __restrict__ bout, float* __restrict__ out, int B, int R,
-                             int E, int NB) {
+                             int E, int NB, const BfShape sh) {
   extern __shared__ __align__(16) unsigned char bsmem[];
   const unsigned raw = rows::smem_addr(bsmem);
   const unsigned base = (raw + rows::ALIGN - 1) & ~(unsigned)(rows::ALIGN - 1);
   unsigned char* gbase = bsmem + (base - raw);
-  const BfLayout L(R, NB);
-  const int e = blockIdx.y, F = E * H, col = e * H;
+  const BfLayout L(sh, NB);
+  const int e = blockIdx.y, col = e * H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int RR = R * R, N = RR * R, tps = (RR + BF_P - 1) / BF_P;  // tiles per slab
-  const int ups = (tps + BF_GROUP - 1) / BF_GROUP;  // units (a team's tiles) per slab
-  // the block's units: a contiguous run of the head's (slab, unit) order
-  const int units = B * R * ups;  // under 2^31 (configure checks)
+  const int RR = R * R, N = RR * R, YZ = sh.yc * sh.zc;
+  const int tps = (YZ + BF_P - 1) / BF_P;  // tiles per slab
+  // the block's tiles: a contiguous run of the head's (slab, tile) order
+  const int units = B * R * sh.cy * sh.cz * tps;  // under 2^31 (configure checks)
   const int U0 = (int)((long long)units * blockIdx.x / gridDim.x);
   const int U1 = (int)((long long)units * (blockIdx.x + 1) / gridDim.x);
   if (U0 >= U1) return;
-  const int S0 = U0 / ups, S1 = (U1 - 1) / ups;
-  const unsigned full = base + L.bars, empty = full + 8 * BF_SLAB_STAGES;
-  const unsigned staged = empty + 8 * BF_SLAB_STAGES, pyz_full = staged + 16;
+  const int S0 = U0 / tps, S1 = (U1 - 1) / tps;
+  const unsigned full = base + L.bars, empty = full + 8 * sh.stages;
+  const unsigned pyz_full = empty + 8 * sh.stages;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < BF_SLAB_STAGES; ++i) {
-      // full: the TMA's bytes, or the producer's 32 lanes done widening
-      rows::bar_init(full + 8 * i, BF_SLAB_F32 ? 32 : 1);
+    for (int i = 0; i < sh.stages; ++i) {
+      rows::bar_init(full + 8 * i, 1);
       rows::bar_init(empty + 8 * i, BF_WARPS);
     }
-    rows::bar_init(staged, 1);
-    rows::bar_init(staged + 8, 1);
     for (int i = 0; i < BF_WARPS * BF_PYZ_STAGES; ++i) rows::bar_init(pyz_full + 8 * i, 1);
     rows::bar_init_fence();
   }
   const tc::Weights s = tc::load_weights(reinterpret_cast<unsigned*>(gbase), w0, b0, w1, b1,
                                          wout, bout, e, E, NB);
-  if (BF_WGMMA) wg::load_weights(gbase + L.wgw, w0, w1, e, E, NB);
-  for (int i = threadIdx.x; i < 3 * R * 16; i += blockDim.x) {  // px, py, pz by bf16 pairs
-    const int a = i / (R * 16), r = (i / 16) % R, pair = i % 16;
-    const bf16* src = (a == 0 ? px : a == 1 ? py : pz) + (size_t)r * F + col + 2 * pair;
-    unsigned char* box = gbase + L.axes + a * L.slab_box;
-    if (BF_SLAB_F32) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
-      *reinterpret_cast<float*>(box + rows::column_f32(r, 2 * pair)) = v.x;
-      *reinterpret_cast<float*>(box + rows::column_f32(r, 2 * pair + 1)) = v.y;
-    } else {
-      *reinterpret_cast<unsigned*>(box + rows::offset(r, pair / 4) + 4 * (pair % 4)) =
-          *reinterpret_cast<const unsigned*>(src);
-    }
-  }
   __syncthreads();
 
   if (warp == BF_WARPS) {
-    // the producer: each slab's NB pxz and NB pxy boxes (box q of slab sl:
-    // plane q / NB, block q % NB), into a slab stage once the slab that used
-    // it before is released by every consumer warp
-    const int boxes = 2 * NB;
-    auto box_load = [&](int g, unsigned dst, unsigned bar) {  // g-th box of the run
-      const int sl = S0 + g / boxes, q = g % boxes, k = q % NB;
-      const int row = (sl / R * NB + k) * R + sl % R;
-      rows::load_3d(dst, q < NB ? &mxz : &mxy, bar, col, 0, row);
-    };
-    if constexpr (BF_SLAB_F32) {
-      // each box by TMA into one of two bf16 boxes, the next in flight while
-      // the warp widens this one into the slab stage
-      const int n_boxes = (S1 - S0 + 1) * boxes;
-      if (lane == 0)
-        for (int g = 0; g < 2 && g < n_boxes; ++g) {
-          rows::bar_expect(staged + 8 * g, R * rows::ROW_BYTES);
-          box_load(g, base + L.staged + g * L.box, staged + 8 * g);
-        }
-      for (int g = 0; g < n_boxes; ++g) {
-        const int sl = S0 + g / boxes;
-        const int i = (sl - S0) % BF_SLAB_STAGES, q = g % boxes;
-        const int use = (sl - S0) / BF_SLAB_STAGES;
-        if (q == 0 && use > 0) rows::bar_wait(empty + 8 * i, (use - 1) & 1);
-        const unsigned src = base + L.staged + (g & 1) * L.box;
-        rows::bar_wait(staged + 8 * (g & 1), (unsigned)(g >> 1) & 1);
-        rows::widen_box(base + L.slabs + (i * boxes + q) * L.slab_box, src, R, lane);
-        __syncwarp();  // every lane is done reading the bf16 box
-        if (lane == 0 && g + 2 < n_boxes) {
-          rows::fence_async();
-          rows::bar_expect(staged + 8 * (g & 1), R * rows::ROW_BYTES);
-          box_load(g + 2, src, staged + 8 * (g & 1));
-        }
-        if (q == boxes - 1) rows::bar_arrive(full + 8 * i, 1);  // each lane's rows written
-      }
-    } else if (lane == 0) {
+    // the producer: each slab's boxes into a slab stage once the slab that
+    // used it before is released by every consumer warp
+    if (lane == 0) {
+      const unsigned bytes = (1 + (NB + 1) * (sh.yc + sh.zc)) * rows::ROW_BYTES;
       for (int sl = S0; sl <= S1; ++sl) {
-        const int i = (sl - S0) % BF_SLAB_STAGES, use = (sl - S0) / BF_SLAB_STAGES;
+        const int i = (sl - S0) % sh.stages, use = (sl - S0) / sh.stages;
         if (use > 0) rows::bar_wait(empty + 8 * i, (use - 1) & 1);
-        rows::bar_expect(full + 8 * i, boxes * R * rows::ROW_BYTES);
-        for (int q = 0; q < boxes; ++q)
-          box_load((sl - S0) * boxes + q, base + L.slabs + (i * boxes + q) * L.slab_box,
-                   full + 8 * i);
+        const unsigned bar = full + 8 * i, dst = base + L.slabs + i * L.slab;
+        const Slab at(sl, R, sh);
+        rows::bar_expect(bar, bytes);
+        rows::load_3d(dst, &mx, bar, col, at.x, 0);
+        rows::load_3d(dst + L.ys, &my, bar, col, at.y0, 0);
+        rows::load_3d(dst + L.zs, &mz, bar, col, at.z0, 0);
+        for (int k = 0; k < NB; ++k) {
+          const int plane = (at.b * NB + k) * R + at.x;
+          rows::load_3d(dst + L.ys + (1 + k) * L.ybox, &mxy, bar, col, at.y0, plane);
+          rows::load_3d(dst + L.zs + (1 + k) * L.zbox, &mxz, bar, col, at.z0, plane);
+        }
       }
     }
     return;
   }
 
-  // the team's units, the warp's tile of each
-  int u = U0 + warp / BF_GROUP;
-  const int member = warp % BF_GROUP;
   // the slab whose rows the warp holds: waited for, not yet released
   int held = S0 - 1;
   auto next_slab = [&]() {
     if (held >= S0) {
       __syncwarp();  // every lane is done with the slab's rows
-      if (lane == 0) rows::bar_arrive(empty + 8 * ((held - S0) % BF_SLAB_STAGES), 1);
+      if (lane == 0) rows::bar_arrive(empty + 8 * ((held - S0) % sh.stages), 1);
     }
     if (++held <= S1)
-      rows::bar_wait(full + 8 * ((held - S0) % BF_SLAB_STAGES),
-                     (unsigned)((held - S0) / BF_SLAB_STAGES) & 1);
+      rows::bar_wait(full + 8 * ((held - S0) % sh.stages), (unsigned)((held - S0) / sh.stages) & 1);
   };
   const int chunk = rows::lane_chunk(lane);
-  unsigned off_p[BF_MT];  // a tile's pyz rows are its points
+  unsigned off_p[BF_MT], off_x[BF_MT];  // a tile's pyz rows are its points; px is one row
 #pragma unroll
-  for (int m = 0; m < BF_MT; ++m) off_p[m] = rows::offset(rows::lane_point(m, lane), chunk);
-  const unsigned axes = base + L.axes;
+  for (int m = 0; m < BF_MT; ++m) {
+    off_p[m] = rows::offset(rows::lane_point(m, lane), chunk);
+    off_x[m] = rows::offset(0, chunk);
+  }
   const unsigned pyz = base + L.pyz + warp * BF_PYZ_STAGES * BF_PYZ_BYTES;
   const unsigned pyz_bar = pyz_full + 8 * BF_PYZ_STAGES * warp;
-  // where the warp's tile of unit uu lies: its slab, scene and x, its first
-  // (y, z) point (past RR: a padding tile of the team), and the first row
-  // of the pyz box it reads (a padding tile reads the slab's last tile)
+  // where the tile of unit uu lies: its slab, scene, x and the chunk's first
+  // (y, z); its first point f0 in the slab's (y, z) order; the first of its
+  // 32 consecutive pyz rows, y R + z of that point; and how many of its
+  // points lie in the lattice (the rest are padding: past the slab, or past
+  // R in a z-chunk)
   struct At {
-    int sl, b, x, yz0, box;
+    int sl, b, x, y0, z0, f0, row, valid;
   };
   auto at = [&](int uu) {
     At a;
-    a.sl = uu / ups;
-    const int tile = BF_GROUP * (uu - a.sl * ups) + member;
-    a.b = a.sl / R;
-    a.x = a.sl - a.b * R;
-    a.yz0 = tile * BF_P;
-    a.box = min(tile, tps - 1) * BF_P;
+    a.sl = uu / tps;
+    a.f0 = (uu - a.sl * tps) * BF_P;
+    const Slab sb(a.sl, R, sh);
+    a.b = sb.b;
+    a.x = sb.x;
+    a.y0 = sb.y0;
+    a.z0 = sb.z0;
+    if (sh.zc == R) {  // whole z-lines: the slab's points run on through its lines
+      a.row = a.y0 * R + a.f0;
+      a.valid = min(YZ - a.f0, RR - a.row);
+    } else {  // a z-chunk: the tile lies in one line
+      const int yl = a.f0 / sh.zc, z = a.z0 + a.f0 - yl * sh.zc;
+      a.row = (a.y0 + yl) * R + z;
+      a.valid = min(RR - a.row, R - z);
+    }
     return a;
   };
   // lane 0 brings in the pyz box of block k of a tile into a stage
   auto fetch = [&](const At& a, int k, unsigned stage) {
     rows::fence_async();
     rows::bar_expect(pyz_bar + 8 * stage, BF_PYZ_BYTES);
-    rows::load_3d(pyz + stage * BF_PYZ_BYTES, &myz, pyz_bar + 8 * stage, col, a.box,
-                  a.b * NB + k);
+    rows::load_3d(pyz + stage * BF_PYZ_BYTES, &myz, pyz_bar + 8 * stage, col,
+                  min(a.row, RR - 1), a.b * NB + k);  // a tile past the plane is padding
   };
-  // ... of the warp's step d steps after block k of unit uu, if it has one
-  auto fetch_ahead = [&](int uu, int k, int d, unsigned stage) {
-    for (k += d; k >= NB; k -= NB) uu += BF_TEAMS;
-    if (uu < U1) fetch(at(uu), k, stage);
-  };
-  constexpr int AHEAD = BF_PYZ_STAGES - 1;  // steps a fetch runs ahead
-  if (lane == 0)
-    for (int d = 0; d < AHEAD; ++d) fetch_ahead(u, 0, d, d);
-  unsigned step = 0;
+  constexpr int AHEAD = BF_PYZ_STAGES - 1;  // steps a fetch runs ahead (configure: NB >= AHEAD)
+  int u = U0 + warp;
   At next = at(u);
-  for (; u < U1; u += BF_TEAMS) {
+  if (lane == 0 && u < U1)
+    for (int d = 0; d < AHEAD; ++d) fetch(next, d, d);
+  unsigned step = 0;
+  for (; u < U1; u += BF_WARPS) {
     const At cur = next;
-    const bool more = u + BF_TEAMS < U1;
-    if (more) next = at(u + BF_TEAMS);
-    const int sl = cur.sl, b = cur.b, x = cur.x, yz0 = cur.yz0;
-    const int i = (sl - S0) % BF_SLAB_STAGES;
-    // each lane's ldmatrix rows of px/py/pz and the slab (float32 or bf16
-    // rows); points past the slab are clamped to its last
-    unsigned off_x[BF_MT], off_y[BF_MT], off_z[BF_MT];
+    const bool more = u + BF_WARPS < U1;
+    if (more) next = at(u + BF_WARPS);
+    const int i = (cur.sl - S0) % sh.stages;
+    // each lane's ldmatrix rows of the slab's y and z boxes; padding points
+    // past the slab are clamped to its last
+    unsigned off_y[BF_MT], off_z[BF_MT];
 #pragma unroll
     for (int m = 0; m < BF_MT; ++m) {
-      if (BF_SLAB_F32) {
-        const int yz = min(yz0 + rows::lane_point_f32(m, lane), RR - 1);
-        off_x[m] = rows::offset_f32(x, rows::lane_chunk_f32(lane));
-        off_y[m] = rows::offset_f32(yz / R, rows::lane_chunk_f32(lane));
-        off_z[m] = rows::offset_f32(yz % R, rows::lane_chunk_f32(lane));
-      } else {
-        const int yz = min(yz0 + rows::lane_point(m, lane), RR - 1);
-        off_x[m] = rows::offset(x, chunk);
-        off_y[m] = rows::offset(yz / R, chunk);
-        off_z[m] = rows::offset(yz % R, chunk);
-      }
+      const int f = min(cur.f0 + rows::lane_point(m, lane), YZ - 1);
+      const int yl = f / sh.zc;
+      off_y[m] = rows::offset(yl, chunk);
+      off_z[m] = rows::offset(f - yl * sh.zc, chunk);
     }
+    while (held < cur.sl) next_slab();
+    const unsigned slab = base + L.slabs + i * L.slab;
+    const unsigned ys = slab + L.ys, zs = slab + L.zs;
     BfTile net;
-    if (BF_SLAB_F32) {
-      rows::add_f32<true>(net, axes, off_x);
-      rows::add_f32<false>(net, axes + L.slab_box, off_y);
-      rows::add_f32<false>(net, axes + 2 * L.slab_box, off_z);
-    } else {
-      rows::add<true>(net, axes, off_x);
-      rows::add<false>(net, axes + L.box, off_y);
-      rows::add<false>(net, axes + 2 * L.box, off_z);
-    }
+    rows::add<true>(net, slab, off_x);
+    rows::add<false>(net, ys, off_y);
+    rows::add<false>(net, zs, off_z);
     if (kResident) tc::round_tile(net);
-    while (held < sl) next_slab();
-    const unsigned slab = base + L.slabs + i * 2 * NB * L.slab_box;
     for (int k = 0; k < NB; ++k, ++step) {
       const unsigned stage = step % BF_PYZ_STAGES;
       __syncwarp();  // the stage refilled now was read a step ago
       if (lane == 0) {
         const unsigned ahead = (step + AHEAD) % BF_PYZ_STAGES;
-        if (k + AHEAD < NB) {
+        if (k + AHEAD < NB)
           fetch(cur, k + AHEAD, ahead);
-        } else if (k + AHEAD < 2 * NB) {
-          if (more) fetch(next, k + AHEAD - NB, ahead);
-        } else {
-          fetch_ahead(u, k, AHEAD, ahead);  // a ring deeper than a tile's blocks
-        }
+        else if (more)
+          fetch(next, k + AHEAD - NB, ahead);
       }
-      if (BF_SLAB_F32)
-        rows::add_f32<false>(net, slab + k * L.slab_box, off_z);
-      else
-        rows::add<false>(net, slab + k * L.slab_box, off_z);
+      rows::add<false>(net, zs + (1 + k) * L.zbox, off_z);
       if (kResident) tc::round_tile(net);
-      if (BF_SLAB_F32)
-        rows::add_f32<false>(net, slab + (NB + k) * L.slab_box, off_y);
-      else
-        rows::add<false>(net, slab + (NB + k) * L.slab_box, off_y);
+      rows::add<false>(net, ys + (1 + k) * L.ybox, off_y);
       if (kResident) tc::round_tile(net);
       rows::bar_wait(pyz_bar + 8 * stage, (step / BF_PYZ_STAGES) & 1);
       rows::add<false>(net, pyz + stage * BF_PYZ_BYTES, off_p);
       if (kResident) tc::round_tile(net);
-      if constexpr (BF_WGMMA) {
-        wg::resnet_block<kFoldB1, kResident>(net, s, base + L.wgw, k, lane, k == NB - 1);
-      } else {
-        tc::resnet_block<kFoldB1, kResident>(net, s, k, lane, k == NB - 1);
-      }
+      tc::resnet_block<kFoldB1, kResident>(net, s, k, lane, k == NB - 1);
     }
     float o[BF_MT][4];
     tc::head_out(o, net, s, lane);
@@ -516,14 +499,14 @@ dense_decode_bf16_tma_kernel(const __grid_constant__ CUtensorMap mxz,
     for (int m = 0; m < BF_MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int yz = yz0 + tc::point(m, h, lane);
-        const int n = x * RR + yz;
-        if (c < OE && yz < RR) {
+        const int p = tc::point(m, h, lane);
+        const int n = cur.x * RR + cur.row + p;
+        if (c < OE && p < cur.valid) {
           if (kPointMajor) {
-            reinterpret_cast<float2*>(out)[(((size_t)b * N + n) * E * OE + e * OE + c) / 2] =
+            reinterpret_cast<float2*>(out)[(((size_t)cur.b * N + n) * E * OE + e * OE + c) / 2] =
                 make_float2(o[m][2 * h], o[m][2 * h + 1]);
           } else {
-            float* dst = out + ((size_t)b * E * OE + e * OE + c) * N + n;
+            float* dst = out + ((size_t)cur.b * E * OE + e * OE + c) * N + n;
             dst[0] = o[m][2 * h];
             dst[N] = o[m][2 * h + 1];
           }
@@ -540,15 +523,17 @@ struct Kernel {
   static_assert(kBf16 || !kResident, "the resident stream is a bf16 mode's");
   static constexpr bool bf16 = kBf16;
   static constexpr int threads = kBf16 ? BF_THREADS : THREADS;
-  static constexpr int warps = kBf16 ? BF_TEAMS : WARPS;  // warps (teams) that take tiles
+  static constexpr int warps = kBf16 ? BF_WARPS : WARPS;  // warps that take tiles
   static constexpr int stages = kBf16 ? BF_PYZ_STAGES : 0;  // a warp's ring of pyz boxes
-  static size_t shared(int R, int NB) {
-    return kBf16 ? bf16_shared_bytes(R, NB) : shared_bytes(NB);
+  // shared bytes a block: the bf16 mode's from its slab shape
+  static size_t shared(const BfShape& sh, int NB) {
+    return kBf16 ? (size_t)BfLayout(sh, NB).bytes : shared_bytes(NB);
   }
-  // warp tiles of B scenes: R^3 points in 64-point runs (float32), R x-slabs
-  // of R^2 points in 32-point runs (bf16)
-  static long long units(int B, int R) {
-    if (kBf16) return (long long)B * R * (((R * R + BF_P - 1) / BF_P + BF_GROUP - 1) / BF_GROUP);
+  // warp tiles of B scenes: R^3 points in 64-point runs (float32), slabs
+  // in 32-point runs (bf16)
+  static long long units(int B, int R, const BfShape& sh) {
+    if (kBf16)
+      return (long long)B * R * sh.cy * sh.cz * ((sh.yc * sh.zc + BF_P - 1) / BF_P);
     return (long long)B * ((R * R * R + P - 1) / P);
   }
   static const void* function() {
@@ -607,13 +592,24 @@ int occupancy(size_t shmem, Occupancy* occ) {
 
 // Launch configuration: info = {resident blocks per SM, SMs, blocks per head
 // (grid.x), heads (grid.y), threads per block, dynamic shared bytes, warps
-// that take tiles, stages of a warp's pyz ring (0: none)}.
+// that take tiles, stages of a warp's pyz ring, and the bf16 slabs: stages,
+// z-columns, y-lines (0 in float32)}; the bf16 slab shape into `shape`.
 template <class K>
-int configure(int B, int R, int E, int NB, int* info) {
+int configure(int B, int R, int E, int NB, int* info, BfShape* shape = nullptr) {
+  BfShape sh{0, 0, 1, 1, 0};
+  if (K::bf16) {
+    int dev = 0, limit = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e || (e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)))
+      return (int)e;
+    // a pyz fetch runs BF_PYZ_STAGES - 1 steps ahead, into the next tile at most
+    if (NB < BF_PYZ_STAGES - 1 || !bf16_shape(R, NB, (size_t)limit, &sh))
+      return (int)cudaErrorInvalidConfiguration;
+  }
   Occupancy occ;
-  const int err = occupancy<K>(K::shared(R, NB), &occ);
+  const int err = occupancy<K>(K::shared(sh, NB), &occ);
   if (err) return err;
-  const long long units = K::units(B, R);
+  const long long units = K::units(B, R, sh);
   if (K::bf16 && units > 0x7fffffff) return (int)cudaErrorInvalidValue;  // int indices
   long per_head = (long)occ.per_sm * occ.sms / E;
   per_head = per_head < 1 ? 1 : per_head;
@@ -623,9 +619,13 @@ int configure(int B, int R, int E, int NB, int* info) {
   info[2] = (int)(per_head < needed ? per_head : needed);
   info[3] = E;
   info[4] = K::threads;
-  info[5] = (int)K::shared(R, NB);
+  info[5] = (int)K::shared(sh, NB);
   info[6] = K::warps;
   info[7] = K::stages;
+  info[8] = sh.stages;
+  info[9] = sh.zc;
+  info[10] = sh.yc;
+  if (shape) *shape = sh;
   return 0;
 }
 
@@ -634,23 +634,27 @@ int launch(const T* px, const T* py, const T* pz, const T* pxz, const T* pxy, co
            const T* w0, const T* b0, const T* w1, const T* b1, const T* wout, const T* bout,
            float* out, int B, int R, int E, int NB, void* stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  int info[8];
-  int err = configure<Kernel<kBf16, kPointMajor, kFoldB1, kResident>>(B, R, E, NB, info);
+  int info[11];
+  BfShape sh;
+  int err = configure<Kernel<kBf16, kPointMajor, kFoldB1, kResident>>(B, R, E, NB, info, &sh);
   if (err) return err;
   dim3 grid(info[2], E);
   if constexpr (kBf16) {
-    // the row boxes: pxz and pxy (B*NB*R x-rows of R rows) a slab's R rows
-    // at a time, pyz (B*NB planes of R^2 rows) a tile's BF_P
-    CUtensorMap mxz, mxy, myz;
-    const int F = E * H;
-    if ((err = rows::encode_rows(&mxz, pxz, F, R, (unsigned long long)B * NB * R, R)) ||
-        (err = rows::encode_rows(&mxy, pxy, F, R, (unsigned long long)B * NB * R, R)) ||
-        (err = rows::encode_rows(&myz, pyz, F, (unsigned long long)R * R,
-                                 (unsigned long long)B * NB, BF_P)))
+    // the row boxes of a slab: px one row, py and pxy (B*NB*R x-rows of R
+    // rows) sh.yc rows, pz and pxz sh.zc rows; pyz (B*NB planes of R^2
+    // rows) a tile's BF_P
+    CUtensorMap mx, my, mz, mxz, mxy, myz;
+    const unsigned long long F = E * H, RR = (unsigned long long)R * R, planes = B * NB;
+    if ((err = rows::encode_rows(&mx, px, F, R, 1, 1)) ||
+        (err = rows::encode_rows(&my, py, F, R, 1, sh.yc)) ||
+        (err = rows::encode_rows(&mz, pz, F, R, 1, sh.zc)) ||
+        (err = rows::encode_rows(&mxz, pxz, F, R, planes * R, sh.zc)) ||
+        (err = rows::encode_rows(&mxy, pxy, F, R, planes * R, sh.yc)) ||
+        (err = rows::encode_rows(&myz, pyz, F, RR, planes, BF_P)))
       return err;
     dense_decode_bf16_tma_kernel<kPointMajor, kFoldB1, kResident>
         <<<grid, BF_THREADS, info[5], (cudaStream_t)stream>>>(
-            mxz, mxy, myz, px, py, pz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
+            mx, my, mz, mxz, mxy, myz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB, sh);
   } else
     dense_decode_kernel<kPointMajor, kFoldB1><<<grid, THREADS, info[5], (cudaStream_t)stream>>>(
         px, py, pz, pxz, pxy, pyz, w0, b0, w1, b1, wout, bout, out, B, R, E, NB);
@@ -741,7 +745,7 @@ extern "C" int dense_decode_single_bf16(const bf16* px, const bf16* py, const bf
                       1, R, E, NB, stream);
 }
 
-// The launch configuration a kernel takes for these shapes, into info[8]
+// The launch configuration a kernel takes for these shapes, into info[11]
 // (see configure). `mode` picks the kernel: 0 K2, 1 K3 (point-major), 2 K2
 // with fold_b1; in the bf16 mode also 4 K2 with resident_bf16, 6 with both.
 extern "C" int dense_decode_config(int mode, int B, int R, int E, int NB, int* info) {

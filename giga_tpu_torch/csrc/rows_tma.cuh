@@ -148,73 +148,6 @@ __device__ __forceinline__ void add(tc::Tile<MT>& net, unsigned box, const unsig
   }
 }
 
-// -- float32 rows ----------------------------------------------------------------
-//
-// A float32 row (128 bytes) is kept in the column order that lets ldmatrix
-// deliver it without widening: 16-byte chunk q = 2 n + j holds columns
-// 8 n + j + {0, 2, 4, 6}, at chunk q ^ (row % 8). ldmatrix then reads four
-// 32-bit values a lane from 8 x 16-byte matrices: with matrix i = (points
-// 16 m + 8 (i / 2) + 0..7, chunk 2 n + i % 2), lane (g, t) receives column
-// 8 n + i % 2 + 2 t of point 16 m + 8 (i / 2) + g, which is
-// Tile::v[m][n][i]. Four ldmatrix.x4 bring a 16-point m-tile's 32 columns.
-
-constexpr int ROW_BYTES_F32 = 128;
-
-__host__ __device__ __forceinline__ unsigned offset_f32(int row, int chunk) {
-  return (unsigned)(row * ROW_BYTES_F32 + ((chunk ^ (row & 7)) << 4));
-}
-
-__device__ __forceinline__ int lane_point_f32(int m, int lane) {
-  return 16 * m + 8 * (lane >> 4) + (lane & 7);
-}
-__device__ __forceinline__ int lane_chunk_f32(int lane) { return (lane >> 3) & 1; }
-
-// Widen a box of `n_rows` swizzled bf16 rows at `src` into float32 rows at
-// `dst` (both shared addresses, 1024-byte aligned); lanes of one warp share
-// the work. Each lane takes one 16-byte bf16 chunk (8 columns) at a time.
-__device__ __forceinline__ void widen_box(unsigned dst, unsigned src, int n_rows, int lane) {
-  for (int item = lane; item < 4 * n_rows; item += 32) {
-    const int row = item / 4, n = item % 4;
-    unsigned w0, w1, w2, w3;
-    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(w0), "=r"(w1), "=r"(w2), "=r"(w3)
-                 : "r"(src + offset(row, n)));
-    const unsigned hi = 0xffff0000u;
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + offset_f32(row, 2 * n)),
-                 "r"(w0 << 16), "r"(w1 << 16), "r"(w2 << 16), "r"(w3 << 16)
-                 : "memory");
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                     dst + offset_f32(row, 2 * n + 1)),
-                 "r"(w0 & hi), "r"(w1 & hi), "r"(w2 & hi), "r"(w3 & hi)
-                 : "memory");
-  }
-}
-
-// net[m] += the float32 rows of a box at `box` whose offsets for this
-// lane's ldmatrix rows are off[m] (offset_f32(row of lane_point_f32(m,
-// lane), lane_chunk_f32(lane))): no widening, one add per value.
-template <bool kSet, int MT>
-__device__ __forceinline__ void add_f32(tc::Tile<MT>& net, unsigned box,
-                                        const unsigned (&off)[MT]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const unsigned a = box + off[m];
-#pragma unroll
-    for (int n = 0; n < tc::NT; ++n) {
-      unsigned r[4];
-      ldsm_x4(r, a ^ (unsigned)(n << 5));  // chunk 2 n + j
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        net.v[m][n][i] = kSet ? __uint_as_float(r[i]) : net.v[m][n][i] + __uint_as_float(r[i]);
-    }
-  }
-}
-
-// Byte offset of column c (0..31) of row `row` in a float32 box.
-__host__ __device__ __forceinline__ unsigned column_f32(int row, int c) {
-  return offset_f32(row, 2 * (c / 8) + c % 2) + 4 * ((c % 8) / 2);
-}
-
 // -- the tensor map ------------------------------------------------------------
 
 // A 3D tensor map over bf16 rows of `cols` columns (`rows` rows per outer

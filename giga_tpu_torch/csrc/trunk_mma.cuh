@@ -272,11 +272,22 @@ __device__ __forceinline__ void round_tile(Tile<MT>& x) {
     }
 }
 
-// The block's end: net += acc + b1 (dx = relu(hidden) @ w1 in acc), with
-// resnet_block's options; also the end of dense_decode.cu's wgmma blocks.
+// One ResnetBlockFC on the warp's tile:
+// net += relu(bf16(relu(net)) @ w0 + b0) rounded to bf16 @ w1 + b1.
+// Options, the TPU kernel's: kFoldB1 drops the b1 add of every block but
+// the `last` (the caller folded b1 into the next block's pxz); kResident
+// keeps the residual stream in bf16, net = bf16(net + bf16(dx)), the caller
+// rounding it after each of its own adds (its relu(net) operand is then
+// exact).
 template <bool kFoldB1 = false, bool kResident = false, int MT>
-__device__ __forceinline__ void residual(Tile<MT>& net, Tile<MT>& acc, const Weights& s, int blk,
-                                         int lane, bool last) {
+__device__ __forceinline__ void resnet_block(Tile<MT>& net, const Weights& s, int blk,
+                                             int lane, bool last = true) {
+  unsigned a[MT][KS][4];
+  Tile<MT> acc;
+  operand<false>(a, net, nullptr, lane);
+  product(acc, a, s.w0 + blk * (FRAG_WORDS / 2), lane);
+  operand<true>(a, acc, s.b0 + blk * H, lane);
+  product(acc, a, s.w1 + blk * (FRAG_WORDS / 2), lane);
   if constexpr (kFoldB1 || kResident) {
     // dx = acc (+ b1), rounded with kResident; then net + dx, rounded
     if (!kFoldB1 || last) add_columns(acc, s.b1 + blk * H, lane);
@@ -305,25 +316,6 @@ __device__ __forceinline__ void residual(Tile<MT>& net, Tile<MT>& acc, const Wei
       }
     }
   }
-}
-
-// One ResnetBlockFC on the warp's tile:
-// net += relu(bf16(relu(net)) @ w0 + b0) rounded to bf16 @ w1 + b1.
-// Options, the TPU kernel's: kFoldB1 drops the b1 add of every block but
-// the `last` (the caller folded b1 into the next block's pxz); kResident
-// keeps the residual stream in bf16, net = bf16(net + bf16(dx)), the caller
-// rounding it after each of its own adds (its relu(net) operand is then
-// exact).
-template <bool kFoldB1 = false, bool kResident = false, int MT>
-__device__ __forceinline__ void resnet_block(Tile<MT>& net, const Weights& s, int blk,
-                                             int lane, bool last = true) {
-  unsigned a[MT][KS][4];
-  Tile<MT> acc;
-  operand<false>(a, net, nullptr, lane);
-  product(acc, a, s.w0 + blk * (FRAG_WORDS / 2), lane);
-  operand<true>(a, acc, s.b0 + blk * H, lane);
-  product(acc, a, s.w1 + blk * (FRAG_WORDS / 2), lane);
-  residual<kFoldB1, kResident>(net, acc, s, blk, lane, last);
 }
 
 // The head: o[m][r] = (bf16(relu(net)) @ wout + bout) for point

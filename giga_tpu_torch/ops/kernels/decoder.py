@@ -611,16 +611,17 @@ def dense_decode_launch_config(B: int, R: int, heads: int, n_blocks: int,
     current card in ``dtype``'s mode, with K2's options: resident blocks per
     SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs, grid (blocks
     per head x heads), threads and dynamic shared bytes per block, the warps
-    of a block that take tiles and the stages of a warp's pyz ring (bf16;
-    0 in float32)."""
+    of a block that take tiles, and in bf16 the stages of a warp's pyz ring
+    and the slabs' stages and shape, z-columns x y-lines of an x-plane (0 in
+    float32)."""
     entry = "dense_decode_config" if dtype == torch.float32 else "dense_decode_bf16_config"
     mode = int(point_major) + 2 * int(fold_b1) + 4 * int(resident_bf16)
-    info = (ctypes.c_int * 8)()
+    info = (ctypes.c_int * 11)()
     err = getattr(_lib(), entry)(mode, B, R, heads, n_blocks, info)
     _build.check(err, entry)
     return {"blocks_per_sm": info[0], "sms": info[1], "grid": (info[2], info[3]),
             "threads": info[4], "shared_bytes": info[5], "warps": info[6],
-            "stages": info[7]}
+            "stages": info[7], "slab_stages": info[8], "slab": (info[9], info[10])}
 
 
 def dense_decode_feats_launch_config(B: int, R: int, C: int, heads: int, n_blocks: int,

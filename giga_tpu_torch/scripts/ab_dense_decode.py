@@ -25,11 +25,9 @@ and timed in turns, with each instance's ptxas registers and spills.
 
 With ``--bf16`` the builds are ``BF16_DESIGNS`` and ``BF16_ABLATIONS``
 instead, the designs of the bf16 mode's tensor-core kernel
-(``dense_decode_bf16``, ``dense_decode_single_bf16``): the MMA instruction
-(``BF_WGMMA``: wgmma or mma.sync), m16 tiles a warp carries (``BF_MT``),
-consumer warps a block, the stages of the rings of TMA boxes, the slab rows
-kept as bf16 or widened to float32 once (``BF_SLAB_F32``), each operand's
-ReLU apart from its bf16 conversion; and its ablations (no plane rows, no
+(``dense_decode_bf16``, ``dense_decode_single_bf16``): m16 tiles a warp
+carries (``BF_MT``), consumer warps a block, the stages of the rings of TMA
+boxes, each operand's ReLU apart from its bf16 conversion; and its ablations (no plane rows, no
 products, no operand conversions and bias adds, no residual add). Its
 inputs are the bf16 ones the bf16 program makes, and its bound is at 989
 TFLOP/s. ``--ablate-tree NAME=DIR`` adds ``TREE_BF16_ABLATIONS`` of a tree
@@ -40,12 +38,7 @@ it stands, for example the parent commit unpacked by ``git archive``. All
 builds compile at once, one nvcc each. On one set of inputs (chip_smoke's
 seeded scenes through the shipped checkpoint's encoder, B=64, R=40) every
 build but the ablations must give K2 and K3 (scene 0) outputs equal,
-``torch.equal``, to the shipped library's, except, in ``--bf16``, a tree
-or a design on another MMA instruction than the shipped one: the tensor
-cores sum each product in their own order, so those are held as the shipped
-kernel is, by ``chip_smoke.check_bf16`` against the plain versions, and
-their largest difference from the shipped library is printed. Then each
-build is timed by CUDA events in turns (the builds in order, then in
+``torch.equal``, to the shipped library's. Then each build is timed by CUDA events in turns (the builds in order, then in
 reverse, ``--rounds`` times). Prints each build's ptxas registers and
 spills, its launch configuration, every reading and its range, beside the
 card's name and power limit.
@@ -199,12 +192,9 @@ _RELU_APART = {"trunk_mma.cuh": [
 # tiles a warp carries, consumer warps a block, stages of a warp's pyz ring
 # and of the block's slab ring
 BF16_DESIGNS = {
-    "bf16: mma.sync, 32-point tiles, 15 + 1 warps, bf16 slab ring 2, pyz ring 2 (shipped)":
-        ({}, {}),
-    "bf16: wgmma, 12 + 1 warps": _bf16_design(wgmma=1, warps=12),
+    "bf16: 32-point tiles, 15 + 1 warps, slab ring 2, pyz ring 2 (shipped)": ({}, {}),
     "bf16: mma.sync, 16 + 1 warps": _bf16_design(warps=16),
     "bf16: mma.sync, 12 + 1 warps": _bf16_design(warps=12),
-    "bf16: float32 slab rows, widened once by the producer": _bf16_design(slab_f32=1),
     "bf16: ReLU apart from the conversion": ({}, _RELU_APART),
     "bf16: 64-point tiles, 7 + 1 warps": _bf16_design(mt=4, warps=7),
     "bf16: pyz ring 3": _bf16_design(pyz_stages=3),
@@ -215,7 +205,7 @@ BF16_DESIGNS = {
 _BF_CONST = ("for (int m = 0; m < BF_MT; ++m) for (int n = 0; n < tc::NT; ++n) "
              "for (int r = 0; r < 4; ++r) net.v[m][n][r] += 0.125f;")
 # each product instruction replaced by moves of its A registers into its
-# accumulators (B's registers or descriptor folded into one of them): the
+# accumulators (B's registers folded into two of them): the
 # operands stay live, the tensor cores do nothing
 _NO_MMA_SYNC = [(
     """  asm volatile(
@@ -227,13 +217,7 @@ _NO_MMA_SYNC = [(
   d[1] = __uint_as_float(a[1] ^ b.y);
   d[2] = __uint_as_float(a[2]);
   d[3] = __uint_as_float(a[3]);""")]
-_NO_WGMMA = [(
-    """      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));""",
-    """      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  for (int i = 0; i < 16; ++i) d[i] = __uint_as_float(a[i % 4]);
-  d[0] = __uint_as_float(a[0] ^ (unsigned)desc ^ (unsigned)scale_d);"""),
-    ("int scale_d) {\n  asm volatile(", "int scale_d) {\n  if (false) asm volatile(")]
-_BF_NO_PRODUCTS = {"trunk_mma.cuh": _NO_MMA_SYNC, "trunk_wgmma.cuh": _NO_WGMMA}
+_BF_NO_PRODUCTS = {"trunk_mma.cuh": _NO_MMA_SYNC}
 # the A fragments taken from the accumulators' bits: no bias add, no ReLU,
 # no bf16 conversion
 _BF_NO_CONVERSIONS = {"trunk_mma.cuh": [
@@ -255,15 +239,13 @@ _BF_NO_RESIDUAL = {"trunk_mma.cuh": [
 # warps fetch and wait for no pyz box (the slabs' boxes still come in).
 BF16_ABLATIONS = {
     "bf16 ablation: no plane-row loads": {"dense_decode.cu": [
-        ("rows::add_f32<false>(net, slab + k * L.slab_box, off_z);", _BF_CONST),
-        ("rows::add<false>(net, slab + k * L.slab_box, off_z);", _BF_CONST),
-        ("rows::add_f32<false>(net, slab + (NB + k) * L.slab_box, off_y);", _BF_CONST),
-        ("rows::add<false>(net, slab + (NB + k) * L.slab_box, off_y);", _BF_CONST),
+        ("rows::add<false>(net, zs + (1 + k) * L.zbox, off_z);", _BF_CONST),
+        ("rows::add<false>(net, ys + (1 + k) * L.ybox, off_y);", _BF_CONST),
         ("rows::add<false>(net, pyz + stage * BF_PYZ_BYTES, off_p);", _BF_CONST),
         ("rows::bar_wait(pyz_bar + 8 * stage, (step / BF_PYZ_STAGES) & 1);", ""),
         ("      if (lane == 0) {\n        const unsigned ahead",
          "      if (false) {\n        const unsigned ahead"),
-        ("for (int d = 0; d < AHEAD; ++d) fetch_ahead(u, 0, d, d);", ";")]},
+        ("for (int d = 0; d < AHEAD; ++d) fetch(next, d, d);", ";")]},
     "bf16 ablation: no products": _BF_NO_PRODUCTS,
     "bf16 ablation: no operand conversions or bias adds": _BF_NO_CONVERSIONS,
     "bf16 ablation: no residual add": _BF_NO_RESIDUAL,
@@ -273,7 +255,6 @@ BF16_ABLATIONS = {
 # a tree of it given by --ablate-tree: its rows came from tc::rows
 TREE_BF16_ABLATIONS = {
     **BF16_ABLATIONS,
-    "bf16 ablation: no products": {"trunk_mma.cuh": _NO_MMA_SYNC},
     "bf16 ablation: no plane-row loads": {"dense_decode.cu": [
         (f"tc::rows<false>(net, {p} + first, i{p[1:]}, F, lane);", _BF_CONST)
         for p in ("pxz", "pxy", "pyz")]},
@@ -335,15 +316,6 @@ def edited_copy(directory: Path, source: str, constants: dict, edits: dict,
             text = _replace_once(text, old, new, fname)
         (directory / fname).write_text(text)
     return directory / source
-
-
-def other_mma(name: str) -> bool:
-    """Whether bf16 design ``name`` takes its products by another MMA
-    instruction (wgmma or mma.sync) than the shipped source."""
-    shipped = re.search(r"^constexpr int BF_WGMMA = (\d);", (CSRC / "dense_decode.cu").read_text(),
-                        re.M).group(1)
-    constants = BF16_DESIGNS.get(name, ({}, {}))[0]
-    return str(constants.get("BF_WGMMA", shipped)) != shipped
 
 
 def build_edits(name: str) -> tuple:
@@ -477,7 +449,6 @@ def main() -> int:
 
         ref2 = dk.dense_decode_batched(*inputs)
         ref3 = dk.fused_dense_decode(*inputs3)
-        plain = None  # the plain versions' outputs, for builds on another MMA instruction
         for name, (lib, log) in libs.items():
             out2.fill_(float("nan"))
             out3.fill_(float("nan"))
@@ -493,31 +464,18 @@ def main() -> int:
                    for k, i in (("K2", 0), ("K3", 1))}
             cfg_line = ""
             if hasattr(lib, config):
-                info = (ctypes.c_int * 8)()  # an older tree's fills the first 6
+                info = (ctypes.c_int * 11)()  # an older tree's fills the first 6 or 8
                 _build.check(getattr(lib, config)(0, B, R, E, nb, info), config)
                 cfg_line = (f"; grid ({info[2]}, {info[3]}), {info[0]} blocks of {info[4]} "
                             f"threads per SM, {info[5]} B shared per block, {info[6]} warps "
-                            f"taking tiles, pyz ring {info[7]}")
+                            f"taking tiles, pyz ring {info[7]}, slab ring {info[8]} of "
+                            f"{info[9]} z x {info[10]} y")
             print(f"{name}: K2 and K3 outputs equal the shipped library's bit for bit: {same}; "
                   f"ptxas {', '.join(f'{k}: {v}' for k, v in res.items())}{cfg_line}",
                   flush=True)
-            if same or name in ABLATIONS or name in BF16_ABLATIONS or name in tree_ablations:
-                continue
-            if not (args.bf16 and (name in sources and name not in args.builds
-                                   or other_mma(name))):
+            if not (same or name in ABLATIONS or name in BF16_ABLATIONS
+                    or name in tree_ablations):
                 raise AssertionError(f"{name} gives other outputs than the shipped library")
-            # another MMA instruction sums in another order: held as the
-            # shipped kernel is, by the bf16 gate against the plain versions
-            if plain is None:
-                plain = (dk.dense_decode_plain(*inputs), dk.fused_dense_decode_plain(*inputs3))
-            gates = [chip_smoke.check_bf16(o, p, f"{name} {k}")
-                     for k, o, p in (("K2", out2, plain[0]), ("K3", out3, plain[1]))]
-            print(f"{name}: another MMA instruction; against the plain versions (share within "
-                  f"{chip_smoke.TOL_BF16_CLOSE}, max err/(1+|plain|), max abs err) K2 "
-                  f"{tuple(round(x, 6) for x in gates[0])}, K3 "
-                  f"{tuple(round(x, 6) for x in gates[1])}; max abs difference from the "
-                  f"shipped library's K2 {float((out2 - ref2).abs().max()):.4g}, K3 "
-                  f"{float((out3 - ref3).abs().max()):.4g}", flush=True)
 
         times = {name: {"K2": [], "K3": []} for name in libs}
         order = list(libs)

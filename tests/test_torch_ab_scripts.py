@@ -78,12 +78,6 @@ def test_tree_ablations_edit_the_design_before_this_one(name):
             assert shipped.count(old) == (0 if fname == "dense_decode.cu" else 1), old
 
 
-def test_other_mma_marks_the_wgmma_design():
-    """The wgmma design is the one held by the bf16 gate, not bit-equality."""
-    other = [n for n in ab_dense_decode.BF16_DESIGNS if ab_dense_decode.other_mma(n)]
-    assert other and all("wgmma" in n for n in other)
-
-
 def test_each_script_times_the_shipped_design_first():
     """The first design of each script is the shipped source unedited."""
     for module, _ in SCRIPTS.values():

@@ -7,7 +7,8 @@ could take for the work, from ``chip_smoke.trunk_flops``,
 the numbers PERF.md quotes are pinned here, on the CPU, from the shapes of
 the serving path (B=64, R=40, C=32, 5 blocks, 3 heads of 32 columns, 4
 outputs each). Also checked: the ptxas log parser that chip_smoke.py uses to
-print each kernel's registers and spills.
+print each kernel's registers and spills, and the reader of each K2
+instance's launch configuration that it prints beside them.
 """
 
 import sys
@@ -288,3 +289,36 @@ def test_k2_kernel_names_one_instance(instance, name):
         for i, k in enumerate(chip_smoke.k2_kernel(*inst) for inst in K2_INSTANCES))
     assert chip_smoke.kernel_resources(log, name).startswith(
         f"{K2_INSTANCES.index(instance)} registers")
+
+
+@pytest.mark.parametrize("instance", K2_INSTANCES)
+def test_k2_launch_config_reads_its_instance(monkeypatch, instance):
+    """decoder.dense_decode_launch_config asks dense_decode.cu for one
+    instance's launch (the entry by dtype; mode point_major + 2 fold_b1 +
+    4 resident_bf16, as its config entries number them) and reads all
+    eleven ints the entry fills: here the mode, then 1 to 10."""
+    import torch
+
+    from giga_tpu_torch.ops.kernels import decoder as dk
+
+    calls = []
+
+    def entry(name):
+        def fill(mode, B, R_, heads, nb, info):
+            calls.append((name, mode, B, R_, heads, nb))
+            for i in range(11):
+                info[i] = mode if i == 0 else i
+            return 0
+        return staticmethod(fill)
+
+    lib = type("Lib", (), {n: entry(n) for n in ("dense_decode_config",
+                                                 "dense_decode_bf16_config")})
+    monkeypatch.setattr(dk, "_lib", lambda: lib)
+    bf16, point_major, fold, resident = instance
+    lc = dk.dense_decode_launch_config(64, R, E, NB, point_major,
+                                       torch.bfloat16 if bf16 else torch.float32, fold, resident)
+    mode = int(point_major) + 2 * int(fold) + 4 * int(resident)
+    assert calls == [("dense_decode_bf16_config" if bf16 else "dense_decode_config", mode,
+                      64, R, E, NB)]
+    assert lc == {"blocks_per_sm": mode, "sms": 1, "grid": (2, 3), "threads": 4,
+                  "shared_bytes": 5, "warps": 6, "stages": 7, "slab_stages": 8, "slab": (9, 10)}

@@ -410,12 +410,17 @@ def test_stem_bf16_kernel_matches_plain(cuda_device, B, R, C):
         chip_smoke.check_bf16(got[k], ref[k], f"K1 bf16 {k}")
 
 
-# The bf16 kernel's tiles are 32 consecutive (y, z) points of an x-slab, a
+# The bf16 kernel's tiles are 32 consecutive (y, z) points of a slab, a
 # block's tiles a contiguous run of them: R = 7, 13 and 40 end each slab on a
 # ragged tile (R^2 = 49, 169, 1600; 7 and 13 make tiles that span several
 # y-lines); B = 5 at R = 40 leaves the blocks' runs and the warps' last
-# tiles uneven, and B = 1 at R = 7 gives a block more warps than tiles.
-BF16_TILING = [(5, 40, 5), (2, 40, 3), (64, 13, 5)]
+# tiles uneven, and B = 1 at R = 7 gives a block more warps than tiles. The
+# slab's shape follows R and NB (dense_decode.cu, bf16_shape): whole x-planes
+# at R = 40 and NB <= 5; half planes at NB = 10 (20 y-lines) and at R = 96
+# (48); z-chunks of 32 columns at R = 96, NB = 10 and at R = 200, of 96 past
+# a TMA box's 256 rows at R = 264. One slab stage (NB >= 15) is DEEP's.
+BF16_TILING = [(5, 40, 5), (2, 40, 3), (64, 13, 5), (3, 40, 10), (2, 96, 5), (1, 96, 10),
+               (1, 200, 5), (1, 264, 2)]
 
 
 @pytest.mark.cuda
@@ -432,7 +437,8 @@ def test_decode_bf16_kernel_matches_plain(cuda_device, B, R, nb):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,nb", [(40, 5), (7, 1), (13, 5), (7, 5), (13, 1), (40, 1), (12, 2)])
+@pytest.mark.parametrize("R,nb", [(40, 5), (7, 1), (13, 5), (7, 5), (13, 1), (40, 1), (12, 2),
+                                  (96, 5), (200, 2)])
 def test_single_scene_bf16_kernel_matches_plain(cuda_device, R, nb):
     """K3's bf16 entry point, [x, y, z, o] output, ragged last tiles."""
     rng = np.random.RandomState(12)
@@ -535,16 +541,47 @@ def test_bf16_kernels_launch_without_waiting_for_the_card(cuda_device):
     assert all(bool(torch.isfinite(o).all()) for o in outs)
 
 
+# Trunks deeper than the checkpoint's five blocks. There two plain versions
+# that differ only in the order of their float32 sums (float32 against
+# float64, the same bf16 roundings) already lie farther apart than
+# check_bf16's share gate allows: 0.9992 of outputs within 1e-5 at NB = 5,
+# 0.9981 at NB = 10, 0.9954 at NB = 18, 0.9940 at NB = 22 (R = 40, these
+# inputs at B = 2, 2, 2, 1; bf16_sum_order.spread on the CPU). So here the kernel is held no farther from the float32 plain
+# version than the float64 one is, and within TOL_BF16_FAR. Both shapes
+# take one slab stage: whole z-lines x 14 y-lines at NB = 18; 32 z-columns
+# x 14 y-lines at NB = 22, the deepest trunk that fits a block at R = 40.
+DEEP = [(2, 40, 18), (1, 40, 22)]
+
+
 @pytest.mark.cuda
-def test_bf16_kernel_raises_where_its_rows_do_not_fit(cuda_device):
-    """No fallback: at R = 200 a slab's pxz and pxy rows (2 x 5 x 200 rows of
-    64 bytes, two slabs) outgrow a block's shared memory, and the launch
-    raises instead of taking another path."""
+@pytest.mark.parametrize("B,R,nb", DEEP)
+def test_decode_bf16_deep_trunks_match_plain(cuda_device, B, R, nb):
+    """K2's bf16 entry point on one slab stage against its plain versions,
+    and K3's bf16 entry giving K2's bytes for scene 0."""
+    from giga_tpu_torch.scripts import bf16_sum_order
+
+    rng = np.random.RandomState(20)
+    args = [a.to(cuda_device).to(BF16) for a in _decode_args(rng, B, R, nb, s=BF16_W)]
+    n = dense_decode_batched.launches
+    got = dense_decode_batched(*args)
+    assert dense_decode_batched.launches == n + 1
+    ref = dense_decode_plain(*args)
+    share, rel, _ = bf16_sum_order.spread(got, ref)
+    floor = bf16_sum_order.spread(bf16_sum_order.plain_float64(dk, args, False, False), ref)[0]
+    assert share >= floor and rel <= chip_smoke.TOL_BF16_FAR, (share, floor, rel)
+    single = args[:3] + [p[0].contiguous() for p in args[3:6]] + args[6:]
+    assert torch.equal(dk.fused_dense_decode(*single).reshape(R ** 3, -1).T, got[0])
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_raises_where_no_slab_fits(cuda_device):
+    """No fallback: at R = 40 and NB = 23 the head's weights (4.4 KB a
+    block) and the smallest slab (one stage of 32 z-columns and one y-line,
+    3 KB a block) outgrow a block's shared memory beside 15 warps' pyz
+    rings, and the launch raises instead of taking another path (NB = 22
+    runs: DEEP)."""
     rng = np.random.RandomState(19)
-    R, nb, F = 200, 5, 96
-    planes = [torch.zeros((1, nb, R, R, F), dtype=BF16, device=cuda_device) for _ in range(3)]
-    args = ([_u(rng, R, F).to(cuda_device).to(BF16) for _ in range(3)] + planes
-            + [a.to(cuda_device).to(BF16) for a in _trunk(rng, nb, s=BF16_W)])
+    args = [a.to(cuda_device).to(BF16) for a in _decode_args(rng, 1, 40, 23, s=BF16_W)]
     n = dense_decode_batched.launches
     with pytest.raises(RuntimeError, match="dense_decode_bf16 failed"):
         dense_decode_batched(*args)
