@@ -290,6 +290,13 @@ def k2_kernel(bf16: bool, point_major: bool = False, fold_b1: bool = False,
             + "".join(f"Lb{int(f)}E" for f in flags))
 
 
+def k1_bf16_kernel(R: int) -> str:
+    """The mangled name's start of the instance of K1's bf16 kernel
+    (stem_pool.cu: stem_pool_bf16_kernel<NTZ>, NTZ m16 tiles of z a slab
+    row) that a lattice of R runs, for ``kernel_resources``."""
+    return f"stem_pool_bf16_kernelILi{(R + 15) // 16}E"
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -488,7 +495,7 @@ def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
           f"{[tuple(round(x, 6) for x in e) for e in err1]}, K2 "
           f"{tuple(round(x, 6) for x in err2)}, K3 {tuple(round(x, 6) for x in err3)}")
     logs = {name: _build.build_log(name) for name in ("stem_pool", "dense_decode")}
-    lc = stem_pool_launch_config(B, R, R, R, C)
+    lc = stem_pool_launch_config(B, R, R, R, C, bf)
     shapes = {"K1": f"{lc['shared_bytes']} bytes shared per block, grid {lc['blocks']} blocks of "
                     f"{lc['threads']} threads"}
     for k, batch, point_major in (("K2", B, False), ("K3", 1, True)):
@@ -499,7 +506,7 @@ def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
                      f"{lc['slab'][0]} z x {lc['slab'][1]} y in {lc['slab_stages']} stages), "
                      f"{lc['blocks_per_sm']} "
                      f"resident blocks per SM on {lc['sms']} SMs")
-    mangled = {"K1": ("stem_pool", "stem_pool_kernelI13__nv_bfloat16E"),
+    mangled = {"K1": ("stem_pool", k1_bf16_kernel(R)),
                "K2": ("dense_decode", k2_kernel(True)),
                "K3": ("dense_decode", k2_kernel(True, point_major=True))}
     for k, (lib, name) in mangled.items():

@@ -1,11 +1,10 @@
 // Fused conv stem + triplane axis-mean pooling, for Hopper (sm_90a), in two
-// modes: stem_pool_f32 (float32 TSDF, weights and planes) and stem_pool_bf16
-// (the TPU kernel's compute_dtype=bf16: bf16 TSDF and weights, widened to
-// float32 as they are loaded, which is exact, so every product is the bf16
-// product and every sum, the bias, the ReLU and the means stay float32; the
-// planes are rounded to bf16 as they are written, the U-Net's input dtype).
-// Both modes run the same code on float32 values in shared memory: only the
-// loads from and the stores to device memory differ.
+// modes, each a kernel of its own: stem_pool_f32 (float32 TSDF, weights and
+// planes; stem_pool_kernel below) and stem_pool_bf16 (the TPU kernel's
+// compute_dtype=bf16: bf16 TSDF and weights, bf16 products summed in float32
+// on the tensor cores, the bias, the ReLU and the means in float32, the
+// planes rounded to bf16 as they are written, the U-Net's input dtype;
+// stem_pool_bf16_kernel, further down, with its own design notes).
 //
 // Replaces the TPU kernel giga_tpu/ops/pallas/stem_kernel.py::
 // fused_stem_pool_batched (pallas_call at :120, body _stem_pool_kernel :37):
@@ -103,18 +102,12 @@ struct Layout {
 static_assert(CB % SUMS == 0 && SUMS % 4 == 0 && TZ % 4 == 0,
               "whole float4s of channels and z");
 
-// Device-memory element types: a value widened to float32, four consecutive
-// values as a float4 (one 16-byte or 8-byte load), and the stores back.
+// Device-memory element types: a value as float32, four consecutive values as
+// a float4 (one 16-byte load), and the stores back, in float32 (this kernel)
+// or rounded to bf16 (the bf16 kernel's pooling).
 __device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -358,29 +351,377 @@ extern "C" int stem_pool_config(int B, int X, int Y, int Z, int C, int* info) {
   return 0;
 }
 
-namespace {
-
-// The kernel of element type T on a stream, configured by stem_pool_config.
-template <typename T>
-int launch(const T* tsdf, const T* weight, const T* bias, T* xz, T* xy, T* yz, int B, int X,
-           int Y, int Z, int C, void* stream) {
+extern "C" int stem_pool_f32(const float* tsdf, const float* weight, const float* bias,
+                             float* xz, float* xy, float* yz, int B, int X, int Y, int Z,
+                             int C, void* stream) {
   int info[4];
   int err = stem_pool_config(B, X, Y, Z, C, info);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(stem_pool_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(stem_pool_kernel<float>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, info[2]);
   if (e != cudaSuccess) return (int)e;
-  stem_pool_kernel<T><<<info[0], info[1], info[2], (cudaStream_t)stream>>>(
+  stem_pool_kernel<float><<<info[0], info[1], info[2], (cudaStream_t)stream>>>(
+      tsdf, weight, bias, xz, xy, yz, X, Y, Z, C);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K1's bf16 mode: the conv taps on the tensor cores.
+//
+// The TPU kernel takes the taps as bf16 products with float32 sums (_mm,
+// decoder_kernel.py:43-48, called at stem_kernel.py:50-53): tensor-core
+// work, 3.54 G multiply-adds at the serving shape, which as float32 FFMAs
+// on the CUDA cores alone would take ~14x its bound (0.0083 ms by its 27.9
+// MB of bytes). Here the taps of 16 voxels (consecutive z at one (x, y), an
+// m16 tile) and the block's 8 channels are mma.sync.m16n8k16 products, bf16
+// operands and float32 accumulators: A = 16 voxels x 16 taps, B = 16 taps
+// x 8 channels, D = 16 voxels x 8 channels, three k-steps a tile.
+//
+// Pair slabs. An A register holds two consecutive taps of one voxel, and
+// each is one aligned 32-bit shared load with no packing: the x-slabs in
+// shared memory hold pair words, word j of a slab row the bf16 pair
+// (s[j - 1], s[j]) of the zero-padded TSDF row, so every value sits in two
+// words. A (dx, dy) column's taps dz = 0, 1, 2 of voxel z are two pairs:
+// (dz 0, dz 1) is word z, (dz 1, dz 2) word z + 1 with its dz 1 weight zero.
+// K-step s is dx = s. Its pairs 0-3 (registers 0/1 of lanes t = 0-3) are
+// columns dy = 0 and 1; its pairs 4-5 (registers 2/3 of lanes t = 0, 1)
+// column dy = 2; pairs 6-7 pad K to 48 with zero weights, their lanes (t =
+// 2, 3) reading column dy = 2's words again. So a zero-weight tap only reads
+// a value that one of the voxel's own taps reads (0 x NaN is NaN: a NaN in
+// the TSDF reaches the outputs that the plain version's conv carries it to,
+// and no others). One load instruction's lanes read words [w, w + 8] and
+// [w + ZP, w + ZP + 8] of one slab; ZP, the words of a slab row, is 12 or 20
+// mod 32, so the two runs never share a bank.
+//
+// Tiles. Tap warp w owns the NTZ m16 tiles (NTZ = ceil(Z / 16), a template
+// argument) of each of up to ROWS = 12 / NTZ consecutive y-rows for the
+// whole x sweep: 4 rows of 3 tiles a warp at R = 40. The last tile of a row
+// is ragged: its voxels past Z are computed on zero words, stored into the
+// padding at the end of the tile's rows, and never summed. NTZ, the words
+// of a slab row (ZP) and the floats of a tile row (ZT) are compile-time, so
+// a lane's 12 loads and 4 stores a tile are immediates of 7 base addresses
+// it forms once a slab. It keeps the block's B fragments (6 words a lane)
+// and its two channels' biases in registers. A tile is 12 loads, 3 MMAs,
+// then on its 4 accumulators a lane adds the bias, applies the ReLU, stores
+// them into the float tile and adds them to its yz sums in registers (the D
+// layout: a lane holds voxels g and g + 8, channels 2t and 2t + 1, so for
+// each t its stores fall 8 banks apart).
+//
+// Kept from the float32 kernel: the grid (a block per scene and 8
+// channels), the ring of four zero-padded x-slabs, fetched two slabs ahead
+// by the tap threads (4-z runs of bf16 in registers across a slab's taps,
+// then packed into pair words by byte permutes, one 16-byte store a run),
+// the two float [y][c][z] tiles, and the pooling warps that sum slab x - 1's
+// xy and xz from one tile while the tap warps write slab x into the other:
+// one barrier a slab.
+//
+// Numerics: bf16 x bf16 products, exact in float32, summed by the tensor
+// core in float32 in its own order; the float32 bias add and ReLU; the
+// means in float32; the planes rounded to bf16 as written. The sum order is
+// not the float32 kernel's fmaf chain, so a plane value agrees with the
+// plain version's to float32 rounding before its bf16 rounding, which that
+// can move by one bf16 step, rarely (chip_smoke.check_bf16 holds it).
+
+namespace {
+
+constexpr int BF_TAP_WARPS = 10;   // warps that run the taps and fetch the slabs
+constexpr int BF_POOL_WARPS = 6;   // warps that pool slab x - 1 while the tap warps run slab x
+constexpr int BF_MAX_TILES = 12;   // m16 tiles a tap warp carries through the sweep
+constexpr int BF_TAP_THREADS = 32 * BF_TAP_WARPS;
+constexpr int BF_THREADS = BF_TAP_THREADS + 32 * BF_POOL_WARPS;
+constexpr int BF_FETCH = (4 * BF_MAX_TILES + 31) / 32;  // 4-z runs of a slab a tap thread fetches
+constexpr int WORD0 = 3;  // index of pair word 0 in a slab row (words 1-4 of a run 16-byte aligned)
+static_assert(BF_FETCH * 32 >= 4 * BF_MAX_TILES,
+              "the tap threads fetch every 4-z run of a slab, at most 4 a tile");
+
+// The geometry of a lattice of NTZ m16 tiles a slab row (Z up to 16 NTZ),
+// fixed at compile time so that every tile's shared-memory offsets are
+// immediates of a few per-slab base addresses.
+template <int NTZ>
+struct PairGeometry {
+  // 32-bit words per slab row: zeros, word 0 .. word 16 NTZ, zeros; 20 or 12
+  // mod 32, so the two runs of words a load instruction reads miss each
+  // other's banks
+  static constexpr int ZP = 16 * NTZ + WORD0 + 1 + (NTZ % 2 ? 0 : 8);
+  // floats per (y, c) row of a float tile: 16 NTZ z (the ragged tile's
+  // values past Z land in the row's end and are never summed), ZT / 4 odd as
+  // in the float32 kernel's tiles
+  static constexpr int ZT = 16 * NTZ + 4;
+  static constexpr int YS = 8 * ZT + 4;  // floats per y of a tile
+  static constexpr int ROWS = BF_MAX_TILES / NTZ;  // y-rows of tiles a tap warp takes at most
+  static_assert(ZP % 32 >= 9 && ZP % 32 <= 23 && ZP % 4 == 0 && (ZT / 4) % 2 == 1, "banks");
+  // 32-bit words of shared memory a block: the ring of slabs, two tiles
+  static int words(int Y) { return RING * (Y + 2) * ZP + 2 * Y * YS; }
+};
+
+// d = a @ b + d on one m16n8k16 tile (bf16 operands, float32 accumulators).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+template <int NTZ>
+__global__ void __launch_bounds__(BF_THREADS, 1)
+stem_pool_bf16_kernel(const __nv_bfloat16* __restrict__ tsdf,
+                      const __nv_bfloat16* __restrict__ weight,
+                      const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ xz,
+                      __nv_bfloat16* __restrict__ xy, __nv_bfloat16* __restrict__ yz, int X,
+                      int Y, int Z, int C) {
+  using G = PairGeometry<NTZ>;
+  constexpr int ZP = G::ZP, ZT = G::ZT, YS = G::YS, ROWS = G::ROWS;
+  extern __shared__ __align__(16) unsigned pair_smem[];
+  const int slab = (Y + 2) * ZP, tile_floats = Y * YS, nzr = (Z + 3) / 4;
+  unsigned* ring = pair_smem;  // RING pair slabs; slab xx at slot xx & 3
+  float* tiles = reinterpret_cast<float*>(pair_smem + RING * slab);  // slab x's at tile x & 1
+
+  const int groups = C / 8;
+  const int b = blockIdx.x / groups, c0 = (blockIdx.x % groups) * 8;
+  const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  const bool taps = warp < BF_TAP_WARPS;
+  const unsigned short* vol = reinterpret_cast<const unsigned short*>(tsdf) + (size_t)b * X * Y * Z;
+  // rows of the TSDF are read four values at a time where every row start is aligned
+  const bool vec = Z % 4 == 0 && reinterpret_cast<size_t>(tsdf) % 8 == 0;
+
+  for (int i = tid; i < RING * slab; i += blockDim.x) ring[i] = 0u;
+
+  // this thread's 4-z runs (y, z0) of a slab; y < 0 where it has none
+  const int nrun = Y * nzr;
+  int ry[BF_FETCH], rz[BF_FETCH];
+#pragma unroll
+  for (int k = 0; k < BF_FETCH; ++k) {
+    const int r = tid + k * BF_TAP_THREADS;
+    ry[k] = taps && r < nrun ? r / nzr : -1;
+    rz[k] = 4 * (r % nzr);
+  }
+  // the runs of slab xx as bf16 bits, s[z0 .. z0 + 3] in v and s[z0 + 4] in e
+  // (zeros past Z and outside 0 .. X-1)
+  auto fetch = [&](int xx, uint2 (&v)[BF_FETCH], unsigned (&e)[BF_FETCH]) {
+#pragma unroll
+    for (int k = 0; k < BF_FETCH; ++k) {
+      v[k] = make_uint2(0u, 0u);
+      e[k] = 0u;
+      if (ry[k] < 0 || xx < 0 || xx >= X) continue;
+      const int z0 = rz[k];
+      const unsigned short* src = vol + ((size_t)xx * Y + ry[k]) * Z + z0;
+      if (vec) {  // Z % 4 == 0: the run lies wholly inside the row
+        v[k] = __ldg(reinterpret_cast<const uint2*>(src));
+      } else {
+        unsigned s[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[j] = z0 + j < Z ? __ldg(src + j) : 0u;
+        v[k] = make_uint2(s[0] | s[1] << 16, s[2] | s[3] << 16);
+      }
+      if (z0 + 4 < Z) e[k] = __ldg(src + 4);
+    }
+  };
+  // a run's pair words z0 + 1 .. z0 + 4 into row y + 1 of slab xx (word j at
+  // index WORD0 + j), and word 0 = (0, s[0]) from the run at z0 = 0
+  auto put = [&](int xx, const uint2 (&v)[BF_FETCH], const unsigned (&e)[BF_FETCH]) {
+    unsigned* dst0 = ring + (xx & (RING - 1)) * slab;
+#pragma unroll
+    for (int k = 0; k < BF_FETCH; ++k) {
+      if (ry[k] < 0) continue;
+      unsigned* dst = dst0 + (ry[k] + 1) * ZP + WORD0 + rz[k] + 1;
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(v[k].x, __byte_perm(v[k].x, v[k].y, 0x5432), v[k].y,
+                     __byte_perm(v[k].y, e[k], 0x5432));
+      if (rz[k] == 0) dst[-1] = v[k].x << 16;
+    }
+  };
+
+  // the block's B fragments (k-step s; lane (g, t) holds channel c0 + g's
+  // taps of pairs t and t + 4) and the biases of its accumulators' channels
+  uint2 bw[3];
+  float bias0 = 0.f, bias1 = 0.f;
+  if (taps) {
+    const unsigned short* w = reinterpret_cast<const unsigned short*>(weight) + (c0 + g) * 27;
+    // column (dx, dy)'s pair: (dz 0, dz 1) for even t, (0, dz 2) for odd t
+    auto pair = [&](int dx, int dy) {
+      const unsigned short* col = w + (dx * 3 + dy) * 3;
+      return t % 2 == 0 ? (unsigned)__ldg(col) | (unsigned)__ldg(col + 1) << 16
+                        : (unsigned)__ldg(col + 2) << 16;
+    };
+#pragma unroll
+    for (int s = 0; s < 3; ++s) bw[s] = make_uint2(pair(s, t / 2), t < 2 ? pair(s, 2) : 0u);
+    bias0 = __bfloat162float(bias[c0 + 2 * t]);
+    bias1 = __bfloat162float(bias[c0 + 2 * t + 1]);
+  }
+
+  // this warp's tiles: the NTZ tiles of each of `mine` y-rows from y0
+  const int rows = (Y + BF_TAP_WARPS - 1) / BF_TAP_WARPS, y0 = warp * rows;
+  const int mine = taps ? min(rows, Y - y0) : 0;
+  // a lane's words in a slab for row g of tile (y0, z 0..15): registers 0/1
+  // take pair t (column dy = t / 2), registers 2/3 pair t + 4 (column dy = 2)
+  const int o0 = (y0 + t / 2) * ZP + WORD0 + g + t % 2, o1 = (y0 + 2) * ZP + WORD0 + g + t % 2;
+  // and its values' floats in a tile: voxels g and g + 8, channels 2t and 2t + 1
+  const int st = y0 * YS + 2 * t * ZT + g;
+
+  // xy[b, y', xp, c] = mean over z (a thread per (y', 4 channels)), then
+  // xz[b, z, xp, c] = mean over y (a thread per (4 z, channel)), from slab
+  // xp's tile; each thread carries 4 independent sums, each in index order
+  auto pool = [&](int xp, int first, int stride) {
+    const float* tile = tiles + (xp & 1) * tile_floats;
+    const int nxy = 2 * Y, njob = nxy + 8 * nzr;
+    for (int job = first; job < njob; job += stride) {
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+      if (job < nxy) {
+        const int yy = job / 2, c = job % 2 * 4;
+        const float* row = tile + yy * YS + c * ZT;
+        int z = 0;
+#pragma unroll 2
+        for (; z + 4 <= Z; z += 4) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float4 u = ld4(row + k * ZT + z);
+            sum[k] += u.x;
+            sum[k] += u.y;
+            sum[k] += u.z;
+            sum[k] += u.w;
+          }
+        }
+        for (; z < Z; ++z)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) sum[k] += row[k * ZT + z];
+        store4(xy + (((size_t)b * Y + yy) * X + xp) * C + c0 + c,
+               make_float4(sum[0] / (float)Z, sum[1] / (float)Z, sum[2] / (float)Z,
+                           sum[3] / (float)Z));
+      } else {
+        const int c = (job - nxy) / nzr, zq = 4 * (job - nxy - c * nzr);
+        const float* col = tile + c * ZT + zq;
+#pragma unroll 4
+        for (int yy = 0; yy < Y; ++yy) {
+          const float4 u = ld4(col + yy * YS);
+          sum[0] += u.x;
+          sum[1] += u.y;
+          sum[2] += u.z;
+          sum[3] += u.w;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (zq + j < Z)
+            store1(xz + (((size_t)b * Z + zq + j) * X + xp) * C + c0 + c, sum[j] / (float)Y);
+      }
+    }
+  };
+
+  float pool_yz[ROWS][NTZ][4];
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j)
+#pragma unroll
+    for (int zt = 0; zt < NTZ; ++zt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pool_yz[j][zt][k] = 0.f;
+
+  uint2 nv[BF_FETCH];
+  unsigned ne[BF_FETCH];
+  __syncthreads();  // the ring's zeros before the first slabs
+  fetch(0, nv, ne);
+  put(0, nv, ne);
+  fetch(1, nv, ne);
+  put(1, nv, ne);
+  __syncthreads();
+
+  for (int x = 0; x < X; ++x) {
+    if (taps) {
+      fetch(x + 2, nv, ne);  // slab x + 2, for slab x + 1's taps; its load overlaps these
+      const unsigned* p0[3];  // slabs x - 1, x, x + 1 at the lane's words of tile (y0, 0)
+      const unsigned* p1[3];
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        p0[s] = ring + ((x + s - 1) & (RING - 1)) * slab + o0;
+        p1[s] = ring + ((x + s - 1) & (RING - 1)) * slab + o1;
+      }
+      float* ts = tiles + (x & 1) * tile_floats + st;
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        if (j >= mine) break;
+#pragma unroll
+        for (int zt = 0; zt < NTZ; ++zt) {
+          const int w = j * ZP + 16 * zt;
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int s = 0; s < 3; ++s) {
+            const unsigned a[4] = {p0[s][w], p0[s][w + 8], p1[s][w], p1[s][w + 8]};
+            mma_bf16(d, a, bw[s]);
+          }
+          const float r[4] = {fmaxf(d[0] + bias0, 0.f), fmaxf(d[1] + bias1, 0.f),
+                              fmaxf(d[2] + bias0, 0.f), fmaxf(d[3] + bias1, 0.f)};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) pool_yz[j][zt][k] += r[k];
+          float* dst = ts + j * YS + 16 * zt;
+          dst[0] = r[0], dst[ZT] = r[1], dst[8] = r[2], dst[ZT + 8] = r[3];
+        }
+      }
+      if (x + 1 < X) put(x + 2, nv, ne);
+    } else if (x > 0) {
+      pool(x - 1, tid - BF_TAP_THREADS, 32 * BF_POOL_WARPS);
+    }
+    __syncthreads();  // tile x & 1 is whole, and slab x + 2 sits in the ring
+  }
+  pool(X - 1, tid, blockDim.x);
+  // yz[b, z, y, c] = mean over x, a bf16 pair of channels a store
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) {
+    if (j >= mine) break;
+#pragma unroll
+    for (int zt = 0; zt < NTZ; ++zt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int z = 16 * zt + g + 8 * h;
+        if (z < Z)
+          *reinterpret_cast<__nv_bfloat162*>(yz + (((size_t)b * Z + z) * Y + y0 + j) * C + c0 +
+                                             2 * t) =
+              __floats2bfloat162_rn(pool_yz[j][zt][2 * h] / (float)X,
+                                    pool_yz[j][zt][2 * h + 1] / (float)X);
+      }
+  }
+}
+
+// m16 tiles a slab row at Z (each kernel instance takes one count)
+int tiles_per_row(int Z) { return (Z + 15) / 16; }
+
+// the dynamic shared bytes of the instance for Z, or 0 for a Z none takes
+int bf16_shared_bytes(int Y, int Z) {
+  switch (tiles_per_row(Z)) {
+    case 1: return 4 * PairGeometry<1>::words(Y);
+    case 2: return 4 * PairGeometry<2>::words(Y);
+    case 3: return 4 * PairGeometry<3>::words(Y);
+    default: return 0;
+  }
+}
+
+template <int NTZ>
+int launch_bf16(const __nv_bfloat16* tsdf, const __nv_bfloat16* weight,
+                const __nv_bfloat16* bias, __nv_bfloat16* xz, __nv_bfloat16* xy,
+                __nv_bfloat16* yz, const int* info, int X, int Y, int Z, int C, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(stem_pool_bf16_kernel<NTZ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, info[2]);
+  if (e != cudaSuccess) return (int)e;
+  stem_pool_bf16_kernel<NTZ><<<info[0], info[1], info[2], (cudaStream_t)stream>>>(
       tsdf, weight, bias, xz, xy, yz, X, Y, Z, C);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int stem_pool_f32(const float* tsdf, const float* weight, const float* bias,
-                             float* xz, float* xy, float* yz, int B, int X, int Y, int Z,
-                             int C, void* stream) {
-  return launch(tsdf, weight, bias, xz, xy, yz, B, X, Y, Z, C, stream);
+// Launch configuration of the bf16 kernel for these shapes, as
+// stem_pool_config's: info[4] = {blocks, threads per block, dynamic shared
+// bytes per block, channels per block}, or cudaErrorInvalidValue. It takes
+// Z up to 48 (three m16 tiles a row) and Y up to 10 warps' rows of tiles
+// (40 at Z > 32, 60 at Z > 16, else 120).
+extern "C" int stem_pool_bf16_config(int B, int X, int Y, int Z, int C, int* info) {
+  const int ntz = tiles_per_row(Z);
+  const size_t shmem = Z < 1 || Y < 1 ? 0 : (size_t)bf16_shared_bytes(Y, Z);
+  if (B < 1 || X < 1 || shmem == 0 || C < 8 || C % 8 != 0 ||
+      (Y + BF_TAP_WARPS - 1) / BF_TAP_WARPS * ntz > BF_MAX_TILES || shmem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  info[0] = B * (C / 8);
+  info[1] = BF_THREADS;
+  info[2] = (int)shmem;
+  info[3] = 8;
+  return 0;
 }
 
 // bf16 TSDF (B, X, Y, Z), weights (C, 27) and bias (C) -> bf16 planes.
@@ -388,5 +729,12 @@ extern "C" int stem_pool_bf16(const __nv_bfloat16* tsdf, const __nv_bfloat16* we
                               const __nv_bfloat16* bias, __nv_bfloat16* xz, __nv_bfloat16* xy,
                               __nv_bfloat16* yz, int B, int X, int Y, int Z, int C,
                               void* stream) {
-  return launch(tsdf, weight, bias, xz, xy, yz, B, X, Y, Z, C, stream);
+  int info[4];
+  int err = stem_pool_bf16_config(B, X, Y, Z, C, info);
+  if (err) return err;
+  switch (tiles_per_row(Z)) {
+    case 1: return launch_bf16<1>(tsdf, weight, bias, xz, xy, yz, info, X, Y, Z, C, stream);
+    case 2: return launch_bf16<2>(tsdf, weight, bias, xz, xy, yz, info, X, Y, Z, C, stream);
+    default: return launch_bf16<3>(tsdf, weight, bias, xz, xy, yz, info, X, Y, Z, C, stream);
+  }
 }

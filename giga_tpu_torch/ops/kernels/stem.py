@@ -4,11 +4,11 @@ Counterpart of giga_tpu/ops/pallas/stem_kernel.py. ``stem_pool_batched``
 launches the CUDA kernel for CUDA tensors and runs ``stem_pool_plain`` for
 CPU tensors; there is no other fallback.
 
-Two modes, chosen by the inputs' dtype: float32 (``stem_pool_f32``), and
-bfloat16 TSDF, weights and bias (``stem_pool_bf16``, the TPU kernel's
-``compute_dtype=bf16``): the conv runs on the bf16 operands with float32
-sums, bias, ReLU and means stay float32, and the planes come out bf16 for
-the U-Net.
+Two modes, chosen by the inputs' dtype, each a kernel of its own: float32
+(``stem_pool_f32``), and bfloat16 TSDF, weights and bias (``stem_pool_bf16``,
+the TPU kernel's ``compute_dtype=bf16``): the conv runs on the tensor cores
+on the bf16 operands with float32 sums, bias, ReLU and means stay float32,
+and the planes come out bf16 for the U-Net.
 """
 
 from __future__ import annotations
@@ -21,8 +21,14 @@ import torch.nn.functional as F
 
 from giga_tpu_torch.ops.kernels import _build
 
-# the library's entry point for each input dtype
+# the library's entry points for each input dtype: the kernel's launch and
+# its launch configuration
 ENTRY = {torch.float32: "stem_pool_f32", torch.bfloat16: "stem_pool_bf16"}
+CONFIG = {torch.float32: "stem_pool_config", torch.bfloat16: "stem_pool_bf16_config"}
+# what each kernel needs of a shape beyond C a multiple of 8 and its tiles in
+# shared memory
+LIMITS = {torch.float32: "Y * ceil(Z / 4) <= 416 tap threads",
+          torch.bfloat16: "Z <= 48 and ceil(Y / 10) * ceil(Z / 16) <= 12 tiles of 16 z a warp"}
 
 
 def axis_mean_planes(feat: torch.Tensor, plane_types=("xz", "xy", "yz")) -> dict:
@@ -65,7 +71,7 @@ def stem_pool_batched(weight: torch.Tensor, bias: torch.Tensor, tsdfs: torch.Ten
             raise ValueError(f"stem_pool_batched: {name} must be contiguous {dtype} "
                              f"on {tsdfs.device}")
     B, X, Y, Z = tsdfs.shape
-    stem_pool_launch_config(B, X, Y, Z, C)
+    stem_pool_launch_config(B, X, Y, Z, C, dtype)
     xz = torch.empty((B, Z, X, C), device=tsdfs.device, dtype=dtype)
     xy = torch.empty((B, Y, X, C), device=tsdfs.device, dtype=dtype)
     yz = torch.empty((B, Z, Y, C), device=tsdfs.device, dtype=dtype)
@@ -81,15 +87,19 @@ def stem_pool_batched(weight: torch.Tensor, bias: torch.Tensor, tsdfs: torch.Ten
 stem_pool_batched.launches = 0
 
 
-def stem_pool_launch_config(B: int, X: int, Y: int, Z: int, C: int) -> dict:
-    """The launch K1 makes for a (B, X, Y, Z) TSDF and C channels: blocks,
-    threads and dynamic shared bytes per block, channels per block. Raises
-    ValueError for shapes the kernel does not take."""
+def stem_pool_launch_config(B: int, X: int, Y: int, Z: int, C: int,
+                            dtype: torch.dtype = torch.float32) -> dict:
+    """The launch K1 makes in the mode of ``dtype`` for a (B, X, Y, Z) TSDF
+    and C channels: blocks, threads and dynamic shared bytes per block,
+    channels per block. Raises ValueError for shapes the kernel does not
+    take."""
+    if dtype not in CONFIG:
+        raise ValueError(f"stem_pool_launch_config: unsupported dtype {dtype}")
     info = (ctypes.c_int * 4)()
-    if _lib().stem_pool_config(B, X, Y, Z, C, info) != 0:
-        raise ValueError(f"stem_pool_batched: the kernel does not take B={B}, X={X}, Y={Y}, "
-                         f"Z={Z}, C={C} (it needs C a multiple of 8, Y * ceil(Z / 4) <= 512 "
-                         f"threads and its slabs and tiles in shared memory)")
+    if getattr(_lib(), CONFIG[dtype])(B, X, Y, Z, C, info) != 0:
+        raise ValueError(f"stem_pool_batched: the {dtype} kernel does not take B={B}, X={X}, "
+                         f"Y={Y}, Z={Z}, C={C} (it needs C a multiple of 8, {LIMITS[dtype]} "
+                         f"and its slabs and tiles in shared memory)")
     return {"blocks": info[0], "threads": info[1], "shared_bytes": info[2],
             "channels_per_block": info[3]}
 
@@ -102,6 +112,7 @@ def _lib() -> ctypes.CDLL:
     for entry in ENTRY.values():
         getattr(lib, entry).argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         getattr(lib, entry).restype = i
-    lib.stem_pool_config.argtypes = [i] * 5 + [ctypes.POINTER(i)]
-    lib.stem_pool_config.restype = i
+    for config in CONFIG.values():
+        getattr(lib, config).argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        getattr(lib, config).restype = i
     return lib

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the stem + pool kernel's designs (K1) on the card.
 
-    python3 -m giga_tpu_torch.scripts.ab_stem_pool [--tree NAME=DIR ...]
+    python3 -m giga_tpu_torch.scripts.ab_stem_pool [--bf16] [--tree NAME=DIR ...]
         [--builds NAME ...] [--rounds 4]
 
 Run from the repository root. Each build in ``DESIGNS`` and ``ABLATIONS``
@@ -28,6 +28,17 @@ library's; then each is timed by CUDA events in turns (the builds in order,
 then in reverse, ``--rounds`` times). Prints each build's ptxas registers
 and spills and every reading with its range and share of the bound, beside
 the card's name and power limit.
+
+``--bf16`` times the bf16 mode's entry point ``stem_pool_bf16`` instead, on
+the same scenes and convolution in bf16, with the builds ``BF16_DESIGNS``
+(the tensor-core kernel as shipped) and ``BF16_ABLATIONS`` (no pooling: the
+tile stores and the xy/xz sums gone, yz kept; no products: each ``mma``
+replaced by an accumulate of its operands' bits). The tensor core sums a
+tap's products in its own order, so no two designs need agree bit for bit:
+every build but the ablations is held to ``chip_smoke.check_bf16`` against
+the plain version, and each build's largest difference from the outputs of
+the tree named ``parent`` is printed. The bound is at 989 TFLOP/s and 2
+bytes a value.
 """
 
 from __future__ import annotations
@@ -84,28 +95,64 @@ ABLATIONS = {
 }
 
 
+# name -> (design constants, edits) of the bf16 kernel (``--bf16``)
+BF16_DESIGNS = {
+    "bf16: m16 tap tiles on mma.sync, 10 + 6 warps (shipped)": ({}, []),
+}
+
+# name -> [(old, new) edits of stem_pool.cu], on the shipped bf16 kernel
+BF16_ABLATIONS = {
+    "bf16 ablation: no pooling (yz kept)": [
+        ("          float* dst = ts + j * YS + 16 * zt;\n"
+         "          dst[0] = r[0], dst[ZT] = r[1], dst[8] = r[2], dst[ZT + 8] = r[3];\n", ""),
+        ("for (int job = first; job < njob;", "for (int job = njob; job < njob;")],
+    "bf16 ablation: no products": [
+        ("mma_bf16(d, a, bw[s]);",
+         "d[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ bw[s].x ^ bw[s].y);")],
+}
+
+
 def _fp32_kernel(log: str) -> str:
     """K1's float32 kernel by its mangled name: a template instance since
     the bf16 mode, a plain function in earlier trees (``--tree``)."""
     return "stem_pool_kernelIfE" if "stem_pool_kernelIfE" in log else "stem_pool_kernel"
 
 
+def _bf16_kernel(log: str, R: int) -> str:
+    """ptxas resources of K1's bf16 kernel at R: its own kernel's instance,
+    or in trees before it (``--tree``) the bf16 instance of the float32
+    template."""
+    import chip_smoke
+
+    return chip_smoke.kernel_resources(log, chip_smoke.k1_bf16_kernel(R),
+                                       "stem_pool_kernelI13__nv_bfloat16E")
+
+
 def build_edits(name: str) -> tuple:
-    """(design constants, {file: edits}) of one of ``DESIGNS`` or ``ABLATIONS``."""
+    """(design constants, {file: edits}) of one of ``DESIGNS``, ``ABLATIONS``,
+    ``BF16_DESIGNS`` or ``BF16_ABLATIONS``."""
+    if name in BF16_DESIGNS or name in BF16_ABLATIONS:
+        constants, edits = BF16_DESIGNS.get(name, ({}, []))
+        return constants, {"stem_pool.cu": edits + BF16_ABLATIONS.get(name, [])}
     constants, edits = DESIGNS.get(name, ({}, []))
     return constants, {"stem_pool.cu": edits + ABLATIONS.get(name, [])}
 
 
-def main() -> int:
-    builds = {**DESIGNS, **ABLATIONS}
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="A/B the stem + pool kernel's designs.")
     ap.add_argument("--tree", action="append", default=[], metavar="NAME=DIR",
                     help="a tree whose giga_tpu_torch/csrc/stem_pool.cu joins the A/B")
-    ap.add_argument("--builds", nargs="*", choices=list(builds), default=list(builds))
+    ap.add_argument("--builds", nargs="*",
+                    choices=list({**DESIGNS, **ABLATIONS, **BF16_DESIGNS, **BF16_ABLATIONS}))
+    ap.add_argument("--bf16", action="store_true",
+                    help="time the bf16 mode's designs (BF16_DESIGNS, BF16_ABLATIONS) instead")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--iters", type=int, default=50)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    designs, ablations = (BF16_DESIGNS, BF16_ABLATIONS) if args.bf16 else (DESIGNS, ABLATIONS)
+    if args.builds is None:
+        args.builds = [*designs, *ablations]
 
     import torch
 
@@ -131,10 +178,12 @@ def main() -> int:
 
     net, cfg = load_network(ROOT / chip_smoke.CHECKPOINT)
     conv = net.cuda().eval().encoder.conv_in
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    entry = "stem_pool_bf16" if args.bf16 else "stem_pool_f32"
     B, R, C = args.batch, chip_smoke.RESOLUTION, cfg.encoder.c_dim
-    tsdfs = torch.from_numpy(chip_smoke.make_scenes(B)).cuda()
+    tsdfs = torch.from_numpy(chip_smoke.make_scenes(B)).cuda().to(dtype)
     with torch.inference_mode(), full_precision():
-        w, b = conv.weight.contiguous(), conv.bias.contiguous()
+        w, b = conv.weight.to(dtype).contiguous(), conv.bias.to(dtype).contiguous()
         ref = stem_pool_batched(w, b, tsdfs)
         plain = stem_pool_plain(w, b, tsdfs)
         outs = {t: torch.empty_like(v) for t, v in ref.items()}
@@ -143,20 +192,38 @@ def main() -> int:
                                                          outs["yz"])]
 
         def k1(lib):
-            _build.check(lib.stem_pool_f32(*ptrs, B, R, R, R, C, stream), "stem_pool_f32")
+            _build.check(getattr(lib, entry)(*ptrs, B, R, R, R, C, stream), entry)
 
+        results = {}
         for name, (lib, log) in libs.items():
             for v in outs.values():
                 v.fill_(float("nan"))
             k1(lib)
             torch.cuda.synchronize()
+            results[name] = {t: v.clone() for t, v in outs.items()}
+            err = max(float((outs[t].float() - plain[t].float()).abs().max()) for t in ref)
+            if args.bf16:
+                res = _bf16_kernel(log, R)
+                if name in ablations:
+                    held = "not checked (ablation)"
+                else:
+                    held = [tuple(round(x, 6) for x in chip_smoke.check_bf16(
+                        outs[t], plain[t], f"{name} {t}")) for t in ref]
+                print(f"{name}: check_bf16 against the plain version (share within "
+                      f"{chip_smoke.TOL_BF16_CLOSE}, max err/(1+|plain|), max abs err) "
+                      f"{held}; ptxas {res}", flush=True)
+                continue
             same = all(torch.equal(outs[t], ref[t]) for t in ref)
-            err = max(float((outs[t] - plain[t]).abs().max()) for t in ref)
             print(f"{name}: xz, xy, yz equal the shipped library's bit for bit: {same}; max abs "
                   f"err vs the plain version {err:.3g}; ptxas "
                   f"{chip_smoke.kernel_resources(log, _fp32_kernel(log))}", flush=True)
-            if not same and name not in ABLATIONS:
+            if not same and name not in ablations:
                 raise AssertionError(f"{name} gives other outputs than the shipped library")
+        if "parent" in results:
+            for name, got in results.items():
+                diff = max(float((got[t].float() - results["parent"][t].float()).abs().max())
+                           for t in got)
+                print(f"{name}: largest difference from the parent's outputs {diff:.3g}")
 
         times = {name: [] for name in libs}
         order = list(libs)
@@ -164,9 +231,13 @@ def main() -> int:
             for name in (order if r % 2 == 0 else order[::-1]):
                 lib = libs[name][0]
                 times[name].append(chip_smoke.cuda_ms(lambda: k1(lib), args.iters))
-    bnd = chip_smoke.bound(*chip_smoke.stem_pool_work(B, R, C))
+    if args.bf16:
+        bnd = chip_smoke.bound(*chip_smoke.stem_pool_work(B, R, C, elem=2),
+                               peak=chip_smoke.PEAK_BF16_FLOPS)
+    else:
+        bnd = chip_smoke.bound(*chip_smoke.stem_pool_work(B, R, C))
     for name, ms in times.items():
-        print(f"{name:46s} K1: {min(ms):.4f}-{max(ms):.4f} ms "
+        print(f"{name:46s} K1{' bf16' * args.bf16}: {min(ms):.4f}-{max(ms):.4f} ms "
               f"[{', '.join(f'{m:.4f}' for m in ms)}] bound {bnd[0]:.4f} ms by {bnd[1]} "
               f"({bnd[0] / min(ms):.1%} of it at best) B={B} R={R} C={C} | {card}")
     return 0

@@ -185,6 +185,25 @@ def test_bf16_sum_order_runs_on_the_cpu(capsys):
         assert 0 < rel <= chip_smoke.TOL_BF16_RESIDENT_FAR
 
 
+@pytest.mark.parametrize("argv", [[], ["--bf16"], ["--bf16", "--tree", "parent=."]])
+def test_ab_stem_pool_needs_a_card(monkeypatch, capsys, argv):
+    """K1's A/B exits 2 without a card in either mode, building nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ab_stem_pool.main(argv) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_ab_stem_pool_bf16_ablations_edit_the_bf16_kernel_only():
+    """The bf16 ablations' edits fall inside stem_pool_bf16_kernel, after the
+    float32 kernel, so the float32 mode of an ablation build is the shipped
+    one."""
+    shipped = (ab_dense_decode.CSRC / "stem_pool.cu").read_text()
+    start = shipped.index("stem_pool_bf16_kernel(")
+    for edits in ab_stem_pool.BF16_ABLATIONS.values():
+        for old, _ in edits:
+            assert shipped.index(old) > start
+
+
 def test_bf16_sum_order_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bf16_sum_order.main([]) == 2

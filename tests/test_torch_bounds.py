@@ -208,6 +208,10 @@ def test_feats_bf16_bounds_are_what_perf_md_quotes(kernel, work, gflop, mb, ms):
 
 
 LOG_BF16 = """\
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__41ea8798_12_stem_pool_cu_f3fe8c6621stem_pool_bf16_kernelILi3EEvPK13__nv_bfloat16S2_S2_PS0_S3_S3_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__41ea8798_12_stem_pool_cu_f3fe8c6621stem_pool_bf16_kernelILi3EEvPK13__nv_bfloat16S2_S2_PS0_S3_S3_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 112 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__41ea8798_12_stem_pool_cu_f3fe8c6616stem_pool_kernelI13__nv_bfloat16EEvPKT_S4_S4_PS2_S5_S5_iiii' for 'sm_90a'
 ptxas info    : Function properties for _ZN45_GLOBAL__N__41ea8798_12_stem_pool_cu_f3fe8c6616stem_pool_kernelI13__nv_bfloat16EEvPKT_S4_S4_PS2_S5_S5_iiii
     88 bytes stack frame, 84 bytes spill stores, 56 bytes spill loads
@@ -229,13 +233,16 @@ ptxas info    : Used 168 registers, used 1 barriers, 272 bytes cumulative stack 
 
 @pytest.mark.parametrize("kernel,expected", [
     ("stem_pool_kernelI13__nv_bfloat16E", "96 registers, 84/56 bytes spill stores/loads"),
+    (chip_smoke.k1_bf16_kernel(40), "112 registers, 0/0 bytes spill stores/loads"),
     ("stem_pool_kernelIfE", "96 registers, 84/56 bytes spill stores/loads"),
     ("dense_decode_bf16_kernelILb1E", "255 registers, 56/88 bytes spill stores/loads"),
     ("dense_decode_kernelILb0E", "168 registers, 268/276 bytes spill stores/loads"),
 ])
 def test_kernel_resources_tells_the_modes_apart(kernel, expected):
-    """The names chip_smoke.py asks for pick one mode's kernel from a build
-    log that holds both: K1's template instances, K2/K3's two kernels."""
+    """The names chip_smoke.py and the A/B scripts ask for pick one mode's
+    kernel from a build log that holds several: K1's bf16 kernel, and the
+    bf16 instance of its float32 template that older trees build, K2/K3's
+    two kernels."""
     assert chip_smoke.kernel_resources(LOG_BF16, kernel) == expected
 
 

@@ -395,8 +395,21 @@ def test_plan_stream_fetch_does_not_wait_for_the_next_scene(cuda_device):
 # plain version summed in float64 included.
 BF16_W = 32 ** -0.5
 
+# K1's bf16 kernel runs m16 tiles of 16 z: R = 7 and 13 leave one ragged tile a
+# row, R = 24 a whole one and a ragged one (Z no multiple of 16), R = 40 two
+# whole ones and a ragged one; R = 7 and 13 also read the TSDF's rows with
+# scalar loads. B = 1 and 5, and C = 8, 16 and 32 (one, two and four blocks a
+# scene). check_bf16 lets 0.1 % of the outputs lie a bf16 step from the plain
+# version, whose float32 sums run in another order; each case's planes hold
+# at least 1,000 values (B R^2 C), so that a case admits one such step, as
+# every case here did before this kernel (R = 7 at B = 1 runs at C = 32).
+BF16_STEM = [(2, 16, 8), (1, 7, 32), (3, 13, 8), (2, 40, 32)] + [
+    (B, R, C) for R in (7, 13, 24) for B in (1, 5) for C in (8, 16, 32)
+    if B * R * R * C >= 1000 and (B, R, C) != (1, 7, 32)] + [(5, 40, 16), (1, 40, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R,C", [(2, 16, 8), (1, 7, 32), (3, 13, 8), (2, 40, 32)])
+@pytest.mark.parametrize("B,R,C", BF16_STEM)
 def test_stem_bf16_kernel_matches_plain(cuda_device, B, R, C):
     """K1's bf16 entry point: bf16 TSDF, weights and bias in, bf16 planes out."""
     rng = np.random.RandomState(10)
@@ -408,6 +421,60 @@ def test_stem_bf16_kernel_matches_plain(cuda_device, B, R, C):
     for k in ref:
         assert got[k].dtype == BF16 and got[k].shape == ref[k].shape
         chip_smoke.check_bf16(got[k], ref[k], f"K1 bf16 {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 11, 6), (1, 9, 3, 40), (2, 6, 20, 17)])
+def test_stem_bf16_kernel_takes_a_box_that_is_not_a_cube(cuda_device, shape):
+    """X, Y and Z apart in the bf16 mode, each pooled over its own length;
+    Z = 6 and 17 read the TSDF's rows with scalar loads."""
+    rng = np.random.RandomState(15)
+    w, b, t = (a.to(BF16) for a in _stem_args(rng, 16, shape, cuda_device))
+    got = stem_pool_batched(w, b, t)
+    ref = stem_pool_plain(w, b, t)
+    for k in ref:
+        assert got[k].shape == ref[k].shape
+        chip_smoke.check_bf16(got[k], ref[k], f"K1 bf16 {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [13, 24, 40])
+def test_stem_bf16_kernel_scenes_are_independent(cuda_device, R):
+    """The bf16 mode's three scenes in one launch give the bytes of three
+    one-scene launches (at R = 13 the later scenes start off an 8-byte
+    boundary, and every row is read with scalar loads)."""
+    rng = np.random.RandomState(10)
+    w, b, t = (a.to(BF16) for a in _stem_args(rng, 32, (3, R, R, R), cuda_device))
+    together = stem_pool_batched(w, b, t)
+    for i in range(3):
+        one = stem_pool_batched(w, b, t[i:i + 1].contiguous())
+        for k in together:
+            assert torch.equal(one[k][0], together[k][i])
+
+
+@pytest.mark.cuda
+def test_stem_launch_config_reports_each_mode_its_own_kernel(cuda_device):
+    """K1's bf16 mode has a launch of its own (10 tap and 6 pooling warps a
+    block, pair slabs) at the serving shape; both modes take one block per
+    scene and 8 channels; the bf16 kernel refuses a lattice past its 12
+    tiles a warp (R = 48: 5 rows of 3) that the float32 kernel refuses too,
+    and a Z past three tiles a row."""
+    from giga_tpu_torch.ops.kernels.stem import stem_pool_launch_config
+
+    f32 = stem_pool_launch_config(64, 40, 40, 40, 32)
+    bf = stem_pool_launch_config(64, 40, 40, 40, 32, BF16)
+    assert f32 == {"blocks": 256, "threads": 608, "shared_bytes": 144384,
+                   "channels_per_block": 8}
+    assert bf["blocks"] == 256 and bf["channels_per_block"] == 8
+    assert bf["threads"] == 32 * (10 + 6) and bf["shared_bytes"] != f32["shared_bytes"]
+    assert stem_pool_launch_config(1, 7, 7, 7, 8, BF16)["threads"] == 512
+    for dtype in (torch.float32, BF16):
+        with pytest.raises(ValueError, match="does not take"):
+            stem_pool_launch_config(1, 48, 48, 48, 32, dtype)
+    with pytest.raises(ValueError, match="does not take"):
+        stem_pool_launch_config(1, 4, 4, 49, 8, BF16)
+    with pytest.raises(ValueError, match="dtype"):
+        stem_pool_launch_config(1, 8, 8, 8, 8, torch.float16)
 
 
 # The bf16 kernel's tiles are 32 consecutive (y, z) points of a slab, a
