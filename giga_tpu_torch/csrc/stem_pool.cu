@@ -396,24 +396,38 @@ extern "C" int stem_pool_f32(const float* tsdf, const float* weight, const float
 // Tiles. Tap warp w owns the NTZ m16 tiles (NTZ = ceil(Z / 16), a template
 // argument) of each of up to ROWS = 12 / NTZ consecutive y-rows for the
 // whole x sweep: 4 rows of 3 tiles a warp at R = 40. The last tile of a row
-// is ragged: its voxels past Z are computed on zero words, stored into the
-// padding at the end of the tile's rows, and never summed. NTZ, the words
-// of a slab row (ZP) and the floats of a tile row (ZT) are compile-time, so
-// a lane's 12 loads and 4 stores a tile are immediates of 7 base addresses
-// it forms once a slab. It keeps the block's B fragments (6 words a lane)
-// and its two channels' biases in registers. A tile is 12 loads, 3 MMAs,
-// then on its 4 accumulators a lane adds the bias, applies the ReLU, stores
-// them into the float tile and adds them to its yz sums in registers (the D
-// layout: a lane holds voxels g and g + 8, channels 2t and 2t + 1, so for
-// each t its stores fall 8 banks apart).
+// is ragged: its voxels past Z are computed on zero words and never summed
+// into xy or yz (their xz sums are never read). NTZ and ZP are compile-time,
+// so a lane's 12 loads a tile are immediates of 6 base addresses it forms
+// once a slab. It keeps the block's B fragments (6 words a lane) and its two
+// channels' biases in registers. A tile is 12 loads and 3 MMAs; then on its
+// 4 accumulators (the D layout: voxels g and g + 8, channels 2t and 2t + 1)
+// a lane adds the bias and applies the ReLU.
 //
-// Kept from the float32 kernel: the grid (a block per scene and 8
-// channels), the ring of four zero-padded x-slabs, fetched two slabs ahead
-// by the tap threads (4-z runs of bf16 in registers across a slab's taps,
-// then packed into pair words by byte permutes, one 16-byte store a run),
-// the two float [y][c][z] tiles, and the pooling warps that sum slab x - 1's
-// xy and xz from one tile while the tap warps write slab x into the other:
-// one barrier a slab.
+// Pooling in the tap warps. Each lane sums its values in registers, with
+// adds alone:
+//   yz (mean over x): the lane's 4 values of each of its tiles, over the sweep;
+//   xy (mean over z): a row's values (voxels g and g + 8 of its tiles),
+//     stored each row as the lane's [g][c] sums (one 8-byte store);
+//   xz (mean over y): the lane's values over the warp's rows, stored each
+//     slab as the warp's [z][c] sums (two 8-byte stores a tile column).
+// The 6 pooling warps run a loop of their own (so the tap warps' sums take
+// none of their registers): while the tap warps run slab x, they finish
+// slab x - 1's planes (xy adds a row's 8 lanes, xz the 10 warps, each in
+// order, a job's loads issued at once) and fetch slab x + 2 (4-z runs of
+// bf16 into registers, then pair words by byte permutes, one 16-byte store
+// a run) into a ring of four zero-padded x-slabs. One barrier a slab; the
+// grid is the float32 kernel's (a block per scene and 8 channels).
+//
+// What the design A/B (ab_stem_pool.py --bf16, PERF.md) found on the way:
+// the float32 kernel's pooling (values stored into a float [y][c][z] tile,
+// xy and xz summed from it) cost half the time of a first form of this
+// kernel; reducing xy across a row's lanes by __shfl_xor stalled the
+// in-order warps on three dependent shuffles a row; one loop for both roles
+// kept the tap warps' yz sums live through the pooling code and spilled.
+// What is left is paced by shared-memory traffic, ~1,440 tap loads beside
+// ~430 other wavefronts a slab: without the pooling warps' adds the kernel
+// takes ~0.135 ms of its ~0.185.
 //
 // Numerics: bf16 x bf16 products, exact in float32, summed by the tensor
 // core in float32 in its own order; the float32 bias add and ReLU; the
@@ -424,15 +438,19 @@ extern "C" int stem_pool_f32(const float* tsdf, const float* weight, const float
 
 namespace {
 
-constexpr int BF_TAP_WARPS = 10;   // warps that run the taps and fetch the slabs
-constexpr int BF_POOL_WARPS = 6;   // warps that pool slab x - 1 while the tap warps run slab x
+constexpr int BF_TAP_WARPS = 10;   // warps that run the taps and pool them
+constexpr int BF_POOL_WARPS = 6;   // warps that fetch the slabs and finish the sums
 constexpr int BF_MAX_TILES = 12;   // m16 tiles a tap warp carries through the sweep
 constexpr int BF_TAP_THREADS = 32 * BF_TAP_WARPS;
-constexpr int BF_THREADS = BF_TAP_THREADS + 32 * BF_POOL_WARPS;
-constexpr int BF_FETCH = (4 * BF_MAX_TILES + 31) / 32;  // 4-z runs of a slab a tap thread fetches
+constexpr int BF_POOL_THREADS = 32 * BF_POOL_WARPS;
+constexpr int BF_THREADS = BF_TAP_THREADS + BF_POOL_THREADS;
+// 4-z runs of a slab a pooling thread fetches: at most 4 a tile
+constexpr int BF_FETCH = (4 * BF_MAX_TILES * BF_TAP_WARPS + BF_POOL_THREADS - 1) / BF_POOL_THREADS;
 constexpr int WORD0 = 3;  // index of pair word 0 in a slab row (words 1-4 of a run 16-byte aligned)
-static_assert(BF_FETCH * 32 >= 4 * BF_MAX_TILES,
-              "the tap threads fetch every 4-z run of a slab, at most 4 a tile");
+// floats per y of the lanes' xy sums, [g][c] and padding: a quarter-warp's
+// 16-byte reads of four rows fall on distinct banks
+constexpr int XYS = 72;
+static_assert(BF_TAP_WARPS >= 8, "a pooling job holds a row's 8 lanes' xy sums at once");
 
 // The geometry of a lattice of NTZ m16 tiles a slab row (Z up to 16 NTZ),
 // fixed at compile time so that every tile's shared-memory offsets are
@@ -443,15 +461,12 @@ struct PairGeometry {
   // mod 32, so the two runs of words a load instruction reads miss each
   // other's banks
   static constexpr int ZP = 16 * NTZ + WORD0 + 1 + (NTZ % 2 ? 0 : 8);
-  // floats per (y, c) row of a float tile: 16 NTZ z (the ragged tile's
-  // values past Z land in the row's end and are never summed), ZT / 4 odd as
-  // in the float32 kernel's tiles
-  static constexpr int ZT = 16 * NTZ + 4;
-  static constexpr int YS = 8 * ZT + 4;  // floats per y of a tile
   static constexpr int ROWS = BF_MAX_TILES / NTZ;  // y-rows of tiles a tap warp takes at most
-  static_assert(ZP % 32 >= 9 && ZP % 32 <= 23 && ZP % 4 == 0 && (ZT / 4) % 2 == 1, "banks");
-  // 32-bit words of shared memory a block: the ring of slabs, two tiles
-  static int words(int Y) { return RING * (Y + 2) * ZP + 2 * Y * YS; }
+  static constexpr int PW = 16 * NTZ * 8;  // floats of a tap warp's xz sums of a slab, [z][c]
+  static_assert(ZP % 32 >= 9 && ZP % 32 <= 23 && ZP % 4 == 0, "banks");
+  // 32-bit words of shared memory a block: the ring of slabs, and for two
+  // slabs every tap warp's xz sums and every lane's xy sums, [y][g][c]
+  static int words(int Y) { return RING * (Y + 2) * ZP + 2 * (BF_TAP_WARPS * PW + Y * XYS); }
 };
 
 // d = a @ b + d on one m16n8k16 tile (bf16 operands, float32 accumulators).
@@ -462,6 +477,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
+// The block's barrier, for code where the tap and pooling warps reach it from
+// loops of their own: barrier.sync without .aligned (which __syncthreads
+// compiles to) is defined when whole warps take different paths; both roles
+// arrive at it the same number of times.
+__device__ __forceinline__ void block_barrier() { asm volatile("barrier.sync 0;" ::: "memory"); }
+
 template <int NTZ>
 __global__ void __launch_bounds__(BF_THREADS, 1)
 stem_pool_bf16_kernel(const __nv_bfloat16* __restrict__ tsdf,
@@ -470,29 +491,33 @@ stem_pool_bf16_kernel(const __nv_bfloat16* __restrict__ tsdf,
                       __nv_bfloat16* __restrict__ xy, __nv_bfloat16* __restrict__ yz, int X,
                       int Y, int Z, int C) {
   using G = PairGeometry<NTZ>;
-  constexpr int ZP = G::ZP, ZT = G::ZT, YS = G::YS, ROWS = G::ROWS;
+  constexpr int ZP = G::ZP, ROWS = G::ROWS, PW = G::PW;
   extern __shared__ __align__(16) unsigned pair_smem[];
-  const int slab = (Y + 2) * ZP, tile_floats = Y * YS, nzr = (Z + 3) / 4;
+  const int slab = (Y + 2) * ZP, nzr = (Z + 3) / 4;
   unsigned* ring = pair_smem;  // RING pair slabs; slab xx at slot xx & 3
-  float* tiles = reinterpret_cast<float*>(pair_smem + RING * slab);  // slab x's at tile x & 1
+  // slab x's xz sums of tap warp w at part + (x & 1) * BF_TAP_WARPS * PW + w * PW,
+  // its lanes' xy sums of row y at part_xy + (x & 1) * Y * XYS + y * XYS
+  float* part = reinterpret_cast<float*>(pair_smem + RING * slab);
+  float* part_xy = part + 2 * BF_TAP_WARPS * PW;
 
   const int groups = C / 8;
   const int b = blockIdx.x / groups, c0 = (blockIdx.x % groups) * 8;
   const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
   const bool taps = warp < BF_TAP_WARPS;
+  const int pt = tid - BF_TAP_THREADS;  // a pooling thread's index
   const unsigned short* vol = reinterpret_cast<const unsigned short*>(tsdf) + (size_t)b * X * Y * Z;
   // rows of the TSDF are read four values at a time where every row start is aligned
   const bool vec = Z % 4 == 0 && reinterpret_cast<size_t>(tsdf) % 8 == 0;
 
   for (int i = tid; i < RING * slab; i += blockDim.x) ring[i] = 0u;
 
-  // this thread's 4-z runs (y, z0) of a slab; y < 0 where it has none
+  // a pooling thread's 4-z runs (y, z0) of a slab; y < 0 where it has none
   const int nrun = Y * nzr;
   int ry[BF_FETCH], rz[BF_FETCH];
 #pragma unroll
   for (int k = 0; k < BF_FETCH; ++k) {
-    const int r = tid + k * BF_TAP_THREADS;
-    ry[k] = taps && r < nrun ? r / nzr : -1;
+    const int r = pt + k * BF_POOL_THREADS;
+    ry[k] = !taps && r < nrun ? r / nzr : -1;
     rz[k] = 4 * (r % nzr);
   }
   // the runs of slab xx as bf16 bits, s[z0 .. z0 + 3] in v and s[z0 + 4] in e
@@ -531,80 +556,95 @@ stem_pool_bf16_kernel(const __nv_bfloat16* __restrict__ tsdf,
     }
   };
 
+  // the tap warps' rows: the NTZ tiles of each of `mine` y-rows from y0, in
+  // the first nw warps
+  const int rows = (Y + BF_TAP_WARPS - 1) / BF_TAP_WARPS, nw = (Y + rows - 1) / rows;
+  const int y0 = warp * rows, mine = taps ? min(rows, Y - y0) : 0;
+  // slab xp's planes from the tap warps' sums: xy[b, y, xp, c] = mean over z,
+  // a pooling thread per (y, 4 channels) adding the row's 8 lanes of each t
+  // in lane order; xz[b, z, xp, c] = mean over y, a pooling thread per (z, 4
+  // channels) adding the warps' sums over their rows in warp order
+  auto pool = [&](int xp, int first, int stride) {
+    const float* sums = part + (xp & 1) * BF_TAP_WARPS * PW;
+    const float* sums_xy = part_xy + (xp & 1) * Y * XYS;
+    for (int job = first; job < 2 * (Y + Z); job += stride) {
+      const int c = job % 2 * 4;
+      float4 u[BF_TAP_WARPS];
+      int n;
+      __nv_bfloat16* dst;
+      float inv;
+      if (job < 2 * Y) {
+        const int yy = job / 2;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) u[k] = ld4(sums_xy + yy * XYS + 8 * k + c);
+        n = 8;
+        dst = xy + (((size_t)b * Y + yy) * X + xp) * C;
+        inv = (float)Z;
+      } else {
+        const int z = job / 2 - Y;
+#pragma unroll
+        for (int w = 0; w < BF_TAP_WARPS; ++w)
+          if (w < nw) u[w] = ld4(sums + w * PW + z * 8 + c);
+        n = nw;
+        dst = xz + (((size_t)b * Z + z) * X + xp) * C;
+        inv = (float)Y;
+      }
+      float4 sum = u[0];
+#pragma unroll
+      for (int k = 1; k < BF_TAP_WARPS; ++k) {
+        if (k >= n) break;
+        sum.x += u[k].x;
+        sum.y += u[k].y;
+        sum.z += u[k].z;
+        sum.w += u[k].w;
+      }
+      store4(dst + c0 + c, make_float4(sum.x / inv, sum.y / inv, sum.z / inv, sum.w / inv));
+    }
+  };
+
+  __syncthreads();  // the ring's zeros before the first slabs
+
+  // The pooling warps: slabs 0 and 1, then each slab x: load slab x + 2,
+  // finish slab x - 1's planes, store slab x + 2.
+  if (!taps) {
+    uint2 nv[BF_FETCH];
+    unsigned ne[BF_FETCH];
+    fetch(0, nv, ne);
+    put(0, nv, ne);
+    fetch(1, nv, ne);
+    put(1, nv, ne);
+    block_barrier();
+    for (int x = 0; x < X; ++x) {
+      fetch(x + 2, nv, ne);  // its load overlaps the sums
+      if (x > 0) pool(x - 1, pt, BF_POOL_THREADS);
+      if (x + 1 < X) put(x + 2, nv, ne);
+      block_barrier();  // slab x's sums are whole, and slab x + 2 sits in the ring
+    }
+    pool(X - 1, pt, BF_POOL_THREADS);
+    return;
+  }
+
+  // The tap warps.
   // the block's B fragments (k-step s; lane (g, t) holds channel c0 + g's
   // taps of pairs t and t + 4) and the biases of its accumulators' channels
   uint2 bw[3];
-  float bias0 = 0.f, bias1 = 0.f;
-  if (taps) {
-    const unsigned short* w = reinterpret_cast<const unsigned short*>(weight) + (c0 + g) * 27;
-    // column (dx, dy)'s pair: (dz 0, dz 1) for even t, (0, dz 2) for odd t
-    auto pair = [&](int dx, int dy) {
-      const unsigned short* col = w + (dx * 3 + dy) * 3;
-      return t % 2 == 0 ? (unsigned)__ldg(col) | (unsigned)__ldg(col + 1) << 16
-                        : (unsigned)__ldg(col + 2) << 16;
-    };
+  const unsigned short* wc = reinterpret_cast<const unsigned short*>(weight) + (c0 + g) * 27;
+  // column (dx, dy)'s pair: (dz 0, dz 1) for even t, (0, dz 2) for odd t
+  auto pair = [&](int dx, int dy) {
+    const unsigned short* col = wc + (dx * 3 + dy) * 3;
+    return t % 2 == 0 ? (unsigned)__ldg(col) | (unsigned)__ldg(col + 1) << 16
+                      : (unsigned)__ldg(col + 2) << 16;
+  };
 #pragma unroll
-    for (int s = 0; s < 3; ++s) bw[s] = make_uint2(pair(s, t / 2), t < 2 ? pair(s, 2) : 0u);
-    bias0 = __bfloat162float(bias[c0 + 2 * t]);
-    bias1 = __bfloat162float(bias[c0 + 2 * t + 1]);
-  }
+  for (int s = 0; s < 3; ++s) bw[s] = make_uint2(pair(s, t / 2), t < 2 ? pair(s, 2) : 0u);
+  const float bias0 = __bfloat162float(bias[c0 + 2 * t]);
+  const float bias1 = __bfloat162float(bias[c0 + 2 * t + 1]);
 
-  // this warp's tiles: the NTZ tiles of each of `mine` y-rows from y0
-  const int rows = (Y + BF_TAP_WARPS - 1) / BF_TAP_WARPS, y0 = warp * rows;
-  const int mine = taps ? min(rows, Y - y0) : 0;
   // a lane's words in a slab for row g of tile (y0, z 0..15): registers 0/1
   // take pair t (column dy = t / 2), registers 2/3 pair t + 4 (column dy = 2)
   const int o0 = (y0 + t / 2) * ZP + WORD0 + g + t % 2, o1 = (y0 + 2) * ZP + WORD0 + g + t % 2;
-  // and its values' floats in a tile: voxels g and g + 8, channels 2t and 2t + 1
-  const int st = y0 * YS + 2 * t * ZT + g;
-
-  // xy[b, y', xp, c] = mean over z (a thread per (y', 4 channels)), then
-  // xz[b, z, xp, c] = mean over y (a thread per (4 z, channel)), from slab
-  // xp's tile; each thread carries 4 independent sums, each in index order
-  auto pool = [&](int xp, int first, int stride) {
-    const float* tile = tiles + (xp & 1) * tile_floats;
-    const int nxy = 2 * Y, njob = nxy + 8 * nzr;
-    for (int job = first; job < njob; job += stride) {
-      float sum[4] = {0.f, 0.f, 0.f, 0.f};
-      if (job < nxy) {
-        const int yy = job / 2, c = job % 2 * 4;
-        const float* row = tile + yy * YS + c * ZT;
-        int z = 0;
-#pragma unroll 2
-        for (; z + 4 <= Z; z += 4) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float4 u = ld4(row + k * ZT + z);
-            sum[k] += u.x;
-            sum[k] += u.y;
-            sum[k] += u.z;
-            sum[k] += u.w;
-          }
-        }
-        for (; z < Z; ++z)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) sum[k] += row[k * ZT + z];
-        store4(xy + (((size_t)b * Y + yy) * X + xp) * C + c0 + c,
-               make_float4(sum[0] / (float)Z, sum[1] / (float)Z, sum[2] / (float)Z,
-                           sum[3] / (float)Z));
-      } else {
-        const int c = (job - nxy) / nzr, zq = 4 * (job - nxy - c * nzr);
-        const float* col = tile + c * ZT + zq;
-#pragma unroll 4
-        for (int yy = 0; yy < Y; ++yy) {
-          const float4 u = ld4(col + yy * YS);
-          sum[0] += u.x;
-          sum[1] += u.y;
-          sum[2] += u.z;
-          sum[3] += u.w;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (zq + j < Z)
-            store1(xz + (((size_t)b * Z + zq + j) * X + xp) * C + c0 + c, sum[j] / (float)Y);
-      }
-    }
-  };
+  // whether the lane's voxels g and g + 8 of a row's last tile lie inside Z
+  const bool in0 = 16 * (NTZ - 1) + g < Z, in8 = 16 * (NTZ - 1) + g + 8 < Z;
 
   float pool_yz[ROWS][NTZ][4];
 #pragma unroll
@@ -614,18 +654,9 @@ stem_pool_bf16_kernel(const __nv_bfloat16* __restrict__ tsdf,
 #pragma unroll
       for (int k = 0; k < 4; ++k) pool_yz[j][zt][k] = 0.f;
 
-  uint2 nv[BF_FETCH];
-  unsigned ne[BF_FETCH];
-  __syncthreads();  // the ring's zeros before the first slabs
-  fetch(0, nv, ne);
-  put(0, nv, ne);
-  fetch(1, nv, ne);
-  put(1, nv, ne);
-  __syncthreads();
-
+  block_barrier();  // slabs 0 and 1 sit in the ring
   for (int x = 0; x < X; ++x) {
-    if (taps) {
-      fetch(x + 2, nv, ne);  // slab x + 2, for slab x + 1's taps; its load overlaps these
+    if (mine > 0) {
       const unsigned* p0[3];  // slabs x - 1, x, x + 1 at the lane's words of tile (y0, 0)
       const unsigned* p1[3];
 #pragma unroll
@@ -633,10 +664,15 @@ stem_pool_bf16_kernel(const __nv_bfloat16* __restrict__ tsdf,
         p0[s] = ring + ((x + s - 1) & (RING - 1)) * slab + o0;
         p1[s] = ring + ((x + s - 1) & (RING - 1)) * slab + o1;
       }
-      float* ts = tiles + (x & 1) * tile_floats + st;
+      float sxz[NTZ][4];  // the lane's values summed over the warp's rows
+#pragma unroll
+      for (int zt = 0; zt < NTZ; ++zt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) sxz[zt][k] = 0.f;
 #pragma unroll
       for (int j = 0; j < ROWS; ++j) {
         if (j >= mine) break;
+        float sxy[2] = {0.f, 0.f};  // the lane's values of row j summed over its z
 #pragma unroll
         for (int zt = 0; zt < NTZ; ++zt) {
           const int w = j * ZP + 16 * zt;
@@ -649,18 +685,28 @@ stem_pool_bf16_kernel(const __nv_bfloat16* __restrict__ tsdf,
           const float r[4] = {fmaxf(d[0] + bias0, 0.f), fmaxf(d[1] + bias1, 0.f),
                               fmaxf(d[2] + bias0, 0.f), fmaxf(d[3] + bias1, 0.f)};
 #pragma unroll
-          for (int k = 0; k < 4; ++k) pool_yz[j][zt][k] += r[k];
-          float* dst = ts + j * YS + 16 * zt;
-          dst[0] = r[0], dst[ZT] = r[1], dst[8] = r[2], dst[ZT + 8] = r[3];
+          for (int k = 0; k < 4; ++k) {
+            pool_yz[j][zt][k] += r[k];
+            sxz[zt][k] += r[k];
+          }
+          if (zt < NTZ - 1 || in0) sxy[0] += r[0], sxy[1] += r[1];
+          if (zt < NTZ - 1 || in8) sxy[0] += r[2], sxy[1] += r[3];
         }
+        // the lane's xy sums of row y0 + j, [g][c], for the pooling warps
+        float* row_xy = part_xy + ((x & 1) * Y + y0 + j) * XYS + g * 8 + 2 * t;
+        *reinterpret_cast<float2*>(row_xy) = make_float2(sxy[0], sxy[1]);
       }
-      if (x + 1 < X) put(x + 2, nv, ne);
-    } else if (x > 0) {
-      pool(x - 1, tid - BF_TAP_THREADS, 32 * BF_POOL_WARPS);
+      // the warp's xz sums of slab x, [z][c], for the pooling warps
+      float* sums = part + (x & 1) * BF_TAP_WARPS * PW + warp * PW + g * 8 + 2 * t;
+#pragma unroll
+      for (int zt = 0; zt < NTZ; ++zt) {
+        *reinterpret_cast<float2*>(sums + 16 * zt * 8) = make_float2(sxz[zt][0], sxz[zt][1]);
+        *reinterpret_cast<float2*>(sums + (16 * zt + 8) * 8) =
+            make_float2(sxz[zt][2], sxz[zt][3]);
+      }
     }
-    __syncthreads();  // tile x & 1 is whole, and slab x + 2 sits in the ring
+    block_barrier();
   }
-  pool(X - 1, tid, blockDim.x);
   // yz[b, z, y, c] = mean over x, a bf16 pair of channels a store
 #pragma unroll
   for (int j = 0; j < ROWS; ++j) {

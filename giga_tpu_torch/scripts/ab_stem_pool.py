@@ -32,8 +32,8 @@ the card's name and power limit.
 ``--bf16`` times the bf16 mode's entry point ``stem_pool_bf16`` instead, on
 the same scenes and convolution in bf16, with the builds ``BF16_DESIGNS``
 (the tensor-core kernel as shipped) and ``BF16_ABLATIONS`` (no pooling: the
-tile stores and the xy/xz sums gone, yz kept; no products: each ``mma``
-replaced by an accumulate of its operands' bits). The tensor core sums a
+tap warps' xy and xz sums' stores and the pooling warps' adds gone, yz kept;
+no products: each ``mma`` replaced by an accumulate of its operands' bits). The tensor core sums a
 tap's products in its own order, so no two designs need agree bit for bit:
 every build but the ablations is held to ``chip_smoke.check_bf16`` against
 the plain version, and each build's largest difference from the outputs of
@@ -97,15 +97,17 @@ ABLATIONS = {
 
 # name -> (design constants, edits) of the bf16 kernel (``--bf16``)
 BF16_DESIGNS = {
-    "bf16: m16 tap tiles on mma.sync, 10 + 6 warps (shipped)": ({}, []),
+    "bf16: m16 tap tiles on mma.sync, pooling in the 10 tap warps, 6 pooling warps (shipped)": ({}, []),
 }
 
 # name -> [(old, new) edits of stem_pool.cu], on the shipped bf16 kernel
 BF16_ABLATIONS = {
     "bf16 ablation: no pooling (yz kept)": [
-        ("          float* dst = ts + j * YS + 16 * zt;\n"
-         "          dst[0] = r[0], dst[ZT] = r[1], dst[8] = r[2], dst[ZT + 8] = r[3];\n", ""),
-        ("for (int job = first; job < njob;", "for (int job = njob; job < njob;")],
+        ("        *reinterpret_cast<float2*>(row_xy) = make_float2(sxy[0], sxy[1]);\n", ""),
+        ("        *reinterpret_cast<float2*>(sums + 16 * zt * 8) = make_float2(sxz[zt][0], sxz[zt][1]);\n"
+         "        *reinterpret_cast<float2*>(sums + (16 * zt + 8) * 8) =\n"
+         "            make_float2(sxz[zt][2], sxz[zt][3]);\n", ""),
+        ("for (int job = first; job < 2 * (Y + Z);", "for (int job = 2 * (Y + Z); job < 2 * (Y + Z);")],
     "bf16 ablation: no products": [
         ("mma_bf16(d, a, bw[s]);",
          "d[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ bw[s].x ^ bw[s].y);")],
