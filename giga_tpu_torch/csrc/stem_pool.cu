@@ -419,15 +419,14 @@ extern "C" int stem_pool_f32(const float* tsdf, const float* weight, const float
 // a run) into a ring of four zero-padded x-slabs. One barrier a slab; the
 // grid is the float32 kernel's (a block per scene and 8 channels).
 //
-// What the design A/B (ab_stem_pool.py --bf16, PERF.md) found on the way:
-// the float32 kernel's pooling (values stored into a float [y][c][z] tile,
-// xy and xz summed from it) cost half the time of a first form of this
-// kernel; reducing xy across a row's lanes by __shfl_xor stalled the
-// in-order warps on three dependent shuffles a row; one loop for both roles
-// kept the tap warps' yz sums live through the pooling code and spilled.
-// What is left is paced by shared-memory traffic, ~1,440 tap loads beside
-// ~430 other wavefronts a slab: without the pooling warps' adds the kernel
-// takes ~0.135 ms of its ~0.185.
+// Why this shape (ab_stem_pool.py --bf16; PERF.md §6): values pooled through
+// a float [y][c][z] tile, as the float32 kernel pools, double the kernel's
+// time; reducing xy across a row's lanes by __shfl_xor ends every row on
+// three dependent shuffles that stall the in-order warp; one loop for both
+// roles keeps the yz sums live through the pooling code and spills. What is
+// left is paced by shared-memory traffic, the taps' ~1,440 loads and ~430
+// other wavefronts a slab: without the pooling warps' adds the kernel takes
+// ~0.135 ms of its ~0.19.
 //
 // Numerics: bf16 x bf16 products, exact in float32, summed by the tensor
 // core in float32 in its own order; the float32 bias add and ReLU; the
