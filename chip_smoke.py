@@ -66,7 +66,20 @@ Phases (any failure exits non-zero; nothing is caught):
      zeroed just before (one K1 and one option launch each); return_raw's
      candidates equal to the program's; resident_bf16 through the decode
      entry point (one launch each); every K2 mode's resources, time and
-     share of bound beside the default modes'.
+     share of bound beside the default modes';
+ 20. every preset through the kernels' shape predicates (``presets_phase``):
+     the giga_wide preset (c_dim and hidden 64, seeded weights) through
+     plan_batch (B=64), __call__, plan_stream and PlannerService in float32
+     and bf16, each program's paths (K1, then the module decode: K2 and K3
+     take hidden 32 only) and launch counts, its decisions against the same
+     planner on the CPU, the program's time; the shipped checkpoint at plane
+     resolution 48, past K1's float32 limit (net.encode, then K2);
+ 21. checkpoint ensembles (``ensemble_phase``): GIGAPlanner(params=[ckpt,
+     perturbed ckpt]) with each combiner, float32 then bf16: [ckpt, ckpt]
+     against ckpt alone, two K3 launches a __call__, the float32 plans
+     against the JAX golden file (golden_call_giga_ensemble.npz), the bf16
+     plans by the four gates against the float32 ones, plan_stream, and
+     plan_batch raising; the __call__ latencies.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -95,7 +108,20 @@ GOLDEN = "giga_tpu_torch/testdata/golden_plan_giga.npz"
 GOLDEN_BF16 = "giga_tpu_torch/testdata/golden_plan_giga_bf16.npz"
 GOLDEN_CALL_BF16 = "giga_tpu_torch/testdata/golden_call_giga_bf16.npz"
 GOLDEN_BF16_FOLD = "giga_tpu_torch/testdata/golden_plan_giga_bf16_fold.npz"
+GOLDEN_ENSEMBLE = "giga_tpu_torch/testdata/golden_call_giga_ensemble.npz"
 PLANNER_KW = dict(best=True, force_detection=True, low_th=0.1, qual_th=0.8)
+# the giga_wide preset with seeded weights (init_network): its qualities lie
+# in [0.56, 0.62] and its widths in [0.10, 0.80] (normalized), so it plans
+# with these thresholds and a width window that holds them
+WIDE_SEED = 0
+WIDE_KW = dict(best=True, force_detection=True, low_th=0.5, qual_th=0.59)
+WIDE_WIDTHS = (-1.0, 1.0)
+# the ensemble's second member: the shipped checkpoint with every leaf moved
+# by ENSEMBLE_SCALE times its mean magnitude times standard normal draws
+# (perturbed_params)
+ENSEMBLE_SEED = 1
+ENSEMBLE_SCALE = 0.1
+TOL_ENSEMBLE_SAME = 1e-6  # [ckpt, ckpt] against ckpt alone (tests/test_ensemble.py)
 
 # published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
 # the memory rate of one H100 SXM
@@ -328,6 +354,52 @@ def check_bf16(got, ref, what: str, far: float = TOL_BF16_FAR):
         raise AssertionError(f"{what}: {share:.5f} of outputs within {TOL_BF16_CLOSE} (need "
                              f"{BF16_SHARE}), max err/(1+|ref|) {rel:.3g} (tol {far})")
     return share, rel, float(d.max())
+
+
+def check_bf16_steps(got, ref, what: str, steps: int = 1):
+    """Max |a - b| in bf16 steps of bf16 outputs ``got`` against a reference:
+    each output's step is 2^(e - 8) for its own exponent e (|got| in
+    [2^(e-1), 2^e)), the reference's where the output is 0. Raises past
+    ``steps`` or on non-finite values."""
+    import torch
+
+    got, ref = torch.as_tensor(got).float(), torch.as_tensor(ref).float()
+    exponent = torch.frexp(torch.where(got == 0, ref, got)).exponent
+    step = torch.ldexp(torch.ones_like(got), exponent - 8)
+    worst = float(((got - ref).abs() / step).max())
+    if not (worst <= steps and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{what}: {worst:.3g} bf16 steps from the plain version "
+                             f"(tol {steps})")
+    return worst
+
+
+def perturbed_params(params: dict, seed: int = ENSEMBLE_SEED, scale: float = ENSEMBLE_SCALE):
+    """A flax parameter tree (nested dicts of numpy arrays) with every leaf
+    moved by ``scale`` * its mean magnitude * standard normal draws, leaves
+    taken in sorted-key order from one numpy RandomState: the second member
+    of the ensemble phase and of its golden file."""
+    rng = np.random.RandomState(seed)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        a = np.asarray(tree, np.float32)
+        return (a + scale * np.abs(a).mean() * rng.standard_normal(a.shape)).astype(np.float32)
+
+    return walk(params)
+
+
+def same_decisions(a, b, voxel: float, what: str) -> float:
+    """Hold two (grasps, scores) results to the same decisions: equal counts
+    and grasp positions. Returns the largest score difference."""
+    (ga, sa), (gb, sb) = a, b
+
+    def voxels(grasps):
+        return sorted(tuple(np.rint(g.pose.translation / voxel).astype(int)) for g in grasps)
+
+    if voxels(ga) != voxels(gb):
+        raise AssertionError(f"{what}: other grasps ({len(ga)} vs {len(gb)})")
+    return float(np.abs(np.sort(sa) - np.sort(sb)).max()) if len(sa) else 0.0
 
 
 def check_qual_bf16(got, ref, what: str):
@@ -873,6 +945,261 @@ def options_phase(net, cfg, scenes, feats, default_cands, card):
     return rows
 
 
+def kernel_counts() -> dict:
+    """The launch counts of K1, K2 and K3."""
+    from giga_tpu_torch.ops.kernels import decoder as dk
+    from giga_tpu_torch.ops.kernels.stem import stem_pool_batched
+
+    return {"K1": stem_pool_batched.launches, "K2": dk.dense_decode_batched.launches,
+            "K3": dk.fused_dense_decode.launches}
+
+
+def zero_kernel_counts() -> None:
+    from giga_tpu_torch.ops.kernels import decoder as dk
+    from giga_tpu_torch.ops.kernels.stem import stem_pool_batched
+
+    stem_pool_batched.launches = 0
+    dk.dense_decode_batched.launches = 0
+    dk.fused_dense_decode.launches = 0
+
+
+def presets_phase(net, scenes, card) -> dict:
+    """Phase 20: every preset plans on the card through the kernels' shape
+    predicates. The giga_wide preset (c_dim and hidden 64) with seeded
+    weights through __call__, plan_stream, plan_batch (B=64) and
+    PlannerService, in float32 and bf16: each program's paths (K1 for the
+    batched encode, the module decode: K2 and K3 take hidden 32 only), the
+    launch counts of each entry point with the counters zeroed just before,
+    the decisions against the same planner on the CPU; then the shipped
+    checkpoint at plane resolution 48 (past K1's float32 limit), whose
+    batched program must encode with net.encode and decode with K2. Returns
+    the giga_wide programs' times."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from giga_tpu_torch.core.config import giga
+    from giga_tpu_torch.inference.planner import (
+        GIGAPlanner, State, build_batched_giga_planner_fn, candidates_to_host)
+    from giga_tpu_torch.inference.serving import PlannerService
+    from giga_tpu_torch.models.conv_onet import GIGANet
+    from giga_tpu_torch.models.registry import init_network
+    from giga_tpu_torch.ops.kernels.stem import can_stem_pool
+
+    B, R = len(scenes), RESOLUTION
+    voxel = SIZE / R
+    n_cpu = 4
+    wide, wcfg = init_network("giga_wide", WIDE_SEED)
+    expect_paths = {"__call__": {"encode": "module", "decode": "module"},
+                    "plan_batch": {"encode": "K1", "decode": "module"}}
+    times = {}
+    for precision in ("fp32", "bf16"):
+        planners = {}
+        for device in ("cuda", "cpu"):
+            planner = GIGAPlanner(net=copy.deepcopy(wide), model_cfg=wcfg, size=SIZE,
+                                  precision=precision,
+                                  rng=np.random.RandomState(0), device=device, **WIDE_KW)
+            planner.planner_cfg = dataclasses.replace(
+                planner.planner_cfg, min_width=WIDE_WIDTHS[0], max_width=WIDE_WIDTHS[1])
+            planners[device] = planner
+        card_p, cpu_p = planners["cuda"], planners["cpu"]
+        paths = {"__call__": card_p._ensure_fn().paths,
+                 "plan_batch": card_p._ensure_batched_fn().paths}
+        if paths != expect_paths or cpu_p._ensure_batched_fn().paths != paths["plan_batch"]:
+            raise AssertionError(f"giga_wide {precision} programs chose {paths}")
+        zero_kernel_counts()
+        batch = card_p.plan_batch(scenes)
+        torch.cuda.synchronize()
+        n_batch = kernel_counts()
+        zero_kernel_counts()
+        called = [card_p(State(tsdf=scenes[i]))[:2] for i in range(n_cpu)]
+        streamed = card_p.plan_stream(scenes[:n_cpu])
+        torch.cuda.synchronize()
+        n_call = kernel_counts()
+        zero_kernel_counts()
+        with PlannerService(card_p, batch_size=B, max_wait_ms=5.0) as svc:
+            served = [f.result(timeout=300) for f in [svc.submit(scenes[i]) for i in range(n_cpu)]]
+            n_served_batches = svc.stats()["batches"]
+        torch.cuda.synchronize()
+        n_service = kernel_counts()
+        expect = ({"K1": 1, "K2": 0, "K3": 0}, {"K1": 0, "K2": 0, "K3": 0},
+                  {"K1": n_served_batches, "K2": 0, "K3": 0})
+        if (n_batch, n_call, n_service) != expect:
+            raise AssertionError(f"giga_wide {precision} launched {n_batch} (plan_batch), "
+                                 f"{n_call} (__call__ and plan_stream), {n_service} (service)")
+        for i in range(n_cpu):
+            compare_grasps(streamed[i], called[i], voxel, f"giga_wide plan_stream {i}", tol=1e-6)
+            compare_grasps(served[i], batch[i], voxel, f"giga_wide service {i}", tol=1e-6)
+        # the same planner on the CPU: raw volumes, then the decisions
+        tsdf_cpu = torch.from_numpy(scenes[:n_cpu])
+        raw_fns = {d: build_batched_giga_planner_fn(p.net, wcfg, p.planner_cfg, SIZE,
+                                                    use_kernels=True, return_raw=True)
+                   for d, p in planners.items()}
+        raw = {d: [v.float().cpu() for v in fn(tsdf_cpu.to(d), tsdf_cpu.to(d))[1]]
+               for d, fn in raw_fns.items()}
+        qual_diff = float((raw["cuda"][0] - raw["cpu"][0]).abs().max())
+        batch_cpu = cpu_p.plan_batch(scenes[:n_cpu])
+        called_cpu = [cpu_p(State(tsdf=scenes[i]))[:2] for i in range(n_cpu)]
+        print(f"phase 20: giga_wide {precision} on the card against the CPU: raw qual max diff "
+              f"{qual_diff:.3g}; grasps a scene {[len(g) for g, _ in batch[:n_cpu]]} (card), "
+              f"{[len(g) for g, _ in batch_cpu]} (CPU)")
+        worst = []
+        for i in range(n_cpu):
+            if precision == "fp32":
+                worst.append(max(compare_grasps(batch[i], batch_cpu[i], voxel,
+                                                f"giga_wide plan_batch {i} vs CPU"),
+                                 compare_grasps(called[i], called_cpu[i], voxel,
+                                                f"giga_wide __call__ {i} vs CPU")))
+            else:
+                worst.append(max(same_decisions(batch[i], batch_cpu[i], voxel,
+                                                f"giga_wide bf16 plan_batch {i} vs CPU"),
+                                 same_decisions(called[i], called_cpu[i], voxel,
+                                                f"giga_wide bf16 __call__ {i} vs CPU")))
+        if precision == "bf16":
+            check_qual_bf16(raw["cuda"][0].numpy(), raw["cpu"][0].numpy(),
+                            "giga_wide bf16 raw qual vs the CPU's")
+        fn = card_p._ensure_batched_fn()
+        grids = torch.from_numpy(scenes).cuda()
+        times[precision] = cuda_ms(lambda: fn(grids, grids), 5)
+        print(f"phase 20: giga_wide {precision}: paths {paths}; launches plan_batch {n_batch}, "
+              f"__call__ and plan_stream {n_call}, PlannerService ({n_served_batches} batches) "
+              f"{n_service}; {sum(len(g) for g, _ in batch)} grasps on B={B}; decisions on "
+              f"{n_cpu} scenes equal to the CPU planner's (max score diff {max(worst):.3g}); "
+              f"plan_batch program {times[precision]:.3f} ms/batch | {card}")
+
+    # past K1's float32 limit: plane resolution 48
+    P = 48
+    cfg48 = dataclasses.replace(giga(), encoder=dataclasses.replace(giga().encoder,
+                                                                    plane_resolution=P))
+    net48 = GIGANet(cfg48)
+    net48.load_state_dict(net.state_dict())
+    net48 = net48.cuda().eval()
+    tsdf48 = torch.from_numpy(make_scenes(B, resolution=P)).cuda()
+    proc = torch.from_numpy(scenes).cuda()
+    planner48 = GIGAPlanner(net=net48, model_cfg=cfg48, size=SIZE, **PLANNER_KW)
+    fn48 = planner48._ensure_batched_fn()
+    if fn48.paths != {"encode": "module", "decode": "K2"} or can_stem_pool(B, P, P, P, 32):
+        raise AssertionError(f"plane resolution {P} chose {fn48.paths}")
+    zero_kernel_counts()
+    c48 = candidates_to_host(fn48(tsdf48, proc))
+    torch.cuda.synchronize()
+    n48 = kernel_counts()
+    if n48 != {"K1": 0, "K2": 1, "K3": 0}:
+        raise AssertionError(f"plane resolution {P} launched {n48}")
+    plain48 = build_batched_giga_planner_fn(net48, cfg48, planner48.planner_cfg, SIZE)
+    worst48 = compare_candidates(c48, candidates_to_host(plain48(tsdf48, proc)), range(B), R,
+                                 f"plane resolution {P} vs its module program")
+    print(f"phase 20: plane resolution {P} (K1 takes Y * ceil(Z / 4) <= 416): paths "
+          f"{fn48.paths}, launches {n48}, {int(c48.count.sum())} candidates equal to the module "
+          f"program's (max diffs {worst48})")
+    return times
+
+
+def ensemble_phase(params: dict, scenes, card) -> dict:
+    """Phase 21: checkpoint ensembles, GIGAPlanner(params=[...]), with two
+    members: the shipped checkpoint ``params`` and its perturbed copy
+    (``perturbed_params``); each combiner, float32 then bf16. [ckpt, ckpt]
+    against the checkpoint alone (raw volumes within TOL_ENSEMBLE_SAME,
+    equal candidates); the two-member __call__ on the golden scenes with
+    the K3 counter zeroed just before (two launches a call), in float32
+    against the JAX golden (golden_call_giga_ensemble.npz: candidates, raw
+    qual within TOL_VOLUME), in bf16 by the four decision gates against the
+    float32 ensemble; plan_stream equal to per-scene calls; plan_batch
+    raising NotImplementedError. Returns the __call__ latencies."""
+    import torch
+
+    from giga_tpu_torch.inference.planner import (
+        GIGAPlanner, State, build_ensemble_giga_planner_fn, build_giga_planner_fn,
+        candidates_to_host)
+    from giga_tpu_torch.inference.postprocess import GraspCandidates
+    from giga_tpu_torch.ops.kernels import decoder as dk
+
+    R = RESOLUTION
+    voxel = SIZE / R
+    golden = np.load(Path(__file__).resolve().parent / GOLDEN_ENSEMBLE)
+    n = len(golden["tsdf"])
+    np.testing.assert_allclose(golden["tsdf"], scenes[:n], atol=1e-6)
+    second = perturbed_params(params)
+    kw = dict(size=SIZE, rng=np.random.RandomState(0), **PLANNER_KW)
+    results, times = {}, {}
+    for precision in ("fp32", "bf16"):
+        single = GIGAPlanner(params=params, precision=precision, **kw)
+        for combine in ("mean", "max"):
+            same = GIGAPlanner(params=[params, params], ensemble_combine=combine,
+                               precision=precision, **kw)
+            two = GIGAPlanner(params=[params, second], ensemble_combine=combine,
+                              precision=precision, **kw)
+            pcfg = single.planner_cfg
+            fn1 = build_giga_planner_fn(single.net, single.model_cfg, pcfg, SIZE,
+                                        use_kernels=True, return_raw=True)
+            fn2 = build_ensemble_giga_planner_fn(same.net, same.stacked, same.model_cfg, pcfg,
+                                                 SIZE, combine, use_kernels=True, return_raw=True)
+            if not fn2.paths == fn1.paths == {"encode": "module", "decode": "K3"}:
+                raise AssertionError(f"ensemble programs chose {fn1.paths}, {fn2.paths}")
+            worst_same = 0.0
+            for i in range(n):
+                g = torch.from_numpy(scenes[i]).cuda()
+                (c1, raw1), (c2, raw2) = fn1(g, g), fn2(g, g)
+                worst_same = max([worst_same] + [float((a - b).abs().max())
+                                                 for a, b in zip(raw1, raw2)])
+                c1, c2 = candidates_to_host(c1), candidates_to_host(c2)
+                compare_candidates(GraspCandidates(*(x[None] for x in c1)),
+                                   GraspCandidates(*(x[None] for x in c2)), [0], R,
+                                   f"[ckpt, ckpt] {combine} {precision} vs ckpt, scene {i}")
+            if not worst_same <= TOL_ENSEMBLE_SAME:
+                raise AssertionError(f"[ckpt, ckpt] {combine} {precision}: raw volumes differ "
+                                     f"from the checkpoint's by {worst_same}")
+            dk.fused_dense_decode.launches = 0
+            called = [two(State(tsdf=scenes[i]))[:2] for i in range(n)]
+            torch.cuda.synchronize()
+            if dk.fused_dense_decode.launches != 2 * n:
+                raise AssertionError(f"ensemble {combine} {precision} launched K3 "
+                                     f"{dk.fused_dense_decode.launches} times in {n} calls")
+            for i, got in enumerate(two.plan_stream(scenes[:n])):
+                compare_grasps(got, called[i], voxel, f"ensemble plan_stream {i}", tol=1e-6)
+            try:
+                two.plan_batch(scenes[:1])
+            except NotImplementedError:
+                pass
+            else:
+                raise AssertionError("plan_batch planned an ensemble")
+            if precision == "fp32":
+                gc = GraspCandidates(*(golden[f"{combine}_{f}"] for f in GraspCandidates._fields))
+                worst = max(compare_grasps(got, two._to_grasps(GraspCandidates(
+                    *(np.asarray(x[i]) for x in gc))), voxel, f"ensemble {combine} vs golden {i}")
+                            for i, got in enumerate(called))
+                fn = build_ensemble_giga_planner_fn(two.net, two.stacked, two.model_cfg, pcfg,
+                                                    SIZE, combine, use_kernels=True,
+                                                    return_raw=True)
+                quals = np.stack([fn(g, g)[1][0].cpu().numpy() for g in
+                                  (torch.from_numpy(scenes[i]).cuda() for i in range(n))])
+                qual_err = float(np.abs(quals - golden[f"{combine}_qual"]).max())
+                if not qual_err <= TOL_VOLUME:
+                    raise AssertionError(f"ensemble {combine} raw qual differs from the JAX "
+                                         f"golden by {qual_err} > {TOL_VOLUME}")
+                against = f"the JAX golden (max diff {worst:.3g}, raw qual {qual_err:.3g})"
+            else:
+                gates = bf16_gates(results["fp32", combine], called, voxel,
+                                   f"bf16 ensemble {combine} vs float32")
+                against = f"the float32 ensemble by the four gates {gates}"
+            results[precision, combine] = called
+            state = State(tsdf=scenes[0])
+            for _ in range(3):
+                two(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                two(state)
+            times[precision, combine] = (time.perf_counter() - t0) / 20 * 1e3
+            print(f"phase 21: ensemble {combine} {precision}: [ckpt, ckpt] within "
+                  f"{worst_same:.3g} of ckpt alone; two members on {n} golden scenes "
+                  f"({sum(len(g) for g, _ in called)} grasps, K3 launches {2 * n}) equal to "
+                  f"{against}; plan_stream equals __call__; plan_batch raises; __call__ "
+                  f"{times[precision, combine]:.3f} ms | {card}")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -889,6 +1216,7 @@ def main() -> int:
     from giga_tpu_torch.inference.postprocess import (
         GraspCandidates, bound_quality, mask_quality, select_grasps_batched)
     from giga_tpu_torch.inference.serving import PlannerService
+    from giga_tpu_torch.models.checkpoint import load_params
     from giga_tpu_torch.models.registry import load_network
     from giga_tpu_torch.ops.kernels import _build
     from giga_tpu_torch.ops.kernels import decoder as dk
@@ -1156,11 +1484,18 @@ def main() -> int:
     bf16_rows, bf16_kernels = bf16_phases(
         net, cfg, scenes, results, card, {"K1": ms1, "K2": ms2, "K3": ms3, "K4": ms4, "K5": ms5})
     option_kernels = options_phase(net, cfg, scenes, feats, ck, card)
+    wide_ms = presets_phase(net, scenes, card)
+    ensemble_ms = ensemble_phase(load_params(root / CHECKPOINT), scenes, card)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
     print(f"bf16 __call__ (single-scene program, K3 bf16): {bf16_rows['call_ms']:.3f} ms "
           f"(float32 {call_ms:.3f} ms) | {card}")
+    print(f"giga_wide plan_batch program B={B}: {wide_ms['fp32']:.3f} ms/batch float32, "
+          f"{wide_ms['bf16']:.3f} ms/batch bf16 | {card}")
+    print("ensemble __call__ (two members): " + ", ".join(
+        f"{combine} {precision} {ms:.3f} ms" for (precision, combine), ms in ensemble_ms.items())
+        + f" | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

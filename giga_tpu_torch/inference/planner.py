@@ -9,7 +9,15 @@ top-K arrays into Grasp objects:
     decode runs kernel K3;
   * the batched program (``build_batched_giga_planner_fn``), run by
     ``plan_batch`` and PlannerService; with ``use_kernels`` it runs kernel
-    K1 (stem + pool) and kernel K2 (dense-decode trunk).
+    K1 (stem + pool) and kernel K2 (dense-decode trunk);
+  * the ensemble program (``build_ensemble_giga_planner_fn``), run by
+    ``__call__`` and ``plan_stream`` of ``GIGAPlanner(params=[...])``: each
+    member's single-scene encode and decode (K3), combined before one
+    float32 postprocess.
+Each program picks every stage's path when it is built, from the kernels'
+shape predicates (``program_paths``): a kernel where it takes the shapes,
+else the module path. The choice is ``plan.paths``; nothing gives way at
+run time, and a kernel the predicate admits raises if its launch fails.
 For CPU tensors the kernel wrappers run the kernels' plain versions.
 
 Precision: the fp32 plan turns TF32 off for cuDNN convolutions and CUDA
@@ -54,10 +62,12 @@ from giga_tpu_torch.inference.postprocess import (
     select_grasps_batched,
 )
 from giga_tpu_torch.inference.serving import fetch_async
+from giga_tpu_torch.models.conv_onet import GIGANet
 from giga_tpu_torch.models.convert import flax_to_state_dict
 from giga_tpu_torch.models.encoder import can_encode_fused, encode_planes_fused
 from giga_tpu_torch.models.registry import get_network, load_network
 from giga_tpu_torch.ops.kernels.decoder import (
+    can_dense_decode,
     decode_affordance_dense_kernel,
     decode_affordance_dense_kernel_batched,
 )
@@ -144,17 +154,50 @@ class _Lattice:
         return self._by_device[device]
 
 
+def program_paths(model_cfg: GIGAConfig, planner_cfg: PlannerConfig, dtype: torch.dtype,
+                  use_kernels: bool, batched: bool, fold_b1: bool = False) -> dict:
+    """The path of each stage of a planning program, chosen from the
+    kernels' shape predicates when the program is built: {"encode": "K1" or
+    "module", "decode": "K2" (batched) or "K3" (single-scene) or "module"}.
+    The single-scene programs encode with ``net.encode``, as the JAX
+    package's do. A batch's size is not known at build time: the
+    predicates are asked for one scene, and a batch a kernel cannot take
+    (past 2^31 bf16 tiles) raises at its launch."""
+    P, R = model_cfg.encoder.plane_resolution, planner_cfg.resolution
+    dec = model_cfg.decoder
+    paths = {"encode": "module", "decode": "module"}
+    if not use_kernels:
+        return paths
+    if batched and can_encode_fused(model_cfg.encoder, (1, P, P, P), dtype):
+        paths["encode"] = "K1"
+    if can_dense_decode(1, R, 3, dec.hidden_size, 4, dec.n_blocks, dtype,
+                        point_major=not batched, fold_b1=fold_b1 and batched):
+        paths["decode"] = "K2" if batched else "K3"
+    return paths
+
+
+def _decode_single(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int,
+                   dtype: torch.dtype, path: str):
+    """One scene's float32 (qual, rot, width) on ``path``: K3 in the mode of
+    ``dtype``, or the module path in ``dtype``, widened."""
+    if path == "K3":
+        return decode_affordance_dense_kernel(dec, feats, coords, n_blocks, dtype)
+    return tuple(v.float() for v in decode_affordance_dense(dec, feats, coords, n_blocks))
+
+
 def build_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig,
-                          size: float, use_kernels: bool = False):
+                          size: float, use_kernels: bool = False, return_raw: bool = False):
     """Single-scene program: (tsdf (P,P,P), tsdf_process (R,R,R)) ->
     unbatched GraspCandidates (count a 0-d tensor), left on the tensors'
     device. It makes no synchronizing call once warm.
 
     It encodes with ``net.encode``, as the JAX package's single-scene
-    program does. ``use_kernels`` decodes through K3; without it the program
-    decodes through the module path, the reference the kernel's program is
-    checked against. A bf16 net runs the bf16 program: the TSDF cast to
-    bf16 for the network, K3's bf16 mode, a float32 postprocess.
+    program does. ``use_kernels`` decodes through K3 where K3 takes the
+    shapes (``plan.paths``); the module path is the reference the kernel's
+    program is checked against. A bf16 net runs the bf16 program: the TSDF
+    cast to bf16 for the network, K3's bf16 mode, a float32 postprocess.
+    ``return_raw`` makes the program return ``(cands, (qual, rot, width))``,
+    the float32 volumes the candidates were selected from.
 
     In bf16 this is the counterpart of the JAX package's
     ``build_giga_planner_fn(use_pallas=True, dtype=bf16)``: K3's bf16 mode
@@ -174,28 +217,122 @@ def build_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig
     n_blocks = model_cfg.decoder.n_blocks
     lattice = _Lattice(R)
     dtype = net_dtype(net)
+    paths = program_paths(model_cfg, planner_cfg, dtype, use_kernels, batched=False)
 
     def plan(tsdf: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
-        if tuple(tsdf.shape) != (P, P, P):
-            raise ValueError(f"expected a ({P}, {P}, {P}) TSDF grid, got {tuple(tsdf.shape)}")
-        if tuple(tsdf_process.shape) != (R, R, R):
-            raise ValueError(f"expected a ({R}, {R}, {R}) process grid, "
-                             f"got {tuple(tsdf_process.shape)}")
+        _check_single(tsdf, tsdf_process, P, R)
         coords, positions = lattice(tsdf.device)
         with torch.inference_mode(), full_precision():
             planes = {t: v[0] for t, v in net.encode(tsdf[None].to(dtype)).items()}
             feats = sample_planes_on_lattice(planes, coords, P, model_cfg.decoder.padding)
-            dec = net.decoder_aff.params()
-            if use_kernels:
-                qual, rot, width = decode_affordance_dense_kernel(dec, feats, coords, n_blocks,
-                                                                  dtype)
-            else:
-                qual, rot, width = (v.float() for v in
-                                    decode_affordance_dense(dec, feats, coords, n_blocks))
-            masked = mask_quality(qual, tsdf_process, width, planner_cfg)
-            masked = bound_quality(masked, voxel_size, planner_cfg)
-            return select_grasps(masked, rot, width, positions, planner_cfg)
+            qual, rot, width = _decode_single(net.decoder_aff.params(), feats, coords, n_blocks,
+                                              dtype, paths["decode"])
+            cands = _postprocess(qual, rot, width, tsdf_process, positions, voxel_size,
+                                 planner_cfg)
+            return (cands, (qual, rot, width)) if return_raw else cands
 
+    plan.paths = paths
+    return plan
+
+
+def _check_single(tsdf: torch.Tensor, tsdf_process: torch.Tensor, P: int, R: int) -> None:
+    if tuple(tsdf.shape) != (P, P, P):
+        raise ValueError(f"expected a ({P}, {P}, {P}) TSDF grid, got {tuple(tsdf.shape)}")
+    if tuple(tsdf_process.shape) != (R, R, R):
+        raise ValueError(f"expected a ({R}, {R}, {R}) process grid, "
+                         f"got {tuple(tsdf_process.shape)}")
+
+
+def _postprocess(qual, rot, width, tsdf_process, positions, voxel_size: float,
+                 planner_cfg: PlannerConfig) -> GraspCandidates:
+    """One scene's float32 volumes -> its candidates: surface masking,
+    bounding, NMS and top-K."""
+    masked = mask_quality(qual, tsdf_process, width, planner_cfg)
+    masked = bound_quality(masked, voxel_size, planner_cfg)
+    return select_grasps(masked, rot, width, positions, planner_cfg)
+
+
+def stack_params(states) -> dict:
+    """Stack K members' state dicts ({name: tensor or array}, e.g. from
+    ``flax_to_state_dict``) along a new leading ensemble axis: {name: (K, ...)}."""
+    return {name: torch.stack([torch.as_tensor(sd[name]) for sd in states])
+            for name in states[0]}
+
+
+ENSEMBLE_COMBINES = ("mean", "max")
+
+
+def combine_members(quals: torch.Tensor, rots: torch.Tensor, widths: torch.Tensor,
+                    combine: str = "mean"):
+    """K members' float32 volumes qual (K, ...), rot (K, ..., 4), width
+    (K, ...) -> one (qual, rot, width).
+
+    ``mean``: the mean probability; the quaternion mean with each voxel's
+    quaternions sign-aligned to member 0's (q and -q are one rotation),
+    renormalized; the mean width. ``max``: per voxel the largest quality,
+    and rotation and width whole from the member that has it (the first
+    such member on ties)."""
+    if combine == "mean":
+        sign = torch.sign(torch.sum(rots * rots[:1], dim=-1, keepdim=True))
+        sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+        rot = (rots * sign).mean(dim=0)
+        rot = rot / torch.clamp_min(torch.linalg.vector_norm(rot, dim=-1, keepdim=True), 1e-12)
+        return quals.mean(dim=0), rot, widths.mean(dim=0)
+    best = torch.argmax(quals, dim=0, keepdim=True)
+    rot = torch.take_along_dim(rots, best[..., None], dim=0)[0]
+    return quals.max(dim=0).values, rot, torch.take_along_dim(widths, best, dim=0)[0]
+
+
+def build_ensemble_giga_planner_fn(net, stacked: dict, model_cfg: GIGAConfig,
+                                   planner_cfg: PlannerConfig, size: float,
+                                   combine: str = "mean", use_kernels: bool = False,
+                                   return_raw: bool = False):
+    """Ensemble-of-checkpoints program (counterpart of the JAX package's
+    ``build_ensemble_giga_planner_fn``): (tsdf (P,P,P), tsdf_process
+    (R,R,R)) -> unbatched GraspCandidates, ``return_raw`` as
+    ``build_giga_planner_fn``'s.
+
+    ``stacked`` holds the K members' parameters along a leading axis
+    (``stack_params``) in the program's dtype; ``net`` is a GIGANet of the
+    same configuration whose modules run each member's encoder with that
+    member's parameters (``torch.func.functional_call``). Member by member
+    the program encodes, samples the lattice and decodes it (K3 where K3
+    takes the shapes, as ``build_giga_planner_fn``; so K launches a call),
+    widens the volumes to float32, then combines them (``combine_members``)
+    before the one float32 postprocess. A bf16 ``stacked`` runs each member
+    in bf16, as the JAX package's ``dtype=bf16`` does."""
+    if combine not in ENSEMBLE_COMBINES:
+        raise ValueError(f"unknown ensemble combine {combine!r}")
+    voxel_size = size / planner_cfg.resolution
+    R = planner_cfg.resolution
+    P = model_cfg.encoder.plane_resolution
+    n_blocks = model_cfg.decoder.n_blocks
+    lattice = _Lattice(R)
+    dtype = stacked["decoder_aff.fc_p_kernel"].dtype
+    paths = program_paths(model_cfg, planner_cfg, dtype, use_kernels, batched=False)
+    K = stacked["decoder_aff.fc_p_kernel"].shape[0]
+    members = [({n[len("encoder."):]: v[k] for n, v in stacked.items() if n.startswith("encoder.")},
+                {n[len("decoder_aff."):]: v[k] for n, v in stacked.items()
+                 if n.startswith("decoder_aff.")}) for k in range(K)]
+
+    def plan(tsdf: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
+        _check_single(tsdf, tsdf_process, P, R)
+        coords, positions = lattice(tsdf.device)
+        with torch.inference_mode(), full_precision():
+            x = tsdf[None].to(dtype)
+            vols = []
+            for enc, dec in members:
+                planes = torch.func.functional_call(net.encoder, enc, (x,))
+                feats = sample_planes_on_lattice({t: v[0] for t, v in planes.items()}, coords, P,
+                                                 model_cfg.decoder.padding)
+                vols.append(_decode_single(dec, feats, coords, n_blocks, dtype, paths["decode"]))
+            qual, rot, width = combine_members(*(torch.stack(v) for v in zip(*vols)),
+                                               combine=combine)
+            cands = _postprocess(qual, rot, width, tsdf_process, positions, voxel_size,
+                                 planner_cfg)
+            return (cands, (qual, rot, width)) if return_raw else cands
+
+    plan.paths = paths
     return plan
 
 
@@ -206,9 +343,9 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     GraspCandidates with a leading batch axis, left on the tensors' device.
 
     P is the encoder's plane resolution, R the planner's lattice resolution.
-    ``use_kernels`` runs K1 and K2; without it the program runs the module
-    path (the counterpart of the JAX package's XLA path), which serves as
-    the reference the kernels' program is checked against. A bf16 net runs
+    ``use_kernels`` runs K1 and K2 where they take the shapes
+    (``plan.paths``); the module path (the counterpart of the JAX package's
+    XLA path) is the reference the kernels' program is checked against. A bf16 net runs
     the bf16 program: the TSDFs cast to bf16 for the network, K1's and K2's
     bf16 modes, a float32 postprocess.
 
@@ -228,6 +365,8 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     n_blocks = model_cfg.decoder.n_blocks
     lattice = _Lattice(R)
     dtype = net_dtype(net)
+    paths = program_paths(model_cfg, planner_cfg, dtype, use_kernels, batched=True,
+                          fold_b1=fold_b1)
 
     def plan(tsdfs: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
         if tsdfs.ndim != 4 or tuple(tsdfs.shape[1:]) != (P, P, P):
@@ -237,13 +376,13 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
                              f"got {tuple(tsdf_process.shape)}")
         coords, positions = lattice(tsdfs.device)
         with torch.inference_mode(), full_precision():
-            if use_kernels and can_encode_fused(model_cfg.encoder, tsdfs.shape):
+            if paths["encode"] == "K1":
                 planes = encode_planes_fused(net.encoder, tsdfs.to(dtype))
             else:
                 planes = net.encode(tsdfs.to(dtype))
             feats = sample_planes_on_lattice_batched(
                 planes, coords, P, model_cfg.decoder.padding)
-            if use_kernels:
+            if paths["decode"] == "K2":
                 qual, rot, width = decode_affordance_dense_kernel_batched(
                     net.decoder_aff.params(), feats, coords, n_blocks, dtype, fold_b1=fold_b1,
                     hidden_bf16=hidden_bf16)
@@ -255,6 +394,7 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
             cands = select_grasps_batched(masked, rot, width, positions, planner_cfg)
             return (cands, (qual, rot, width)) if return_raw else cands
 
+    plan.paths = paths
     return plan
 
 
@@ -305,6 +445,14 @@ class GIGAPlanner:
     Weights come from ``model_path`` (.msgpack), a flax ``params`` tree, or
     a ready ``net``. ``precision="bf16"`` plans with a bf16 copy of the net,
     made once here (a ``net`` passed in is not changed), in both programs.
+
+    A list of flax ``params`` trees is a checkpoint ensemble (the JAX
+    package's ``GIGAPlanner(params=[...])``): ``__call__`` and
+    ``plan_stream`` run the ensemble program, its members combined by
+    ``ensemble_combine`` ("mean" or "max"); the configuration is
+    ``model_cfg``, else a passed ``net``'s, else ``model_type``'s.
+    ``plan_batch`` and PlannerService raise NotImplementedError for an
+    ensemble, as the JAX package's do.
     """
 
     def __init__(
@@ -325,25 +473,38 @@ class GIGAPlanner:
         rng: Optional[np.random.RandomState] = None,
         visualize: bool = False,
         precision: str = "fp32",
+        ensemble_combine: str = "mean",
         device=None,
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
-        if isinstance(params, (list, tuple)):
-            raise NotImplementedError("checkpoint ensembles are not ported")
         if visualize:
             raise NotImplementedError("affordance visualization is not ported")
-        if net is not None and params is not None:
+        self.ensemble = isinstance(params, (list, tuple))
+        if self.ensemble and ensemble_combine not in ENSEMBLE_COMBINES:
+            raise ValueError(f"unknown ensemble combine {ensemble_combine!r}")
+        if net is not None and params is not None and not self.ensemble:
             raise ValueError("pass a loaded net or a params tree, not both")
         self.device = resolve_device(device)
-        if params is not None:
+        self.ensemble_combine = ensemble_combine
+        self.stacked = None
+        if self.ensemble:
+            model_cfg = model_cfg or (net.cfg if net is not None else get_network(model_type)[1])
+            states = [flax_to_state_dict(p) for p in params]
+            net = GIGANet(model_cfg)
+            net.load_state_dict(states[0])
+            self.stacked = {k: v.to(self.device, PRECISIONS[precision])
+                            for k, v in stack_params(states).items()}
+        elif params is not None:
             net, model_cfg = get_network(model_type)
             net.load_state_dict(flax_to_state_dict(params))
         elif net is None:
             net, model_cfg = load_network(model_path, model_type)
         net = net.to(self.device).eval()
-        if precision != "fp32":
+        if precision != "fp32" and not self.ensemble:
             net = copy.deepcopy(net).to(PRECISIONS[precision])
+        elif self.ensemble:
+            net = net.to(PRECISIONS[precision])
         self.net = net
         self.model_cfg = model_cfg if model_cfg is not None else net.cfg
         self.planner_cfg = PlannerConfig(
@@ -362,11 +523,17 @@ class GIGAPlanner:
         self._vfn = None
 
     def _ensure_fn(self):
-        """Build (once) the single-scene program of __call__ and plan_stream;
-        on the card its decode runs kernel K3."""
+        """Build (once) the single-scene program of __call__ and plan_stream
+        (the ensemble program for an ensemble); on the card its decode runs
+        kernel K3 where K3 takes the shapes."""
         if self._fn is None:
-            self._fn = build_giga_planner_fn(
-                self.net, self.model_cfg, self.planner_cfg, self.size, use_kernels=True)
+            if self.ensemble:
+                self._fn = build_ensemble_giga_planner_fn(
+                    self.net, self.stacked, self.model_cfg, self.planner_cfg, self.size,
+                    combine=self.ensemble_combine, use_kernels=True)
+            else:
+                self._fn = build_giga_planner_fn(
+                    self.net, self.model_cfg, self.planner_cfg, self.size, use_kernels=True)
         return self._fn
 
     def _upload(self, grid) -> torch.Tensor:
@@ -380,8 +547,14 @@ class GIGAPlanner:
 
     def _ensure_batched_fn(self):
         """Build (once) the batched program shared by plan_batch and
-        PlannerService; on the card it runs kernels K1 and K2."""
+        PlannerService; on the card it runs kernels K1 and K2 where they
+        take the shapes."""
         if self._vfn is None:
+            if self.ensemble:
+                raise NotImplementedError(
+                    "batched serving of a checkpoint ensemble is not wired "
+                    "up; plan scene-by-scene or serve the single best "
+                    "checkpoint (ensembles cost K-fold compute)")
             self._vfn = build_batched_giga_planner_fn(
                 self.net, self.model_cfg, self.planner_cfg, self.size, use_kernels=True)
         return self._vfn

@@ -20,7 +20,7 @@ from torch import nn
 from giga_tpu_torch.core.config import EncoderConfig
 from giga_tpu_torch.models.layers import ConvStem3d
 from giga_tpu_torch.models.unet2d import UNet2D
-from giga_tpu_torch.ops.kernels.stem import axis_mean_planes, stem_pool_batched
+from giga_tpu_torch.ops.kernels.stem import axis_mean_planes, can_stem_pool, stem_pool_batched
 
 PLANE_ORDER = ("xz", "xy", "yz")
 
@@ -37,7 +37,7 @@ class TriplaneVoxelEncoder(nn.Module):
         self.unet = UNet2D(cfg.c_dim, cfg.unet)
 
     def forward(self, x: torch.Tensor) -> dict:
-        if not can_encode_fused(self.cfg, x.shape):
+        if not is_lattice_exact(self.cfg, x.shape):
             raise NotImplementedError(
                 "only the lattice-exact encoder path is ported (padding 0, "
                 f"input resolution {self.cfg.plane_resolution}^3); got {tuple(x.shape)}")
@@ -59,10 +59,22 @@ def encode_planes_fused(encoder: TriplaneVoxelEncoder, tsdfs: torch.Tensor) -> d
     return encoder.refine(stem_pool_batched(conv.weight, conv.bias, tsdfs.contiguous()))
 
 
-def can_encode_fused(enc_cfg: EncoderConfig, tsdf_shape) -> bool:
-    """The fused path reproduces the encoder's lattice-exact branch only."""
+def is_lattice_exact(enc_cfg: EncoderConfig, tsdf_shape) -> bool:
+    """The encoder's lattice-exact branch, the only one ported: triplanes,
+    padding 0, input resolution equal to the plane resolution."""
     return (
         "grid" not in enc_cfg.plane_types
         and enc_cfg.padding == 0.0
         and tuple(tsdf_shape[-3:]) == (enc_cfg.plane_resolution,) * 3
     )
+
+
+def can_encode_fused(enc_cfg: EncoderConfig, tsdf_shape,
+                     dtype: torch.dtype = torch.float32) -> bool:
+    """Whether ``encode_planes_fused`` takes (B, X, Y, Z) TSDFs in ``dtype``:
+    the lattice-exact branch with a 3^3 stem, at a shape K1 takes
+    (``can_stem_pool``). A 3-D shape is one scene."""
+    X, Y, Z = tuple(tsdf_shape[-3:])
+    B = tsdf_shape[0] if len(tsdf_shape) == 4 else 1
+    return (is_lattice_exact(enc_cfg, tsdf_shape) and enc_cfg.kernel_size == 3
+            and can_stem_pool(B, X, Y, Z, enc_cfg.c_dim, dtype))

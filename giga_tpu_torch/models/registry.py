@@ -3,12 +3,15 @@
 ``get_network(name)`` returns (module, config). ``load_network(path)`` reads
 a flax ``.msgpack`` parameter file with the pure-Python reader and loads it
 through the weight bridge. The model type is inferred from the filename
-pattern ``{prefix}_{type}_...`` when not given.
+pattern ``{prefix}_{type}_...`` when not given. ``init_network(name, seed)``
+gives a preset seeded random weights without the JAX package.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
+
+import torch
 
 from giga_tpu_torch.core.config import get_config
 from giga_tpu_torch.models.checkpoint import load_params
@@ -35,4 +38,25 @@ def load_network(path, model_type: str | None = None):
         raise NotImplementedError(f"only .msgpack checkpoints are supported, got {path}")
     net, cfg = get_network(model_type or infer_model_type(path))
     net.load_state_dict(flax_to_state_dict(load_params(path)))
+    return net.eval(), cfg
+
+
+def init_network(name: str, seed: int = 0):
+    """(GIGANet in eval mode, config) of a preset with seeded random weights,
+    for presets that ship no checkpoint: every weight and bias uniform in
+    +-1/sqrt(fan_in) of its layer (torch's default bound for Linear and
+    Conv layers; a stacked decoder weight (heads, fan_in, out) and its bias
+    take the weight's), drawn in parameter order from a ``torch.Generator``
+    seeded with ``seed``."""
+    net, cfg = get_network(name)
+    params = dict(net.named_parameters())
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name_, p in params.items():
+            if name_.startswith("decoder"):
+                fan_in = params[name_.replace("_bias", "_kernel")].shape[1]
+            else:
+                weight = params[name_.rsplit(".", 1)[0] + ".weight"]
+                fan_in = torch.nn.init._calculate_fan_in_and_fan_out(weight)[0]
+            p.uniform_(-fan_in ** -0.5, fan_in ** -0.5, generator=gen)
     return net.eval(), cfg

@@ -338,6 +338,115 @@ def _mode(what: str, dtype: torch.dtype) -> str:
     return SUFFIX[dtype]
 
 
+# csrc's design constants that fix the shapes K2-K5 take: the hidden width
+# and outputs of a head (trunk.cuh); K2/K3's float32 warps a block and floats
+# of a warp's activation tile (dense_decode.cu, trunk_tiled.cuh), the bf16
+# mode's consumer warps, points of a warp tile, pyz ring and slab stages,
+# bytes of a plane row, box alignment and rows of a TMA box at most
+# (dense_decode.cu, rows_tma.cuh); K4/K5's projection rows a block, its
+# threads at most and the padding of its staged rows (dense_decode_feats.cu);
+# the shared bytes a block may use on sm_90
+KERNEL_H, KERNEL_O = 32, 4
+F32_WARPS, F32_ACT_FLOATS = 12, 32 * 68
+BF_WARPS, BF_P, BF_PYZ_STAGES, BF_SLAB_STAGES = 15, 32, 2, 2
+ROW_BYTES, ALIGN, BF_MAX_BOX = 64, 1024, 256
+PROJ_ROWS, PROJ_MAX_THREADS, PROJ_S = 64, 512, 68
+SMEM_LIMIT = 232448
+
+
+def _align_up(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def _f32_weight_floats(n_blocks: int) -> int:
+    """trunk::weight_floats: one head's float32 trunk weights."""
+    return n_blocks * (2 * KERNEL_H * KERNEL_H + 2 * KERNEL_H) + KERNEL_H * KERNEL_O + KERNEL_O
+
+
+def _bf16_weight_words(n_blocks: int) -> int:
+    """tc::weight_words: one head's bf16 B fragments and float32 biases."""
+    frag = (KERNEL_H // 16) * (KERNEL_H // 8) * 64
+    return n_blocks * 2 * frag + (KERNEL_H // 16) * 64 + n_blocks * 2 * KERNEL_H + KERNEL_O
+
+
+def _bf16_layout_bytes(zc: int, yc: int, stages: int, n_blocks: int) -> int:
+    """dense_decode.cu's ``BfLayout(shape, NB).bytes``."""
+    ybox, zbox = _align_up(yc * ROW_BYTES, ALIGN), _align_up(zc * ROW_BYTES, ALIGN)
+    slab = ALIGN + (n_blocks + 1) * (ybox + zbox)
+    pyz = _align_up(_bf16_weight_words(n_blocks) * 4, ALIGN) + stages * slab
+    bars = pyz + BF_WARPS * BF_PYZ_STAGES * BF_P * ROW_BYTES
+    return bars + 8 * (2 * stages + BF_WARPS * BF_PYZ_STAGES) + ALIGN
+
+
+def bf16_slab_shape(R: int, n_blocks: int):
+    """K2/K3 bf16's slab shape, dense_decode.cu's ``bf16_shape``: (z-columns,
+    y-lines, z-chunks, y-chunks, stages) of the first shape in its order of
+    preference that fits a block's shared memory, or None."""
+    zcs = [R] if R <= BF_MAX_BOX else []
+    # z-chunks of whole tiles below R, the least padding past R first
+    zcs += sorted((c for c in range(BF_MAX_BOX // BF_P * BF_P, BF_P - 1, -BF_P) if c < R),
+                  key=lambda c: _align_up(R, c))
+    for stages in range(BF_SLAB_STAGES, 0, -1):
+        for zc in zcs:
+            for cy in range(-(-R // BF_MAX_BOX), R + 1):
+                yc = -(-R // cy)
+                if -(-R // yc) != cy:
+                    continue
+                if _bf16_layout_bytes(zc, yc, stages, n_blocks) <= SMEM_LIMIT:
+                    return zc, yc, -(-R // zc), cy, stages
+    return None
+
+
+def can_dense_decode(B: int, R: int, heads: int, H: int, O: int, n_blocks: int,
+                     dtype: torch.dtype = torch.float32, point_major: bool = False,
+                     fold_b1: bool = False, resident_bf16: bool = False) -> bool:
+    """Whether K2 (K3 with ``point_major``) in the mode of ``dtype``, with
+    K2's options, takes B scenes of an R^3 lattice, ``heads`` heads of hidden
+    width H and O outputs, and ``n_blocks`` blocks: exactly the shapes
+    ``dense_decode_launch_config`` accepts (the width the kernels are built
+    for, ``dense_decode_hidden()`` / ``dense_decode_outputs()``; the modes
+    that exist; the block's shared memory, in bf16 through the slab shape,
+    which refuses n_blocks above ~22; int tile indices). Pure Python: it
+    loads no library, so the CPU evaluates it as the card does."""
+    if (min(B, R, heads) < 1 or n_blocks < 0 or H != KERNEL_H or O != KERNEL_O
+            or (point_major and (fold_b1 or resident_bf16))):
+        return False
+    if dtype == torch.float32:
+        shmem = (_f32_weight_floats(n_blocks) + F32_WARPS * F32_ACT_FLOATS) * 4
+        return not resident_bf16 and shmem <= SMEM_LIMIT
+    if dtype != torch.bfloat16 or n_blocks < BF_PYZ_STAGES - 1:
+        return False
+    shape = bf16_slab_shape(R, n_blocks)
+    if shape is None:
+        return False
+    zc, yc, cz, cy, _ = shape
+    return B * R * cy * cz * -(-yc * zc // BF_P) <= 0x7FFFFFFF
+
+
+def can_dense_decode_feats(B: int, R: int, C: int, heads: int, H: int, O: int, n_blocks: int,
+                           x_chunk: int = FEATS_X_CHUNK, hybrid: bool = False,
+                           dtype: torch.dtype = torch.float32) -> bool:
+    """Whether K4 (K5 with ``hybrid``) in the mode of ``dtype`` takes B
+    scenes of an R^3 lattice, C feature channels, ``heads`` heads of hidden
+    width H and O outputs, ``n_blocks`` blocks and passes of ``x_chunk``
+    x-slabs: exactly the shapes ``dense_decode_feats_launch_config`` accepts
+    (the width the kernels are built for; the projection kernel's threads
+    and staged rows; the trunk's weights in shared memory). Pure Python."""
+    F = heads * H
+    if (min(B, R, heads, C, x_chunk) < 1 or n_blocks < 0 or H != KERNEL_H or O != KERNEL_O
+            or F % 4 or PROJ_ROWS // 8 * (F // 4) > PROJ_MAX_THREADS
+            or C * PROJ_S * 4 > SMEM_LIMIT):
+        return False
+    if dtype == torch.float32:
+        trunk = (_f32_weight_floats(n_blocks) + F32_WARPS * F32_ACT_FLOATS
+                 + n_blocks * KERNEL_H) * 4
+    elif dtype == torch.bfloat16:
+        trunk = _bf16_weight_words(n_blocks) * 4 + n_blocks * KERNEL_H * 4
+    else:
+        return False
+    return trunk <= SMEM_LIMIT
+
+
 def _trunk_shapes(w0, wout):
     """(n_blocks, heads, H, O) of per-head trunk weights, checked against
     the width the kernels are built for."""

@@ -29,6 +29,54 @@ CONFIG = {torch.float32: "stem_pool_config", torch.bfloat16: "stem_pool_bf16_con
 # shared memory
 LIMITS = {torch.float32: "Y * ceil(Z / 4) <= 416 tap threads",
           torch.bfloat16: "Z <= 48 and ceil(Y / 10) * ceil(Z / 16) <= 12 tiles of 16 z a warp"}
+# csrc/stem_pool.cu's design constants, which fix the shapes each kernel takes:
+# float32: channels a block, z of a tap thread's micro-tile, pooling warps,
+# threads a block at most, x-slabs in shared memory; bf16: tap and pooling
+# warps, m16 tiles a tap warp carries, floats per y of the xy sums; and the
+# shared bytes a block may use on sm_90
+CB, TZ, POOL_WARPS, MAX_THREADS, RING = 8, 4, 6, 608, 4
+BF_TAP_WARPS, BF_POOL_WARPS, BF_MAX_TILES, XYS = 10, 6, 12, 72
+SMEM_LIMIT = 232448
+
+
+def _f32_shared_bytes(Y: int, Z: int) -> int:
+    """stem_pool_config's shared bytes: the weights, the ring of zero-padded
+    x-slabs and the two pooling tiles (``Layout`` in csrc/stem_pool.cu)."""
+    nzr = -(-Z // TZ)
+    nzq = TZ * nzr // 4
+    zp = TZ * nzr + 4
+    zt = TZ * nzr + (0 if nzq % 2 else 4)
+    tile = Y * (CB * zt + 4)
+    return 4 * (28 * CB + RING * (Y + 2) * zp + 2 * tile)
+
+
+def _bf16_shared_bytes(Y: int, Z: int) -> int:
+    """stem_pool_bf16_config's shared bytes (``PairGeometry<NTZ>::words``),
+    0 for a Z no instance takes."""
+    ntz = -(-Z // 16)
+    if ntz not in (1, 2, 3):
+        return 0
+    zp = 16 * ntz + 4 + (0 if ntz % 2 else 8)
+    return 4 * (RING * (Y + 2) * zp + 2 * (BF_TAP_WARPS * 16 * ntz * 8 + Y * XYS))
+
+
+def can_stem_pool(B: int, X: int, Y: int, Z: int, C: int,
+                  dtype: torch.dtype = torch.float32) -> bool:
+    """Whether K1's kernel in the mode of ``dtype`` takes a (B, X, Y, Z)
+    TSDF and C channels: exactly the shapes ``stem_pool_config`` /
+    ``stem_pool_bf16_config`` accept (C a multiple of 8, ``LIMITS``, the
+    block's shared memory). Pure Python: it loads no library, so the CPU
+    evaluates it as the card does."""
+    if min(B, X, Y, Z) < 1 or C < CB or C % CB:
+        return False
+    if dtype == torch.float32:
+        threads = -(-Y * -(-Z // TZ) // 32) * 32 + 32 * POOL_WARPS
+        return threads <= MAX_THREADS and _f32_shared_bytes(Y, Z) <= SMEM_LIMIT
+    if dtype == torch.bfloat16:
+        shmem = _bf16_shared_bytes(Y, Z)
+        return (0 < shmem <= SMEM_LIMIT
+                and -(-Y // BF_TAP_WARPS) * -(-Z // 16) <= BF_MAX_TILES)
+    return False
 
 
 def axis_mean_planes(feat: torch.Tensor, plane_types=("xz", "xy", "yz")) -> dict:

@@ -64,7 +64,7 @@ def prefixes(net, cfg, planner_cfg, coords, fold_b1: bool, hidden_bf16: bool) ->
     P, n_blocks = cfg.encoder.plane_resolution, cfg.decoder.n_blocks
 
     def encode(tsdfs):
-        if can_encode_fused(cfg.encoder, tsdfs.shape):
+        if can_encode_fused(cfg.encoder, tsdfs.shape, dtype):
             return encode_planes_fused(net.encoder, tsdfs.to(dtype))
         return net.encode(tsdfs.to(dtype))
 

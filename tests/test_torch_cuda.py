@@ -406,6 +406,10 @@ BF16_W = 32 ** -0.5
 BF16_STEM = [(2, 16, 8), (1, 7, 32), (3, 13, 8), (2, 40, 32)] + [
     (B, R, C) for R in (7, 13, 24) for B in (1, 5) for C in (8, 16, 32)
     if B * R * R * C >= 1000 and (B, R, C) != (1, 7, 32)] + [(5, 40, 16), (1, 40, 8)]
+# the cases whose planes hold fewer than 1,000 values, where one output a
+# bf16 step from the plain version is more than 0.1 %: every output within
+# one bf16 step of its own exponent (chip_smoke.check_bf16_steps)
+BF16_STEM_SMALL = [(1, 7, 8), (1, 7, 16)]
 
 
 @pytest.mark.cuda
@@ -421,6 +425,20 @@ def test_stem_bf16_kernel_matches_plain(cuda_device, B, R, C):
     for k in ref:
         assert got[k].dtype == BF16 and got[k].shape == ref[k].shape
         chip_smoke.check_bf16(got[k], ref[k], f"K1 bf16 {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,C", BF16_STEM_SMALL)
+def test_stem_bf16_kernel_small_planes_within_one_step(cuda_device, B, R, C):
+    """K1's bf16 mode where a plane holds fewer than 1,000 values: every
+    output within one bf16 step of the plain version."""
+    rng = np.random.RandomState(10)
+    w, b, t = (a.to(BF16) for a in _stem_args(rng, C, (B, R, R, R), cuda_device))
+    got = stem_pool_batched(w, b, t)
+    ref = stem_pool_plain(w, b, t)
+    for k in ref:
+        assert got[k].dtype == BF16 and got[k].shape == ref[k].shape
+        chip_smoke.check_bf16_steps(got[k], ref[k], f"K1 bf16 {k}")
 
 
 @pytest.mark.cuda
@@ -788,3 +806,138 @@ def test_option_programs_queue_and_return_raw(cuda_device, dtype):
     assert all(torch.equal(a, b) for a, b in zip(cands, got))
     assert [tuple(v.shape) for v in raw] == [(2, 40, 40, 40), (2, 4, 40 ** 3), (2, 40, 40, 40)]
     assert int(cands.count.sum()) > 0
+
+
+# -- the shape predicates against the kernels' launch configurations ------------
+
+def _admitted(config, *args, **kw) -> bool:
+    """Whether a launch configuration takes the shapes: it returns, or
+    raises for shapes its kernel does not take."""
+    try:
+        config(*args, **kw)
+    except (ValueError, RuntimeError):
+        return False
+    return True
+
+
+# (Y, Z) on both sides of K1's limits: float32 Y * ceil(Z / 4) <= 416 (and
+# the shared memory of long rows), bf16 Z <= 48 and ceil(Y / 10) *
+# ceil(Z / 16) <= 12
+STEM_SWEEP = [(40, 40), (41, 40), (42, 40), (48, 48), (104, 16), (105, 16), (13, 128),
+              (14, 128), (2, 800), (1, 1660), (1, 1700), (40, 48), (41, 48), (60, 32),
+              (61, 32), (120, 16), (121, 16), (10, 49), (7, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_stem_predicate_matches_launch_config(cuda_device, dtype):
+    from giga_tpu_torch.ops.kernels.stem import can_stem_pool, stem_pool_launch_config
+
+    for Y, Z in STEM_SWEEP:
+        for B, X, C in ((1, 40, 32), (64, 3, 64), (2, 9, 8), (1, 40, 12), (1, 40, 4)):
+            assert can_stem_pool(B, X, Y, Z, C, dtype) == _admitted(
+                stem_pool_launch_config, B, X, Y, Z, C, dtype), (B, X, Y, Z, C, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_decode_predicate_matches_launch_config(cuda_device, dtype):
+    """K2/K3: hidden 32 and 4 outputs only; float32 n_blocks <= 15 (the
+    weights and 12 warps' tiles in shared memory), bf16 n_blocks 1 .. 22
+    (the slab shape); the option sets each mode has."""
+    lib = dk._lib()
+    built = (lib.dense_decode_hidden(), lib.dense_decode_outputs())
+    for R in (1, 7, 40, 64, 100, 257, 300):
+        for nb in (0, 1, 5, 15, 16, 22, 23):
+            for pm, fold, res in ((False, False, False), (True, False, False),
+                                  (False, True, False), (False, False, True),
+                                  (False, True, True), (True, True, False)):
+                for B, heads in ((1, 3), (64, 1)):
+                    ok = _admitted(dk.dense_decode_launch_config, B, R, heads, nb, pm, dtype,
+                                   fold, res)
+                    for H, O in ((32, 4), (64, 4), (32, 1)):
+                        assert dk.can_dense_decode(B, R, heads, H, O, nb, dtype, pm, fold,
+                                                   res) == (ok and (H, O) == built), \
+                            (B, R, heads, H, O, nb, dtype, pm, fold, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_feats_predicate_matches_launch_config(cuda_device, dtype):
+    """K4/K5: float32 n_blocks <= 14, bf16 <= 51; heads * 32 <= 256 (the
+    projection kernel's threads); C <= 854 (its staged rows)."""
+    for C in (1, 32, 854, 855):
+        for heads in (1, 3, 8, 9):
+            for nb in (5, 14, 15, 51, 52):
+                for x_chunk, hybrid in ((1, False), (40, False), (40, True)):
+                    ok = _admitted(dk.dense_decode_feats_launch_config, 2, 40, C, heads, nb,
+                                   x_chunk, hybrid, dtype)
+                    assert dk.can_dense_decode_feats(2, 40, C, heads, 32, 4, nb, x_chunk,
+                                                     hybrid, dtype) == ok, \
+                        (C, heads, nb, x_chunk, hybrid, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_giga_wide_plans_on_the_card(cuda_device, precision):
+    """GIGAPlanner(model_type="giga_wide") with seeded weights: __call__ and
+    plan_batch plan on the card through K1 and the module decode (K2 and K3
+    take hidden 32 only), their decisions those of the same planner on the
+    CPU."""
+    import copy
+
+    from giga_tpu_torch.models.registry import init_network
+
+    net, cfg = init_network("giga_wide", chip_smoke.WIDE_SEED)
+    scenes = chip_smoke.make_scenes(2)
+    planners = []
+    for device in ("cuda", "cpu"):
+        planner = GIGAPlanner(net=copy.deepcopy(net), model_cfg=cfg, precision=precision,
+                              device=device, **chip_smoke.WIDE_KW)
+        planner.planner_cfg = dataclasses.replace(planner.planner_cfg,
+                                                  min_width=chip_smoke.WIDE_WIDTHS[0],
+                                                  max_width=chip_smoke.WIDE_WIDTHS[1])
+        planners.append(planner)
+    card, cpu = planners
+    assert card._ensure_fn().paths == {"encode": "module", "decode": "module"}
+    assert card._ensure_batched_fn().paths == {"encode": "K1", "decode": "module"}
+    n = (stem_pool_batched.launches, dense_decode_batched.launches, dk.fused_dense_decode.launches)
+    batch, batch_cpu = card.plan_batch(scenes), cpu.plan_batch(scenes)
+    called = [card(State(tsdf=g))[:2] for g in scenes]
+    torch.cuda.synchronize()
+    assert (stem_pool_batched.launches, dense_decode_batched.launches,
+            dk.fused_dense_decode.launches) == (n[0] + 1, n[1], n[2])
+    voxel = 0.3 / 40
+    for i, g in enumerate(scenes):
+        called_cpu = cpu(State(tsdf=g))[:2]
+        if precision == "fp32":
+            chip_smoke.compare_grasps(batch[i], batch_cpu[i], voxel, f"plan_batch {i}")
+            chip_smoke.compare_grasps(called[i], called_cpu, voxel, f"__call__ {i}")
+        else:
+            chip_smoke.same_decisions(batch[i], batch_cpu[i], voxel, f"plan_batch {i}")
+            chip_smoke.same_decisions(called[i], called_cpu, voxel, f"__call__ {i}")
+        assert len(batch[i][0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["mean", "max"])
+def test_ensemble_launches_k3_once_per_member(cuda_device, combine):
+    """A three-member ensemble's __call__ and plan_stream launch K3 three
+    times a scene; its plans equal the CPU's."""
+    from giga_tpu_torch.models.checkpoint import load_params
+
+    params = load_params(REPO / chip_smoke.CHECKPOINT)
+    members = [params, chip_smoke.perturbed_params(params, 1), chip_smoke.perturbed_params(params, 2)]
+    scenes = chip_smoke.make_scenes(2)
+    kw = dict(params=members, ensemble_combine=combine, **chip_smoke.PLANNER_KW)
+    card, cpu = GIGAPlanner(**kw), GIGAPlanner(device="cpu", **kw)
+    n = dk.fused_dense_decode.launches
+    called = [card(State(tsdf=g))[:2] for g in scenes]
+    streamed = card.plan_stream(scenes)
+    torch.cuda.synchronize()
+    assert dk.fused_dense_decode.launches == n + 3 * 2 * len(scenes)
+    for i, g in enumerate(scenes):
+        chip_smoke.compare_grasps(called[i], cpu(State(tsdf=g))[:2], 0.3 / 40, f"scene {i}")
+        chip_smoke.compare_grasps(streamed[i], called[i], 0.3 / 40, f"stream {i}", tol=1e-6)
+    with pytest.raises(NotImplementedError):
+        card.plan_batch(scenes)

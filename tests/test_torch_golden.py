@@ -9,8 +9,12 @@ tests/test_torch_bf16.py); ``golden_plan_giga_bf16_fold.npz`` those and the
 raw qual of the same program with the decode options ``fold_b1`` and
 ``hidden_bf16``; and ``golden_call_giga_bf16.npz`` those of the
 single-scene program of JAX's ``GIGAPlanner(precision="bf16")``, which its
-``__call__`` runs, scene by scene. These tests regenerate them and assert
-the committed files are current. Rewrite them with
+``__call__`` runs, scene by scene; ``golden_call_giga_ensemble.npz`` the
+candidates and raw qual of JAX's float32 checkpoint-ensemble program
+(``build_ensemble_giga_planner_fn``) with each combiner, on the shipped
+checkpoint and its perturbed copy (``chip_smoke.perturbed_params``), scene
+by scene. These tests regenerate them and assert the committed files are
+current. Rewrite them with
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
 """
@@ -30,7 +34,11 @@ import jax.numpy as jnp  # noqa: E402
 import chip_smoke  # noqa: E402
 from test_torch_bf16 import jax_bf16_planner_reference, jax_tpu_reference  # noqa: E402
 from giga_tpu.core.config import PlannerConfig  # noqa: E402
-from giga_tpu.inference.planner import build_batched_giga_planner_fn  # noqa: E402
+from giga_tpu.inference.planner import (  # noqa: E402
+    build_batched_giga_planner_fn,
+    build_ensemble_giga_planner_fn,
+    stack_params,
+)
 from giga_tpu.models.registry import get_network, load_params  # noqa: E402
 
 N_SCENES = 4
@@ -82,21 +90,44 @@ def golden_call_bf16_arrays() -> dict:
     return out
 
 
-def _assert_current(path: str, fresh: dict):
+def golden_ensemble_arrays() -> dict:
+    """The candidates and raw qual (N_SCENES, R, R, R) of JAX's float32
+    ensemble program on [shipped checkpoint, its perturbed copy] for the
+    first N_SCENES chip_smoke scenes, one scene a call, stacked as the
+    batched files are, each combiner's under its own prefix."""
+    tsdf = chip_smoke.make_scenes(N_SCENES)
+    net, cfg = get_network("giga")
+    params = load_params(REPO / chip_smoke.CHECKPOINT)
+    stacked = stack_params([params, chip_smoke.perturbed_params(params)])
+    out = {"tsdf": tsdf}
+    for combine in ("mean", "max"):
+        fn = build_ensemble_giga_planner_fn(net, cfg, PlannerConfig(**chip_smoke.PLANNER_KW),
+                                            chip_smoke.SIZE, combine=combine)
+        programs = [jax.device_get(fn(stacked, jnp.asarray(g), jnp.asarray(g))) for g in tsdf]
+        for f in FIELDS:
+            out[f"{combine}_{f}"] = np.stack([np.asarray(getattr(c, f)) for c, _ in programs])
+        out[f"{combine}_qual"] = np.stack([np.asarray(raw[0], np.float32) for _, raw in programs])
+    return out
+
+
+def _assert_current(path: str, fresh: dict, prefix: str = ""):
     """Regenerated candidates equal the committed ones: same counts and
     positions, scores/widths/rotations within 1e-6 (the CPU XLA build may
-    reassociate sums; the file is meant to be bit-stable in practice)."""
+    reassociate sums; the file is meant to be bit-stable in practice).
+    ``prefix`` names one set of a file that holds several."""
     stored = np.load(REPO / path)
-    np.testing.assert_array_equal(stored["count"], fresh["count"])
+    np.testing.assert_array_equal(stored[prefix + "count"], fresh[prefix + "count"])
     np.testing.assert_allclose(stored["tsdf"], fresh["tsdf"], atol=1e-6)
-    for i, n in enumerate(fresh["count"]):
-        np.testing.assert_allclose(stored["positions"][i, :n], fresh["positions"][i, :n], atol=1e-7)
+    for i, n in enumerate(fresh[prefix + "count"]):
+        np.testing.assert_allclose(stored[prefix + "positions"][i, :n],
+                                   fresh[prefix + "positions"][i, :n], atol=1e-7)
         for f in ("scores", "widths", "rotations"):
-            np.testing.assert_allclose(stored[f][i, :n], fresh[f][i, :n], atol=1e-6)
-    assert fresh["count"].sum() > 0
-    assert ("qual" in stored) == ("qual" in fresh)
-    if "qual" in fresh:
-        np.testing.assert_allclose(stored["qual"], fresh["qual"], atol=1e-6)
+            np.testing.assert_allclose(stored[prefix + f][i, :n], fresh[prefix + f][i, :n],
+                                       atol=1e-6)
+    assert fresh[prefix + "count"].sum() > 0
+    assert (prefix + "qual" in stored) == (prefix + "qual" in fresh)
+    if prefix + "qual" in fresh:
+        np.testing.assert_allclose(stored[prefix + "qual"], fresh[prefix + "qual"], atol=1e-6)
 
 
 def test_golden_file_is_current():
@@ -115,6 +146,12 @@ def test_bf16_call_golden_file_is_current():
     _assert_current(chip_smoke.GOLDEN_CALL_BF16, golden_call_bf16_arrays())
 
 
+def test_ensemble_call_golden_file_is_current():
+    fresh = golden_ensemble_arrays()
+    for combine in ("mean", "max"):
+        _assert_current(chip_smoke.GOLDEN_ENSEMBLE, fresh, f"{combine}_")
+
+
 def test_golden_scenes_are_planner_tsdfs():
     """chip_smoke's analytic scenes follow the planner's TSDF convention:
     values in [0, 1], saturated far from surfaces, some voxels inside."""
@@ -130,6 +167,7 @@ if __name__ == "__main__" and "--write" in sys.argv:
     for path, arrays in ((chip_smoke.GOLDEN, golden_arrays),
                          (chip_smoke.GOLDEN_BF16, golden_bf16_arrays),
                          (chip_smoke.GOLDEN_BF16_FOLD, golden_bf16_fold_arrays),
-                         (chip_smoke.GOLDEN_CALL_BF16, golden_call_bf16_arrays)):
+                         (chip_smoke.GOLDEN_CALL_BF16, golden_call_bf16_arrays),
+                         (chip_smoke.GOLDEN_ENSEMBLE, golden_ensemble_arrays)):
         np.savez_compressed(REPO / path, **arrays())
         print("wrote", path)

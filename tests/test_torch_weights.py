@@ -151,15 +151,21 @@ def test_planner_without_card_raises(monkeypatch):
 
 
 def test_planner_rejects_unported_options():
-    """bf16 is ported: it constructs, with a bf16 net. Checkpoint ensembles
-    are not, and raise."""
+    """bf16 and checkpoint ensembles are ported: they construct, with a bf16
+    net and two stacked members; an ensemble's batched program raises, as
+    the JAX package's does. Affordance visualization is not ported, and
+    raises."""
     from giga_tpu_torch.inference.planner import GIGAPlanner
 
     path = REPO / CHECKPOINTS[0]
     planner = GIGAPlanner(path, precision="bf16", device="cpu")
     assert next(planner.net.parameters()).dtype == torch.bfloat16
+    ens = GIGAPlanner(params=[load_params(path)] * 2, device="cpu")
+    assert ens.stacked["decoder_aff.fc_p_kernel"].shape[0] == 2
     with pytest.raises(NotImplementedError):
-        GIGAPlanner(params=[load_params(path)] * 2, device="cpu")
+        ens.plan_batch(np.zeros((1, 40, 40, 40), np.float32))
+    with pytest.raises(NotImplementedError):
+        GIGAPlanner(path, visualize=True, device="cpu")
 
 
 def test_chip_smoke_fails_without_card():
