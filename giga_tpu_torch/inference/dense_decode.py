@@ -10,7 +10,8 @@ R^3 hidden state. Only the ResnetBlockFC trunk runs on the full lattice.
 
 These functions are the module path: the planner's programs run
 ``ops/kernels/decoder.py`` (K2 batched, K3 single-scene) on the card, and
-the tests hold both against the JAX package.
+the tests hold both against the JAX package. ``decode_lattice_points``
+decodes at sparse lattice points.
 """
 
 from __future__ import annotations
@@ -116,6 +117,44 @@ def decode_dense(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5
     JAX package: feats {t: (R, R, C)} -> (heads, R, R, R, out_dim)."""
     out = decode_dense_batched(dec, {t: v[None] for t, v in feats.items()}, coords, n_blocks)
     return out[:, 0]
+
+
+def decode_lattice_points(dec: dict, feats: dict, coords: torch.Tensor, ix: torch.Tensor,
+                          iy: torch.Tensor, iz: torch.Tensor, n_blocks: int = 5) -> torch.Tensor:
+    """The stacked decoder at sparse lattice points, index triples
+    (ix, iy, iz) (N,) into ``coords``: the sparse counterpart of
+    ``decode_dense`` for points on the query lattice too few for the whole
+    R^3 volume, the workhorse of surface refinement in mesh generation.
+
+    Each plane's features are gathered once as (N, C) rows from its lattice
+    map (feats {t: (R, R, C)} from ``sample_planes_on_lattice``, or
+    {'dense': (R, R, R, C)} for the grid variant), then the fused-head trunk
+    runs on the (N, heads*hidden) matrix. Returns (heads, N, out_dim) raw
+    outputs."""
+    pk, heads, _ = _fused_head_weights(dec, n_blocks)
+    coords = coords.to(pk["fc_p_kernel"].dtype)
+    w_p = pk["fc_p_kernel"]  # (3, F)
+    net = (coords[ix][:, None] * w_p[0] + coords[iy][:, None] * w_p[1]
+           + coords[iz][:, None] * w_p[2] + pk["fc_p_bias"])
+    dense = feats.get("dense")
+    if dense is None:
+        c_dim = dec["fc_c0_kernel"].shape[1] // 3
+        rows = (feats["xz"][ix, iz], feats["xy"][ix, iy], feats["yz"][iy, iz])
+    else:
+        fd = dense[ix, iy, iz]
+    for i in range(n_blocks):
+        w_c = pk[f"fc_c{i}_kernel"]
+        if dense is not None:
+            net = net + fd @ w_c + pk[f"fc_c{i}_bias"]
+        else:
+            net = (net + rows[0] @ w_c[:c_dim] + rows[1] @ w_c[c_dim:2 * c_dim]
+                   + rows[2] @ w_c[2 * c_dim:] + pk[f"fc_c{i}_bias"])
+        hid = torch.relu(net) @ pk[f"block{i}_fc0_kernel"] + pk[f"block{i}_fc0_bias"]
+        dx = torch.relu(hid) @ pk[f"block{i}_fc1_kernel"] + pk[f"block{i}_fc1_bias"]
+        net = net + dx
+    out = torch.relu(net) @ pk["fc_out_kernel"] + pk["fc_out_bias"]  # (N, heads*o)
+    o = dec["fc_out_bias"].shape[-1]
+    return out.reshape(-1, heads, o).permute(1, 0, 2)
 
 
 def _affordance(out: torch.Tensor):

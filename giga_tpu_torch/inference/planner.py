@@ -35,9 +35,7 @@ The program's precision is the net's parameter dtype.
 
 from __future__ import annotations
 
-import contextlib
 import copy
-import threading
 import time
 from collections import deque
 from typing import NamedTuple, Optional
@@ -46,6 +44,7 @@ import numpy as np
 import torch
 
 from giga_tpu_torch.core.config import GIGAConfig, PlannerConfig
+from giga_tpu_torch.core.precision import full_precision
 from giga_tpu_torch.core.grasp import Grasp
 from giga_tpu_torch.core.transform import Rotation, Transform
 from giga_tpu_torch.inference.dense_decode import (
@@ -81,39 +80,6 @@ class State(NamedTuple):
     tsdf_process: object = None
 
 
-class _FullPrecision:
-    """TF32 off for cuDNN convolutions and CUDA matmuls while any plan runs.
-
-    The two flags are process-wide, and plans may run in several threads at
-    once (a PlannerService worker beside a direct ``plan_batch``), so the
-    first entrant saves and clears them and the last one out restores them.
-    """
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._users = 0
-        self._saved = None
-
-    @contextlib.contextmanager
-    def __call__(self):
-        with self._lock:
-            if self._users == 0:
-                self._saved = (torch.backends.cudnn.allow_tf32,
-                               torch.backends.cuda.matmul.allow_tf32)
-                torch.backends.cudnn.allow_tf32 = False
-                torch.backends.cuda.matmul.allow_tf32 = False
-            self._users += 1
-        try:
-            yield
-        finally:
-            with self._lock:
-                self._users -= 1
-                if self._users == 0:
-                    (torch.backends.cudnn.allow_tf32,
-                     torch.backends.cuda.matmul.allow_tf32) = self._saved
-
-
-full_precision = _FullPrecision()
 
 
 def resolve_device(device) -> torch.device:

@@ -882,8 +882,9 @@ def test_feats_predicate_matches_launch_config(cuda_device, dtype):
 def test_giga_wide_plans_on_the_card(cuda_device, precision):
     """GIGAPlanner(model_type="giga_wide") with seeded weights: __call__ and
     plan_batch plan on the card through K1 and the module decode (K2 and K3
-    take hidden 32 only), their decisions those of the same planner on the
-    CPU."""
+    take hidden 32 only). In float32 their decisions are those of the same
+    planner on the CPU; in bf16 their raw qual lies within
+    chip_smoke.WIDE_BF16_STEPS bf16 steps of the CPU's."""
     import copy
 
     from giga_tpu_torch.models.registry import init_network
@@ -909,14 +910,18 @@ def test_giga_wide_plans_on_the_card(cuda_device, precision):
             dk.fused_dense_decode.launches) == (n[0] + 1, n[1], n[2])
     voxel = 0.3 / 40
     for i, g in enumerate(scenes):
-        called_cpu = cpu(State(tsdf=g))[:2]
+        assert len(batch[i][0]) > 0
         if precision == "fp32":
             chip_smoke.compare_grasps(batch[i], batch_cpu[i], voxel, f"plan_batch {i}")
-            chip_smoke.compare_grasps(called[i], called_cpu, voxel, f"__call__ {i}")
-        else:
-            chip_smoke.same_decisions(batch[i], batch_cpu[i], voxel, f"plan_batch {i}")
-            chip_smoke.same_decisions(called[i], called_cpu, voxel, f"__call__ {i}")
-        assert len(batch[i][0]) > 0
+            chip_smoke.compare_grasps(called[i], cpu(State(tsdf=g))[:2], voxel, f"__call__ {i}")
+    if precision == "bf16":
+        raw = [build_giga_planner_fn(p.net, cfg, p.planner_cfg, 0.3, use_kernels=True,
+                                     return_raw=True) for p in planners]
+        grid = torch.from_numpy(scenes[0])
+        quals = [fn(grid.to(p.device), grid.to(p.device))[1][0].cpu()
+                 for fn, p in zip(raw, planners)]
+        chip_smoke.check_bf16_steps(*quals, "giga_wide bf16 raw qual vs the CPU's",
+                                    chip_smoke.WIDE_BF16_STEPS)
 
 
 @pytest.mark.cuda
