@@ -277,9 +277,12 @@ def build_ensemble_giga_planner_fn(net, stacked: dict, model_cfg: GIGAConfig,
     dtype = stacked["decoder_aff.fc_p_kernel"].dtype
     paths = program_paths(model_cfg, planner_cfg, dtype, use_kernels, batched=False)
     K = stacked["decoder_aff.fc_p_kernel"].shape[0]
-    members = [({n[len("encoder."):]: v[k] for n, v in stacked.items() if n.startswith("encoder.")},
-                {n[len("decoder_aff."):]: v[k] for n, v in stacked.items()
-                 if n.startswith("decoder_aff.")}) for k in range(K)]
+
+    def member(k: int, prefix: str) -> dict:
+        # copies, not views: a kernel takes each weight 16-byte aligned
+        return {n[len(prefix):]: v[k].clone() for n, v in stacked.items() if n.startswith(prefix)}
+
+    members = [(member(k, "encoder."), member(k, "decoder_aff.")) for k in range(K)]
 
     def plan(tsdf: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
         _check_single(tsdf, tsdf_process, P, R)

@@ -22,6 +22,7 @@ interpret-mode kernel within 6e-8 on these inputs (share within 1e-5: 1.0),
 and differs from the default bf16 mode by ~3e-2.
 """
 
+import dataclasses
 import functools
 import sys
 from pathlib import Path
@@ -339,6 +340,16 @@ def test_return_raw_leaves_the_candidates(small, small_scenes, use_kernels):
     transposed Pallas write; (B, R, R, R, 4) on the module path, as its XLA
     path), and leaves the candidates bit-equal."""
     jnet, params, net = small
+    if use_kernels:
+        # K2 takes hidden 32 only, so the small model's hidden 8 decodes on
+        # the module path (the shape predicates): this case runs a seeded
+        # copy of it at hidden 32
+        net = GIGANet(dataclasses.replace(net.cfg, decoder=dataclasses.replace(
+            net.cfg.decoder, hidden_size=32))).eval()
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for w in net.parameters():
+                w.uniform_(-0.3, 0.3, generator=gen)
     cfg = net.cfg
     pcfg = tcfg.PlannerConfig(**SMALL_PLAN)
     t = torch.from_numpy(small_scenes)
@@ -346,6 +357,7 @@ def test_return_raw_leaves_the_candidates(small, small_scenes, use_kernels):
     plain = build_batched_giga_planner_fn(net, cfg, pcfg, 0.3, use_kernels=use_kernels)
     raw_fn = build_batched_giga_planner_fn(net, cfg, pcfg, 0.3, use_kernels=use_kernels,
                                            return_raw=True)
+    assert raw_fn.paths["decode"] == ("K2" if use_kernels else "module")
     with torch.inference_mode():
         ref = plain(t, t)
         cands, raw = raw_fn(t, t)
