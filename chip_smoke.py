@@ -137,7 +137,12 @@ WIDE_BF16_STEPS = 2
 # decoding at arbitrary points (phase 22): occupancy queries a call (bench.py's
 # giga_geo_100k_queries_ms), lattice indices and points of the affordance
 # decodes, and the card's results against the CPU's and against the lattice
-# decode, |a - b| <= tol * (1 + |b|)
+# decode: |a - b| <= tol * (1 + |b|) for the unit-scale outputs (qual, rot,
+# width, points). giga_geo's occupancy logits reach |164| as sums of larger
+# terms, where float32 itself is coarser than that: the CPU's own float32
+# logits lie 3.4e-5 * (1 + |b|) from a float64 run of the same call (my CPU
+# run, PR 11); so they are held to tol * (1 + max |b|), the logits' scale,
+# and the phase prints the CPU's own distance from float64 beside it
 N_QUERIES = 100_000
 N_POINTS = 4096
 TOL_POINTS = 2e-5
@@ -356,6 +361,16 @@ def check_close(got, ref, tol: float, what: str):
     if not (rel <= tol and bool(torch.isfinite(got).all())):
         raise AssertionError(f"{what} differs from its plain version by {rel} > {tol}")
     return err, rel
+
+
+def check_scaled(got, ref, tol: float, what: str) -> float:
+    """max |a - b| / (1 + max |b|); raises past ``tol`` or on non-finite values."""
+    import torch
+
+    err = float((got - ref).abs().max() / (1.0 + ref.abs().max()))
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{what} differs by {err} x (1 + max |ref|) > {tol}")
+    return err
 
 
 def check_bf16(got, ref, what: str, far: float = TOL_BF16_FAR):
@@ -1296,20 +1311,30 @@ def points_phase(scenes, card) -> dict:
         raise AssertionError(f"decoding at points launched {launches}")
     errs = {}
     for k, got in card_out.items():
+        if k.startswith("occupancy"):
+            errs[k] = check_scaled(got.cpu(), cpu_out[k], TOL_POINTS, f"{k} on points")
+            continue
         pairs = list(zip(flat(got), flat(cpu_out[k])))
         if k == "lattice_points":
             pairs += list(zip(flat(got), flat(card_out["lattice_dense"])))
         errs[k] = max(check_close(a.float().cpu(), b.float().cpu(), TOL_POINTS,
                                   f"{k} on points")[1] for a, b in pairs)
+    with torch.inference_mode():  # the CPU's own float32 logits against float64
+        geo64 = copy.deepcopy(geo).double()
+        ref64 = geo64.decode_occupancy(geo64.encode(torch.from_numpy(tsdf).double()),
+                                       torch.from_numpy(queries).double())
+        own = float((cpu_out["occupancy_mm"].double() - ref64).abs().max()
+                    / (1 + ref64.abs().max()))
     if not np.abs(card_out["grad_refine"][1].cpu().numpy() - idx_points(idx, R)).max() > 1e-4:
         raise AssertionError("grad_refine did not move the points")
     with torch.inference_mode():
         times = {k: cuda_ms(f, 10) for k, f in thunks.items() if k != "grad_refine"}
     times["grad_refine"] = cuda_ms(thunks["grad_refine"], 10)
-    print(f"phase 22: decoding at points, each against the CPU within {TOL_POINTS} * (1 + |b|) "
-          f"(decode_lattice_points also against the lattice decode): max err/(1+|b|) "
-          f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} }; kernel launches {launches} "
-          f"(none expected)")
+    print(f"phase 22: decoding at points, each against the CPU within {TOL_POINTS} * (1 + |b|), "
+          f"the occupancy logits within {TOL_POINTS} * (1 + max |b|) (decode_lattice_points "
+          f"also against the lattice decode): max err/(1+|b|) "
+          f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} } (the CPU's own float32 "
+          f"logits against float64: {own:.3g}); kernel launches {launches} (none expected)")
     print(f"phase 22: encode + {N_QUERIES} occupancy queries (giga_geo): sampler mm "
           f"{times['occupancy_mm']:.3f} ms, gather {times['occupancy_gather']:.3f} ms; giga at "
           f"{N_POINTS} points: forward {times['forward']:.3f} ms, grad_refine (2 steps) "

@@ -16,7 +16,9 @@ Conventions:
   * Points live in [-0.5, 0.5]^3.
   * ``normalize_coordinate``: u = p / (1 + padding + 1e-5) + 0.5, then
     values >= 1 become 1 - 1e-5 and values < 0 become 0 (not a clamp);
-    ``normalize_3d_coordinate`` the same with 1e-3.
+    ``normalize_3d_coordinate`` the same with 1e-3. The division is a true
+    division on every device (``_divide``), so the card's coordinates are
+    the CPU's bit for bit.
   * align_corners=True: u in [0, 1] maps to pixel coordinate u * (R - 1);
     border padding clamps it to [0, R - 1], and the lower tap is clipped to
     R - 2, so the last cell interpolates with weight 1.
@@ -41,11 +43,19 @@ PLANE_AXES = {"xz": (0, 2), "xy": (0, 1), "yz": (1, 2)}
 PLANE_ORDER = ("xz", "xy", "yz")
 
 
+def _divide(p: torch.Tensor, d: float) -> torch.Tensor:
+    """p / d, correctly rounded on every device: CUDA divides by a Python
+    scalar as a product with its rounded reciprocal, a bit off the CPU's
+    (and XLA's) quotient, and a sampling coordinate carries that bit times
+    the plane's gradient into the features."""
+    return p / torch.full((), d, dtype=p.dtype, device=p.device)
+
+
 def normalize_coordinate(p2: torch.Tensor, padding: float = 0.0) -> torch.Tensor:
     """Map plane coordinates from [-0.5, 0.5] to [0, 1): divide by
     (1 + padding + 1e-5), shift by 0.5, set values >= 1 to 1 - 1e-5 and
     values < 0 to 0. Values in (1 - 1e-5, 1) pass through unchanged."""
-    u = p2 / (1.0 + padding + 1e-5) + 0.5
+    u = _divide(p2, 1.0 + padding + 1e-5) + 0.5
     u = torch.where(u >= 1.0, torch.full_like(u, 1.0 - 1e-5), u)
     u = torch.where(u < 0.0, torch.zeros_like(u), u)
     return u
@@ -54,7 +64,7 @@ def normalize_coordinate(p2: torch.Tensor, padding: float = 0.0) -> torch.Tensor
 def normalize_3d_coordinate(p3: torch.Tensor, padding: float = 0.0) -> torch.Tensor:
     """The 3D variant of ``normalize_coordinate``, with the reference's
     other epsilon, 1e-3 (common.py:263-279)."""
-    u = p3 / (1.0 + padding + 1e-3) + 0.5
+    u = _divide(p3, 1.0 + padding + 1e-3) + 0.5
     u = torch.where(u >= 1.0, torch.full_like(u, 1.0 - 1e-3), u)
     u = torch.where(u < 0.0, torch.zeros_like(u), u)
     return u
@@ -120,7 +130,7 @@ def positional_encoding_sincos(p: torch.Tensor, num_freqs: int = 10) -> torch.Te
 def map2local(p: torch.Tensor, unit_size: float, pos_encoding: str = "linear") -> torch.Tensor:
     """Points mapped to per-voxel local coordinates (reference
     common.py:404-420), sin/cos-encoded for ``pos_encoding="sin_cos"``."""
-    local = torch.remainder(p, unit_size) / unit_size
+    local = _divide(torch.remainder(p, unit_size), unit_size)
     if pos_encoding == "sin_cos":
         return positional_encoding_sincos(local)
     return local
