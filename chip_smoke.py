@@ -1290,11 +1290,12 @@ def points_phase(scenes, card) -> dict:
             "lattice_points": lambda: lattice_points()[0],
         }
         with torch.inference_mode():
-            out = {k: f() for k, f in thunks.items()}
-            (lp, feats) = lattice_points()
+            out = {k: f() for k, f in thunks.items() if k != "lattice_points"}
+            out["lattice_points"], feats = lattice_points()
             dense = decode_affordance_dense(dec, feats, coords, giga.cfg.decoder.n_blocks)
             out["lattice_dense"] = tuple(v[ix, iy, iz] for v in dense)
-            del lp
+        if not float((out["grad_refine"][1] - p).abs().max()) > 1e-4:
+            raise AssertionError("grad_refine did not move the points")
         return thunks, out
 
     def flat(v):
@@ -1325,8 +1326,6 @@ def points_phase(scenes, card) -> dict:
                                        torch.from_numpy(queries).double())
         own = float((cpu_out["occupancy_mm"].double() - ref64).abs().max()
                     / (1 + ref64.abs().max()))
-    if not np.abs(card_out["grad_refine"][1].cpu().numpy() - idx_points(idx, R)).max() > 1e-4:
-        raise AssertionError("grad_refine did not move the points")
     with torch.inference_mode():
         times = {k: cuda_ms(f, 10) for k, f in thunks.items() if k != "grad_refine"}
     times["grad_refine"] = cuda_ms(thunks["grad_refine"], 10)
@@ -1341,12 +1340,6 @@ def points_phase(scenes, card) -> dict:
           f"{times['grad_refine']:.3f} ms, encode + decode_lattice_points "
           f"{times['lattice_points']:.3f} ms | {card}")
     return times
-
-
-def idx_points(idx, R: int) -> np.ndarray:
-    """(1, N, 3) lattice positions of index triples idx (3, N)."""
-    c = np.linspace(-0.5, 0.5 - 1.0 / R, R).astype(np.float32)
-    return np.stack([c[i] for i in idx], axis=-1)[None]
 
 
 def main() -> int:

@@ -44,8 +44,8 @@ import numpy as np
 import torch
 
 from giga_tpu_torch.core.config import GIGAConfig, PlannerConfig
-from giga_tpu_torch.core.precision import full_precision
 from giga_tpu_torch.core.grasp import Grasp
+from giga_tpu_torch.core.precision import full_precision
 from giga_tpu_torch.core.transform import Rotation, Transform
 from giga_tpu_torch.inference.dense_decode import (
     decode_affordance_dense,
@@ -78,8 +78,6 @@ class State(NamedTuple):
     tsdf: object
     pc: object = None
     tsdf_process: object = None
-
-
 
 
 def resolve_device(device) -> torch.device:
@@ -470,10 +468,8 @@ class GIGAPlanner:
         elif net is None:
             net, model_cfg = load_network(model_path, model_type)
         net = net.to(self.device).eval()
-        if precision != "fp32" and not self.ensemble:
-            net = copy.deepcopy(net).to(PRECISIONS[precision])
-        elif self.ensemble:
-            net = net.to(PRECISIONS[precision])
+        if precision != "fp32":  # an ensemble's net is its own
+            net = (net if self.ensemble else copy.deepcopy(net)).to(PRECISIONS[precision])
         self.net = net
         self.model_cfg = model_cfg if model_cfg is not None else net.cfg
         self.planner_cfg = PlannerConfig(
