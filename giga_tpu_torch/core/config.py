@@ -9,6 +9,7 @@ Presets (reference names):
     giga_aff    affordance only (no occupancy decoder)
     giga_geo    occupancy decoder only
     giga_detach occupancy gradient does not flow into the encoder features
+    vgn         the dense conv-deconv VGN baseline
 """
 
 from __future__ import annotations
@@ -79,6 +80,17 @@ class GIGAConfig:
         return not self.tsdf_only
 
 
+@dataclasses.dataclass(frozen=True)
+class VGNConfig:
+    """Dense conv-deconv VGN baseline (reference: networks.py:48-63, 172-212)."""
+
+    name: str = "vgn"
+    encoder_filters: Tuple[int, ...] = (16, 32, 64)
+    encoder_kernels: Tuple[int, ...] = (5, 3, 3)
+    decoder_filters: Tuple[int, ...] = (64, 32, 16)
+    decoder_kernels: Tuple[int, ...] = (3, 3, 5)
+
+
 def giga() -> GIGAConfig:
     return GIGAConfig(name="giga", decoder_tsdf=True)
 
@@ -120,6 +132,10 @@ def giga_grid() -> GIGAConfig:
     )
 
 
+def vgn() -> VGNConfig:
+    return VGNConfig()
+
+
 PRESETS = {
     "giga": giga,
     "giga_aff": giga_aff,
@@ -127,10 +143,11 @@ PRESETS = {
     "giga_detach": giga_detach,
     "giga_grid": giga_grid,
     "giga_wide": giga_wide,
+    "vgn": vgn,
 }
 
 
-def get_config(name: str) -> GIGAConfig:
+def get_config(name: str):
     try:
         return PRESETS[name.lower()]()
     except KeyError:

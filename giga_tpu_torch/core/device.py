@@ -1,0 +1,15 @@
+"""Where the port's entry points run: the card unless the caller asks for
+the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; without one that is an error, not the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

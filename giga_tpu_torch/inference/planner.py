@@ -1,5 +1,6 @@
-"""GIGA grasp planner: TSDF in -> ranked grasps out, on the card
-(counterpart of giga_tpu/inference/planner.py, GIGA batched path).
+"""Grasp planners: TSDF in -> ranked grasps out, on the card
+(counterpart of giga_tpu/inference/planner.py): ``GIGAPlanner`` and the
+dense-CNN ``VGNPlanner``.
 
 Two programs run encoding, the dense R^3 affordance decode, Gaussian
 smoothing, surface masking, bounding, NMS and top-K; the host only turns the
@@ -31,11 +32,27 @@ the network's TSDF input cast to bf16 inside the program, the kernels in
 their bf16 modes (bf16 operands, float32 sums), and the heads, masking and
 the rest of the postprocess in float32, still under ``full_precision``.
 The program's precision is the net's parameter dtype.
+
+VGN (``build_vgn_planner_fn``, ``build_batched_vgn_planner_fn``,
+``VGNPlanner``): VGNNet's conv trunk and its three k=5 heads as one fused
+6-channel conv (cuDNN on the card; no kernel of this package), then the
+same postprocess with VGN's width window in voxel units and lattice indices
+as positions. Its ``default`` precision runs the convs with TF32 on
+(``tf32_precision``), the card's counterpart of the TPU's default matmul
+pass that the JAX package's VGN plan runs at; ``highest`` runs them with
+TF32 off; ``bf16`` runs a bf16 copy of the net. The postprocess always runs
+in float32 under ``full_precision``.
+
+With ``visualize=True`` both planners' ``__call__`` also returns the
+scene mesh colored by the predicted grasp quality, with a gripper glyph per
+grasp (``utils/visual.py``), and NMS takes a window of 8 voxels, as the
+reference's does.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from collections import deque
 from typing import NamedTuple, Optional
@@ -44,8 +61,9 @@ import numpy as np
 import torch
 
 from giga_tpu_torch.core.config import GIGAConfig, PlannerConfig
+from giga_tpu_torch.core.device import resolve_device
 from giga_tpu_torch.core.grasp import Grasp
-from giga_tpu_torch.core.precision import full_precision
+from giga_tpu_torch.core.precision import full_precision, tf32_precision
 from giga_tpu_torch.core.transform import Rotation, Transform
 from giga_tpu_torch.inference.dense_decode import (
     decode_affordance_dense,
@@ -65,6 +83,7 @@ from giga_tpu_torch.models.conv_onet import GIGANet
 from giga_tpu_torch.models.convert import flax_to_state_dict
 from giga_tpu_torch.models.encoder import can_encode_fused, encode_planes_fused
 from giga_tpu_torch.models.registry import get_network, load_network
+from giga_tpu_torch.models.vgn import fused_head_conv
 from giga_tpu_torch.ops.kernels.decoder import (
     can_dense_decode,
     decode_affordance_dense_kernel,
@@ -73,20 +92,13 @@ from giga_tpu_torch.ops.kernels.decoder import (
 
 
 class State(NamedTuple):
-    """Planner input: a TSDFVolume (or raw grid) + optional extras."""
+    """Planner input: a TSDF volume (``core.perception.TSDFVolume``, or any
+    object with ``get_grid()``, ``size`` and ``voxel_size``) or a raw grid,
+    plus optional extras."""
 
     tsdf: object
     pc: object = None
     tsdf_process: object = None
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card; without one that is an error, not the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass device='cpu' to plan on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def lattice_positions(coords: torch.Tensor) -> torch.Tensor:
@@ -102,18 +114,24 @@ def net_dtype(net) -> torch.dtype:
     return next(net.parameters()).dtype
 
 
+def voxel_indices(resolution: int, device) -> torch.Tensor:
+    """(R,) float32 lattice indices 0 .. R-1: VGN's lattice coordinates."""
+    return torch.arange(resolution, dtype=torch.float32, device=device)
+
+
 class _Lattice:
     """The lattice coords (R,) and positions (R, R, R, 3), made once per
     device: a copy from host memory inside a program would wait for the
-    card's queue."""
+    card's queue. ``coords`` makes the (R,) coordinates on a device."""
 
-    def __init__(self, resolution: int):
+    def __init__(self, resolution: int, coords=lattice_coords):
         self.resolution = resolution
+        self._coords = coords
         self._by_device = {}
 
     def __call__(self, device):
         if device not in self._by_device:
-            coords = lattice_coords(self.resolution, device)
+            coords = self._coords(self.resolution, device)
             self._by_device[device] = (coords, lattice_positions(coords))
         return self._by_device[device]
 
@@ -365,6 +383,91 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     return plan
 
 
+VGN_RESOLUTION = 40
+VGN_WIDTHS = (1.33, 9.33)  # the reference VGN's width window, voxel units (detection.py:116-118)
+VGN_PRECISIONS = ("default", "highest", "bf16")
+
+
+def _vgn_scope(precision: str):
+    """TF32 off for ``highest``, on for ``default`` (see the module docstring)."""
+    return full_precision() if precision == "highest" else tf32_precision()
+
+
+def _vgn_setup(planner_cfg: PlannerConfig, size: float, precision: str):
+    """(planner config with VGN's width window, voxel size, lattice of
+    indices) of a VGN program at ``precision``."""
+    if precision not in ("default", "highest"):
+        raise ValueError(f"precision must be 'default' or 'highest', got {precision!r}")
+    cfg = dataclasses.replace(planner_cfg, min_width=VGN_WIDTHS[0], max_width=VGN_WIDTHS[1])
+    return cfg, size / VGN_RESOLUTION, _Lattice(VGN_RESOLUTION, voxel_indices)
+
+
+def build_vgn_planner_fn(net, planner_cfg: PlannerConfig, size: float,
+                         precision: str = "default", return_raw: bool = False):
+    """Single-scene VGN program (counterpart of the JAX package's
+    ``build_vgn_planner_fn``): (tsdf (40,40,40), tsdf_process (40,40,40)) ->
+    unbatched GraspCandidates, positions as lattice indices and widths in
+    voxel units (reference detection.py), left on the tensors' device.
+
+    The trunk and the fused head run in the net's dtype under ``precision``
+    ("default": TF32 on; "highest": TF32 off); qual, rot and width are then
+    cast to float32, and the postprocess runs in float32 with TF32 off.
+    ``return_raw`` makes the program return ``(cands, (qual, rot, width))``,
+    the float32 volumes, rot (40, 40, 40, 4).
+    """
+    cfg, voxel_size, lattice = _vgn_setup(planner_cfg, size, precision)
+    dtype = net_dtype(net)
+    R = VGN_RESOLUTION
+
+    def plan(tsdf: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
+        _check_single(tsdf, tsdf_process, R, R)
+        _, positions = lattice(tsdf.device)
+        with torch.inference_mode():
+            with _vgn_scope(precision):
+                x = net.trunk(tsdf[None].to(dtype))
+                out = fused_head_conv(net, x)
+            qual, rot, width = (v[0].float() for v in out)
+            with full_precision():
+                cands = _postprocess(qual, rot.reshape(4, -1), width, tsdf_process, positions,
+                                     voxel_size, cfg)
+            return (cands, (qual, rot.permute(1, 2, 3, 0), width)) if return_raw else cands
+
+    return plan
+
+
+def build_batched_vgn_planner_fn(net, planner_cfg: PlannerConfig, size: float,
+                                 precision: str = "default"):
+    """Batched VGN program (counterpart of the JAX package's
+    ``build_batched_vgn_planner_fn``): (tsdfs (B,40,40,40), tsdf_process
+    (B,40,40,40)) -> GraspCandidates with a leading batch axis, each scene's
+    equal to ``build_vgn_planner_fn``'s. The trunk and fused head batch on
+    the leading axis; qual and width are cast to float32 for the
+    postprocess, and rot stays in the trunk's dtype until after the top-K
+    gather, in the JAX program's order."""
+    cfg, voxel_size, lattice = _vgn_setup(planner_cfg, size, precision)
+    dtype = net_dtype(net)
+    R = VGN_RESOLUTION
+
+    def plan(tsdfs: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
+        if tsdfs.ndim != 4 or tuple(tsdfs.shape[1:]) != (R, R, R):
+            raise ValueError(f"expected (B, {R}, {R}, {R}) TSDF grids, got {tuple(tsdfs.shape)}")
+        if tuple(tsdf_process.shape) != tuple(tsdfs.shape):
+            raise ValueError(f"expected {tuple(tsdfs.shape)} process grids, "
+                             f"got {tuple(tsdf_process.shape)}")
+        _, positions = lattice(tsdfs.device)
+        B = tsdfs.shape[0]
+        with torch.inference_mode():
+            with _vgn_scope(precision):
+                qual, rot, width = fused_head_conv(net, net.trunk(tsdfs.to(dtype)))
+            with full_precision():
+                w32 = width.float()
+                masked = mask_quality(qual.float(), tsdf_process, w32, cfg)
+                masked = bound_quality(masked, voxel_size, cfg)
+                return select_grasps_batched(masked, rot.reshape(B, 4, -1), w32, positions, cfg)
+
+    return plan
+
+
 def candidates_to_host(cands: GraspCandidates) -> GraspCandidates:
     """Fetch device candidates to numpy (the only wait on the card)."""
     return GraspCandidates(*(t.cpu().numpy() for t in cands))
@@ -377,16 +480,22 @@ def _as_batch(grids) -> np.ndarray:
     return a.reshape(-1, *a.shape[-3:])
 
 
+def _is_volume(tsdf) -> bool:
+    """A TSDF volume (``get_grid()``, ``size``, ``voxel_size``), not a grid."""
+    return hasattr(tsdf, "get_grid")
+
+
 def _get_grids(state: State, resolution: int, default_size: float):
-    """Extract (tsdf_grid, process_grid, voxel_size, size) from a State."""
+    """Extract (tsdf_grid, process_grid, voxel_size, size) from a State whose
+    ``tsdf`` (and ``tsdf_process``) is a TSDF volume or a grid array."""
     tsdf = state.tsdf
-    if isinstance(tsdf, np.ndarray):
-        grid = tsdf
+    if not _is_volume(tsdf):
+        grid = np.asarray(tsdf)
         size = default_size
         voxel_size = size / resolution
         if state.tsdf_process is not None:
             tp = state.tsdf_process
-            process_grid = tp if isinstance(tp, np.ndarray) else tp.get_grid()
+            process_grid = tp.get_grid() if _is_volume(tp) else np.asarray(tp)
         else:
             process_grid = grid
     else:
@@ -396,6 +505,26 @@ def _get_grids(state: State, resolution: int, default_size: float):
         voxel_size = tsdf_process.voxel_size
         process_grid = tsdf_process.get_grid()
     return np.squeeze(grid), np.squeeze(process_grid), voxel_size, size
+
+
+def upload(grid, device: torch.device) -> torch.Tensor:
+    """One (R, R, R) or (1, R, R, R) grid onto ``device``, through pinned
+    memory without waiting for the card's queue."""
+    a = np.asarray(grid, np.float32)
+    t = torch.from_numpy(a.reshape(a.shape[-3:]))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def _affordance_scene(raw, grasps, scores, scene_mesh, size: float, **aff_kwargs):
+    """The scene mesh colored by the raw qual volume near its faces, with a
+    gripper glyph per grasp (the JAX package's ``_affordance_scene``)."""
+    from giga_tpu_torch.utils import visual
+
+    qual, rot, width = (v.cpu().numpy() for v in raw)
+    colored = visual.affordance_visual(qual, rot, scene_mesh, size, qual.shape[0], **aff_kwargs)
+    return visual.compose_scene(colored, grasps, scores)
 
 
 class GIGAPlanner:
@@ -412,6 +541,12 @@ class GIGAPlanner:
     Weights come from ``model_path`` (.msgpack), a flax ``params`` tree, or
     a ready ``net``. ``precision="bf16"`` plans with a bf16 copy of the net,
     made once here (a ``net`` passed in is not changed), in both programs.
+
+    ``visualize=True``: NMS takes a window of 8 voxels, and ``__call__(state,
+    scene_mesh, aff_kwargs)`` returns ``(grasps, scores, toc, composed)``,
+    ``composed`` the TriMesh of ``scene_mesh`` colored by the raw qual
+    volume of the same program run (``utils.visual.affordance_visual``,
+    ``aff_kwargs`` passed to it) with a gripper glyph per grasp.
 
     A list of flax ``params`` trees is a checkpoint ensemble (the JAX
     package's ``GIGAPlanner(params=[...])``): ``__call__`` and
@@ -445,8 +580,6 @@ class GIGAPlanner:
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
-        if visualize:
-            raise NotImplementedError("affordance visualization is not ported")
         self.ensemble = isinstance(params, (list, tuple))
         if self.ensemble and ensemble_combine not in ENSEMBLE_COMBINES:
             raise ValueError(f"unknown ensemble combine {ensemble_combine!r}")
@@ -480,35 +613,36 @@ class GIGAPlanner:
             force_detection=force_detection,
             best=best,
             max_grasps=max_grasps,
-            max_filter_size=4,
+            # wider NMS when visualizing, like the reference
+            # (detection_implicit.py:59 max_filter_size=8 if visualize)
+            max_filter_size=8 if visualize else 4,
         )
         self.size = size
         self.rng = rng if rng is not None else np.random
+        self.visualize = visualize
         self._fn = None
         self._vfn = None
 
     def _ensure_fn(self):
         """Build (once) the single-scene program of __call__ and plan_stream
         (the ensemble program for an ensemble); on the card its decode runs
-        kernel K3 where K3 takes the shapes."""
+        kernel K3 where K3 takes the shapes. With ``visualize`` it also
+        returns the raw volumes."""
         if self._fn is None:
             if self.ensemble:
                 self._fn = build_ensemble_giga_planner_fn(
                     self.net, self.stacked, self.model_cfg, self.planner_cfg, self.size,
-                    combine=self.ensemble_combine, use_kernels=True)
+                    combine=self.ensemble_combine, use_kernels=True, return_raw=self.visualize)
             else:
                 self._fn = build_giga_planner_fn(
-                    self.net, self.model_cfg, self.planner_cfg, self.size, use_kernels=True)
+                    self.net, self.model_cfg, self.planner_cfg, self.size, use_kernels=True,
+                    return_raw=self.visualize)
         return self._fn
 
-    def _upload(self, grid) -> torch.Tensor:
-        """One (R, R, R) or (1, R, R, R) grid onto the device, through pinned
-        memory without waiting for the card's queue."""
-        a = np.asarray(grid, np.float32)
-        t = torch.from_numpy(a.reshape(a.shape[-3:]))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+    def _plan_single(self, grid: torch.Tensor, process_grid: torch.Tensor):
+        """(candidates, raw volumes or None) of one scene's program run."""
+        out = self._ensure_fn()(grid, process_grid)
+        return out if self.visualize else (out, None)
 
     def _ensure_batched_fn(self):
         """Build (once) the batched program shared by plan_batch and
@@ -528,7 +662,7 @@ class GIGAPlanner:
         return candidates_to_grasps(cands, scale=self.size, offset=0.5, width_scale=self.size,
                                     best=self.planner_cfg.best, rng=self.rng)
 
-    def __call__(self, state: State):
+    def __call__(self, state: State, scene_mesh=None, aff_kwargs=None):
         grid, process_grid, _, size = _get_grids(state, self.planner_cfg.resolution, self.size)
         if abs(size - self.size) > 1e-9:
             # border margins and the metric width window derive from
@@ -537,11 +671,17 @@ class GIGAPlanner:
                 f"state TSDF size {size} != planner size {self.size}; "
                 f"construct GIGAPlanner(size={size}) for this workspace"
             )
-        fn = self._ensure_fn()
+        self._ensure_fn()
         tic = time.time()
-        host = candidates_to_host(fn(self._upload(grid), self._upload(process_grid)))
+        cands, raw = self._plan_single(upload(grid, self.device),
+                                       upload(process_grid, self.device))
+        host = candidates_to_host(cands)
         toc = time.time() - tic
         grasps, scores = self._to_grasps(host)
+        if self.visualize:
+            composed = _affordance_scene(raw, grasps, scores, scene_mesh, size,
+                                         **(aff_kwargs or {}))
+            return grasps, scores, toc, composed
         return grasps, scores, toc
 
     def plan_stream(self, tsdf_grids, process_grids=None):
@@ -558,12 +698,12 @@ class GIGAPlanner:
         Returns:
             list of (grasps, scores) per scene, in input order.
         """
-        fn = self._ensure_fn()
         pending, out = deque(), []
         for i, grid in enumerate(tsdf_grids):
-            g = self._upload(grid)
-            p = g if process_grids is None else self._upload(process_grids[i])
-            pending.append(fetch_async(fn(g, p)))
+            g = upload(grid, self.device)
+            p = g if process_grids is None else upload(process_grids[i], self.device)
+            cands, _ = self._plan_single(g, p)
+            pending.append(fetch_async(cands))
             if len(pending) > 1:
                 out.append(self._collect(pending.popleft()))
         while pending:
@@ -595,9 +735,139 @@ class GIGAPlanner:
                 for i in range(grids.shape[0])]
 
 
+class VGNPlanner:
+    """VGN-equivalent host wrapper (dense 3D CNN + the same postprocess;
+    counterpart of the JAX package's ``VGNPlanner``): ``__call__`` runs the
+    single-scene program, ``plan_batch`` the batched one, both built at
+    first use.
+
+    __call__(state) -> (grasps, scores, toc): grasps in metric workspace
+    coordinates (lattice index x voxel size, reference detection.py:71),
+    best-first when ``best`` else randomly permuted. It reads only
+    ``state.tsdf`` (a 40^3 grid or TSDF volume, whose ``voxel_size`` then
+    scales the grasps), as the reference does. ``precision``: "default"
+    (convs with TF32 on the card), "highest" (TF32 off) or "bf16" (a bf16
+    copy of the net, made once here). ``visualize=True`` as GIGAPlanner's.
+    ``device=None`` runs on the card and raises without one; pass
+    ``device="cpu"`` to plan on the CPU. Weights come from ``model_path``
+    (.msgpack), a flax ``params`` tree, or a ready VGNNet ``net``.
+    """
+
+    def __init__(
+        self,
+        model_path=None,
+        model_type: str = "vgn",
+        best: bool = False,
+        force_detection: bool = False,
+        qual_th: float = 0.9,
+        out_th: float = 0.5,
+        size: float = 0.3,
+        max_grasps: int = 128,
+        net=None,
+        params=None,
+        rng: Optional[np.random.RandomState] = None,
+        visualize: bool = False,
+        precision: str = "default",
+        device=None,
+    ):
+        if precision not in VGN_PRECISIONS:
+            raise ValueError(f"precision must be one of {VGN_PRECISIONS}, got {precision!r}")
+        if net is not None and params is not None:
+            raise ValueError("pass a loaded net or a params tree, not both")
+        self.device = resolve_device(device)
+        if params is not None:
+            net, _ = get_network(model_type)
+            net.load_state_dict(flax_to_state_dict(params))
+        elif net is None:
+            net, _ = load_network(model_path, model_type)
+        net = net.to(self.device).eval()
+        if precision == "bf16":
+            net = copy.deepcopy(net).to(torch.bfloat16)
+        self.net = net
+        self.precision = precision
+        self.planner_cfg = PlannerConfig(
+            qual_th=qual_th,
+            out_th=out_th,
+            force_detection=force_detection,
+            best=best,
+            max_grasps=max_grasps,
+            # wider NMS when visualizing, like the reference
+            # (detection.py:60 max_filter_size=8 if visualize)
+            max_filter_size=8 if visualize else 4,
+        )
+        self.size = size
+        self.rng = rng if rng is not None else np.random
+        self.visualize = visualize
+        self._fn = None
+        self._vfn = None
+
+    @property
+    def _scope(self) -> str:
+        return "highest" if self.precision == "highest" else "default"
+
+    def _ensure_fn(self):
+        """Build (once) the single-scene program of __call__."""
+        if self._fn is None:
+            self._fn = build_vgn_planner_fn(self.net, self.planner_cfg, self.size,
+                                            precision=self._scope, return_raw=self.visualize)
+        return self._fn
+
+    def _ensure_batched_fn(self):
+        """Build (once) the batched program of plan_batch."""
+        if self._vfn is None:
+            self._vfn = build_batched_vgn_planner_fn(self.net, self.planner_cfg, self.size,
+                                                     precision=self._scope)
+        return self._vfn
+
+    def _to_grasps(self, cands: GraspCandidates, voxel_size: float):
+        return candidates_to_grasps(cands, scale=voxel_size, offset=0.0, width_scale=voxel_size,
+                                    best=self.planner_cfg.best, rng=self.rng)
+
+    def __call__(self, state: State, scene_mesh=None, aff_kwargs=None):
+        # a hi-res tsdf_process must neither mask the 40^3 volumes nor set
+        # the voxel scale (reference detection.py:44-47)
+        grid, _, _, _ = _get_grids(state, VGN_RESOLUTION, self.size)
+        tsdf = state.tsdf
+        voxel_size = tsdf.voxel_size if _is_volume(tsdf) else self.size / VGN_RESOLUTION
+        fn = self._ensure_fn()
+        tic = time.time()
+        g = upload(grid, self.device)
+        out = fn(g, g)
+        cands, raw = out if self.visualize else (out, None)
+        host = candidates_to_host(cands)
+        toc = time.time() - tic
+        grasps, scores = self._to_grasps(host, voxel_size)
+        if self.visualize:
+            composed = _affordance_scene(raw, grasps, scores, scene_mesh, self.size,
+                                         **(aff_kwargs or {}))
+            return grasps, scores, toc, composed
+        return grasps, scores, toc
+
+    def plan_batch(self, tsdf_grids, process_grids=None):
+        """Plan a whole batch of VGN scenes in one program.
+
+        Args:
+            tsdf_grids: (B, 40, 40, 40) float32 ((B, 1, 40³) and a single
+                grid are taken too).
+        Returns:
+            list of (grasps, scores) per scene, each equal to ``__call__``'s
+            on a grid.
+        """
+        fn = self._ensure_batched_fn()
+        grids = torch.from_numpy(_as_batch(tsdf_grids)).to(self.device)
+        proc = grids if process_grids is None else torch.from_numpy(
+            _as_batch(process_grids)).to(self.device)
+        host = candidates_to_host(fn(grids, proc))
+        voxel_size = self.size / VGN_RESOLUTION
+        return [self._to_grasps(GraspCandidates(*(x[i] for x in host)), voxel_size)
+                for i in range(grids.shape[0])]
+
+
 def candidates_to_grasps(cands: GraspCandidates, scale, offset, width_scale, best, rng):
     """Top-K arrays -> ordered list of metric Grasp objects; metric position
-    = (pos + offset) * scale (detection_implicit.py:72)."""
+    = (pos + offset) * scale: GIGA's (pos + 0.5) * size
+    (detection_implicit.py:72), VGN's voxel index * voxel size
+    (detection.py:71)."""
     count = int(cands.count)
     grasps, scores = [], []
     order = np.arange(count) if best else rng.permutation(count)

@@ -13,6 +13,12 @@ The encoder's state-dict names are the reference's (``encoder.conv_in``,
 names. ``to_reference_state_dict`` splits the heads back out into the
 reference's per-head Linear names, the form the JAX package's own
 ``convert_giga_state_dict`` reads.
+
+A VGN tree (``enc_conv1`` ... ``conv_width``) maps onto VGNNet, whose
+names are already the reference's (``encoder.conv1``, ``decoder.conv1``,
+``conv_qual`` ...): its kernels go (D, H, W, I, O) -> (O, I, D, H, W), and
+``to_reference_state_dict`` returns its state unchanged, the form the JAX
+package's ``convert_vgn_state_dict`` reads.
 """
 
 from __future__ import annotations
@@ -27,16 +33,37 @@ def _f32(a) -> np.ndarray:
     return np.array(a, dtype=np.float32)  # a writable copy
 
 
+def _conv3d(sd: dict, key: str, tree: dict) -> None:
+    sd[key + ".weight"] = _f32(tree["conv"]["kernel"]).transpose(4, 3, 0, 1, 2)
+    sd[key + ".bias"] = _f32(tree["conv"]["bias"])
+
+
+def _tensors(sd: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def _vgn_state_dict(p: dict) -> dict:
+    """Flax VGN param tree -> {name: torch.Tensor} for ``VGNNet.load_state_dict``."""
+    sd = {}
+    for i in (1, 2, 3):
+        _conv3d(sd, f"encoder.conv{i}", p[f"enc_conv{i}"])
+        _conv3d(sd, f"decoder.conv{i}", p[f"dec_conv{i}"])
+    for head in ("conv_qual", "conv_rot", "conv_width"):
+        _conv3d(sd, head, p[head])
+    return _tensors(sd)
+
+
 def flax_to_state_dict(params: dict) -> dict:
-    """Flax GIGA param tree -> {name: torch.Tensor} for ``GIGANet.load_state_dict``."""
+    """Flax GIGA or VGN param tree -> {name: torch.Tensor} for the module's
+    ``load_state_dict``."""
     p = params.get("params", params)
+    if "enc_conv1" in p:
+        return _vgn_state_dict(p)
     enc = p["encoder"]
     if "unet" not in enc:
         raise NotImplementedError("only the triplane (U-Net) encoder is ported")
     sd = {}
-    conv = enc["conv_in"]["conv"]
-    sd["encoder.conv_in.weight"] = _f32(conv["kernel"]).transpose(4, 3, 0, 1, 2)
-    sd["encoder.conv_in.bias"] = _f32(conv["bias"])
+    _conv3d(sd, "encoder.conv_in", enc["conv_in"])
 
     def conv2d(key, tree):
         sd[key + ".weight"] = _f32(tree["conv"]["kernel"]).transpose(3, 2, 0, 1)
@@ -59,7 +86,7 @@ def flax_to_state_dict(params: dict) -> dict:
     for dec in ("decoder_aff", "decoder_occ"):
         for name, arr in p.get(dec, {}).items():
             sd[f"{dec}.{name}"] = _f32(arr)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def to_reference_state_dict(state: dict) -> dict:
@@ -67,9 +94,12 @@ def to_reference_state_dict(state: dict) -> dict:
 
     Each stacked head becomes its own LocalDecoder (``decoder_qual.fc_p`` ...,
     torch Linear layout (out, in)); fc_out keeps the stacked out_dim, so
-    converting back reproduces the stacked arrays exactly.
+    converting back reproduces the stacked arrays exactly. A VGN state is
+    under the reference's names already.
     """
     sd = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    if "conv_qual.weight" in sd:
+        return sd
     out = {k: v for k, v in sd.items() if k.startswith("encoder.")}
     groups = {"decoder_aff": AFFORDANCE_HEADS, "decoder_occ": ("decoder_tsdf",)}
     for dec, names in groups.items():

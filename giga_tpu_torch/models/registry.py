@@ -3,8 +3,9 @@
 ``get_network(name)`` returns (module, config). ``load_network(path)`` reads
 a flax ``.msgpack`` parameter file with the pure-Python reader and loads it
 through the weight bridge. The model type is inferred from the filename
-pattern ``{prefix}_{type}_...`` when not given. ``init_network(name, seed)``
-gives a preset seeded random weights without the JAX package.
+pattern ``{prefix}_{type}_...`` when not given; a ``vgn`` type builds a VGNNet,
+every other preset a GIGANet. ``init_network(name, seed)`` gives a preset
+seeded random weights without the JAX package.
 """
 
 from __future__ import annotations
@@ -13,15 +14,19 @@ from pathlib import Path
 
 import torch
 
-from giga_tpu_torch.core.config import get_config
+from giga_tpu_torch.core.config import VGNConfig, get_config
 from giga_tpu_torch.models.checkpoint import load_params
 from giga_tpu_torch.models.conv_onet import GIGANet
 from giga_tpu_torch.models.convert import flax_to_state_dict
+from giga_tpu_torch.models.vgn import VGNNet
 
 
 def get_network(name: str):
-    """Build (GIGANet, config) for a preset name, weights zero until loaded."""
+    """Build (GIGANet or VGNNet, config) for a preset name, weights
+    PyTorch's default until loaded."""
     cfg = get_config(name)
+    if isinstance(cfg, VGNConfig):
+        return VGNNet(cfg), cfg
     return GIGANet(cfg), cfg
 
 
@@ -31,7 +36,7 @@ def infer_model_type(path) -> str:
 
 
 def load_network(path, model_type: str | None = None):
-    """Load a ``.msgpack`` checkpoint -> (GIGANet in eval mode, config). The
+    """Load a ``.msgpack`` checkpoint -> (module in eval mode, config). The
     module is built in host memory; callers move it where it runs."""
     path = Path(path)
     if path.suffix != ".msgpack":
@@ -42,7 +47,7 @@ def load_network(path, model_type: str | None = None):
 
 
 def init_network(name: str, seed: int = 0):
-    """(GIGANet in eval mode, config) of a preset with seeded random weights,
+    """(module in eval mode, config) of a preset with seeded random weights,
     for presets that ship no checkpoint: every weight and bias uniform in
     +-1/sqrt(fan_in) of its layer (torch's default bound for Linear and
     Conv layers; a stacked decoder weight (heads, fan_in, out) and its bias
@@ -53,7 +58,7 @@ def init_network(name: str, seed: int = 0):
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name_, p in params.items():
-            if name_.startswith("decoder"):
+            if name_.endswith(("_kernel", "_bias")):
                 fan_in = params[name_.replace("_bias", "_kernel")].shape[1]
             else:
                 weight = params[name_.rsplit(".", 1)[0] + ".weight"]

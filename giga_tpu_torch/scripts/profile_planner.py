@@ -164,7 +164,7 @@ def profile_single(planner, scene, card: str, n: int) -> None:
     import torch
 
     import chip_smoke
-    from giga_tpu_torch.inference.planner import State, candidates_to_host
+    from giga_tpu_torch.inference.planner import State, candidates_to_host, upload
 
     single, batched = planner._ensure_fn(), planner._ensure_batched_fn()
     programs = {
@@ -188,7 +188,7 @@ def profile_single(planner, scene, card: str, n: int) -> None:
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            g = shape(planner._upload(scene))
+            g = shape(upload(scene, planner.device))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             cands = fn(g, g)

@@ -109,7 +109,11 @@ def _modules():
 
 def test_port_imports_without_jax():
     """Every module imports in a process where jax, flax and msgpack cannot
-    be imported, and none of the JAX package is loaded."""
+    be imported, and none of the JAX package is loaded; the modules include
+    VGN, TSDF fusion, perception, meshes and visualization."""
+    assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
+            "giga_tpu_torch.core.perception", "giga_tpu_torch.core.device",
+            "giga_tpu_torch.geometry.mesh", "giga_tpu_torch.utils.visual"} <= set(_modules())
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'giga_tpu'):\n"
@@ -132,6 +136,8 @@ def test_port_sources_name_no_jax_package():
     pattern = re.compile(r"^\s*(from|import)\s+(giga_tpu(\.|\s|$)|jax|flax|msgpack)", re.M)
     files = list(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    assert {PACKAGE / "ops" / "tsdf.py", PACKAGE / "utils" / "visual.py",
+            PACKAGE / "geometry" / "mesh.py", PACKAGE / "models" / "vgn.py"} <= set(files)
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
@@ -153,9 +159,11 @@ def test_planner_without_card_raises(monkeypatch):
 def test_planner_rejects_unported_options():
     """bf16 and checkpoint ensembles are ported: they construct, with a bf16
     net and two stacked members; an ensemble's batched program raises, as
-    the JAX package's does. Affordance visualization is not ported, and
-    raises."""
-    from giga_tpu_torch.inference.planner import GIGAPlanner
+    the JAX package's does. Affordance visualization is ported: the planner
+    builds, and __call__ returns (grasps, scores, toc, composed scene)."""
+    import chip_smoke
+    from giga_tpu_torch.geometry.mesh import TriMesh
+    from giga_tpu_torch.inference.planner import GIGAPlanner, State
 
     path = REPO / CHECKPOINTS[0]
     planner = GIGAPlanner(path, precision="bf16", device="cpu")
@@ -164,8 +172,11 @@ def test_planner_rejects_unported_options():
     assert ens.stacked["decoder_aff.fc_p_kernel"].shape[0] == 2
     with pytest.raises(NotImplementedError):
         ens.plan_batch(np.zeros((1, 40, 40, 40), np.float32))
-    with pytest.raises(NotImplementedError):
-        GIGAPlanner(path, visualize=True, device="cpu")
+    viz = GIGAPlanner(path, visualize=True, device="cpu", **chip_smoke.PLANNER_KW)
+    out = viz(State(tsdf=chip_smoke.make_scenes(1)),
+              scene_mesh=chip_smoke.scene_mesh(chip_smoke.scene_objects(1)[0]))
+    assert len(out) == 4 and isinstance(out[3], TriMesh) and len(out[0]) >= 1
+    assert len(out[3].face_colors) == len(out[3].faces)
 
 
 def test_chip_smoke_fails_without_card():
