@@ -13,10 +13,16 @@ single-scene program of JAX's ``GIGAPlanner(precision="bf16")``, which its
 candidates and raw qual of JAX's float32 checkpoint-ensemble program
 (``build_ensemble_giga_planner_fn``) with each combiner, on the shipped
 checkpoint and its perturbed copy (``chip_smoke.perturbed_params``), scene
-by scene. These tests regenerate them and assert the committed files are
-current. Rewrite them with
+by scene; ``golden_plan_vgn.npz`` the seeded VGN weights
+(tests/test_torch_vgn.py::jax_vgn_params) and the candidates of JAX's
+``highest`` VGN programs, single-scene (with its raw qual) and batched;
+``golden_tsdf_fusion.npz`` chip_smoke's ray-cast depth views of its first
+scenes at the simulator's camera settings and JAX's 40^3 ``fuse_views`` of
+them. These tests regenerate them and assert the committed files are
+current. Rewrite them all, or those whose names contain the given words,
+with
 
-    JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
+    JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write [vgn fusion ...]
 """
 
 import sys
@@ -33,6 +39,8 @@ import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from test_torch_bf16 import jax_bf16_planner_reference, jax_tpu_reference  # noqa: E402
+from test_torch_vgn import jax_candidates, jax_vgn_params  # noqa: E402
+from giga_tpu.ops.tsdf import fuse_views  # noqa: E402
 from giga_tpu.core.config import PlannerConfig  # noqa: E402
 from giga_tpu.inference.planner import (  # noqa: E402
     build_batched_giga_planner_fn,
@@ -42,6 +50,7 @@ from giga_tpu.inference.planner import (  # noqa: E402
 from giga_tpu.models.registry import get_network, load_params  # noqa: E402
 
 N_SCENES = 4
+N_FUSION_SCENES = 2
 FIELDS = ("scores", "positions", "rotations", "widths", "count")
 
 
@@ -110,6 +119,45 @@ def golden_ensemble_arrays() -> dict:
     return out
 
 
+def golden_vgn_arrays() -> dict:
+    """The seeded VGN weights (flattened under "params/") and JAX's highest
+    single-scene candidates (prefix "single_", with the raw qual) and
+    batched candidates (prefix "batch_") for the first N_SCENES chip_smoke
+    scenes."""
+    _, params = jax_vgn_params()
+    tsdf, singles, batch = jax_candidates(N_SCENES)
+    out = {"tsdf": tsdf, **chip_smoke.flatten_params(params)}
+    for f in FIELDS:
+        out[f"single_{f}"] = np.stack([np.asarray(getattr(c, f)) for c, _ in singles])
+        out[f"batch_{f}"] = np.asarray(getattr(batch, f))
+    out["single_qual"] = np.stack([np.asarray(raw[0], np.float32) for _, raw in singles])
+    return out
+
+
+def fusion_inputs(n: int = N_FUSION_SCENES):
+    """(depth views (n, V, H, W), extrinsics (V, 4, 4), K (3, 3)), float32:
+    chip_smoke's ray-cast views of its first n scenes."""
+    views = chip_smoke.camera_views()
+    depth = np.stack([[chip_smoke.render_depth(objects, e) for e in views]
+                      for objects in chip_smoke.scene_objects(n)])
+    w, h, fx, fy, cx, cy = chip_smoke.CAMERA
+    K = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], np.float32)
+    return depth, np.stack([e.as_matrix() for e in views]).astype(np.float32), K
+
+
+def golden_fusion_arrays() -> dict:
+    """chip_smoke's depth views of its first N_FUSION_SCENES scenes and
+    JAX's 40^3 fuse_views of each scene's views."""
+    depth, extrinsics, K = fusion_inputs()
+    fused = [jax.device_get(fuse_views(jnp.asarray(d), jnp.asarray(K), jnp.asarray(extrinsics),
+                                       resolution=chip_smoke.RESOLUTION, size=chip_smoke.SIZE,
+                                       sdf_trunc=4 * chip_smoke.SIZE / chip_smoke.RESOLUTION))
+             for d in depth]
+    return {"depth": depth, "extrinsics": extrinsics, "K": K,
+            "tsdf": np.stack([np.asarray(t) for t, _ in fused]),
+            "weight": np.stack([np.asarray(w) for _, w in fused])}
+
+
 def _assert_current(path: str, fresh: dict, prefix: str = ""):
     """Regenerated candidates equal the committed ones: same counts and
     positions, scores/widths/rotations within 1e-6 (the CPU XLA build may
@@ -152,6 +200,30 @@ def test_ensemble_call_golden_file_is_current():
         _assert_current(chip_smoke.GOLDEN_ENSEMBLE, fresh, f"{combine}_")
 
 
+def test_vgn_golden_file_is_current():
+    fresh = golden_vgn_arrays()
+    stored = np.load(REPO / chip_smoke.GOLDEN_VGN)
+    for k in fresh:
+        if k.startswith("params/"):
+            np.testing.assert_array_equal(stored[k], fresh[k], err_msg=k)
+    assert {k for k in stored if k.startswith("params/")} == {
+        k for k in fresh if k.startswith("params/")}
+    for prefix in ("single_", "batch_"):
+        _assert_current(chip_smoke.GOLDEN_VGN, fresh, prefix)
+
+
+def test_fusion_golden_file_is_current():
+    """The depth views and JAX's fused volumes: views equal, tsdf within
+    1e-6, weights equal."""
+    fresh = golden_fusion_arrays()
+    stored = np.load(REPO / chip_smoke.GOLDEN_FUSION)
+    assert set(stored) == set(fresh)
+    for k in ("depth", "extrinsics", "K", "weight"):
+        np.testing.assert_array_equal(stored[k], fresh[k], err_msg=k)
+    np.testing.assert_allclose(stored["tsdf"], fresh["tsdf"], atol=1e-6, rtol=0)
+    assert (fresh["weight"] == chip_smoke.N_VIEWS).any() and (fresh["tsdf"] > 0.5).any()
+
+
 def test_golden_scenes_are_planner_tsdfs():
     """chip_smoke's analytic scenes follow the planner's TSDF convention:
     values in [0, 1], saturated far from surfaces, some voxels inside."""
@@ -164,10 +236,15 @@ def test_golden_scenes_are_planner_tsdfs():
 
 
 if __name__ == "__main__" and "--write" in sys.argv:
+    words = sys.argv[sys.argv.index("--write") + 1:]
     for path, arrays in ((chip_smoke.GOLDEN, golden_arrays),
                          (chip_smoke.GOLDEN_BF16, golden_bf16_arrays),
                          (chip_smoke.GOLDEN_BF16_FOLD, golden_bf16_fold_arrays),
                          (chip_smoke.GOLDEN_CALL_BF16, golden_call_bf16_arrays),
-                         (chip_smoke.GOLDEN_ENSEMBLE, golden_ensemble_arrays)):
+                         (chip_smoke.GOLDEN_ENSEMBLE, golden_ensemble_arrays),
+                         (chip_smoke.GOLDEN_VGN, golden_vgn_arrays),
+                         (chip_smoke.GOLDEN_FUSION, golden_fusion_arrays)):
+        if words and not any(w in Path(path).name for w in words):
+            continue
         np.savez_compressed(REPO / path, **arrays())
         print("wrote", path)
