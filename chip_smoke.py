@@ -83,7 +83,23 @@ Phases (any failure exits non-zero; nothing is caught):
  22. decoding at arbitrary points (``points_phase``): giga_geo's encode and
      occupancy at 100,000 points (samplers mm and gather), giga's forward,
      grad_refine and decode_lattice_points at 4,096 lattice points, each
-     against the same call on the CPU and no kernel launched; their times.
+     against the same call on the CPU and no kernel launched; their times;
+ 23. VGN (``vgn_phase``) at full width with the golden file's seeded weights:
+     VGNPlanner.plan_batch (B=64) and __call__ in each precision with the
+     counters zeroed just before (no kernel of this package: cuDNN
+     convolutions), ``highest`` against JAX's golden candidates
+     (golden_plan_vgn.npz) and its batch against its single-scene program,
+     ``default`` (TF32) and ``bf16`` against ``highest`` by
+     tests/test_vgn_fast.py's four gates, ``visualize=True``; ms per batch
+     and __call__ latencies;
+ 24. TSDF fusion at the simulator's settings (``fusion_phase``): 6 ray-cast
+     640x480 views a scene fused at 40^3 (against JAX's golden_tsdf_fusion.npz
+     and the CPU) and 120^3 (against the CPU), then GIGA plan_batch (one K1
+     and one K2 launch), GIGA __call__ (one K3 launch a scene) and VGN
+     __call__ from the fused TSDFVolumes, each against the CPU's; fusion ms
+     per scene;
+ 25. affordance visualization (``visual_phase``): GIGA and VGN
+     ``visualize=True``, the composed scene against the CPU's.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -141,6 +157,11 @@ VGN_OVERLAP_MEAN = 0.7  # tests/test_vgn_fast.py's mean-overlap gate
 CAMERA = (640, 480, 540.0, 540.0, 320.0, 240.0)
 DEPTH_RANGE = (0.1, 2.0)
 N_VIEWS = 6
+FUSION_HIGH_RES = 120
+FUSION_SCENES = 4  # the golden file's scenes, then scenes rendered here
+TOL_TSDF = 1e-6     # fused TSDF values, absolute
+TOL_BATCH = 1e-6    # VGN's batched against its single-scene candidates
+TOL_VERTEX = 1e-6   # composed scenes' vertices (metres), card against CPU
 # the giga_wide preset with seeded weights (init_network): its qualities lie
 # in [0.56, 0.62] and its widths in [0.10, 0.80] (normalized), so it plans
 # with these thresholds and a width window that holds them
@@ -627,11 +648,14 @@ def compare_grasps(a, b, voxel: float, what: str, tol: float = TOL_SCORE):
     return worst
 
 
-def compare_candidates(a, b, scenes, R: int, what: str) -> dict:
+def compare_candidates(a, b, scenes, R: int, what: str, tol: float = TOL_SCORE,
+                       index_positions: bool = False) -> dict:
     """Hold two host GraspCandidates sets equal scene by scene: equal
     counts, the same lattice positions, and scores, widths and rotations
-    within tolerance. Candidates are matched by position, so equal scores
-    in another order (ties) still compare equal."""
+    within ``tol``. Candidates are matched by position, so equal scores in
+    another order (ties) still compare equal. Positions are GIGA's lattice
+    coordinates in [-0.5, 0.5), or VGN's lattice indices with
+    ``index_positions``."""
     worst = {"score": 0.0, "width": 0.0, "rot": 0.0, "pos": 0.0}
     for i in scenes:
         n = int(a.count[i])
@@ -639,7 +663,8 @@ def compare_candidates(a, b, scenes, R: int, what: str) -> dict:
             raise AssertionError(f"{what}: scene {i} has {n} vs {int(b.count[i])} candidates")
 
         def keyed(c):
-            idx = np.rint((np.asarray(c.positions[i][:n]) + 0.5) * R).astype(int)
+            pos = np.asarray(c.positions[i][:n])
+            idx = np.rint(pos if index_positions else (pos + 0.5) * R).astype(int)
             return {tuple(k): j for j, k in enumerate(idx)}
 
         ka, kb = keyed(a), keyed(b)
@@ -652,7 +677,7 @@ def compare_candidates(a, b, scenes, R: int, what: str) -> dict:
                 d = float(np.max(np.abs(np.asarray(getattr(a, field)[i][ja], np.float64)
                                         - np.asarray(getattr(b, field)[i][jb], np.float64))))
                 worst[name] = max(worst[name], d)
-    tol = {"score": TOL_SCORE, "width": TOL_SCORE, "rot": TOL_SCORE, "pos": TOL_POS}
+    tol = {"score": tol, "width": tol, "rot": tol, "pos": TOL_POS}
     for name, d in worst.items():
         if not d <= tol[name]:
             raise AssertionError(f"{what}: {name} differs by {d} > {tol[name]}")
@@ -1471,6 +1496,265 @@ def points_phase(scenes, card) -> dict:
     return times
 
 
+def stack_candidates(cands) -> "GraspCandidates":
+    """Host candidates of single-scene runs stacked along a scene axis."""
+    from giga_tpu_torch.inference.postprocess import GraspCandidates
+
+    return GraspCandidates(*(np.stack(f) for f in zip(*cands)))
+
+
+def compare_meshes(got, ref, what: str) -> float:
+    """Hold two composed scenes equal: faces and face colors equal,
+    vertices within TOL_VERTEX. Returns the vertices' largest difference."""
+    if got.faces.shape != ref.faces.shape or not np.array_equal(got.faces, ref.faces):
+        raise AssertionError(f"{what}: faces differ ({len(got.faces)} vs {len(ref.faces)})")
+    if not np.array_equal(got.face_colors, ref.face_colors):
+        raise AssertionError(f"{what}: {int((got.face_colors != ref.face_colors).any(1).sum())} "
+                             f"face colors differ")
+    worst = float(np.abs(got.vertices - ref.vertices).max())
+    if not worst <= TOL_VERTEX:
+        raise AssertionError(f"{what}: vertices differ by {worst} > {TOL_VERTEX}")
+    return worst
+
+
+def vgn_phase(scenes, card) -> dict:
+    """Phase 23: VGN at full width (40^3, filters 16/32/64, k=5 heads) with
+    the golden file's seeded weights (VGN_* recipe). VGNPlanner in each
+    precision: plan_batch on the B scenes and __call__ on the golden
+    scenes, with the kernel counters zeroed just before (VGN runs no kernel
+    of this package: cuDNN convolutions); ``highest``'s batched and
+    single-scene candidates against JAX's (golden_plan_vgn.npz: equal
+    positions, values within TOL_SCORE, raw qual within TOL_VOLUME), its
+    batch against its single-scene program (positions equal, values within
+    TOL_BATCH); ``default`` (TF32) and ``bf16`` against ``highest`` by
+    tests/test_vgn_fast.py's four gates; the composed scene of
+    ``visualize=True``. Returns ms per batch (CUDA events) and the
+    ``__call__`` latency (host clock) of each precision."""
+    import torch
+
+    from giga_tpu_torch.inference.planner import (
+        State, VGNPlanner, build_vgn_planner_fn, candidates_to_host)
+    from giga_tpu_torch.inference.postprocess import GraspCandidates
+
+    root = Path(__file__).resolve().parent
+    golden = np.load(root / GOLDEN_VGN)
+    n = len(golden["tsdf"])
+    np.testing.assert_allclose(golden["tsdf"], scenes[:n], atol=1e-6)
+    params = unflatten_params(golden)
+    R, B = RESOLUTION, len(scenes)
+    voxel = SIZE / R
+    grids = torch.from_numpy(scenes).cuda()
+    planners, batch, called, out = {}, {}, {}, {}
+    for precision in ("highest", "default", "bf16"):
+        planner = VGNPlanner(params=params, precision=precision, size=SIZE,
+                             rng=np.random.RandomState(0), **VGN_KW)
+        zero_kernel_counts()
+        batch[precision] = planner.plan_batch(scenes)
+        called[precision] = [planner(State(tsdf=scenes[i]))[:2] for i in range(n)]
+        torch.cuda.synchronize()
+        if any(kernel_counts().values()):
+            raise AssertionError(f"VGN {precision} launched a kernel: {kernel_counts()}")
+        planners[precision] = planner
+    hi = planners["highest"]
+    fn = build_vgn_planner_fn(hi.net, hi.planner_cfg, SIZE, precision="highest", return_raw=True)
+    singles, quals = [], []
+    for g in grids:
+        c, raw = fn(g, g)
+        singles.append(candidates_to_host(c))
+        quals.append(raw[0].cpu().numpy())
+    single = stack_candidates(singles)
+    cb = candidates_to_host(hi._ensure_batched_fn()(grids, grids))
+    gold = {k: GraspCandidates(*(golden[f"{k}_{f}"] for f in GraspCandidates._fields))
+            for k in ("single", "batch")}
+    worst = {"single": compare_candidates(single, gold["single"], range(n), R,
+                                          "VGN single vs JAX golden", index_positions=True),
+             "batch": compare_candidates(cb, gold["batch"], range(n), R,
+                                         "VGN batch vs JAX golden", index_positions=True),
+             "batch_vs_single": compare_candidates(cb, single, range(B), R,
+                                                   "VGN batch vs single", tol=TOL_BATCH,
+                                                   index_positions=True)}
+    qual_err = float(np.abs(np.stack(quals[:n]) - golden["single_qual"]).max())
+    if not qual_err <= TOL_VOLUME:
+        raise AssertionError(f"VGN raw qual differs from the JAX golden by {qual_err}")
+    for i in range(n):
+        compare_grasps(called["highest"][i], batch["highest"][i], voxel,
+                       f"VGN __call__ vs plan_batch, scene {i}", tol=TOL_BATCH)
+    gates = {}
+    for precision in ("default", "bf16"):
+        gates[precision] = bf16_gates(batch["highest"], batch[precision], voxel,
+                                      f"VGN {precision} plan_batch vs highest",
+                                      overlap_mean=VGN_OVERLAP_MEAN)
+        bf16_gates(called["highest"], called[precision], voxel,
+                   f"VGN {precision} __call__ vs highest", overlap_mean=VGN_OVERLAP_MEAN)
+    counts = [len(g) for g, _ in batch["highest"]]
+    print(f"phase 23: VGN plan_batch B={B} ({sum(counts)} grasps, {min(counts)}..{max(counts)} "
+          f"per scene) and __call__ on {n} golden scenes, no kernel launched; highest equal to "
+          f"the JAX golden (max diffs single {worst['single']}, batch {worst['batch']}; raw qual "
+          f"{qual_err:.3g}), batch equal to single on all {B} scenes (max diffs "
+          f"{worst['batch_vs_single']})")
+    for precision, g in gates.items():
+        print(f"phase 23: VGN {precision} against highest by the four gates: {g}")
+    viz = VGNPlanner(params=params, precision="highest", size=SIZE, visualize=True, **VGN_KW)
+    objects = scene_objects(1)[0]
+    grasps, scores, _, composed = viz(State(tsdf=scenes[0]), scene_mesh=scene_mesh(objects))
+    if not (len(grasps) and len(composed.faces) > len(scene_mesh(objects).faces)):
+        raise AssertionError("VGN visualize composed no grasps")
+    for precision, planner in planners.items():
+        vfn = planner._ensure_batched_fn()
+        with torch.inference_mode():
+            out[precision, "batch_ms"] = cuda_ms(lambda: vfn(grids, grids), 10)
+        state = State(tsdf=scenes[0])
+        for _ in range(3):
+            planner(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            planner(state)
+        out[precision, "call_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"phase 23: VGN batched program B={B}: " + ", ".join(
+        f"{p} {out[p, 'batch_ms']:.3f} ms" for p in planners) + "; __call__ " + ", ".join(
+        f"{p} {out[p, 'call_ms']:.3f} ms" for p in planners) + f"; visualize composed "
+          f"{len(composed.faces)} faces | {card}")
+    return out
+
+
+def fusion_phase(card) -> dict:
+    """Phase 24: TSDF fusion at the simulator's settings. The golden file's
+    ray-cast views (N_VIEWS at 640x480) fused on the card at 40^3 against
+    JAX's fuse_views (tsdf within TOL_TSDF, weights equal) and against the
+    port's CPU run, and at 120^3 against the CPU run; the same views
+    rendered afresh here against the golden's (reported); then FUSION_SCENES
+    scenes fused into TSDFVolumes (create_tsdf) and planned from them with
+    GIGA plan_batch (kernel counters zeroed just before: one K1 and one K2
+    launch), GIGA __call__ (one K3 launch each) and VGN __call__, each
+    against the same planner on the CPU. Returns fusion ms per scene."""
+    import torch
+
+    from giga_tpu_torch.core.perception import CameraIntrinsic, create_tsdf
+    from giga_tpu_torch.inference.planner import GIGAPlanner, State, VGNPlanner
+    from giga_tpu_torch.ops.tsdf import fuse_views
+
+    root = Path(__file__).resolve().parent
+    golden = np.load(root / GOLDEN_FUSION)
+    views = camera_views()
+    fresh = np.stack([render_depth(scene_objects(1)[0], e) for e in views])
+    render_diff = float(np.abs(fresh - golden["depth"][0]).max())
+    K = torch.from_numpy(golden["K"])
+    E = torch.from_numpy(golden["extrinsics"])
+    errs = {"golden40": 0.0, "cpu40": 0.0, "cpu120": 0.0}
+    times = {}
+    for i, depth in enumerate(golden["depth"]):
+        d = torch.from_numpy(depth)
+        for res in (RESOLUTION, FUSION_HIGH_RES):
+            kw = dict(resolution=res, size=SIZE, sdf_trunc=4 * SIZE / res)
+            card_t, card_w = (t.cpu().numpy() for t in fuse_views(d.cuda(), K.cuda(), E.cuda(),
+                                                                  **kw))
+            cpu_t, cpu_w = (t.numpy() for t in fuse_views(d, K, E, **kw))
+            pairs = [("cpu%d" % res, cpu_t, cpu_w)]
+            if res == RESOLUTION:
+                pairs.append(("golden40", golden["tsdf"][i], golden["weight"][i]))
+            for name, t, w in pairs:
+                if not np.array_equal(card_w, w):
+                    raise AssertionError(f"fused {res}^3 weights of scene {i} differ from {name}")
+                errs[name] = max(errs[name], float(np.abs(card_t - t).max()))
+            if i == 0:
+                dc, Kc, Ec = d.cuda(), K.cuda(), E.cuda()
+                times[f"fuse{res}_ms"] = cuda_ms(lambda: fuse_views(dc, Kc, Ec, **kw), 10)
+    bad = {k: e for k, e in errs.items() if not e <= TOL_TSDF}
+    if bad:
+        raise AssertionError(f"fused volumes differ by {bad} > {TOL_TSDF}")
+    w_, h_, fx, fy, cx, cy = CAMERA
+    intrinsic = CameraIntrinsic(w_, h_, fx, fy, cx, cy)
+    lists = np.stack([e.to_list() for e in views])
+    depths = list(golden["depth"]) + [
+        np.stack([render_depth(objects, e) for e in views])
+        for objects in scene_objects(FUSION_SCENES)[len(golden["depth"]):]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    volumes = [create_tsdf(SIZE, RESOLUTION, d, intrinsic, lists) for d in depths]
+    torch.cuda.synchronize()
+    times["create_tsdf_ms"] = (time.perf_counter() - t0) / len(depths) * 1e3
+    cpu_volumes = [create_tsdf(SIZE, RESOLUTION, d, intrinsic, lists, device="cpu")
+                   for d in depths]
+    for v, c in zip(volumes, cpu_volumes):
+        if not (np.array_equal(v.weight.cpu().numpy(), c.weight.numpy())
+                and float(np.abs(v.get_grid() - c.get_grid()).max()) <= TOL_TSDF):
+            raise AssertionError("a TSDFVolume on the card differs from the CPU's")
+    grids = np.concatenate([v.get_grid() for v in volumes])
+    root_ckpt = root / CHECKPOINT
+    kw = dict(size=SIZE, rng=np.random.RandomState(0), **PLANNER_KW)
+    giga, giga_cpu = GIGAPlanner(root_ckpt, **kw), GIGAPlanner(root_ckpt, device="cpu", **kw)
+    voxel = SIZE / RESOLUTION
+    zero_kernel_counts()
+    batch = giga.plan_batch(grids)
+    torch.cuda.synchronize()
+    launches_batch = kernel_counts()
+    zero_kernel_counts()
+    called = [giga(State(tsdf=v))[:2] for v in volumes]
+    torch.cuda.synchronize()
+    launches_call = kernel_counts()
+    if not (launches_batch["K1"] == 1 and launches_batch["K2"] == 1
+            and launches_call["K3"] == len(volumes)):
+        raise AssertionError(f"planning from fused volumes launched {launches_batch} "
+                             f"(plan_batch), {launches_call} (__call__)")
+    for i, (b, c) in enumerate(zip(batch, giga_cpu.plan_batch(grids))):
+        compare_grasps(b, c, voxel, f"GIGA plan_batch of fused scene {i} vs the CPU")
+    for i, (v, c) in enumerate(zip(called, cpu_volumes)):
+        compare_grasps(v, giga_cpu(State(tsdf=c))[:2], voxel,
+                       f"GIGA __call__ of fused scene {i} vs the CPU")
+        compare_grasps(v, batch[i], voxel, f"GIGA __call__ vs plan_batch, fused scene {i}")
+    params = unflatten_params(np.load(root / GOLDEN_VGN))
+    vgn = VGNPlanner(params=params, precision="highest", size=SIZE, **VGN_KW)
+    vgn_cpu = VGNPlanner(params=params, precision="highest", size=SIZE, device="cpu", **VGN_KW)
+    for i, (v, c) in enumerate(zip(volumes, cpu_volumes)):
+        compare_grasps(vgn(State(tsdf=v))[:2], vgn_cpu(State(tsdf=c))[:2], voxel,
+                       f"VGN __call__ of fused scene {i} vs the CPU")
+    n_grasps = sum(len(g) for g, _ in batch)
+    print(f"phase 24: fused {len(golden['depth'])} golden scenes ({N_VIEWS} views of "
+          f"{CAMERA[0]}x{CAMERA[1]}): 40^3 against JAX's fuse_views within "
+          f"{errs['golden40']:.3g}, against the CPU within {errs['cpu40']:.3g}, 120^3 against "
+          f"the CPU within {errs['cpu120']:.3g} (tol {TOL_TSDF}, weights equal); views "
+          f"rendered here against the golden's: {render_diff:.3g} m")
+    print(f"phase 24: planned from {len(volumes)} fused TSDFVolumes: GIGA plan_batch "
+          f"({n_grasps} grasps) launches {launches_batch}, __call__ launches {launches_call}, "
+          f"VGN __call__; each equal to the CPU planner's")
+    print(f"phase 24: fusion of {N_VIEWS} views a scene: fuse_views 40^3 "
+          f"{times[f'fuse{RESOLUTION}_ms']:.3f} ms, 120^3 {times[f'fuse{FUSION_HIGH_RES}_ms']:.3f} ms "
+          f"(CUDA events, depth on the card); create_tsdf 40^3 from host depth "
+          f"{times['create_tsdf_ms']:.3f} ms (host clock) | {card}")
+    return {"launches_batch": launches_batch, "launches_call": launches_call, **times}
+
+
+def visual_phase(scenes, card) -> None:
+    """Phase 25: affordance visualization. GIGAPlanner and VGNPlanner with
+    ``visualize=True`` on the card, each composed scene (the scene mesh
+    colored by the raw qual volume, a glyph per grasp) against the same
+    planner's on the CPU: faces and colors equal, vertices within
+    TOL_VERTEX."""
+    from giga_tpu_torch.inference.planner import GIGAPlanner, State, VGNPlanner
+
+    root = Path(__file__).resolve().parent
+    params = unflatten_params(np.load(root / GOLDEN_VGN))
+    made = {
+        "GIGA": lambda device: GIGAPlanner(root / CHECKPOINT, size=SIZE, visualize=True,
+                                           device=device, **PLANNER_KW),
+        "VGN": lambda device: VGNPlanner(params=params, precision="highest", size=SIZE,
+                                         visualize=True, device=device, **VGN_KW)}
+    readings = []
+    for i, objects in enumerate(scene_objects(2)):
+        mesh = scene_mesh(objects)
+        for name, make in made.items():
+            card_out = make(None)(State(tsdf=scenes[i]), scene_mesh=mesh)
+            cpu_out = make("cpu")(State(tsdf=scenes[i]), scene_mesh=mesh)
+            compare_grasps(card_out[:2], cpu_out[:2], SIZE / RESOLUTION,
+                           f"{name} visualize grasps, scene {i}")
+            worst = compare_meshes(card_out[3], cpu_out[3], f"{name} composed scene {i}")
+            readings.append(f"{name} scene {i}: {len(card_out[0])} grasps, "
+                            f"{len(card_out[3].faces)} faces, vertices within {worst:.3g}")
+    print("phase 25: visualize=True on the card equals the CPU's composed scenes: "
+          + "; ".join(readings) + f" | {card}")
+
+
 def main() -> int:
     import torch
 
@@ -1758,6 +2042,9 @@ def main() -> int:
     wide_ms = presets_phase(net, scenes, card)
     ensemble_ms = ensemble_phase(load_params(root / CHECKPOINT), scenes, card)
     points_ms = points_phase(scenes, card)
+    vgn_ms = vgn_phase(scenes, card)
+    fusion = fusion_phase(card)
+    visual_phase(scenes, card)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -1771,6 +2058,14 @@ def main() -> int:
     print(f"decoding at points: encode + {N_QUERIES} occupancy queries {points_ms['occupancy_mm']:.3f} "
           f"ms (mm), {points_ms['occupancy_gather']:.3f} ms (gather); grad_refine "
           f"{points_ms['grad_refine']:.3f} ms | {card}")
+
+    print(f"VGN batched program B={B}: " + ", ".join(
+        f"{p} {vgn_ms[p, 'batch_ms']:.3f} ms/batch" for p in ("highest", "default", "bf16"))
+        + "; __call__ " + ", ".join(f"{p} {vgn_ms[p, 'call_ms']:.3f} ms"
+                                   for p in ("highest", "default", "bf16")) + f" | {card}")
+    print(f"TSDF fusion ({N_VIEWS} views, {CAMERA[0]}x{CAMERA[1]}) per scene: "
+          f"{fusion[f'fuse{RESOLUTION}_ms']:.3f} ms at 40^3, "
+          f"{fusion[f'fuse{FUSION_HIGH_RES}_ms']:.3f} ms at 120^3 | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

@@ -38,7 +38,9 @@ import torch
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """x as a 0-d float32 tensor on ``like``'s device, filled there: a copy
+    from host memory would wait for the card's queue."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -946,3 +946,86 @@ def test_ensemble_launches_k3_once_per_member(cuda_device, combine):
         chip_smoke.compare_grasps(streamed[i], called[i], 0.3 / 40, f"stream {i}", tol=1e-6)
     with pytest.raises(NotImplementedError):
         card.plan_batch(scenes)
+
+
+def _vgn_params():
+    return chip_smoke.unflatten_params(np.load(REPO / chip_smoke.GOLDEN_VGN))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default", "bf16"])
+def test_vgn_planner_on_the_card(cuda_device, precision):
+    """VGN plan_batch and __call__ on the card against the CPU: ``highest``
+    equal decisions (and batch equal to single within 1e-6), ``default``
+    (TF32) and ``bf16`` by tests/test_vgn_fast.py's four gates against the
+    CPU's ``highest``; the TF32 flags are restored after each plan."""
+    from giga_tpu_torch.inference.planner import VGNPlanner
+
+    params = _vgn_params()
+    scenes = chip_smoke.make_scenes(4)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    card = VGNPlanner(params=params, precision=precision, **chip_smoke.VGN_KW)
+    cpu = VGNPlanner(params=params, precision="highest", device="cpu", **chip_smoke.VGN_KW)
+    batch = card.plan_batch(scenes)
+    called = [card(State(tsdf=g))[:2] for g in scenes]
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    ref = cpu.plan_batch(scenes)
+    voxel = 0.3 / 40
+    if precision == "highest":
+        for i in range(len(scenes)):
+            chip_smoke.compare_grasps(batch[i], ref[i], voxel, f"scene {i}")
+            chip_smoke.compare_grasps(called[i], batch[i], voxel, f"single {i}",
+                                      tol=chip_smoke.TOL_BATCH)
+    else:
+        for got in (batch, called):
+            chip_smoke.bf16_gates(ref, got, voxel, f"VGN {precision}",
+                                  overlap_mean=chip_smoke.VGN_OVERLAP_MEAN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resolution", [40, 120])
+def test_fuse_views_on_the_card(cuda_device, resolution):
+    """fuse_views and TSDFVolume on the card give the CPU's volumes: the
+    same bits (eager ops, tensor divisors, float64 fused multiply-adds)."""
+    from giga_tpu_torch.core.perception import CameraIntrinsic, create_tsdf
+    from giga_tpu_torch.ops.tsdf import fuse_views
+
+    views = chip_smoke.camera_views()
+    objects = chip_smoke.scene_objects(2)[1]
+    cam = dict(width=160, height=120, fx=135.0, fy=135.0, cx=80.0, cy=60.0)
+    depth = np.stack([chip_smoke.render_depth(objects, e, **cam) for e in views])
+    E = np.stack([e.as_matrix() for e in views]).astype(np.float32)
+    K = np.array([[135.0, 0, 80.0], [0, 135.0, 60.0], [0, 0, 1]], np.float32)
+    kw = dict(resolution=resolution, size=0.3, sdf_trunc=4 * 0.3 / resolution)
+    args = [torch.from_numpy(a) for a in (depth, K, E)]
+    card = fuse_views(*(a.to(cuda_device) for a in args), **kw)
+    cpu = fuse_views(*args, **kw)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.cpu(), b, atol=0, rtol=0)
+    intr = CameraIntrinsic(**cam)
+    lists = np.stack([e.to_list() for e in views])
+    vol = create_tsdf(0.3, resolution, depth, intr, lists)
+    ref = create_tsdf(0.3, resolution, depth, intr, lists, device="cpu")
+    assert vol.tsdf.device.type == "cuda"
+    np.testing.assert_array_equal(vol.get_grid(), ref.get_grid())
+    np.testing.assert_array_equal(vol.get_cloud(), ref.get_cloud())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["giga", "vgn"])
+def test_visualize_on_the_card(cuda_device, family):
+    """visualize=True on the card composes the CPU's scene."""
+    from giga_tpu_torch.inference.planner import VGNPlanner
+
+    objects = chip_smoke.scene_objects(1)[0]
+    scene = chip_smoke.make_scenes(1)
+    if family == "giga":
+        make = lambda d: GIGAPlanner(REPO / chip_smoke.CHECKPOINT, visualize=True, device=d,
+                                     **chip_smoke.PLANNER_KW)
+    else:
+        make = lambda d: VGNPlanner(params=_vgn_params(), precision="highest", visualize=True,
+                                    device=d, **chip_smoke.VGN_KW)
+    card = make(None)(State(tsdf=scene), scene_mesh=chip_smoke.scene_mesh(objects))
+    cpu = make("cpu")(State(tsdf=scene), scene_mesh=chip_smoke.scene_mesh(objects))
+    assert len(card) == 4 and len(card[0]) >= 1
+    chip_smoke.compare_meshes(card[3], cpu[3], family)
