@@ -785,6 +785,8 @@ class VGNPlanner:
             net = copy.deepcopy(net).to(torch.bfloat16)
         self.net = net
         self.precision = precision
+        # the programs' TF32 scope; bf16 is the net's dtype
+        self._scope = "highest" if precision == "highest" else "default"
         self.planner_cfg = PlannerConfig(
             qual_th=qual_th,
             out_th=out_th,
@@ -800,10 +802,6 @@ class VGNPlanner:
         self.visualize = visualize
         self._fn = None
         self._vfn = None
-
-    @property
-    def _scope(self) -> str:
-        return "highest" if self.precision == "highest" else "default"
 
     def _ensure_fn(self):
         """Build (once) the single-scene program of __call__."""
