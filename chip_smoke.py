@@ -860,10 +860,11 @@ def bf16_phases(net, cfg, scenes, fp32_results, card, fp32_ms):
 def bf16_decode_phase(dec, feats, coords, cfg, card, fp32_ms):
     """Phase 18, the bf16 decode A/B's kernels on the bf16 net's decoder
     params ``dec`` and bf16 lattice features ``feats`` {t: (B, R, R, C)}:
-    the bf16 modes of K4 and K5 against their plain versions; the two bf16
-    decode entry points with the counters zeroed just before; their raw qual
-    against K2 bf16's decode. Returns the kernels' rows for the kernels
-    line."""
+    the bf16 modes of K4 and K5 against their plain versions; the memory a
+    call allocates beside its output (the bf16 workspace of the rounded
+    features, no float32 rows); the two bf16 decode entry points with the
+    counters zeroed just before; their raw qual against K2 bf16's decode.
+    Returns the kernels' rows for the kernels line."""
     import torch
 
     from giga_tpu_torch.inference.planner import full_precision
@@ -882,6 +883,24 @@ def bf16_decode_phase(dec, feats, coords, cfg, card, fp32_ms):
                                  "K4 bf16"),
                 "K5": check_bf16(dk.dense_decode_hybrid_batched(*inputs5),
                                  dk.dense_decode_hybrid_plain(*inputs5), "K5 bf16")}
+        # what a call allocates beside its output: the workspace of the
+        # rounded feature planes, (planes, B, R, R, C) bf16, and nothing else
+        work = {}
+        for k, call, planes in (
+                ("K4", lambda: dk.dense_decode_feats_batched(*inputs4, compute_dtype=bf), 3),
+                ("K5", lambda: dk.dense_decode_hybrid_batched(*inputs5), 2)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out = call()
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - before - nbytes(out)
+            del out
+            workspace = planes * B * R * R * C * 2
+            if extra > workspace + (1 << 21):  # the allocator rounds each block up to 2 MB
+                raise AssertionError(f"{k} bf16 allocated {extra} bytes beside its output, more "
+                                     f"than its {workspace}-byte bf16 workspace")
+            work[k] = (extra, workspace)
         qual2 = dk.decode_affordance_dense_kernel_batched(dec, feats, coords, n_blocks, bf)[0]
         # the bf16 decode entry points, counters zeroed just before
         dk.dense_decode_feats_batched.launches = 0
@@ -919,19 +938,20 @@ def bf16_decode_phase(dec, feats, coords, cfg, card, fp32_ms):
           f"tol {TOL_QUAL_BF16_MAX}, {TOL_QUAL_BF16_MEDIAN}): "
           f"{ {k: tuple(round(x, 6) for x in q) for k, q in quals.items()} }")
     log = _build.build_log("dense_decode_feats")
-    for k, hybrid, trunk in (("K4", False, "dense_decode_feats_bf16_kernelIfLb1E"),
-                             ("K5", True, "dense_decode_feats_bf16_kernelI13__nv_bfloat16Lb0E")):
+    for k, hybrid in (("K4", False), ("K5", True)):
         lc = dk.dense_decode_feats_launch_config(B, R, C, heads, n_blocks,
                                                  R if hybrid else dk.FEATS_X_CHUNK, hybrid, bf)
         ms, plain = times[k]
         bnd = bounds[k]
-        print(f"phase 18: {k} bf16 resources: trunk {kernel_resources(log, trunk)}, projections "
-              f"{kernel_resources(log, 'project_kernelILb1E')}; trunk {lc['shared_bytes']} bytes "
-              f"shared per block, grid {lc['grid'][0]}x{lc['grid'][1]} blocks of "
+        kernel = f"dense_decode_feats_bf16_kernelILb{int(not hybrid)}E"
+        print(f"phase 18: {k} bf16 resources: kernel {kernel_resources(log, kernel)}, rounding "
+              f"prologue {kernel_resources(log, 'round_features_kernel')}; {lc['shared_bytes']} "
+              f"bytes shared per block, grid {lc['grid'][0]}x{lc['grid'][1]} blocks of "
               f"{lc['threads']} threads, {lc['blocks_per_sm']} resident blocks per SM on "
-              f"{lc['sms']} SMs, {lc['passes']} passes; {ms:.4f} ms (plain {plain:.4f} ms, "
-              f"float32 mode {fp32_ms[k]:.4f} ms), {bnd[0] / ms:.1%} of its bound "
-              f"({bnd[0]:.4f} ms by {bnd[1]}) B={B} R={R} | {card}")
+              f"{lc['sms']} SMs, {lc['passes']} pass; allocated beside its output "
+              f"{work[k][0] / 1e6:.1f} MB (bf16 workspace {work[k][1] / 1e6:.1f} MB, no float32 "
+              f"rows); {ms:.4f} ms (plain {plain:.4f} ms, float32 mode {fp32_ms[k]:.4f} ms), "
+              f"{bnd[0] / ms:.1%} of its bound ({bnd[0]:.4f} ms by {bnd[1]}) B={B} R={R} | {card}")
     return [(f"{name}_bf16", "dense_decode_feats.cu", replaces, launches[k], errs[k][2],
              *times[k], bounds[k])
             for k, name, replaces in (("K4", "dense_decode_feats", "decoder_kernel.py:608"),
@@ -1994,7 +2014,7 @@ def main() -> int:
                                                  R if hybrid else dk.FEATS_X_CHUNK, hybrid)
         trunk = kernel_resources(log4, f"dense_decode_feats_kernelILb{int(not hybrid)}E")
         print(f"phase 11: {k} resources: trunk {trunk}, projections "
-              f"{kernel_resources(log4, 'project_kernelILb0E')}; trunk {lc['shared_bytes']} bytes "
+              f"{kernel_resources(log4, 'project_kernel')}; trunk {lc['shared_bytes']} bytes "
               f"shared per block, grid {lc['grid'][0]}x{lc['grid'][1]} blocks of "
               f"{lc['threads']} threads, {lc['blocks_per_sm']} resident blocks per SM on "
               f"{lc['sms']} SMs, {lc['passes']} passes; {ms:.4f} ms, {bnd[0] / ms:.1%} of its "

@@ -96,16 +96,16 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 }
 
 // Word w of the B fragments of a (K = H, N = cols) matrix W (row-major,
-// ld = cols; columns past cols are zero), n-tiles per k-step nt: lane l's
+// rows ld apart; columns past cols are zero), n-tiles per k-step nt: lane l's
 // register r of (k-step s, n-tile n) holds W[16 s + 8 r + 2 t + {0, 1}][8 n + g].
 template <typename T>
 __device__ __forceinline__ unsigned fragment_word(const T* __restrict__ W, int cols, int nt,
-                                                  int w) {
+                                                  int w, int ld) {
   const int r = w % 2, lane = (w / 2) % 32, j = w / 64;
   const int s = j / nt, n = 8 * (j % nt) + lane / 4;
   const int k = 16 * s + 8 * r + 2 * (lane % 4);
   if (n >= cols) return 0u;
-  return pack(to_bf16(W[k * cols + n]), to_bf16(W[(k + 1) * cols + n]));
+  return pack(to_bf16(W[k * ld + n]), to_bf16(W[(k + 1) * ld + n]));
 }
 
 // Copy head e's weights from the per-head stacks (T bf16 or float32)
@@ -126,11 +126,11 @@ __device__ inline Weights load_weights(unsigned* smem, const T* __restrict__ w0,
   for (int i = threadIdx.x; i < NB * FRAG_WORDS; i += blockDim.x) {
     const int blk = i / FRAG_WORDS, w = i % FRAG_WORDS;
     const size_t m = ((size_t)blk * E + e) * H * H;
-    f0[i] = fragment_word(w0 + m, H, NT, w);
-    f1[i] = fragment_word(w1 + m, H, NT, w);
+    f0[i] = fragment_word(w0 + m, H, NT, w, H);
+    f1[i] = fragment_word(w1 + m, H, NT, w, H);
   }
   for (int i = threadIdx.x; i < HEAD_WORDS; i += blockDim.x)
-    fo[i] = fragment_word(wout + (size_t)e * H * OE, OE, 1, i);
+    fo[i] = fragment_word(wout + (size_t)e * H * OE, OE, 1, i, OE);
   for (int i = threadIdx.x; i < NB * H; i += blockDim.x) {
     const int blk = i / H, r = i % H;
     sb0[i] = to_float(b0[((size_t)blk * E + e) * H + r]);

@@ -343,14 +343,17 @@ def _mode(what: str, dtype: torch.dtype) -> str:
 # of a warp's activation tile (dense_decode.cu, trunk_tiled.cuh), the bf16
 # mode's consumer warps, points of a warp tile, pyz ring and slab stages,
 # bytes of a plane row, box alignment and rows of a TMA box at most
-# (dense_decode.cu, rows_tma.cuh); K4/K5's projection rows a block, its
-# threads at most and the padding of its staged rows (dense_decode_feats.cu);
+# (dense_decode.cu, rows_tma.cuh; K4/K5 bf16 take the same warps, tile,
+# ring of 2 boxes and 2 slab stages in dense_decode_feats.cu); K4/K5's
+# float32 projection rows a block, its threads at most and the padding of
+# its staged rows, and the bf16 mode's feature channels (dense_decode_feats.cu);
 # the shared bytes a block may use on sm_90
 KERNEL_H, KERNEL_O = 32, 4
 F32_WARPS, F32_ACT_FLOATS = 12, 32 * 68
 BF_WARPS, BF_P, BF_PYZ_STAGES, BF_SLAB_STAGES = 15, 32, 2, 2
 ROW_BYTES, ALIGN, BF_MAX_BOX = 64, 1024, 256
 PROJ_ROWS, PROJ_MAX_THREADS, PROJ_S = 64, 512, 68
+FEATS_BF16_C = 32
 SMEM_LIMIT = 232448
 
 
@@ -376,6 +379,22 @@ def _bf16_layout_bytes(zc: int, yc: int, stages: int, n_blocks: int) -> int:
     pyz = _align_up(_bf16_weight_words(n_blocks) * 4, ALIGN) + stages * slab
     bars = pyz + BF_WARPS * BF_PYZ_STAGES * BF_P * ROW_BYTES
     return bars + 8 * (2 * stages + BF_WARPS * BF_PYZ_STAGES) + ALIGN
+
+
+def _feats_bf16_layout_bytes(R: int, n_blocks: int, hybrid: bool) -> int:
+    """dense_decode_feats.cu's ``BfLayout(R, NB, k4).bytes``: the trunk's
+    weights, the projections' bf16 B fragments (K4 three planes, K5 two) and
+    K4's fc_c biases, then 2 slab stages of an x-plane's fxz and fxy boxes,
+    15 warps' rings of 2 boxes of 32 rows, the mbarriers."""
+    frag = (KERNEL_H // 16) * (KERNEL_H // 8) * 64
+    planes = 2 if hybrid else 3
+    weights = (_bf16_weight_words(n_blocks) + planes * n_blocks * frag) * 4
+    if not hybrid:
+        weights += n_blocks * KERNEL_H * 4
+    slab = 2 * _align_up(R * ROW_BYTES, ALIGN)
+    ring = _align_up(weights, ALIGN) + BF_SLAB_STAGES * slab
+    bars = ring + BF_WARPS * BF_PYZ_STAGES * BF_P * ROW_BYTES
+    return bars + 8 * (2 * BF_SLAB_STAGES + BF_WARPS * BF_PYZ_STAGES) + ALIGN
 
 
 def bf16_slab_shape(R: int, n_blocks: int):
@@ -430,21 +449,23 @@ def can_dense_decode_feats(B: int, R: int, C: int, heads: int, H: int, O: int, n
     scenes of an R^3 lattice, C feature channels, ``heads`` heads of hidden
     width H and O outputs, ``n_blocks`` blocks and passes of ``x_chunk``
     x-slabs: exactly the shapes ``dense_decode_feats_launch_config`` accepts
-    (the width the kernels are built for; the projection kernel's threads
-    and staged rows; the trunk's weights in shared memory). Pure Python."""
+    (the width the kernels are built for; in float32 the projection kernel's
+    threads and staged rows and the trunk's weights in shared memory; in
+    bf16 C = 32 channels, an x-plane of R <= 256 rows in one TMA box, the
+    layout's exact shared bytes and int tile indices). Pure Python."""
     F = heads * H
-    if (min(B, R, heads, C, x_chunk) < 1 or n_blocks < 0 or H != KERNEL_H or O != KERNEL_O
-            or F % 4 or PROJ_ROWS // 8 * (F // 4) > PROJ_MAX_THREADS
-            or C * PROJ_S * 4 > SMEM_LIMIT):
+    if min(B, R, heads, C, x_chunk) < 1 or n_blocks < 0 or H != KERNEL_H or O != KERNEL_O:
         return False
     if dtype == torch.float32:
         trunk = (_f32_weight_floats(n_blocks) + F32_WARPS * F32_ACT_FLOATS
                  + n_blocks * KERNEL_H) * 4
-    elif dtype == torch.bfloat16:
-        trunk = _bf16_weight_words(n_blocks) * 4 + n_blocks * KERNEL_H * 4
-    else:
+        return (F % 4 == 0 and PROJ_ROWS // 8 * (F // 4) <= PROJ_MAX_THREADS
+                and C * PROJ_S * 4 <= SMEM_LIMIT and trunk <= SMEM_LIMIT)
+    if dtype != torch.bfloat16:
         return False
-    return trunk <= SMEM_LIMIT
+    return (C == FEATS_BF16_C and R <= BF_MAX_BOX
+            and _feats_bf16_layout_bytes(R, n_blocks, hybrid) <= SMEM_LIMIT
+            and B * R * -(-R * R // BF_P) <= 0x7FFFFFFF)
 
 
 def _trunk_shapes(w0, wout):
@@ -462,6 +483,12 @@ def _trunk_shapes(w0, wout):
 def _trunk_expect(n_blocks, E, H, O) -> dict:
     return {"w0": (n_blocks, E, H, H), "b0": (n_blocks, E, H), "w1": (n_blocks, E, H, H),
             "b1": (n_blocks, E, H), "wout": (E, H, O), "bout": (E, O)}
+
+
+def _check_bf16_channels(what: str, C: int) -> None:
+    if C != FEATS_BF16_C:
+        raise ValueError(f"{what}: the bf16 mode takes {FEATS_BF16_C} feature channels "
+                         f"(one 64-byte TMA row), got {C}")
 
 
 def _device(what: str, t: torch.Tensor):
@@ -547,10 +574,13 @@ def dense_decode_feats_batched(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
                                compute_dtype: torch.dtype = torch.float32):
     """K4 trunk from raw features -> (B, R, R, R, heads*O) float32, in
     ``compute_dtype``'s mode (every input float32 in both); the CUDA kernels
-    for CUDA tensors. ``x_chunk`` is the run of x-slabs one pass of the
-    kernels covers: the xz and xy projection rows of a pass are held in
-    scratch of (B, n_blocks, x_chunk, R, heads*H) floats each (the outputs do
-    not depend on it)."""
+    for CUDA tensors. In float32 ``x_chunk`` is the run of x-slabs one pass
+    of the kernels covers: the xz and xy projection rows of a pass are held
+    in scratch of (B, n_blocks, x_chunk, R, heads*H) floats each (the
+    outputs do not depend on it). The bf16 mode (C = 32 channels) runs in
+    one pass whatever ``x_chunk`` (still at least 1) and writes no float32
+    rows: its prologue rounds the three feature planes into a bf16
+    workspace of (3, B, R, R, C)."""
     args = (px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc, w0, b0, w1, b1, wout, bout)
     device = _device("dense_decode_feats_batched", fxz)
     if device is None:
@@ -569,13 +599,16 @@ def dense_decode_feats_batched(px, py, pz, fxz, fxy, fyz, wxz, wxy, wyz, bc,
             **_trunk_expect(n_blocks, E, H, O)}, args, device)
     XR = min(x_chunk, R)
     out = torch.empty((B, R, R, R, E * O), device=device, dtype=torch.float32)
-    # the projection rows: yz for all slabs, xz and xy for one pass of XR slabs
-    syz = torch.empty((B, n_blocks, R, R, F), device=device, dtype=torch.float32)
-    sxz, sxy = (torch.empty((B, n_blocks, XR, R, F), device=device, dtype=torch.float32)
-                for _ in range(2))
+    if compute_dtype == torch.bfloat16:
+        _check_bf16_channels("dense_decode_feats_batched", C)
+        scratch = (torch.empty((3, B, R, R, C), device=device, dtype=torch.bfloat16),)
+    else:
+        # the projection rows: xz and xy for one pass of XR slabs, yz for all
+        scratch = tuple(torch.empty((B, n_blocks, r, R, F), device=device, dtype=torch.float32)
+                        for r in (XR, XR, R))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(_feats_lib(), entry)(*(t.data_ptr() for t in args), out.data_ptr(),
-                                       sxz.data_ptr(), sxy.data_ptr(), syz.data_ptr(),
+                                       *(t.data_ptr() for t in scratch),
                                        B, R, C, E, n_blocks, XR, stream)
     _build.check(err, entry)
     dense_decode_feats_batched.launches += 1
@@ -589,8 +622,10 @@ def dense_decode_hybrid_batched(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1,
     """K5 trunk, xz/xy rows projected in-kernel -> (B, R, R, R, heads*O)
     float32, in the mode of pyz's dtype (float32, or bf16 for the bf16
     mode; every other input float32); the CUDA kernels for CUDA tensors.
-    The xz and xy rows of all x-slabs are held in scratch of
-    (B, n_blocks, R, R, heads*H) floats each."""
+    In float32 the xz and xy rows of all x-slabs are held in scratch of
+    (B, n_blocks, R, R, heads*H) floats each; the bf16 mode (C = 32
+    channels) writes no float32 rows: its prologue rounds fxz and fxy into
+    a bf16 workspace of (2, B, R, R, C)."""
     args = (px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1, b1, wout, bout)
     device = _device("dense_decode_hybrid_batched", fxz)
     if device is None:
@@ -609,11 +644,16 @@ def dense_decode_hybrid_batched(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1,
            {"wxz": (n_blocks, C, F), "wxy": (n_blocks, C, F), **_trunk_expect(n_blocks, E, H, O)},
            args[6:], device)
     out = torch.empty((B, R, R, R, E * O), device=device, dtype=torch.float32)
-    sxz, sxy = (torch.empty((B, n_blocks, R, R, F), device=device, dtype=torch.float32)
-                for _ in range(2))
+    if pyz.dtype == torch.bfloat16:
+        _check_bf16_channels("dense_decode_hybrid_batched", C)
+        scratch = (torch.empty((2, B, R, R, C), device=device, dtype=torch.bfloat16),)
+    else:
+        scratch = tuple(torch.empty((B, n_blocks, R, R, F), device=device, dtype=torch.float32)
+                        for _ in range(2))
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(_feats_lib(), entry)(*(t.data_ptr() for t in args), out.data_ptr(),
-                                       sxz.data_ptr(), sxy.data_ptr(), B, R, C, E, n_blocks, stream)
+                                       *(t.data_ptr() for t in scratch), B, R, C, E, n_blocks,
+                                       stream)
     _build.check(err, entry)
     dense_decode_hybrid_batched.launches += 1
     return out
@@ -738,9 +778,9 @@ def dense_decode_feats_launch_config(B: int, R: int, C: int, heads: int, n_block
                                      dtype: torch.dtype = torch.float32) -> dict:
     """The launches K4 (or K5, ``hybrid``, which runs one pass: x_chunk R)
     makes for these shapes on the current card in ``dtype``'s mode: its
-    trunk kernel's resident blocks per SM, SMs, grid (blocks per head x
-    heads), threads and dynamic shared bytes per block, and the passes of
-    x_chunk x-slabs."""
+    trunk kernel's (bf16: its main kernel's) resident blocks per SM, SMs,
+    grid (blocks per head x heads), threads and dynamic shared bytes per
+    block, and the passes of x_chunk x-slabs (bf16: 1)."""
     mode = int(hybrid) + 2 * (_mode("dense_decode_feats_launch_config", dtype) == "bf16")
     info = (ctypes.c_int * 7)()
     err = _feats_lib().dense_decode_feats_config(mode, B, R, C, heads, n_blocks, x_chunk, info)
@@ -776,11 +816,14 @@ def _feats_lib() -> ctypes.CDLL:
     """K4/K5's library, built and loaded on first use, its C signatures bound."""
     lib = _build.load("dense_decode_feats")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for suffix in SUFFIX.values():
-        getattr(lib, f"dense_decode_feats_{suffix}").argtypes = [p] * 20 + [i] * 6 + [p]
-        getattr(lib, f"dense_decode_feats_{suffix}").restype = i
-        getattr(lib, f"dense_decode_hybrid_{suffix}").argtypes = [p] * 17 + [i] * 5 + [p]
-        getattr(lib, f"dense_decode_hybrid_{suffix}").restype = i
+    # the float32 entries take three (K4) or two (K5) scratch pointers, the
+    # bf16 ones one workspace pointer
+    for name, ptrs in (("dense_decode_feats_f32", 20), ("dense_decode_feats_bf16", 18)):
+        getattr(lib, name).argtypes = [p] * ptrs + [i] * 6 + [p]
+        getattr(lib, name).restype = i
+    for name, ptrs in (("dense_decode_hybrid_f32", 17), ("dense_decode_hybrid_bf16", 16)):
+        getattr(lib, name).argtypes = [p] * ptrs + [i] * 5 + [p]
+        getattr(lib, name).restype = i
     lib.dense_decode_feats_config.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     lib.dense_decode_feats_config.restype = i
     return lib

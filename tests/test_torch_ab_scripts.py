@@ -193,6 +193,27 @@ def test_ab_stem_pool_needs_a_card(monkeypatch, capsys, argv):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("argv", [[], ["--bf16"], ["--bf16", "--tree", "parent=."]])
+def test_ab_dense_decode_feats_needs_a_card(monkeypatch, capsys, argv):
+    """K4's A/B exits 2 without a card, the --bf16 parent A/B too, building
+    nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ab_dense_decode_feats.main(argv) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_ab_dense_decode_feats_bf16_tells_the_signatures_apart(tmp_path):
+    """--bf16 calls a source with the rounding prologue with its bf16
+    workspace, an older one (the parent's) with float32 row scratch: the
+    shipped source is the first kind, a source without the prologue the
+    second."""
+    shipped = ab_dense_decode.CSRC / "dense_decode_feats.cu"
+    assert ab_dense_decode_feats.takes_workspace(shipped)
+    older = tmp_path / "dense_decode_feats.cu"
+    older.write_text(shipped.read_text().replace("round_features_kernel", "prologue"))
+    assert not ab_dense_decode_feats.takes_workspace(older)
+
+
 def test_ab_stem_pool_bf16_ablations_edit_the_bf16_kernel_only():
     """The bf16 ablations' edits fall inside stem_pool_bf16_kernel, after the
     float32 kernel, so the float32 mode of an ablation build is the shipped

@@ -246,6 +246,65 @@ def test_kernel_resources_tells_the_modes_apart(kernel, expected):
     assert chip_smoke.kernel_resources(LOG_BF16, kernel) == expected
 
 
+LOG_FEATS_BF16 = """\
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16130dense_decode_feats_bf16_kernelILb0EEEv14CUtensorMap_stS1_PKfS3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_Pfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16130dense_decode_feats_bf16_kernelILb0EEEv14CUtensorMap_stS1_PKfS3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_Pfiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16130dense_decode_feats_bf16_kernelILb1EEEv14CUtensorMap_stS1_PKfS3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_Pfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16130dense_decode_feats_bf16_kernelILb1EEEv14CUtensorMap_stS1_PKfS3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_S3_Pfiiii
+    48 bytes stack frame, 68 bytes spill stores, 88 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 48 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16125dense_decode_feats_kernelILb1EEEvPKfS2_S2_S2_S2_S2_S2_S2_S2_S2_S2_S2_S2_Pfiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16125dense_decode_feats_kernelILb1EEEvPKfS2_S2_S2_S2_S2_S2_S2_S2_S2_S2_S2_S2_Pfiiiiii
+    232 bytes stack frame, 328 bytes spill stores, 332 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 232 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16121round_features_kernelENS_6PlanesEP13__nv_bfloat16l' for 'sm_90a'
+ptxas info    : Function properties for _ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16121round_features_kernelENS_6PlanesEP13__nv_bfloat16l
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 16 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16114project_kernelENS_8ProjJobsEiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN54_GLOBAL__N__03a320ea_21_dense_decode_feats_cu_6a57f16114project_kernelENS_8ProjJobsEiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 63 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("hybrid,expected", [
+    (False, "128 registers, 68/88 bytes spill stores/loads"),
+    (True, "128 registers, 0/0 bytes spill stores/loads"),
+])
+def test_kernel_resources_reads_the_feats_bf16_kernels(hybrid, expected):
+    """K4's and K5's bf16 kernel (dense_decode_feats_bf16_kernel<kK4>, TMA
+    maps as its first parameters) by the names chip_smoke.py's phase 18 and
+    ab_dense_decode_feats.py --bf16 ask for, apart from each other and from
+    the float32 trunk; an older tree's bf16 trunk by its own names."""
+    from giga_tpu_torch.scripts.ab_dense_decode_feats import bf16_kernel_names
+
+    names = bf16_kernel_names(hybrid)
+    assert names[0] == f"dense_decode_feats_bf16_kernelILb{int(not hybrid)}E"
+    assert chip_smoke.kernel_resources(LOG_FEATS_BF16, *names) == expected
+    older = LOG_FEATS_BF16.replace("30dense_decode_feats_bf16_kernelILb1EEEv14CUtensorMap_stS1_",
+                                   "30dense_decode_feats_bf16_kernelIfLb1EEEvPKfS2_")
+    older = older.replace("30dense_decode_feats_bf16_kernelILb0EEEv14CUtensorMap_stS1_",
+                          "30dense_decode_feats_bf16_kernelI13__nv_bfloat16Lb0EEEvPKfS3_")
+    assert chip_smoke.kernel_resources(older, *names) == expected
+    with pytest.raises(AssertionError, match="0 kernels"):
+        chip_smoke.kernel_resources(older, names[0])
+
+
+@pytest.mark.parametrize("kernel,expected", [
+    ("round_features_kernel", "16 registers, 0/0 bytes spill stores/loads"),
+    ("project_kernel", "63 registers, 0/0 bytes spill stores/loads"),
+    ("dense_decode_feats_kernelILb1E", "168 registers, 328/332 bytes spill stores/loads"),
+])
+def test_kernel_resources_reads_the_feats_prologue_and_float32_kernels(kernel, expected):
+    """The bf16 mode's rounding prologue, and the float32 mode's projection
+    kernel (no template since the bf16 mode left it) and trunk, from the
+    same build log."""
+    assert chip_smoke.kernel_resources(LOG_FEATS_BF16, kernel) == expected
+
+
 # -- K2's options ---------------------------------------------------------------
 
 def test_fold_skips_the_folded_bias_adds():

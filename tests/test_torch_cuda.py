@@ -673,33 +673,38 @@ def test_bf16_kernel_raises_where_no_slab_fits(cuda_device):
     assert dense_decode_batched.launches == n
 
 
-# K4's and K5's bf16 modes: float32 inputs but for K5's bf16 pyz; R = 17
-# ends on a ragged 32-point tile, x_chunk 8 on a ragged last pass.
-FEATS_BF16 = [(B, R) for R in (17, 40) for B in (1, 3)]
+# K4's and K5's bf16 modes: float32 inputs but for K5's bf16 pyz. A tile is
+# 32 consecutive (y, z) points of an x-plane: R = 7 (49 points) gives one
+# whole tile and one ragged one, R = 17 (289) a plane that ends mid-tile;
+# NB = 0 runs no ring box, NB = 1 one a tile (K4's fyz, K5's pyz alike).
+FEATS_BF16 = [(B, R, nb) for R in (7, 17, 40) for nb in (0, 1, 5) for B in (1, 3)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R", FEATS_BF16)
+@pytest.mark.parametrize("B,R,nb", FEATS_BF16)
 @pytest.mark.parametrize("x_chunk", [1, 8, 40])
-def test_feats_bf16_kernel_matches_plain(cuda_device, B, R, x_chunk):
-    """K4's bf16 entry point (bf16-operand projections, tensor-core trunk)
-    against its plain version, equal bit for bit at every x_chunk."""
+def test_feats_bf16_kernel_matches_plain(cuda_device, B, R, nb, x_chunk):
+    """K4's bf16 entry point (projections on mma.sync from the rounded raw
+    features, tensor-core trunk) against its plain version, equal bit for
+    bit at every x_chunk (one pass whatever x_chunk)."""
     rng = np.random.RandomState(15)
-    args = [a.to(cuda_device) for a in _feats_args(rng, B, R, 32, 5, s=BF16_W)]
+    args = [a.to(cuda_device) for a in _feats_args(rng, B, R, 32, nb, s=BF16_W)]
     n = dk.dense_decode_feats_batched.launches
     got = dk.dense_decode_feats_batched(*args, x_chunk=x_chunk, compute_dtype=BF16)
     assert dk.dense_decode_feats_batched.launches == n + 1
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, R, R, R, 12)
     chip_smoke.check_bf16(got, dk.dense_decode_feats_plain(*args, compute_dtype=BF16), "K4 bf16")
     assert torch.equal(dk.dense_decode_feats_batched(*args, x_chunk=1, compute_dtype=BF16), got)
+    assert dk.dense_decode_feats_launch_config(B, R, 32, 3, nb, x_chunk, False,
+                                               BF16)["passes"] == 1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,R", FEATS_BF16)
-def test_hybrid_bf16_kernel_matches_plain(cuda_device, B, R):
+@pytest.mark.parametrize("B,R,nb", FEATS_BF16)
+def test_hybrid_bf16_kernel_matches_plain(cuda_device, B, R, nb):
     """K5's bf16 entry point (bf16 pyz) against its plain version."""
     rng = np.random.RandomState(16)
-    args = [a.to(cuda_device) for a in _hybrid_args(rng, B, R, 32, 5, s=BF16_W)]
+    args = [a.to(cuda_device) for a in _hybrid_args(rng, B, R, 32, nb, s=BF16_W)]
     args[5] = args[5].to(BF16)
     n = dk.dense_decode_hybrid_batched.launches
     got = dk.dense_decode_hybrid_batched(*args)
@@ -711,7 +716,7 @@ def test_hybrid_bf16_kernel_matches_plain(cuda_device, B, R):
 @pytest.mark.cuda
 def test_feats_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     """K4's bf16 mode takes float32 inputs and a bf16 or float32 mode; K5's
-    takes float32 inputs beside its bf16 pyz."""
+    takes float32 inputs beside its bf16 pyz; both take 32 channels only."""
     rng = np.random.RandomState(17)
     args = [a.to(cuda_device) for a in _feats_args(rng, 1, 8, 8, 2)]
     with pytest.raises(ValueError, match="dtype"):
@@ -725,6 +730,13 @@ def test_feats_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         dk.dense_decode_hybrid_batched(*hybrid[:3], hybrid[3].to(BF16), *hybrid[4:])
     with pytest.raises(ValueError, match="dtype"):
         dk.dense_decode_hybrid_batched(*hybrid[:5], hybrid[5].half(), *hybrid[6:])
+    n4, n5 = dk.dense_decode_feats_batched.launches, dk.dense_decode_hybrid_batched.launches
+    with pytest.raises(ValueError, match="32 feature channels"):  # C = 8
+        dk.dense_decode_feats_batched(*args, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="32 feature channels"):
+        dk.dense_decode_hybrid_batched(*hybrid)
+    assert (dk.dense_decode_feats_batched.launches,
+            dk.dense_decode_hybrid_batched.launches) == (n4, n5)
 
 
 # -- K2's numeric options: fold_b1 in both modes, resident_bf16 in bf16 ----------
@@ -864,17 +876,20 @@ def test_decode_predicate_matches_launch_config(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 def test_feats_predicate_matches_launch_config(cuda_device, dtype):
-    """K4/K5: float32 n_blocks <= 14, bf16 <= 51; heads * 32 <= 256 (the
-    projection kernel's threads); C <= 854 (its staged rows)."""
-    for C in (1, 32, 854, 855):
-        for heads in (1, 3, 8, 9):
-            for nb in (5, 14, 15, 51, 52):
-                for x_chunk, hybrid in ((1, False), (40, False), (40, True)):
-                    ok = _admitted(dk.dense_decode_feats_launch_config, 2, 40, C, heads, nb,
-                                   x_chunk, hybrid, dtype)
-                    assert dk.can_dense_decode_feats(2, 40, C, heads, 32, 4, nb, x_chunk,
-                                                     hybrid, dtype) == ok, \
-                        (C, heads, nb, x_chunk, hybrid, dtype)
+    """K4/K5: float32 n_blocks <= 14, heads * 32 <= 256 (the projection
+    kernel's threads), C <= 854 (its staged rows); bf16 C = 32 only, R <= 256
+    (an x-plane in one TMA box), at R = 40 n_blocks <= 14 (K4) and <= 18
+    (K5), at R = 256 <= 9 and <= 12 (the layout's shared bytes)."""
+    for R in (40, 256, 257):
+        for C in (1, 32, 854, 855):
+            for heads in (1, 3, 8, 9):
+                for nb in (0, 5, 9, 10, 12, 13, 14, 15, 18, 19):
+                    for x_chunk, hybrid in ((1, False), (40, False), (40, True)):
+                        ok = _admitted(dk.dense_decode_feats_launch_config, 2, R, C, heads, nb,
+                                       x_chunk, hybrid, dtype)
+                        assert dk.can_dense_decode_feats(2, R, C, heads, 32, 4, nb, x_chunk,
+                                                         hybrid, dtype) == ok, \
+                            (R, C, heads, nb, x_chunk, hybrid, dtype)
 
 
 @pytest.mark.cuda

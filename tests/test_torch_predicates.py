@@ -97,8 +97,20 @@ def test_feats_predicate_limits():
     assert not can_dense_decode_feats(2, 40, 855, 3, 32, 4, 5, 40)  # staged rows
     assert not can_dense_decode_feats(2, 40, 32, 9, 32, 4, 5, 40)  # projection threads
     assert not can_dense_decode_feats(2, 40, 32, 3, 32, 4, 15, 40)
-    assert can_dense_decode_feats(2, 40, 32, 3, 32, 4, 51, 40, dtype=BF16)
-    assert not can_dense_decode_feats(2, 40, 32, 3, 32, 4, 52, 40, dtype=BF16)
+    # bf16 at R = 40: the weights, the projections' fragments (K4 three planes,
+    # K5 two), 2 slab stages and 15 warps' rings fit up to NB 14 (K4) and 18 (K5)
+    assert can_dense_decode_feats(2, 40, 32, 3, 32, 4, 14, 40, dtype=BF16)
+    assert not can_dense_decode_feats(2, 40, 32, 3, 32, 4, 15, 40, dtype=BF16)
+    assert can_dense_decode_feats(2, 40, 32, 3, 32, 4, 18, 40, hybrid=True, dtype=BF16)
+    assert not can_dense_decode_feats(2, 40, 32, 3, 32, 4, 19, 40, hybrid=True, dtype=BF16)
+    # bf16 takes 32 channels only (one 64-byte TMA row), and an x-plane of at
+    # most 256 rows (one TMA box)
+    for hybrid in (False, True):
+        for C in (8, 16, 31, 33, 64):
+            assert not can_dense_decode_feats(2, 40, C, 3, 32, 4, 5, 40, hybrid, BF16)
+        assert can_dense_decode_feats(2, 256, 32, 3, 32, 4, 5, 40, hybrid, BF16)
+        assert not can_dense_decode_feats(2, 257, 32, 3, 32, 4, 5, 40, hybrid, BF16)
+        assert not can_dense_decode_feats(2, 40, 32, 3, 32, 4, 5, 0, hybrid, BF16)
     assert not can_dense_decode_feats(2, 40, 32, 3, 32, 4, 5, 0)
 
 
