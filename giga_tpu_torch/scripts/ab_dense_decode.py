@@ -340,6 +340,7 @@ def build(sources: dict, stem: str = "dense_decode") -> dict:
     from giga_tpu_torch.ops.kernels import _build
 
     procs = {}
+    (_build.BUILD_DIR / "ab").mkdir(parents=True, exist_ok=True)
     for i, (name, source) in enumerate(sources.items()):
         lib = _build.BUILD_DIR / "ab" / f"lib{stem}_ab{i}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(source)]
