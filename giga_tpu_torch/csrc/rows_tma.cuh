@@ -1,6 +1,9 @@
 // Plane rows staged in shared memory by the Tensor Memory Accelerator and
 // read into the mma accumulator layout by ldmatrix (Hopper, sm_90a): the
-// row path of the bf16 dense-decode trunk kernel (dense_decode.cu).
+// row path of the bf16 dense-decode trunk kernels (dense_decode.cu; in
+// dense_decode_feats.cu also bf16 feature rows, whose same ldmatrix.x4
+// addresses give the A fragments of an m16n8k16 product: matrix i's rows
+// are points, its 8 columns a 16-byte chunk of channels).
 //
 // A row is one head's 32 bf16 columns, 64 bytes. TMA writes boxes of rows
 // with the 64-byte swizzle (CU_TENSOR_MAP_SWIZZLE_64B, CUTLASS's

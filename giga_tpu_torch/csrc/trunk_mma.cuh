@@ -5,7 +5,9 @@
 // residual stream stay float32. Rows and weights come in bf16 (K2, K3) or
 // float32 (K4, K5, whose inputs the TPU kernels take in float32): float32
 // rows are added as they are, float32 weights rounded to bf16 once, as they
-// are copied to shared memory, and float32 biases kept.
+// are copied to shared memory, and float32 biases kept. K4 and K5 also run
+// their plane projections through `product`, from A fragments that
+// ldmatrix reads out of bf16 feature rows (rows_tma.cuh).
 //
 // One warp carries a tile of P = 16 * MT lattice points through one head's
 // H = 32 columns with mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:

@@ -366,10 +366,14 @@ def _f32_weight_floats(n_blocks: int) -> int:
     return n_blocks * (2 * KERNEL_H * KERNEL_H + 2 * KERNEL_H) + KERNEL_H * KERNEL_O + KERNEL_O
 
 
+# tc::FRAG_WORDS: 32-bit words of one (H, H) matrix's bf16 B fragments
+_FRAG_WORDS = (KERNEL_H // 16) * (KERNEL_H // 8) * 64
+
+
 def _bf16_weight_words(n_blocks: int) -> int:
     """tc::weight_words: one head's bf16 B fragments and float32 biases."""
-    frag = (KERNEL_H // 16) * (KERNEL_H // 8) * 64
-    return n_blocks * 2 * frag + (KERNEL_H // 16) * 64 + n_blocks * 2 * KERNEL_H + KERNEL_O
+    return (n_blocks * 2 * _FRAG_WORDS + (KERNEL_H // 16) * 64 + n_blocks * 2 * KERNEL_H
+            + KERNEL_O)
 
 
 def _bf16_layout_bytes(zc: int, yc: int, stages: int, n_blocks: int) -> int:
@@ -386,9 +390,8 @@ def _feats_bf16_layout_bytes(R: int, n_blocks: int, hybrid: bool) -> int:
     weights, the projections' bf16 B fragments (K4 three planes, K5 two) and
     K4's fc_c biases, then 2 slab stages of an x-plane's fxz and fxy boxes,
     15 warps' rings of 2 boxes of 32 rows, the mbarriers."""
-    frag = (KERNEL_H // 16) * (KERNEL_H // 8) * 64
     planes = 2 if hybrid else 3
-    weights = (_bf16_weight_words(n_blocks) + planes * n_blocks * frag) * 4
+    weights = (_bf16_weight_words(n_blocks) + planes * n_blocks * _FRAG_WORDS) * 4
     if not hybrid:
         weights += n_blocks * KERNEL_H * 4
     slab = 2 * _align_up(R * ROW_BYTES, ALIGN)
