@@ -51,10 +51,12 @@ Phases (any failure exits non-zero; nothing is caught):
      plan_stream equal to per-scene calls; the bf16 programs' timings;
  18. the bf16 decode A/B's kernels (``bf16_decode_phase``): the bf16 modes of
      K4 and K5 against their plain versions at B=64, R=40 on the bf16 net's
-     lattice features; the two bf16 decode entry points with the counters
-     zeroed just before (one launch each), their raw qual held against K2
-     bf16's decode (within 4e-2 at most, 3e-3 at the median); their
-     resources, times and shares of bound at 989 TFLOP/s;
+     lattice features; the memory each call allocates beside its output,
+     no more than its bf16 workspace of rounded features (no float32 rows);
+     the two bf16 decode entry points with the counters zeroed just before
+     (one launch each), their raw qual held against K2 bf16's decode
+     (within 4e-2 at most, 3e-3 at the median); their resources, times and
+     shares of bound at 989 TFLOP/s;
  19. K2's numeric options (``options_phase``): fold_b1 (float32 and bf16)
      and resident_bf16 (with and without fold_b1) against their plain
      versions at B=64, R=40 (the resident mode's far bound
