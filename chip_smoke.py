@@ -101,7 +101,17 @@ Phases (any failure exits non-zero; nothing is caught):
      __call__ from the fused TSDFVolumes, each against the CPU's; fusion ms
      per scene;
  25. affordance visualization (``visual_phase``): GIGA and VGN
-     ``visualize=True``, the composed scene against the CPU's.
+     ``visualize=True``, the composed scene against the CPU's;
+ 26. GIGA training (``train_phase``; no kernel of this package, counters
+     zeroed just before and read after): three fp32 steps from the shipped
+     checkpoint against the JAX golden (golden_train_giga.npz); at full
+     width (B=32, 2048 occupancy points a sample) fp32 mm, fp32 gather and
+     bf16 mm, one step each against the CPU port's (loss, every gradient
+     leaf, params after the step; bf16 against fp32), 10 chained steps
+     whose loss falls, samples/s, kernels a step, idle share and peak
+     memory; giga_geo and VGN one step each against the CPU; the device
+     corpus (assemble_batch on the card equal to the CPU's, 5 corpus
+     steps); Trainer.fit with checkpoints and resume.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -195,6 +205,48 @@ WIDE_BF16_STEPS = 2
 N_QUERIES = 100_000
 N_POINTS = 4096
 TOL_POINTS = 2e-5
+# training (phase 26): the reference's batch and occupancy points a sample
+# (scripts/train_giga.py:256-259, bench.py's train rows); the JAX golden's
+# smaller batch, steps and entries kept a leaf; the card's steps against the
+# CPU port's and the golden: loss terms |a - b| <= tol * (1 + |b|), each
+# gradient leaf within tol * (1 + max |g|) of the leaf, params after a step
+# absolute (tests/test_train.py:171-177), a bf16 step's loss against the
+# fp32 step's (tests/test_train.py:202). The gather sampler's backward adds
+# into the planes with atomics in no fixed order on the card, so its
+# gradients get a looser scaled bound. And float32 itself lies up to ~1e-4 *
+# (1 + max |g|) from a float64 run of a step on some leaves (the CPU's own:
+# 1.04e-4 on giga's first U-Net conv at B=4, my CPU run, PR 14), the card's
+# cuDNN algorithms elsewhere than the CPU's (giga_geo's second U-Net level:
+# 2.34e-5 from float64 on the card, 3.8e-6 at most on the CPU, my chip run
+# 5, PR 14); so a leaf past the bound against the CPU is held to
+# TOL_TRAIN_GRAD_F64 against a float64 run (``compare_train_step``). Adam's
+# first steps move a param by
+# ~lr * sign(g) whatever |g| is (above its eps of 1e-8), so where the
+# reference's gradient lies within the gradient bound of zero the other
+# device's may have the other sign or none: the shipped checkpoint has
+# weights whose gradient is exactly 0 in float32 on the CPU and ~1e-8 on the
+# card, which then move by ~0.7 lr (my chip run 2, PR 14). So after one step
+# a param is held to TOL_TRAIN_PARAM beyond the move Adam's first step makes
+# of the two gradients measured (``adam_first_move``); after three steps,
+# where only the first gradients are known, a param whose first gradient is
+# ``undetermined`` is held to what Adam can move it, 2 * ADAM_STEP * lr a
+# step apart (ADAM_STEP bounds |m_hat| / sqrt(v_hat) over Adam's first three
+# steps: 1, 1.0013, 1.0036)
+TRAIN_BATCH = 32
+TRAIN_POINTS = 2048
+GOLDEN_TRAIN = "giga_tpu_torch/testdata/golden_train_giga.npz"
+GOLDEN_TRAIN_BATCH = 8
+GOLDEN_TRAIN_POINTS = 512
+GOLDEN_TRAIN_STEPS = 3
+GOLDEN_TRAIN_ENTRIES = 64
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-5
+TOL_TRAIN_GRAD_GATHER = 1e-4
+TOL_TRAIN_GRAD_F64 = 1e-4
+TOL_TRAIN_PARAM = 5e-5
+TRAIN_LR = 2e-4
+ADAM_STEP = 1.01
+TOL_TRAIN_BF16_LOSS = 3e-2
 
 # published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
 # the memory rate of one H100 SXM
@@ -268,18 +320,157 @@ def make_scenes(n: int, seed: int = SEED, resolution: int = RESOLUTION,
     pts = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
     out = np.empty((n, resolution, resolution, resolution), np.float32)
     for s, objects in enumerate(scene_objects(n, seed, size)):
-        sdf = np.full(len(pts), np.inf)
-        for kind, center, extent in objects:
-            if kind == "box":
-                q = np.abs(pts - center) - extent
-                d = (np.linalg.norm(np.maximum(q, 0.0), axis=1)
-                     + np.minimum(q.max(axis=1), 0.0))
-            else:
-                d = np.linalg.norm(pts - center, axis=1) - extent
-            sdf = np.minimum(sdf, d)
-        f = np.clip(sdf / (trunc_voxels * voxel), -1.0, 1.0)
+        f = np.clip(scene_sdf(objects, pts) / (trunc_voxels * voxel), -1.0, 1.0)
         out[s] = ((f + 1.0) * 0.5).reshape((resolution,) * 3)
     return out
+
+
+def scene_sdf(objects, pts: np.ndarray) -> np.ndarray:
+    """The exact signed distance (metres, negative inside) of (N, 3) points
+    to a scene's boxes and spheres: the minimum over its objects."""
+    sdf = np.full(len(pts), np.inf)
+    for kind, center, extent in objects:
+        if kind == "box":
+            q = np.abs(pts - center) - extent
+            d = np.linalg.norm(np.maximum(q, 0.0), axis=1) + np.minimum(q.max(axis=1), 0.0)
+        else:
+            d = np.linalg.norm(pts - center, axis=1) - extent
+        sdf = np.minimum(sdf, d)
+    return sdf
+
+
+def make_corpus(n: int, n_occ: int, n_grasps: int, seed: int = SEED) -> dict:
+    """A training corpus in train/corpus.py's ``load_corpus`` layout from
+    ``make_scenes``' n analytic scenes: their TSDFs; n_occ seeded points a
+    scene in the workspace (normalized to [-0.5, 0.5]^3) labelled occupied
+    inside an object; n_grasps seeded grasps a scene (points in
+    [-0.4, 0.4]^3, a random unit quaternion q and its gripper twin
+    q * Rz(pi), widths, labels)."""
+    rng = np.random.RandomState(seed + 1)
+    pts = rng.uniform(0.0, SIZE, (n, n_occ, 3))
+    occ = np.stack([scene_sdf(objects, p) < 0.0
+                    for objects, p in zip(scene_objects(n, seed), pts)])
+    q = rng.randn(n, n_grasps, 4)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    x, y, z, w = np.moveaxis(q, -1, 0)
+    return {
+        "tsdf": make_scenes(n, seed),
+        "occ_pts": (pts / SIZE - 0.5).astype(np.float32),
+        "occ_lbl": occ.astype(np.float32),
+        "grasp_pos": rng.uniform(-0.4, 0.4, (n, n_grasps, 3)).astype(np.float32),
+        "grasp_rot": np.stack([q, np.stack([y, -x, w, -z], -1)], axis=2).astype(np.float32),
+        "grasp_width": rng.uniform(0.05, 0.25, (n, n_grasps)).astype(np.float32),
+        "grasp_label": rng.randint(0, 2, (n, n_grasps)).astype(np.float32),
+    }
+
+
+def train_batch(seed: int, batch: int, points: int, vgn: bool = False) -> dict:
+    """A seeded training batch of numpy arrays, bench.py's recipe: uniform
+    TSDFs, grasp points in [-0.4, 0.4]^3, random labels, unnormalized target
+    quaternions and widths; with ``points`` occupancy points and labels a
+    sample (GIGA), or a labeled voxel index a sample (``vgn``)."""
+    r = np.random.RandomState(seed)
+    out = {"tsdf": r.rand(batch, RESOLUTION, RESOLUTION, RESOLUTION).astype(np.float32)}
+    if vgn:
+        out["index"] = r.randint(0, RESOLUTION, (batch, 3)).astype(np.int32)
+    else:
+        out["pos"] = r.uniform(-0.4, 0.4, (batch, 3)).astype(np.float32)
+    out["label"] = r.randint(0, 2, batch).astype(np.float32)
+    out["rotations"] = r.randn(batch, 2, 4).astype(np.float32)
+    out["width"] = r.rand(batch).astype(np.float32)
+    if not vgn:
+        out["pos_occ"] = r.uniform(-0.4, 0.4, (batch, points, 3)).astype(np.float32)
+        out["occ"] = r.randint(0, 2, (batch, points)).astype(np.float32)
+    return out
+
+
+def leaf_entries(params: dict, grads: dict | None = None, first: dict | None = None,
+                 seed: int = SEED, entries: int = GOLDEN_TRAIN_ENTRIES) -> dict:
+    """{"sum/<leaf>": its float64 sum, "idx/<leaf>": ``entries`` seeded flat
+    indices, "val/<leaf>": the values there} of {name: float32 array}, the
+    leaves in sorted order, every index drawn from one RandomState(seed);
+    with ``grads`` (the first step's gradients) also "grad/<leaf>", the
+    gradient at those indices, and "gmax/<leaf>", the leaf's max |g|; with
+    ``first`` (the params after the first step) "val1/<leaf>", its values
+    there."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k in sorted(params):
+        v = np.asarray(params[k], np.float32).reshape(-1)
+        idx = rng.randint(0, v.size, entries)
+        out[f"sum/{k}"] = np.float64(v.astype(np.float64).sum())
+        out[f"idx/{k}"] = idx.astype(np.int64)
+        out[f"val/{k}"] = v[idx]
+        if grads is not None:
+            g = np.asarray(grads[k], np.float32).reshape(-1)
+            out[f"grad/{k}"] = g[idx]
+            out[f"gmax/{k}"] = np.float32(np.abs(g).max())
+        if first is not None:
+            out[f"val1/{k}"] = np.asarray(first[k], np.float32).reshape(-1)[idx]
+    return out
+
+
+def adam_first_move(g_a, g_b, eps: float = 1e-8):
+    """|a - b| of the moves Adam's first step makes of two gradients of one
+    param: lr * |g_a / (|g_a| + eps) - g_b / (|g_b| + eps)| (mu_hat = g,
+    sqrt(nu_hat) = |g| at step 1)."""
+    g_a, g_b = np.asarray(g_a, np.float64), np.asarray(g_b, np.float64)
+    return TRAIN_LR * np.abs(g_a / (np.abs(g_a) + eps) - g_b / (np.abs(g_b) + eps))
+
+
+def undetermined(g, gmax, tol: float = TOL_TRAIN_GRAD):
+    """Where a reference gradient lies within the gradient bound of zero:
+    |g| <= tol * (1 + max |g| of its leaf). Adam's step there is ~lr times a
+    sign the bound does not fix (see TOL_TRAIN_PARAM's note)."""
+    return np.abs(np.asarray(g)) <= tol * (1.0 + np.asarray(gmax))
+
+
+def check_train_golden(golden, terms: list, params: dict, grads: dict, first: dict) -> dict:
+    """Hold train steps' loss terms (one {name: value} a step), the first
+    step's gradients, the params after it (``first``) and after the last
+    step against the JAX golden: each term within TOL_TRAIN_LOSS * (1 + |b|);
+    each seeded gradient entry within TOL_TRAIN_GRAD * (1 + the leaf's max
+    |g|); each seeded entry after the first step within TOL_TRAIN_PARAM
+    beyond ``adam_first_move`` of the two gradients; after the last step
+    within TOL_TRAIN_PARAM, or within 2 * ADAM_STEP * TRAIN_LR a step where
+    JAX's first gradient is ``undetermined``; each leaf's sum within
+    TOL_TRAIN_PARAM * its size. Returns the worst of each and the count of
+    undetermined entries; raises past a bound or on a non-finite value."""
+    names = [str(n) for n in golden["term_names"]]
+    got_terms = np.array([[float(t[n]) for n in names] for t in terms])
+    ref = golden["terms"].astype(np.float64)
+    if got_terms.shape != ref.shape:
+        raise AssertionError(f"{len(terms)} steps against the golden's {len(ref)}")
+    term_err = float((np.abs(got_terms - ref) / (1 + np.abs(ref))).max())
+    got = leaf_entries(params, grads, first)
+    if set(got) != {k for k in golden.files if "/" in k}:
+        raise AssertionError("the params' leaves differ from the golden's")
+    move = 2 * ADAM_STEP * TRAIN_LR * len(terms)
+    leaves = [k[4:] for k in got if k.startswith("val/")]
+    grad_err = max(float(np.abs(got[f"grad/{k}"] - golden[f"grad/{k}"]).max()
+                         / (1 + golden[f"gmax/{k}"])) for k in leaves)
+    first_err = max(float((np.abs(got[f"val1/{k}"] - golden[f"val1/{k}"])
+                           - adam_first_move(got[f"grad/{k}"], golden[f"grad/{k}"])).max())
+                    for k in leaves)
+    free = {k: undetermined(golden[f"grad/{k}"], golden[f"gmax/{k}"]) for k in leaves}
+    diff = {k: np.abs(got[f"val/{k}"] - golden[f"val/{k}"]) for k in leaves}
+    entry_err = max([float(diff[k][~free[k]].max()) for k in leaves if (~free[k]).any()])
+    free_err = max([float(diff[k][free[k]].max()) for k in leaves if free[k].any()], default=0.0)
+    sum_err = max(abs(float(got[f"sum/{k}"]) - float(golden[f"sum/{k}"]))
+                  / np.asarray(params[k]).size for k in leaves)
+    if not (np.isfinite(got_terms).all() and term_err <= TOL_TRAIN_LOSS
+            and grad_err <= TOL_TRAIN_GRAD and first_err <= TOL_TRAIN_PARAM
+            and entry_err <= TOL_TRAIN_PARAM and free_err <= move
+            and sum_err <= TOL_TRAIN_PARAM):
+        raise AssertionError(
+            f"train steps against the JAX golden: terms {term_err:.3g} (tol {TOL_TRAIN_LOSS}), "
+            f"first gradients {grad_err:.3g} (tol {TOL_TRAIN_GRAD}), entries after step 1 "
+            f"beyond Adam's move of the two gradients {first_err:.3g}, after the last "
+            f"{entry_err:.3g} (tol {TOL_TRAIN_PARAM}), undetermined entries {free_err:.3g} "
+            f"(tol {move:.3g}), sums / size {sum_err:.3g} (tol {TOL_TRAIN_PARAM})")
+    return {"terms": term_err, "grads": grad_err, "first": first_err, "entries": entry_err,
+            "free": free_err, "n_free": int(sum(f.sum() for f in free.values())),
+            "sums": sum_err}
 
 
 def scene_mesh(objects, size: float = SIZE):
@@ -1777,6 +1968,330 @@ def visual_phase(scenes, card) -> None:
           + "; ".join(readings) + f" | {card}")
 
 
+def compare_train_step(net, cfg, batch: dict, device: str, dtype=None, sampler="mm",
+                       tol_grad: float = TOL_TRAIN_GRAD) -> dict:
+    """One train step of ``net`` on ``device`` against the CPU port's on the
+    same weights and batch: the loss within TOL_TRAIN_LOSS * |b|; each
+    gradient leaf within ``tol_grad`` * (1 + max |g|) of the CPU's, or, past
+    that, within TOL_TRAIN_GRAD_F64 * (1 + max |g|) of a float64 run of the
+    step on the CPU (float32's own reach, TOL_TRAIN_GRAD_F64's note); the
+    params after the step within TOL_TRAIN_PARAM beyond ``adam_first_move``
+    of the two gradients. Returns the card's loss, the worst of each error
+    (against the CPU, the card's and the CPU's against float64), the count
+    of leaves held by float64 (the float64 step runs only when one is), the
+    largest ``adam_first_move``, and the state after the card's step."""
+    import copy
+
+    import torch
+
+    from giga_tpu_torch.core.device import to_device
+    from giga_tpu_torch.train.trainer import create_train_state, make_value_and_grad
+
+    out = {}
+    for dev in (device, "cpu"):
+        state = create_train_state(copy.deepcopy(net), device=dev)
+        (loss, _), grads = make_value_and_grad(state.module, cfg, dtype, sampler)(
+            state.params, to_device(batch, dev))
+        state.apply_gradients(grads)
+        out[dev] = float(loss), {k: g.float().cpu() for k, g in zip(state.params, grads)}, state
+    (loss, grads, state), (ref_loss, ref_grads, ref_state) = out[device], out["cpu"]
+
+    def scaled(a, ref) -> float:
+        return float((a.double() - ref.double()).abs().max()) / (1 + float(ref.abs().max()))
+
+    errs = {k: scaled(grads[k], g) for k, g in ref_grads.items()}
+    grads64 = None
+    if max(errs.values()) > tol_grad:  # a float64 run only where a leaf needs it
+        net64 = copy.deepcopy(net).double()
+        batch64 = {k: torch.from_numpy(np.asarray(v, np.float64 if v.dtype == np.float32
+                                                  else v.dtype)) for k, v in batch.items()}
+        grads64 = dict(zip(ref_grads, make_value_and_grad(net64, cfg, dtype, sampler)(
+            dict(net64.named_parameters()), batch64)[1]))
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    worst = {"cpu": 0.0, "f64": 0.0, "own": 0.0, "share": 0.0, "params": 0.0, "moved": 0.0}
+    n_f64 = 0
+    for k, g in ref_grads.items():
+        err, share = errs[k], errs[k] / tol_grad
+        if err > tol_grad:
+            n_f64 += 1
+            err64 = scaled(grads[k], grads64[k])
+            share = min(share, err64 / TOL_TRAIN_GRAD_F64)
+            worst["f64"] = max(worst["f64"], err64)
+            worst["own"] = max(worst["own"], scaled(g, grads64[k]))
+        worst["cpu"], worst["share"] = max(worst["cpu"], err), max(worst["share"], share)
+        d = (state.params[k].detach().cpu() - ref_state.params[k].detach()).abs().numpy()
+        adam = adam_first_move(grads[k].numpy(), g.numpy())
+        worst["params"] = max(worst["params"], float((d - adam).max()))
+        worst["moved"] = max(worst["moved"], float(adam.max()))
+    if not (np.isfinite(loss) and loss_err <= TOL_TRAIN_LOSS and worst["share"] <= 1.0
+            and worst["params"] <= TOL_TRAIN_PARAM):
+        raise AssertionError(
+            f"train step on {device} against the CPU: loss {loss_err:.3g} (tol "
+            f"{TOL_TRAIN_LOSS}), gradients {worst['cpu']:.3g} against the CPU (tol {tol_grad}), "
+            f"{worst['f64']:.3g} against float64 (tol {TOL_TRAIN_GRAD_F64}; the CPU's own "
+            f"{worst['own']:.3g}), params beyond Adam's move of the two gradients "
+            f"{worst['params']:.3g} (tol {TOL_TRAIN_PARAM})")
+    return {"loss": loss, "loss_err": loss_err, "grad_err": worst["cpu"],
+            "grad_err64": worst["f64"], "own_err": worst["own"], "n_f64": int(n_f64),
+            "param_err": worst["params"], "adam_move": worst["moved"], "state": state}
+
+
+def chain_step_ms(step, state, batch, reps: int = 3) -> float:
+    """Marginal ms a train step on the card: CUDA events around chains of 9
+    and of 1 chained steps (bench.py's train protocol), the least of
+    ``reps`` each, (t9 - t1) / 8."""
+    import torch
+
+    def chain(n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            step(state, batch)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    lo = min(chain(1) for _ in range(reps))
+    hi = min(chain(9) for _ in range(reps))
+    return (hi - lo) / 8
+
+
+def train_phase(card, device: str = "cuda", batch_size: int = TRAIN_BATCH,
+                points: int = TRAIN_POINTS) -> dict:
+    """Phase 26: GIGA training on the card (the port's train/ package), no
+    kernel of this package (training reaches none in the JAX package: XLA
+    autodiff of the module path; here autograd of the same modules), the
+    counters zeroed just before and read after.
+      a. three fp32 steps (mm sampler) from the shipped checkpoint on the
+         golden's seeded batch (B=8, 512 points) against the JAX golden
+         (``check_train_golden``);
+      b. at full width (giga, B=32, 2048 occupancy points a sample) in three
+         variants, fp32 mm, fp32 gather and bf16 mm: one step against the
+         CPU port's (``compare_train_step``; gather's gradients at
+         TOL_TRAIN_GRAD_GATHER, bf16's loss within TOL_TRAIN_BF16_LOSS of the
+         fp32 step's and its master params and moments float32), then 10
+         chained steps on one batch (every loss finite, the last below the
+         first), then the step's time (``chain_step_ms``), kernels launched
+         a step and the device's idle share (torch.profiler) and its peak
+         memory;
+      c. giga_geo (its shipped checkpoint) and VGN (the VGN golden's
+         weights): one fp32 step each at full width against the CPU port;
+      d. the device corpus: 16 of ``make_scenes``' scenes in load_corpus's
+         layout (``make_corpus``, written as shards and loaded back),
+         ``assemble_batch`` on the card equal to the CPU's for every k,
+         then 5 corpus steps from ``CorpusSampler`` draws;
+      e. ``Trainer.fit``, 2 epochs of 4 batches into a temporary logdir: last
+         and best .msgpack, history.jsonl, tensorboard events and the state
+         checkpoint written; ``try_resume`` restores the epoch, the params
+         and Adam's moments exactly; the saved .msgpack loads through
+         ``load_network`` equal to the trained module.
+    ``device``, ``batch_size`` and ``points`` let the phase rehearse on the
+    CPU at a small size (no timings there). Returns the timings."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from giga_tpu_torch.core.config import TrainConfig
+    from giga_tpu_torch.core.device import to_device
+    from giga_tpu_torch.models.convert import flax_to_state_dict
+    from giga_tpu_torch.models.registry import get_network, load_network
+    from giga_tpu_torch.train import corpus as tc
+    from giga_tpu_torch.train.trainer import (
+        Trainer, create_train_state, fetch_terms, make_train_step, make_value_and_grad)
+
+    root = Path(__file__).resolve().parent
+    on_card = device != "cpu"
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    net, cfg = load_network(root / CHECKPOINT)
+    zero_kernel_counts()
+
+    # a. the JAX golden
+    state = create_train_state(copy.deepcopy(net), device=device)
+    gb = to_device(train_batch(SEED, GOLDEN_TRAIN_BATCH, GOLDEN_TRAIN_POINTS), device)
+    _, grads = make_value_and_grad(state.module, cfg)(state.params, gb)
+    grads = {k: g.cpu().numpy() for k, g in zip(state.params, grads)}
+    step = make_train_step(state.module, cfg)
+
+    def host_params():  # a copy: on the CPU .numpy() shares the live weights
+        return {k: v.detach().cpu().numpy().copy() for k, v in state.params.items()}
+
+    terms = [step(state, gb)[1]]
+    first = host_params()
+    terms += [step(state, gb)[1] for _ in range(GOLDEN_TRAIN_STEPS - 1)]
+    terms = fetch_terms(terms)
+    golden_err = check_train_golden(np.load(root / GOLDEN_TRAIN), terms, host_params(), grads,
+                                    first)
+    print(f"phase 26: {GOLDEN_TRAIN_STEPS} fp32 steps (B={GOLDEN_TRAIN_BATCH}, "
+          f"{GOLDEN_TRAIN_POINTS} points) against the JAX golden: loss terms within "
+          f"{golden_err['terms']:.3g} * (1 + |b|) (tol {TOL_TRAIN_LOSS}), first gradients "
+          f"within {golden_err['grads']:.3g} * (1 + max |g|) (tol {TOL_TRAIN_GRAD}), params' "
+          f"seeded entries after step 1 within {golden_err['first']:.3g} beyond Adam's move "
+          f"of the two gradients, after step {GOLDEN_TRAIN_STEPS} within "
+          f"{golden_err['entries']:.3g} (tol {TOL_TRAIN_PARAM}; {golden_err['n_free']} entries "
+          f"undetermined by their first gradient within {golden_err['free']:.3g}, tol "
+          f"{2 * ADAM_STEP * TRAIN_LR * GOLDEN_TRAIN_STEPS:.3g}), leaf sums within "
+          f"{golden_err['sums']:.3g} a value; loss_all "
+          + " -> ".join(f"{t['loss_all']:.5f}" for t in terms))
+
+    # b. full width, three variants
+    B, N = batch_size, points
+    batch = train_batch(SEED + 1, B, N)
+    dev_batch = to_device(batch, device)
+    variants = {"fp32 mm": (None, "mm", TOL_TRAIN_GRAD),
+                "fp32 gather": (None, None, TOL_TRAIN_GRAD_GATHER),
+                "bf16 mm": (torch.bfloat16, "mm", None)}
+    out = {}
+    for name, (dtype, sampler, tol) in variants.items():
+        if dtype is None:
+            res = compare_train_step(net, cfg, batch, device, dtype, sampler, tol)
+            print(f"phase 26: giga {name} step B={B}, N={N} on the card against the CPU: loss "
+                  f"{res['loss']:.6f} within {res['loss_err']:.3g} relative (tol "
+                  f"{TOL_TRAIN_LOSS}), gradients within {res['grad_err']:.3g} * (1 + max |g|) "
+                  f"(tol {tol}; {res['n_f64']} leaves past it, held within "
+                  f"{TOL_TRAIN_GRAD_F64} of float64: the card's {res['grad_err64']:.3g} there, "
+                  f"the CPU's own {res['own_err']:.3g}), params after the step within "
+                  f"{res['param_err']:.3g} beyond "
+                  f"Adam's move of the two gradients (tol {TOL_TRAIN_PARAM}; that move "
+                  f"{res['adam_move']:.3g} at most)")
+        else:
+            state = create_train_state(copy.deepcopy(net), device=device)
+            _, t = make_train_step(state.module, cfg, dtype=dtype, sampler=sampler)(
+                state, dev_batch)
+            loss = float(t["loss_all"])
+            ref = out["fp32 mm"]["loss"]
+            dtypes = {v.dtype for v in [*state.params.values(), *state.tx.mu, *state.tx.nu]}
+            if not (abs(loss - ref) < TOL_TRAIN_BF16_LOSS and dtypes == {torch.float32}):
+                raise AssertionError(f"bf16 step: loss {loss} against fp32 {ref} (tol "
+                                     f"{TOL_TRAIN_BF16_LOSS}), master dtypes {dtypes}")
+            res = {"loss": loss}
+            print(f"phase 26: giga {name} step B={B}, N={N}: loss {loss:.6f}, "
+                  f"{abs(loss - ref):.3g} from the fp32 step's (tol {TOL_TRAIN_BF16_LOSS}); "
+                  f"master params and moments float32")
+        state = create_train_state(copy.deepcopy(net), device=device)
+        step = make_train_step(state.module, cfg, dtype=dtype, sampler=sampler)
+        losses = [float(step(state, dev_batch)[1]["loss_all"]) for _ in range(10)]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"giga {name}: 10 chained steps gave losses {losses}")
+        res["chain"] = losses
+        if on_card:
+            from giga_tpu_torch.scripts.profile_planner import _trace
+
+            res["ms"] = chain_step_ms(step, state, dev_batch)
+            busy, wall, rows = _trace(lambda: step(state, dev_batch), 3)
+            res["launches"] = sum(r[1] for r in rows if not r[2].startswith(("Memcpy", "Memset")))
+            res["idle"] = max(0.0, 1 - busy / wall)
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(state, dev_batch)
+            torch.cuda.synchronize()
+            res["peak_gb"] = (torch.cuda.max_memory_allocated() - live) / 1e9
+            print(f"phase 26: giga {name} B={B}: 10 chained steps, loss_all {losses[0]:.5f} -> "
+                  f"{losses[-1]:.5f}; {res['ms']:.3f} ms a step ({B / res['ms'] * 1e3:.1f} "
+                  f"samples/s), {res['launches']} kernels a step, device idle share "
+                  f"{res['idle']:.3f} (traced {busy:.3f} of {wall:.3f} ms), peak "
+                  f"{res['peak_gb']:.2f} GB above what was live before the step | {card}")
+        out[name] = res
+
+    # c. giga_geo and VGN, one fp32 step each
+    geo, geo_cfg = load_network(root / GEO_CHECKPOINT, "giga_geo")
+    vgn, vgn_cfg = get_network("vgn")
+    vgn.load_state_dict(flax_to_state_dict(unflatten_params(np.load(root / GOLDEN_VGN))))
+    vgn_batch = train_batch(SEED + 2, B, N, vgn=True)
+    for name, model, mcfg, b in (("giga_geo", geo, geo_cfg, batch),
+                                 ("vgn", vgn, vgn_cfg, vgn_batch)):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = compare_train_step(model, mcfg, b, device)
+        print(f"phase 26: {name} fp32 step B={B} on the card against the CPU: loss "
+              f"{res['loss']:.6f} within {res['loss_err']:.3g} relative, gradients within "
+              f"{res['grad_err']:.3g} * (1 + max |g|) ({res['n_f64']} leaves past "
+              f"{TOL_TRAIN_GRAD}, held within {TOL_TRAIN_GRAD_F64} of float64: the card's "
+              f"{res['grad_err64']:.3g} there, the CPU's own {res['own_err']:.3g}), params "
+              f"within {res['param_err']:.3g} "
+              f"beyond Adam's move ({res['adam_move']:.3g} at most; one step each way, "
+              f"{time.perf_counter() - t0:.2f} s with the CPU's)")
+        out[name] = res
+
+    # d. the device corpus
+    corpus_np = make_corpus(16, 2 * N, 64)
+    with tempfile.TemporaryDirectory() as tmp:
+        tc.write_shard(Path(tmp) / "shard_000.npz",
+                       [{k: v[i] for k, v in corpus_np.items()} for i in range(8)])
+        tc.write_shard(Path(tmp) / "shard_001.npz",
+                       [{k: v[i] for k, v in corpus_np.items()} for i in range(8, 16)])
+        corpus_np = tc.load_corpus(tmp)
+    on_dev = tc.device_corpus(corpus_np, device=device)
+    on_cpu = tc.device_corpus(corpus_np, device="cpu")
+    sampler = tc.CorpusSampler(corpus_np, range(16), batch=B, occ_sub=N, seed=SEED)
+    for k in (0, 1, 2, 3, None):
+        sel = sampler()
+        if k is not None:
+            sel["rotk"] = np.full(B, k, np.int32)
+        got = tc.assemble_batch(on_dev, to_device(sel, device))
+        ref = tc.assemble_batch(on_cpu, to_device(sel, "cpu"))
+        for name, v in ref.items():
+            if not torch.equal(got[name].cpu(), v):
+                raise AssertionError(f"assemble_batch on the card differs in {name}, rotk {k}")
+    state = create_train_state(copy.deepcopy(net), device=device)
+    step = make_train_step(state.module, cfg, assemble=tc.assemble_batch)
+    corpus_losses = [float(step(state, on_dev, sampler())[1]["loss_all"]) for _ in range(5)]
+    if not np.isfinite(corpus_losses).all():
+        raise AssertionError(f"corpus steps gave losses {corpus_losses}")
+    print(f"phase 26: device corpus of 16 scenes ({2 * N} occupancy points, 64 grasps each): "
+          f"assemble_batch on the card equal to the CPU's for rotk 0-3 and mixed; 5 corpus "
+          f"steps B={B}, loss_all " + " -> ".join(f"{v:.5f}" for v in corpus_losses))
+
+    # e. Trainer.fit and resume
+    train = [train_batch(SEED + 10 + i, B, N) for i in range(4)]
+    val = [train_batch(SEED + 20, B, N)]
+    with tempfile.TemporaryDirectory() as logdir:
+        logdir = Path(logdir)
+        state = create_train_state(copy.deepcopy(net), device=device)
+        trainer = Trainer(state.module, cfg, TrainConfig(), logdir=logdir, save_state=True)
+        t0 = time.perf_counter()
+        state, history = trainer.fit(state, train, val, epochs=2,
+                                     log=lambda m: print(f"phase 26: Trainer.fit {m}"))
+        fit_s = time.perf_counter() - t0
+        written = {f: (logdir / f).exists() for f in
+                   ("giga_last.msgpack", "giga_best.msgpack", "history.jsonl")}
+        written["events"] = bool(list(logdir.glob("events.out.tfevents.*")))
+        written["state"] = trainer.ckpt_mgr.epochs() == [1, 2]
+        if not all(written.values()) or [r["epoch"] for r in history] != [1, 2]:
+            raise AssertionError(f"Trainer.fit wrote {written}, history {history}")
+        fresh = create_train_state(copy.deepcopy(net), device=device)
+        trainer2 = Trainer(fresh.module, cfg, TrainConfig(), logdir=logdir, save_state=True)
+        resumed = trainer2.try_resume(fresh)
+        mine = [*state.params.values(), *state.tx.mu, *state.tx.nu, state.tx.count]
+        theirs = [*resumed.params.values(), *resumed.tx.mu, *resumed.tx.nu, resumed.tx.count]
+        if not (trainer2.start_epoch == 3 and all(torch.equal(a, b)
+                                                    for a, b in zip(mine, theirs))):
+            raise AssertionError("try_resume did not restore the epoch, params and moments")
+        loaded, _ = load_network(logdir / "giga_last.msgpack", "giga")
+        if not all(torch.equal(a.cpu(), b.detach().cpu()) for a, b in
+                   zip(loaded.state_dict().values(), state.module.state_dict().values())):
+            raise AssertionError("the saved .msgpack differs from the trained module")
+    print(f"phase 26: Trainer.fit 2 epochs of 4 batches B={B} in {fit_s:.2f} s: last and best "
+          f".msgpack, history.jsonl, tensorboard events and the state checkpoint written; "
+          f"try_resume restored epoch 2, the params and Adam's moments exactly; the saved "
+          f".msgpack loads through load_network equal to the trained module")
+
+    if on_card:
+        torch.cuda.synchronize()
+    launches = kernel_counts()
+    if any(launches.values()):
+        raise AssertionError(f"training launched a kernel of this package: {launches}")
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != flags:
+        raise AssertionError("training left the TF32 flags changed")
+    print(f"phase 26: kernel launches {launches} (none expected: training reaches no Pallas "
+          f"kernel in the JAX package); TF32 flags as before")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2067,6 +2582,7 @@ def main() -> int:
     vgn_ms = vgn_phase(scenes, card)
     fusion = fusion_phase(card)
     visual_phase(scenes, card)
+    train = train_phase(card)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -2085,6 +2601,12 @@ def main() -> int:
         f"{p} {vgn_ms[p, 'batch_ms']:.3f} ms/batch" for p in ("highest", "default", "bf16"))
         + "; __call__ " + ", ".join(f"{p} {vgn_ms[p, 'call_ms']:.3f} ms"
                                    for p in ("highest", "default", "bf16")) + f" | {card}")
+    print(f"train giga B={TRAIN_BATCH}, N={TRAIN_POINTS} (a step by CUDA events, chains of 9 "
+          f"less 1): " + ", ".join(
+              f"{v} {TRAIN_BATCH / train[v]['ms'] * 1e3:.1f} samples/s ({train[v]['ms']:.3f} ms, "
+              f"{train[v]['launches']} kernels, idle share {train[v]['idle']:.3f}, peak "
+              f"{train[v]['peak_gb']:.2f} GB)" for v in ("fp32 mm", "fp32 gather", "bf16 mm"))
+          + f" | {card}")
     print(f"TSDF fusion ({N_VIEWS} views, {CAMERA[0]}x{CAMERA[1]}) per scene: "
           f"{fusion[f'fuse{RESOLUTION}_ms']:.3f} ms at 40^3, "
           f"{fusion[f'fuse{FUSION_HIGH_RES}_ms']:.3f} ms at 120^3 | {card}")

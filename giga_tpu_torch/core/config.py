@@ -170,3 +170,17 @@ class PlannerConfig:
     max_grasps: int = 128  # static top-K capacity of the on-device selection
     force_detection: bool = False
     best: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference: scripts/train_giga.py:248-263)."""
+
+    net: str = "giga"
+    batch_size: int = 32
+    lr: float = 2e-4
+    epochs: int = 10
+    val_split: float = 0.1
+    augment: bool = False
+    num_point_occ: int = 2048
+    seed: int = 0

@@ -19,6 +19,10 @@ names are already the reference's (``encoder.conv1``, ``decoder.conv1``,
 ``conv_qual`` ...): its kernels go (D, H, W, I, O) -> (O, I, D, H, W), and
 ``to_reference_state_dict`` returns its state unchanged, the form the JAX
 package's ``convert_vgn_state_dict`` reads.
+
+``state_dict_to_flax`` is the inverse of ``flax_to_state_dict``: a module's
+state back to the flax tree ({"params": ...}) that the JAX package's
+``load_params`` gives for a checkpoint of that model.
 """
 
 from __future__ import annotations
@@ -87,6 +91,48 @@ def flax_to_state_dict(params: dict) -> dict:
         for name, arr in p.get(dec, {}).items():
             sd[f"{dec}.{name}"] = _f32(arr)
     return _tensors(sd)
+
+
+def state_dict_to_flax(state: dict) -> dict:
+    """{name: tensor} of a GIGANet or VGNNet -> the flax parameter tree
+    {"params": ...} of numpy float32 arrays that ``flax_to_state_dict``
+    maps back to the same state, value for value."""
+    sd = {k: v.detach().cpu().numpy() for k, v in state.items()}
+    p = {}
+
+    def conv(tree: dict, key: str, order) -> None:
+        tree["conv"] = {"kernel": np.ascontiguousarray(sd[key + ".weight"].transpose(order)),
+                        "bias": sd[key + ".bias"]}
+
+    if "conv_qual.weight" in sd:
+        for i in (1, 2, 3):
+            conv(p.setdefault(f"enc_conv{i}", {}), f"encoder.conv{i}", (2, 3, 4, 1, 0))
+            conv(p.setdefault(f"dec_conv{i}", {}), f"decoder.conv{i}", (2, 3, 4, 1, 0))
+        for head in ("conv_qual", "conv_rot", "conv_width"):
+            conv(p.setdefault(head, {}), head, (2, 3, 4, 1, 0))
+        return {"params": p}
+    enc = p["encoder"] = {"conv_in": {}, "unet": {}}
+    conv(enc["conv_in"], "encoder.conv_in", (2, 3, 4, 1, 0))
+    unet = enc["unet"]
+    depth = sum(1 for k in sd
+                if k.startswith("encoder.unet.down_convs.") and k.endswith("conv1.weight"))
+    for i in range(depth):
+        down = unet[f"down{i}"] = {}
+        for c in ("conv1", "conv2"):
+            conv(down.setdefault(c, {}), f"encoder.unet.down_convs.{i}.{c}", (2, 3, 1, 0))
+    for i in range(depth - 1):
+        key = f"encoder.unet.up_convs.{i}"
+        up = unet[f"up{i}"] = {"upconv": {
+            "kernel": np.ascontiguousarray(sd[key + ".upconv.weight"].transpose(0, 2, 3, 1)),
+            "bias": sd[key + ".upconv.bias"]}}
+        for c in ("conv1", "conv2"):
+            conv(up.setdefault(c, {}), f"{key}.{c}", (2, 3, 1, 0))
+    conv(unet.setdefault("conv_final", {}), "encoder.unet.conv_final", (2, 3, 1, 0))
+    for dec in ("decoder_aff", "decoder_occ"):
+        leaves = {k.split(".", 1)[1]: v for k, v in sd.items() if k.startswith(dec + ".")}
+        if leaves:
+            p[dec] = leaves
+    return {"params": p}
 
 
 def to_reference_state_dict(state: dict) -> dict:

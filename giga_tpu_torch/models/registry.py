@@ -5,7 +5,9 @@ a flax ``.msgpack`` parameter file with the pure-Python reader and loads it
 through the weight bridge. The model type is inferred from the filename
 pattern ``{prefix}_{type}_...`` when not given; a ``vgn`` type builds a VGNNet,
 every other preset a GIGANet. ``init_network(name, seed)`` gives a preset
-seeded random weights without the JAX package.
+seeded random weights without the JAX package. ``save_network`` writes a
+module's weights as the flax ``.msgpack`` file the JAX package's
+``load_params`` reads (``save_params`` writes a flax tree as it is).
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ from pathlib import Path
 import torch
 
 from giga_tpu_torch.core.config import VGNConfig, get_config
-from giga_tpu_torch.models.checkpoint import load_params
+from giga_tpu_torch.models.checkpoint import load_params, save_params
 from giga_tpu_torch.models.conv_onet import GIGANet
-from giga_tpu_torch.models.convert import flax_to_state_dict
+from giga_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax
 from giga_tpu_torch.models.vgn import VGNNet
 
 
@@ -44,6 +46,11 @@ def load_network(path, model_type: str | None = None):
     net, cfg = get_network(model_type or infer_model_type(path))
     net.load_state_dict(flax_to_state_dict(load_params(path)))
     return net.eval(), cfg
+
+
+def save_network(net: torch.nn.Module, path) -> None:
+    """Write ``net``'s weights as a flax ``.msgpack`` parameter file."""
+    save_params(state_dict_to_flax(net.state_dict()), path)
 
 
 def init_network(name: str, seed: int = 0):

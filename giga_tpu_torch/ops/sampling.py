@@ -84,7 +84,9 @@ def sample_plane(plane: torch.Tensor, p: torch.Tensor, plane_type: str,
     """Bilinearly sample one (H, W, C) feature plane at (N, 3) points by
     gathers -> (N, C)."""
     a0, a1 = PLANE_AXES[plane_type]
-    u = normalize_coordinate(p[:, [a0, a1]], padding)
+    # a stack, not p[:, [a0, a1]]: a list index is a host tensor, copied to
+    # the card with a sync
+    u = normalize_coordinate(torch.stack((p[:, a0], p[:, a1]), dim=-1), padding)
     H, W, _ = plane.shape
     fx = torch.clamp(u[:, 0] * (W - 1), 0.0, W - 1)  # col
     fy = torch.clamp(u[:, 1] * (H - 1), 0.0, H - 1)  # row
@@ -166,15 +168,18 @@ def sample_grid(grid: torch.Tensor, p: torch.Tensor, padding: float = 0.0) -> to
 def interp_matrix_1d(coords: torch.Tensor, reso: int, padding: float = 0.0) -> torch.Tensor:
     """(N, reso) matrix M with M @ f == bilinear 1D interpolation of f at
     ``coords`` (raw coordinates in [-0.5, 0.5]); the lower tap index is
-    clipped to reso - 2, so the last cell interpolates with weight 1."""
-    u = normalize_coordinate(coords.to(torch.float32), padding)
+    clipped to reso - 2, so the last cell interpolates with weight 1.
+    The weights are formed in the dtype of ``coords`` (bf16 query points in
+    the bf16 training step, as the JAX package forms them) and returned in
+    float32."""
+    u = normalize_coordinate(coords, padding)
     f = torch.clamp(u * (reso - 1), 0.0, reso - 1)
     i0 = torch.clamp(torch.floor(f).to(torch.int64), 0, reso - 2)
     w = f - i0.to(f.dtype)
     cols = torch.arange(reso, device=coords.device)[None, :]
     m0 = (cols == i0[:, None]).to(f.dtype) * (1.0 - w)[:, None]
     m1 = (cols == (i0 + 1)[:, None]).to(f.dtype) * w[:, None]
-    return m0 + m1
+    return (m0 + m1).to(torch.float32)
 
 
 def sample_plane_lattice(plane: torch.Tensor, row_m: torch.Tensor, col_m: torch.Tensor):

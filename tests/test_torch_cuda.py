@@ -1044,3 +1044,98 @@ def test_visualize_on_the_card(cuda_device, family):
     cpu = make("cpu")(State(tsdf=scene), scene_mesh=chip_smoke.scene_mesh(objects))
     assert len(card) == 4 and len(card[0]) >= 1
     chip_smoke.compare_meshes(card[3], cpu[3], family)
+
+
+# ------------------------------------------------------------------ training
+
+def _train_net(name="giga", seed=0):
+    from giga_tpu_torch.models.registry import init_network
+
+    return init_network(name, seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,sampler,tol", [
+    ("giga", "mm", chip_smoke.TOL_TRAIN_GRAD),
+    ("giga", None, chip_smoke.TOL_TRAIN_GRAD_GATHER),
+    ("giga_geo", "mm", chip_smoke.TOL_TRAIN_GRAD),
+    ("vgn", "mm", chip_smoke.TOL_TRAIN_GRAD)], ids=["giga-mm", "giga-gather", "geo", "vgn"])
+def test_train_step_on_card_matches_cpu(cuda_device, name, sampler, tol):
+    """One fp32 step on the card against the CPU port's: loss, every
+    gradient leaf, params after the step (chip_smoke's bounds)."""
+    net, cfg = _train_net(name)
+    batch = chip_smoke.train_batch(1, 4, 256, vgn=name == "vgn")
+    res = chip_smoke.compare_train_step(net, cfg, batch, "cuda", sampler=sampler, tol_grad=tol)
+    assert res["state"].params["encoder.conv_in.weight" if name != "vgn"
+                               else "conv_qual.weight"].is_cuda
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_card(cuda_device):
+    """The bf16 step on the card: loss within 3e-2 of the fp32 step's,
+    master params and moments float32, the loss falls over three steps."""
+    from giga_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    net, cfg = _train_net("giga")
+    batch = chip_smoke.train_batch(1, 4, 256)
+    losses = {}
+    for dtype in (None, BF16):
+        state = create_train_state(_train_net("giga")[0], device="cuda")
+        step = make_train_step(state.module, cfg, dtype=dtype)
+        losses[dtype] = [float(step(state, batch)[1]["loss_all"]) for _ in range(4)]
+    assert abs(losses[BF16][0] - losses[None][0]) < chip_smoke.TOL_TRAIN_BF16_LOSS
+    assert losses[BF16][-1] < losses[BF16][0]
+    assert {t.dtype for t in [*state.params.values(), *state.tx.mu]} == {torch.float32}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "gather", "clip_skip", "corpus", "vgn"])
+def test_warm_train_step_makes_no_sync(cuda_device, kind):
+    """A warm train step with its batch (or corpus and indices) on the card
+    makes no synchronizing CUDA call: the loss terms stay on the card."""
+    from giga_tpu_torch.core.device import to_device
+    from giga_tpu_torch.train import corpus as tc
+    from giga_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    net, cfg = _train_net("vgn" if kind == "vgn" else "giga")
+    state = create_train_state(net, device="cuda", clip_norm=1.0 if kind == "clip_skip" else None,
+                               skip_nonfinite=kind == "clip_skip")
+    dtype = BF16 if kind == "bf16" else None
+    sampler = None if kind == "gather" else "mm"
+    if kind == "corpus":
+        corpus = chip_smoke.make_corpus(4, 512, 16)
+        args = (tc.device_corpus(corpus, device="cuda"),
+                to_device(tc.CorpusSampler(corpus, range(4), 4, 128, seed=0)(), "cuda"))
+        step = make_train_step(state.module, cfg, assemble=tc.assemble_batch)
+    else:
+        args = (to_device(chip_smoke.train_batch(2, 4, 256, vgn=kind == "vgn"), "cuda"),)
+        step = make_train_step(state.module, cfg, dtype=dtype, sampler=sampler)
+    step(state, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, terms = step(state, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert terms["loss_all"].is_cuda and np.isfinite(float(terms["loss_all"]))
+
+
+@pytest.mark.cuda
+def test_corpus_assembly_on_card_equals_cpu(cuda_device):
+    """assemble_batch on the card equals the CPU's, array for array, for
+    every quarter turn and for mixed turns."""
+    from giga_tpu_torch.core.device import to_device
+    from giga_tpu_torch.train import corpus as tc
+
+    corpus = chip_smoke.make_corpus(6, 300, 20)
+    on_card = tc.device_corpus(corpus, device="cuda")
+    on_cpu = tc.device_corpus(corpus, device="cpu")
+    sampler = tc.CorpusSampler(corpus, range(6), batch=8, occ_sub=64, seed=1)
+    for k in (0, 1, 2, 3, None):
+        sel = sampler()
+        if k is not None:
+            sel["rotk"] = np.full(8, k, np.int32)
+        got = tc.assemble_batch(on_card, to_device(sel, "cuda"))
+        ref = tc.assemble_batch(on_cpu, to_device(sel, "cpu"))
+        for name, v in ref.items():
+            assert got[name].is_cuda and torch.equal(got[name].cpu(), v), (name, k)

@@ -18,8 +18,12 @@ by scene; ``golden_plan_vgn.npz`` the seeded VGN weights
 ``highest`` VGN programs, single-scene (with its raw qual) and batched;
 ``golden_tsdf_fusion.npz`` chip_smoke's ray-cast depth views of its first
 scenes at the simulator's camera settings and JAX's 40^3 ``fuse_views`` of
-them. These tests regenerate them and assert the committed files are
-current. Rewrite them all, or those whose names contain the given words,
+them; ``golden_train_giga.npz`` the loss terms of three fp32 steps of
+JAX's ``make_train_step`` (mm sampler) from the shipped checkpoint on
+chip_smoke's seeded batch, the first step's gradients and the params
+after the first and the last step as each leaf's sum and seeded entries
+(``chip_smoke.leaf_entries``, the port's leaf names). These
+tests regenerate them and assert the committed files are current. Rewrite them all, or those whose names contain the given words,
 with
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write [vgn fusion ...]
@@ -48,6 +52,13 @@ from giga_tpu.inference.planner import (  # noqa: E402
     stack_params,
 )
 from giga_tpu.models.registry import get_network, load_params  # noqa: E402
+from giga_tpu.train.trainer import (  # noqa: E402
+    _with_sampler,
+    create_train_state,
+    make_loss_fn,
+    make_train_step,
+)
+from giga_tpu_torch.models.convert import flax_to_state_dict  # noqa: E402
 
 N_SCENES = 4
 N_FUSION_SCENES = 2
@@ -158,6 +169,44 @@ def golden_fusion_arrays() -> dict:
             "weight": np.stack([np.asarray(w) for _, w in fused])}
 
 
+def train_batch():
+    return chip_smoke.train_batch(chip_smoke.SEED, chip_smoke.GOLDEN_TRAIN_BATCH,
+                                  chip_smoke.GOLDEN_TRAIN_POINTS)
+
+
+def golden_train_arrays() -> dict:
+    """The loss terms of GOLDEN_TRAIN_STEPS fp32 steps of JAX's
+    make_train_step (its default mm sampler) from the shipped checkpoint on
+    chip_smoke's seeded batch, and the params after them with the first
+    step's gradients (JAX's loss under value_and_grad) as
+    ``chip_smoke.leaf_entries``."""
+    net, cfg = get_network("giga")
+
+    class Loaded:  # create_train_state's optimizer around the checkpoint
+        apply = net.apply
+
+        def init(self, *args):
+            return jax.tree.map(jnp.asarray, load_params(REPO / chip_smoke.CHECKPOINT))
+
+    state = create_train_state(Loaded(), cfg, None)
+    step = make_train_step(net, cfg)
+    batch = {k: jnp.asarray(v) for k, v in train_batch().items()}
+    loss_fn = make_loss_fn(_with_sampler(net, cfg, "mm"), cfg)
+    with jax.default_matmul_precision("highest"):
+        _, grads = jax.value_and_grad(loss_fn, has_aux=True)(state.params, batch)
+    grads = {k: v.numpy() for k, v in flax_to_state_dict(jax.device_get(grads)).items()}
+    terms, params = [], []
+    for _ in range(chip_smoke.GOLDEN_TRAIN_STEPS):
+        state, t = step(state, batch)
+        terms.append(jax.device_get(t))
+        params.append({k: v.numpy() for k, v in
+                       flax_to_state_dict(jax.device_get(state.params)).items()})
+    names = sorted(terms[0])
+    return {"term_names": np.array(names),
+            "terms": np.array([[float(t[n]) for n in names] for t in terms], np.float32),
+            **chip_smoke.leaf_entries(params[-1], grads, params[0])}
+
+
 def _assert_current(path: str, fresh: dict, prefix: str = ""):
     """Regenerated candidates equal the committed ones: same counts and
     positions, scores/widths/rotations within 1e-6 (the CPU XLA build may
@@ -224,6 +273,51 @@ def test_fusion_golden_file_is_current():
     assert (fresh["weight"] == chip_smoke.N_VIEWS).any() and (fresh["tsdf"] > 0.5).any()
 
 
+def test_train_golden_file_is_current():
+    """Terms, seeded entries and gradients within 1e-6 * (1 + |b|), sums
+    within 1e-6 a value, indices equal."""
+    fresh = golden_train_arrays()
+    stored = np.load(REPO / chip_smoke.GOLDEN_TRAIN)
+    assert set(stored.files) == set(fresh)
+    np.testing.assert_array_equal(stored["term_names"], fresh["term_names"])
+    np.testing.assert_allclose(stored["terms"], fresh["terms"], atol=1e-6, rtol=1e-6)
+    for k in fresh:
+        if k.startswith("idx/"):
+            np.testing.assert_array_equal(stored[k], fresh[k], err_msg=k)
+        elif k.startswith(("val/", "val1/", "sum/", "grad/", "gmax/")):
+            n = fresh[k.replace("sum/", "idx/", 1)].size if k.startswith("val/") else 1
+            np.testing.assert_allclose(stored[k], fresh[k], atol=1e-6 * n, rtol=1e-6,
+                                       err_msg=k)
+    assert (REPO / chip_smoke.GOLDEN_TRAIN).stat().st_size < 300_000
+
+
+def test_port_train_steps_match_golden():
+    """The port's fp32 steps on the CPU from the shipped checkpoint meet the
+    card's bounds against the JAX golden (chip_smoke.check_train_golden)."""
+    import torch
+
+    from giga_tpu_torch.models.registry import load_network
+    from giga_tpu_torch.train.trainer import create_train_state as t_state
+    from giga_tpu_torch.train.trainer import make_train_step as t_step
+    from giga_tpu_torch.train.trainer import make_value_and_grad, to_device
+
+    net, cfg = load_network(REPO / chip_smoke.CHECKPOINT)
+    state = t_state(net, device="cpu")
+    step = t_step(net, cfg)
+    _, grads = make_value_and_grad(net, cfg)(state.params, to_device(train_batch(), "cpu"))
+    grads = {k: g.numpy() for k, g in zip(state.params, grads)}
+    terms = [step(state, train_batch())[1]]
+    first = {k: v.detach().numpy().copy() for k, v in state.params.items()}
+    terms += [step(state, train_batch())[1] for _ in range(chip_smoke.GOLDEN_TRAIN_STEPS - 1)]
+    errs = chip_smoke.check_train_golden(
+        np.load(REPO / chip_smoke.GOLDEN_TRAIN), terms,
+        {k: v.detach().numpy() for k, v in state.params.items()}, grads, first)
+    assert all(np.isfinite(list(errs.values()))) and isinstance(terms[0]["loss_all"],
+                                                                torch.Tensor)
+    # the CPU meets the tight bound everywhere, undetermined entries included
+    assert errs["free"] <= chip_smoke.TOL_TRAIN_PARAM and errs["n_free"] > 0
+
+
 def test_golden_scenes_are_planner_tsdfs():
     """chip_smoke's analytic scenes follow the planner's TSDF convention:
     values in [0, 1], saturated far from surfaces, some voxels inside."""
@@ -243,7 +337,8 @@ if __name__ == "__main__" and "--write" in sys.argv:
                          (chip_smoke.GOLDEN_CALL_BF16, golden_call_bf16_arrays),
                          (chip_smoke.GOLDEN_ENSEMBLE, golden_ensemble_arrays),
                          (chip_smoke.GOLDEN_VGN, golden_vgn_arrays),
-                         (chip_smoke.GOLDEN_FUSION, golden_fusion_arrays)):
+                         (chip_smoke.GOLDEN_FUSION, golden_fusion_arrays),
+                         (chip_smoke.GOLDEN_TRAIN, golden_train_arrays)):
         if words and not any(w in Path(path).name for w in words):
             continue
         np.savez_compressed(REPO / path, **arrays())

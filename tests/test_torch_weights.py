@@ -108,19 +108,26 @@ def _modules():
 
 
 def test_port_imports_without_jax():
-    """Every module imports in a process where jax, flax and msgpack cannot
-    be imported, and none of the JAX package is loaded; the modules include
-    VGN, TSDF fusion, perception, meshes and visualization."""
+    """Every module imports in a process where jax, flax, msgpack, optax,
+    orbax and pandas cannot be imported, and none of the JAX package is
+    loaded; the modules include VGN, TSDF fusion, perception, meshes,
+    visualization and training."""
     assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
             "giga_tpu_torch.core.perception", "giga_tpu_torch.core.device",
-            "giga_tpu_torch.geometry.mesh", "giga_tpu_torch.utils.visual"} <= set(_modules())
+            "giga_tpu_torch.geometry.mesh", "giga_tpu_torch.utils.visual",
+            "giga_tpu_torch.train.loss", "giga_tpu_torch.train.trainer",
+            "giga_tpu_torch.train.checkpoint", "giga_tpu_torch.train.corpus",
+            "giga_tpu_torch.train.soup", "giga_tpu_torch.train.data",
+            "giga_tpu_torch.core.io", "giga_tpu_torch.utils.tensorboard",
+            "giga_tpu_torch.scripts.profile_train"} <= set(_modules())
     code = (
         "import sys, importlib\n"
-        "for m in ('jax', 'flax', 'msgpack', 'giga_tpu'):\n"
+        "for m in ('jax', 'flax', 'msgpack', 'optax', 'orbax', 'pandas', 'giga_tpu'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {_modules() + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack', 'jaxlib')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack', 'jaxlib',\n"
+        "                                                      'optax', 'orbax', 'pandas')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -132,8 +139,9 @@ def test_port_imports_without_jax():
 
 def test_port_sources_name_no_jax_package():
     """No source of the port (or chip_smoke.py) imports giga_tpu.*, jax,
-    flax or msgpack."""
-    pattern = re.compile(r"^\s*(from|import)\s+(giga_tpu(\.|\s|$)|jax|flax|msgpack)", re.M)
+    flax, msgpack, optax, orbax or pandas."""
+    pattern = re.compile(r"^\s*(from|import)\s+(giga_tpu(\.|\s|$)|jax|flax|msgpack|optax|orbax|"
+                         r"pandas)", re.M)
     files = list(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     assert {PACKAGE / "ops" / "tsdf.py", PACKAGE / "utils" / "visual.py",
