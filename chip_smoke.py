@@ -215,17 +215,17 @@ TOL_POINTS = 2e-5
 # into the planes with atomics in no fixed order on the card, so its
 # gradients get a looser scaled bound. And float32 itself lies up to ~1e-4 *
 # (1 + max |g|) from a float64 run of a step on some leaves (the CPU's own:
-# 1.04e-4 on giga's first U-Net conv at B=4, my CPU run, PR 14), the card's
+# 1.04e-4 on giga's first U-Net conv at B=4, measured on the CPU), the card's
 # cuDNN algorithms elsewhere than the CPU's (giga_geo's second U-Net level:
-# 2.34e-5 from float64 on the card, 3.8e-6 at most on the CPU, my chip run
-# 5, PR 14); so a leaf past the bound against the CPU is held to
+# 2.34e-5 from float64 on the card, 3.8e-6 at most on the CPU, measured on
+# one H100); so a leaf past the bound against the CPU is held to
 # TOL_TRAIN_GRAD_F64 against a float64 run (``compare_train_step``). Adam's
 # first steps move a param by
 # ~lr * sign(g) whatever |g| is (above its eps of 1e-8), so where the
 # reference's gradient lies within the gradient bound of zero the other
 # device's may have the other sign or none: the shipped checkpoint has
 # weights whose gradient is exactly 0 in float32 on the CPU and ~1e-8 on the
-# card, which then move by ~0.7 lr (my chip run 2, PR 14). So after one step
+# card, which then move by ~0.7 lr (measured on one H100). So after one step
 # a param is held to TOL_TRAIN_PARAM beyond the move Adam's first step makes
 # of the two gradients measured (``adam_first_move``); after three steps,
 # where only the first gradients are known, a param whose first gradient is
