@@ -112,6 +112,16 @@ Phases (any failure exits non-zero; nothing is caught):
      memory; giga_geo and VGN one step each against the CPU; the device
      corpus (assemble_batch on the card equal to the CPU's, 5 corpus
      steps); Trainer.fit with checkpoints and resume.
+ 27. mesh generation (``meshgen_phase``; no kernel of this package, counters
+     of K1-K5 zeroed just before and read after) with the shipped GIGA-Geo
+     checkpoint in bench.py's settings: the 129^3 band program's and the
+     257^3 refine chain's bands against a JAX golden
+     (golden_mesh_geo.npz) and the CPU; generate_meshes on a batch of 8
+     against per-scene generate_mesh (129^3 and 257^3); bf16 against fp32;
+     the programs under set_sync_debug_mode("error") up to their fetch;
+     scripts/eval_synthetic_geometry.py's protocol at the geo gate's
+     floors; ms per scene, one call's split, kernels, idle share and peak
+     memory.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -247,6 +257,30 @@ TOL_TRAIN_PARAM = 5e-5
 TRAIN_LR = 2e-4
 ADAM_STEP = 1.01
 TOL_TRAIN_BF16_LOSS = 3e-2
+# mesh generation (phase 27): the shipped GIGA-Geo checkpoint in bench.py's
+# settings (resolution0 32 with 2 upsampling steps, the 129^3 band program,
+# one scene and a batch of MESH_BATCH; 3 steps, the 257^3 refine chain) on
+# bench.py's scenes (profile_meshgen.bench_scenes). The golden file holds
+# JAX's bands for the first two at 129^3 and the first at 257^3. Two bands
+# are compared cell by cell: a shared cell's corner logits within one
+# float16 step of the larger plus TOL_BAND * (1 + |b|) (float32 sums in
+# another order: the port's CPU logits lie 1.5e-5 * (1 + |b|) from JAX's
+# at 65^3, measured on the CPU), and a cell in one band only must have a
+# corner within TOL_FLIP of the threshold (a corner whose float32 logit
+# changes sign between the two). The batched gate is
+# tests/test_band_generation.py's; bf16 meshes are held by the median
+# distance of their vertices to the fp32 mesh's; the quality floors are
+# tests/test_geo_gate.py's, at scripts/eval_synthetic_geometry.py's default
+# protocol (16 scenes, seed 2000, 100,000 evaluation points)
+GOLDEN_MESH = "giga_tpu_torch/testdata/golden_mesh_geo.npz"
+MESH_BATCH = 8
+TOL_BAND = 5e-5
+TOL_FLIP = 5e-4
+TOL_MESH_BATCH = 5e-3   # sorted vertices, batched against per-scene
+TOL_MESH_BF16 = 0.01    # median distance of bf16 vertices to the fp32 mesh
+GEO_IOU_FLOOR = 0.82
+GEO_FSCORE_FLOOR = 0.78
+GEO_CHAMFER_L1_CEIL = 0.0075
 
 # published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
 # the memory rate of one H100 SXM
@@ -1338,22 +1372,29 @@ def options_phase(net, cfg, scenes, feats, default_cands, card):
     return rows
 
 
-def kernel_counts() -> dict:
-    """The launch counts of K1, K2 and K3."""
+def kernel_counts(all_five: bool = False) -> dict:
+    """The launch counts of K1, K2 and K3 (and K4 and K5 with ``all_five``)."""
     from giga_tpu_torch.ops.kernels import decoder as dk
     from giga_tpu_torch.ops.kernels.stem import stem_pool_batched
 
-    return {"K1": stem_pool_batched.launches, "K2": dk.dense_decode_batched.launches,
-            "K3": dk.fused_dense_decode.launches}
+    counts = {"K1": stem_pool_batched.launches, "K2": dk.dense_decode_batched.launches,
+              "K3": dk.fused_dense_decode.launches}
+    if all_five:
+        counts.update(K4=dk.dense_decode_feats_batched.launches,
+                      K5=dk.dense_decode_hybrid_batched.launches)
+    return counts
 
 
-def zero_kernel_counts() -> None:
+def zero_kernel_counts(all_five: bool = False) -> None:
     from giga_tpu_torch.ops.kernels import decoder as dk
     from giga_tpu_torch.ops.kernels.stem import stem_pool_batched
 
     stem_pool_batched.launches = 0
     dk.dense_decode_batched.launches = 0
     dk.fused_dense_decode.launches = 0
+    if all_five:
+        dk.dense_decode_feats_batched.launches = 0
+        dk.dense_decode_hybrid_batched.launches = 0
 
 
 def presets_phase(net, scenes, card) -> dict:
@@ -2292,6 +2333,232 @@ def train_phase(card, device: str = "cuda", batch_size: int = TRAIN_BATCH,
     return out
 
 
+def compare_bands(got, ref, what: str) -> dict:
+    """Two surface bands, each (cell ids, float16 corner values (n, 8)) of
+    its valid prefix, held cell by cell (see TOL_BAND, TOL_FLIP). Returns
+    the cells in each band only, the corners that differ and the largest
+    corner difference beyond one float16 step."""
+    (ia, va), (ib, vb) = got, ref
+    common, pa, pb = np.intersect1d(ia, ib, assume_unique=True, return_indices=True)
+    a, b = va[pa].astype(np.float64), vb[pb].astype(np.float64)
+    step = np.spacing(np.maximum(np.abs(va[pa]), np.abs(vb[pb]))).astype(np.float64)
+    beyond = np.abs(a - b) - step
+    excess = beyond - TOL_BAND * (1 + np.abs(b))
+    only = [v[~np.isin(i, common)] for i, v in ((ia, va), (ib, vb))]
+    near = [np.abs(o.astype(np.float64)).min(axis=1) if len(o) else np.zeros(0) for o in only]
+    if excess.max(initial=-1.0) > 0 or any((n > TOL_FLIP).any() for n in near):
+        raise AssertionError(
+            f"{what}: corners past one float16 step + {TOL_BAND} * (1 + |b|) by "
+            f"{excess.max(initial=0.0):.3g}; cells in one band only {[len(o) for o in only]}, "
+            f"their nearest corners {[float(n.max(initial=0.0)) for n in near]} (tol {TOL_FLIP})")
+    return {"cells": len(ib), "only": (len(only[0]), len(only[1])),
+            "corners": int((a != b).sum()), "beyond_step": float(beyond.max(initial=0.0))}
+
+
+def compare_mesh_counts(mesh, n_verts: int, n_faces: int, band: dict, what: str) -> None:
+    """A mesh's face count against a reference's: equal when the two bands
+    hold the same cells, else within the 12 triangles a cell can hold per
+    cell in one band only."""
+    slack = 12 * sum(band["only"])
+    if abs(len(mesh.faces) - n_faces) > slack or (slack == 0 and len(mesh.vertices) != n_verts):
+        raise AssertionError(f"{what}: {len(mesh.vertices)} vertices, {len(mesh.faces)} faces "
+                             f"against {n_verts}, {n_faces} (slack {slack})")
+
+
+def compare_batched(meshes, refs, what: str) -> float:
+    """tests/test_band_generation.py's batched gates: equal face counts,
+    sorted vertices within TOL_MESH_BATCH. Returns the largest difference."""
+    worst = 0.0
+    for b, (m, r) in enumerate(zip(meshes, refs)):
+        if len(m.faces) != len(r.faces) or len(m.faces) == 0:
+            raise AssertionError(f"{what} scene {b}: {len(m.faces)} faces against {len(r.faces)}")
+        d = float(np.abs(np.sort(m.vertices, axis=0) - np.sort(r.vertices, axis=0)).max())
+        if d > TOL_MESH_BATCH:
+            raise AssertionError(f"{what} scene {b}: sorted vertices {d} apart")
+        worst = max(worst, d)
+    return worst
+
+
+def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
+                  eval_points: int = 100_000) -> dict:
+    """Phase 27: mesh generation on the card (geometry/generation.py's
+    MeshGenerator with the shipped GIGA-Geo checkpoint at full width; no
+    kernel of this package: the JAX package's mesh generation reaches no
+    Pallas kernel), every counter, K4 and K5 included, zeroed just before
+    and read after:
+      a. the golden file's scenes: the 129^3 band program's bands (two
+         scenes) and the 257^3 refine chain's (one) against JAX's, cell by
+         cell (``compare_bands``), and the meshes' counts against its;
+      b. the same bands against the port's on the CPU;
+      c. ``generate_meshes`` on bench.py's batch of MESH_BATCH at 129^3 and
+         at 257^3 against per-scene ``generate_mesh`` (``compare_batched``),
+         the paths each scene took equal;
+      d. bf16 against fp32 at 129^3 on the batch: the median distance of
+         the bf16 mesh's vertices to the fp32 mesh's below TOL_MESH_BF16;
+      e. the band and refine programs, single and batched, warm, under
+         ``torch.cuda.set_sync_debug_mode("error")`` up to their one fetch;
+      f. scripts/eval_synthetic_geometry.py's protocol (``eval_scenes``
+         scenes, ``eval_points`` points) at the geo gate's floors;
+      g. ms per scene (129^3 single, batched, 257^3 refine), one call's
+         split, kernels a call, idle share and peak memory
+         (scripts/profile_meshgen.py).
+    ``device``, ``eval_scenes`` and ``eval_points`` let the phase rehearse
+    on the CPU at a small size (no sync check, no timings there). Returns
+    the timings."""
+    import copy
+
+    import torch
+    from scipy.spatial import cKDTree
+
+    from giga_tpu_torch.geometry.generation import MeshGenerator, fetch
+    from giga_tpu_torch.models.registry import load_network
+    from giga_tpu_torch.scripts.eval_synthetic_geometry import evaluate_geo_checkpoint
+    from giga_tpu_torch.scripts.profile_meshgen import SETTINGS, bench_scenes, profile
+
+    root = Path(__file__).resolve().parent
+    on_card = device != "cpu"
+    net, _ = load_network(root / GEO_CHECKPOINT, "giga_geo")
+    cpu_net = copy.deepcopy(net)
+    golden = np.load(root / GOLDEN_MESH)
+    t0 = time.perf_counter()
+    scenes = bench_scenes(1 + MESH_BATCH)
+    scenes_s = time.perf_counter() - t0
+    same_tsdf = bool(np.array_equal(scenes[:len(golden["tsdf"])], golden["tsdf"]))
+    gen = {k: MeshGenerator(net, **SETTINGS[k], device=device) for k in ("single", "refine")}
+    cpu = {k: MeshGenerator(cpu_net, **SETTINGS[k], device="cpu") for k in ("single", "refine")}
+    zero_kernel_counts(all_five=True)
+
+    def band(g, tsdf, refine: bool = False):
+        g.encode(tsdf)
+        out = fetch(*(g.refine_program(g._planes, 0) if refine else g.band_program(g._planes)))
+        n = int(out[2])
+        return (out[0][:n], out[1][:n]), out
+
+    # a, b. the golden's bands, and the CPU's
+    rows = []
+    for i, tsdf in enumerate(golden["tsdf"]):
+        got, _ = band(gen["single"], tsdf)
+        ref = (golden[f"band{i}_ids"], golden[f"band{i}_vals"])
+        res = compare_bands(got, ref, f"129^3 band, golden scene {i}")
+        mesh, stats = gen["single"].generate_mesh(tsdf)
+        compare_mesh_counts(mesh, int(golden["band_verts"][i]), int(golden["band_faces"][i]),
+                            res, f"129^3 mesh, golden scene {i}")
+        if stats["path"] != "band":
+            raise AssertionError(f"golden scene {i} took {stats['path']}")
+        rows.append(f"scene {i} {res['cells']} cells, {res['corners']} corners differ, "
+                    f"{res['only']} in one band only, {len(mesh.faces)} faces")
+        if i == 0:
+            cpu_res = compare_bands(got, band(cpu["single"], tsdf)[0], "129^3 band, card vs CPU")
+    got, out = band(gen["refine"], golden["tsdf"][0], refine=True)
+    ref_res = compare_bands(got, (golden["refine_ids"], golden["refine_vals"]),
+                            "257^3 refine band, golden scene 0")
+    counts_p = out[3]
+    K_f, K_ps = gen["refine"]._refine_tiers[0]
+    if not all(int(c) <= k for c, k in zip(counts_p, K_ps)):
+        raise AssertionError(f"257^3 refine chain past tier 0: {counts_p} against {K_ps}")
+    mesh, stats = gen["refine"].generate_mesh(golden["tsdf"][0])
+    compare_mesh_counts(mesh, int(golden["refine_verts"]), int(golden["refine_faces"]), ref_res,
+                        "257^3 mesh, golden scene 0")
+    cpu_got, cpu_out = band(cpu["refine"], golden["tsdf"][0], refine=True)
+    cpu_ref_res = compare_bands(got, cpu_got, "257^3 refine band, card vs CPU")
+    print(f"phase 27: 129^3 band program against the JAX golden: " + "; ".join(rows)
+          + f"; 257^3 refine chain (tier {stats['refine tier']}, point counts "
+          f"{counts_p.tolist()} against JAX's {golden['refine_counts_p'].tolist()} and the CPU's "
+          f"{cpu_out[3].tolist()}): {ref_res['cells']} cells, {ref_res['corners']} corners "
+          f"differ, {ref_res['only']} in one band only, {len(mesh.faces)} faces; card against "
+          f"the CPU: 129^3 {cpu_res['corners']} corners differ, {cpu_res['only']} cells in one "
+          f"band only, 257^3 {cpu_ref_res['corners']} and {cpu_ref_res['only']}; largest corner "
+          f"difference beyond a float16 step {max(r['beyond_step'] for r in (res, ref_res, cpu_res, cpu_ref_res)):.3g} "
+          f"(tol {TOL_BAND} * (1 + |b|)); bench.py's scenes made on this host equal the "
+          f"golden's: {same_tsdf} ({scenes_s:.2f} s for {len(scenes)})")
+
+    # c. batched against per-scene, both strategies
+    batch = scenes[1:1 + MESH_BATCH]
+    worst = {}
+    for k in ("single", "refine"):
+        meshes = gen[k].generate_meshes(batch)
+        paths = [st["path"] for st in gen[k].batch_stats]
+        singles = [gen[k].generate_mesh(g) for g in batch]
+        if paths != [st["path"] for _, st in singles]:
+            raise AssertionError(f"{k} batched paths {paths} against per-scene "
+                                 f"{[st['path'] for _, st in singles]}")
+        worst[k] = (compare_batched(meshes, [m for m, _ in singles], f"{k} generate_meshes"),
+                    paths)
+    fp32_meshes = [m for m, _ in [gen["single"].generate_mesh(g) for g in batch]]
+
+    # d. bf16 against fp32
+    gen_bf16 = MeshGenerator(net, **SETTINGS["single"], precision="bf16", device=device)
+    bf16_meshes = gen_bf16.generate_meshes(batch)
+    medians = [float(np.median(cKDTree(r.vertices).query(m.vertices)[0]))
+               for m, r in zip(bf16_meshes, fp32_meshes)]
+    if not max(medians) < TOL_MESH_BF16:
+        raise AssertionError(f"bf16 meshes: median vertex distances {medians}")
+    print(f"phase 27: generate_meshes B={MESH_BATCH} against per-scene generate_mesh: 129^3 "
+          f"paths {worst['single'][1]}, sorted vertices within {worst['single'][0]:.3g}; 257^3 "
+          f"paths {worst['refine'][1]}, within {worst['refine'][0]:.3g} (tol {TOL_MESH_BATCH}, "
+          f"face counts equal); bf16 against fp32 at 129^3: median vertex distance "
+          f"{max(medians):.3g} at most (tol {TOL_MESH_BF16}), paths "
+          f"{[st['path'] for st in gen_bf16.batch_stats]}")
+
+    # e. no sync inside the programs
+    if on_card:
+        dev1 = gen["single"].upload(scenes[:1])
+        devb = gen["single"].upload(batch)
+        with torch.no_grad():
+            planes = gen["single"].net.encode(dev1)
+        programs = {"band": lambda: gen["single"].band_program(planes),
+                    "band batched": lambda: gen["single"].band_program_batched(devb),
+                    "refine": lambda: gen["refine"].refine_program(planes, 0),
+                    "refine batched": lambda: gen["refine"].refine_program_batched(devb, 0)}
+        for name, fn in programs.items():
+            warm = fetch(*fn())
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if not all(np.array_equal(a, b) for a, b in zip(fetch(*out), warm)):
+                raise AssertionError(f"the {name} program gave another result warm")
+        print(f"phase 27: {', '.join(programs)} programs ran under "
+              f"set_sync_debug_mode('error') up to their fetch, equal to their warm runs")
+
+    # f. the evaluation protocol
+    t0 = time.perf_counter()
+    metrics = evaluate_geo_checkpoint(root / GEO_CHECKPOINT, n_scenes=eval_scenes,
+                                      n_eval_points=eval_points, device=device)
+    eval_s = time.perf_counter() - t0
+    if not (metrics["iou"] >= GEO_IOU_FLOOR and metrics["f-score"] >= GEO_FSCORE_FLOOR
+            and metrics["chamfer-L1"] <= GEO_CHAMFER_L1_CEIL):
+        raise AssertionError(f"geometry evaluation below the geo gate's floors: {metrics}")
+    print(f"phase 27: eval_synthetic_geometry ({eval_scenes} scenes, seed 2000, {eval_points} "
+          f"points, 129^3 band program): IoU {metrics['iou']:.5f} (floor {GEO_IOU_FLOOR}), "
+          f"F-score {metrics['f-score']:.5f} (floor {GEO_FSCORE_FLOOR}), Chamfer-L1 "
+          f"{metrics['chamfer-L1']:.5f} (ceiling {GEO_CHAMFER_L1_CEIL}), normals "
+          f"{metrics['normals']:.5f}; {eval_s:.2f} s")
+
+    # g. timings
+    out = {"eval": metrics}
+    if on_card:
+        for setting in ("single", "batched", "refine"):
+            r = profile(setting, net, scenes, 5, 10000)
+            out[setting] = r
+            stages = ", ".join(f"{k} {v:.3f}" for k, v in r["stages"].items())
+            print(f"phase 27: {setting} ({SETTINGS[setting]}): {r['ms_per_scene']:.3f} ms a "
+                  f"scene end to end; one call: encode {r['encode']:.3f} ms, program "
+                  f"{r['program']:.3f} ms ({stages}), fetch {r['fetch']:.3f} ms, marching "
+                  f"{r['marching']:.3f} ms, simplify to 10000 faces {r['simplify']:.3f} ms; "
+                  f"{r['kernels']} kernels a call, device idle share {r['idle']:.3f}, peak "
+                  f"{r['peak_gb']:.3f} GB | {card}")
+        torch.cuda.synchronize()
+    launches = kernel_counts(all_five=True)
+    if any(launches.values()):
+        raise AssertionError(f"mesh generation launched a kernel of this package: {launches}")
+    print(f"phase 27: kernel launches {launches} (none expected: mesh generation reaches no "
+          f"Pallas kernel in the JAX package)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2583,6 +2850,7 @@ def main() -> int:
     fusion = fusion_phase(card)
     visual_phase(scenes, card)
     train = train_phase(card)
+    meshgen = meshgen_phase(card)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -2610,6 +2878,9 @@ def main() -> int:
     print(f"TSDF fusion ({N_VIEWS} views, {CAMERA[0]}x{CAMERA[1]}) per scene: "
           f"{fusion[f'fuse{RESOLUTION}_ms']:.3f} ms at 40^3, "
           f"{fusion[f'fuse{FUSION_HIGH_RES}_ms']:.3f} ms at 120^3 | {card}")
+    print("mesh generation (giga_geo, ms a scene end to end, program ms, peak GB): " + ", ".join(
+        f"{k} {meshgen[k]['ms_per_scene']:.3f} ({meshgen[k]['program']:.3f}, "
+        f"{meshgen[k]['peak_gb']:.3f})" for k in ("single", "batched", "refine")) + f" | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

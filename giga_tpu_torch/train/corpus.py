@@ -17,8 +17,10 @@ rotation is exact too. Every function here gives the JAX package's values
 bit for bit, on the CPU and on the card. The reference's random height
 shift is omitted, as there.
 
-Building scenes (``build_scene``) needs the synthetic-scene generator and
-the native mesh-containment test, which the port does not have yet.
+``build_scene`` makes one scene of the synthetic corpus on the host (the
+scene generator of ``utils/synthetic.py``, the geometric grasp oracle of
+``utils/synthetic_grasps.py``, both over the native containment test),
+array for array the JAX package's from the same ``RandomState``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,35 @@ def load_corpus(root) -> dict:
         raise FileNotFoundError(f"no corpus shards under {root}")
     shards = [dict(np.load(p)) for p in paths]
     return {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+
+
+# ---------------------------------------------------------------- building
+
+def build_scene(rng, size: float, n_occ: int, n_grasps: int) -> dict:
+    """One scene -> flat arrays (all normalized units, see synthetic_grasps)."""
+    from giga_tpu_torch.utils.synthetic import make_occ_samples, mesh_to_tsdf, random_scene
+    from giga_tpu_torch.utils.synthetic_grasps import (
+        grasps_to_batch_arrays,
+        sample_labeled_grasps,
+    )
+
+    mesh = random_scene(rng, size)
+    tsdf = mesh_to_tsdf(mesh, size, 40, rng=rng)
+    pts, occ = make_occ_samples(mesh, size, n_occ, rng)
+    arrs = grasps_to_batch_arrays(sample_labeled_grasps(mesh, size, n_grasps, rng), size)
+    n = len(arrs["label"])
+    if n < n_grasps:  # pad by repetition so shards stack rectangular
+        rep = rng.randint(0, n, n_grasps - n)
+        arrs = {k: np.concatenate([v, v[rep]]) for k, v in arrs.items()}
+    return {
+        "tsdf": tsdf.astype(np.float32),
+        "occ_pts": (pts / size - 0.5).astype(np.float32),
+        "occ_lbl": occ.astype(np.float32),
+        "grasp_pos": arrs["pos"],
+        "grasp_rot": arrs["rotations"],
+        "grasp_width": arrs["width"],
+        "grasp_label": arrs["label"],
+    }
 
 
 # ------------------------------------------------------- device-side assembly

@@ -1,8 +1,9 @@
 """The device-resident corpus pipeline in the PyTorch port
 (giga_tpu_torch/train/corpus.py), on the CPU against the JAX package:
 ``assemble_batch`` equal to JAX's for every quarter turn k, the sampler's
-selections equal to JAX's for one seed, the shard round trip, and corpus
-train steps whose loss falls.
+selections equal to JAX's for one seed, the shard round trip, corpus
+train steps whose loss falls, and ``build_scene`` equal to JAX's array for
+array.
 """
 
 import numpy as np
@@ -106,3 +107,16 @@ def test_corpus_train_step_learns():
     losses = [float(step(state, dev, sel)[1]["loss_all"]) for _ in range(8)]
     assert np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
+
+
+@pytest.mark.parametrize("seed", [0, 11])
+def test_build_scene_equals_jax(seed):
+    """One synthetic scene from the same RandomState: every array equal to
+    the JAX package's, dtype and all (the grasp list padded alike)."""
+    got = tc.build_scene(np.random.RandomState(seed), 0.3, 512, 16)
+    ref = jc.build_scene(np.random.RandomState(seed), 0.3, 512, 16)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    assert got["tsdf"].shape == (40, 40, 40) and len(got["grasp_label"]) == 16

@@ -1139,3 +1139,110 @@ def test_corpus_assembly_on_card_equals_cpu(cuda_device):
         ref = tc.assemble_batch(on_cpu, to_device(sel, "cpu"))
         for name, v in ref.items():
             assert got[name].is_cuda and torch.equal(got[name].cpu(), v), (name, k)
+
+
+def _mesh_generators(device_kw, **kw):
+    """(card generator, CPU generator) on the shipped GIGA-Geo checkpoint."""
+    import copy
+
+    from giga_tpu_torch.geometry.generation import MeshGenerator
+    from giga_tpu_torch.models.registry import load_network
+
+    net, _ = load_network(REPO / chip_smoke.GEO_CHECKPOINT, "giga_geo")
+    cpu_net = copy.deepcopy(net)
+    return (MeshGenerator(net, device="cuda", **kw, **device_kw),
+            MeshGenerator(cpu_net, device="cpu", **kw, **device_kw))
+
+
+def _mesh_scenes(n=3):
+    from giga_tpu_torch.scripts.profile_meshgen import bench_scenes
+
+    return bench_scenes(n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(resolution0=32, upsampling_steps=1, strategy="dense"),
+                                dict(resolution0=16, upsampling_steps=2, strategy="refine")])
+def test_mesh_bands_on_card_equal_cpu(cuda_device, kw):
+    """The band program and the refine chain on the card against the CPU's,
+    cell by cell (chip_smoke.compare_bands), and the meshes' face counts."""
+    from giga_tpu_torch.geometry.generation import fetch
+
+    card, cpu = _mesh_generators({}, **kw)
+    for tsdf in _mesh_scenes(2):
+        bands = []
+        for gen in (card, cpu):
+            gen.encode(tsdf)
+            out = fetch(*(gen.refine_program(gen._planes, 0) if gen.strategy == "refine"
+                          else gen.band_program(gen._planes)))
+            bands.append((out[0][:int(out[2])], out[1][:int(out[2])]))
+        res = chip_smoke.compare_bands(bands[0], bands[1], f"{kw}")
+        mesh, stats = card.generate_mesh(tsdf)
+        ref, ref_stats = cpu.generate_mesh(tsdf)
+        assert stats["path"] == ref_stats["path"]
+        assert abs(len(mesh.faces) - len(ref.faces)) <= 12 * sum(res["only"])
+
+
+@pytest.mark.cuda
+def test_bf16_meshes_on_card_near_cpu(cuda_device):
+    """bf16 on the card against bf16 on the CPU: the two sum bf16 products
+    in other orders, so they are held by the bf16 gate (median vertex
+    distance below chip_smoke.TOL_MESH_BF16), the paths equal."""
+    from scipy.spatial import cKDTree
+
+    card, cpu = _mesh_generators({}, resolution0=16, upsampling_steps=1, precision="bf16")
+    for tsdf in _mesh_scenes(2):
+        (mesh, stats), (ref, ref_stats) = card.generate_mesh(tsdf), cpu.generate_mesh(tsdf)
+        assert stats["path"] == ref_stats["path"] and len(mesh.faces) > 0
+        assert np.median(cKDTree(ref.vertices).query(mesh.vertices)[0]) < chip_smoke.TOL_MESH_BF16
+
+
+@pytest.mark.cuda
+def test_mesh_programs_make_no_sync(cuda_device):
+    """The band and refine programs, single and batched, warm, run with no
+    synchronizing call before their fetch."""
+    card, _ = _mesh_generators({}, resolution0=16, upsampling_steps=2)
+    scenes = _mesh_scenes(3)
+    one, batch = card.upload(scenes[:1]), card.upload(scenes)
+    with torch.no_grad():
+        planes = card.net.encode(one)
+    card.strategy = "refine"
+    programs = [lambda: card.band_program(planes), lambda: card.band_program_batched(batch),
+                lambda: card.refine_program(planes, 0),
+                lambda: card.refine_program_batched(batch, 0)]
+    for fn in programs:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert all(t.is_cuda for t in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["dense", "refine"])
+def test_generate_meshes_on_card_equal_per_scene(cuda_device, strategy):
+    """generate_meshes on the card against its per-scene generate_mesh
+    (tests/test_band_generation.py's gates), the paths equal."""
+    card, _ = _mesh_generators({}, resolution0=16, upsampling_steps=2, strategy=strategy)
+    scenes = _mesh_scenes(3)
+    meshes = card.generate_meshes(scenes)
+    singles = [card.generate_mesh(g) for g in scenes]
+    assert [s["path"] for s in card.batch_stats] == [s["path"] for _, s in singles]
+    chip_smoke.compare_batched(meshes, [m for m, _ in singles], strategy)
+
+
+@pytest.mark.cuda
+def test_refine_mesh_on_card_equals_cpu(cuda_device):
+    """Normals and two refinement steps (the same Dirichlet draws) on the
+    card against the CPU's."""
+    card, cpu = _mesh_generators({}, resolution0=8, upsampling_steps=1)
+    tsdf = _mesh_scenes(1)[0]
+    mesh = cpu.generate_mesh(tsdf, return_stats=False)
+    card.encode(tsdf)
+    np.testing.assert_allclose(card.estimate_normals(mesh.vertices),
+                               cpu.estimate_normals(mesh.vertices), atol=3e-5, rtol=0)
+    np.testing.assert_allclose(card.refine_mesh(mesh, 2).vertices, cpu.refine_mesh(mesh, 2).vertices,
+                               atol=1e-5, rtol=0)

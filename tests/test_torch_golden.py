@@ -22,7 +22,10 @@ them; ``golden_train_giga.npz`` the loss terms of three fp32 steps of
 JAX's ``make_train_step`` (mm sampler) from the shipped checkpoint on
 chip_smoke's seeded batch, the first step's gradients and the params
 after the first and the last step as each leaf's sum and seeded entries
-(``chip_smoke.leaf_entries``, the port's leaf names). These
+(``chip_smoke.leaf_entries``, the port's leaf names);
+``golden_mesh_geo.npz`` JAX's mesh-generation bands with the shipped
+GIGA-Geo checkpoint on bench.py's first two scenes at 129^3 and the first
+at 257^3 through the refine chain (``golden_mesh_arrays``). These
 tests regenerate them and assert the committed files are current. Rewrite them all, or those whose names contain the given words,
 with
 
@@ -207,6 +210,49 @@ def golden_train_arrays() -> dict:
             **chip_smoke.leaf_entries(params[-1], grads, params[0])}
 
 
+def golden_mesh_arrays() -> dict:
+    """JAX's mesh generation with the shipped GIGA-Geo checkpoint on
+    bench.py's first two scenes (``RandomState(0)``'s first two
+    ``random_scene`` TSDFs): the 129^3 band program's band (cell ids and
+    float16 corner values of its valid prefix) and mesh counts for each,
+    and the 257^3 refine chain's (tier 0) with its point counts for the
+    first."""
+    from giga_tpu.geometry.generation import MeshGenerator
+    from giga_tpu.utils.synthetic import mesh_to_tsdf, random_scene
+
+    r = np.random.RandomState(0)
+    tsdf = np.stack([np.squeeze(mesh_to_tsdf(random_scene(r, 0.3), 0.3, 40, rng=r))
+                     for _ in range(2)])
+    net, _ = get_network("giga_geo")
+    params = load_params(REPO / chip_smoke.GEO_CHECKPOINT)
+    gen = MeshGenerator(net, params, resolution0=32, upsampling_steps=2)
+    out = {"tsdf": tsdf}
+    counts, verts, faces = [], [], []
+    for i, grid in enumerate(tsdf):
+        gen.encode(grid)
+        ids, vals, count = jax.device_get(gen._band(gen.params, gen._planes))
+        n = int(count)
+        assert n <= gen.band_cells
+        out[f"band{i}_ids"], out[f"band{i}_vals"] = ids[:n], vals[:n]
+        mesh = gen._mesh_from_band(ids[:n], vals[:n], 0.0, 1.0, {})
+        counts.append(n)
+        verts.append(len(mesh.vertices))
+        faces.append(len(mesh.faces))
+    out.update(band_count=np.array(counts), band_verts=np.array(verts),
+               band_faces=np.array(faces))
+    gen = MeshGenerator(net, params, resolution0=32, upsampling_steps=3, strategy="refine")
+    gen.encode(tsdf[0])
+    ids, vals, count_f, counts_p = jax.device_get(gen._refine_band_fn(0)(gen.params, gen._planes))
+    K_f, K_ps = gen._refine_tiers[0]
+    n = int(count_f)
+    assert n <= K_f and all(int(c) <= k for c, k in zip(counts_p, K_ps))
+    mesh = gen._mesh_from_band(ids[:n], vals[:n], 0.0, 1.0, {})
+    out.update(refine_ids=ids[:n], refine_vals=vals[:n], refine_count=np.array(n),
+               refine_counts_p=np.asarray(counts_p), refine_verts=np.array(len(mesh.vertices)),
+               refine_faces=np.array(len(mesh.faces)))
+    return out
+
+
 def _assert_current(path: str, fresh: dict, prefix: str = ""):
     """Regenerated candidates equal the committed ones: same counts and
     positions, scores/widths/rotations within 1e-6 (the CPU XLA build may
@@ -318,6 +364,52 @@ def test_port_train_steps_match_golden():
     assert errs["free"] <= chip_smoke.TOL_TRAIN_PARAM and errs["n_free"] > 0
 
 
+def test_mesh_golden_file_is_current():
+    """JAX's bands and mesh counts regenerate bit for bit; the file stays
+    small."""
+    fresh = golden_mesh_arrays()
+    stored = np.load(REPO / chip_smoke.GOLDEN_MESH)
+    assert set(stored.files) == set(fresh)
+    for k, v in fresh.items():
+        assert stored[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(stored[k], v, err_msg=k)
+    assert (REPO / chip_smoke.GOLDEN_MESH).stat().st_size < 4_000_000
+
+
+def test_port_meshgen_matches_golden():
+    """The port's bands on the CPU meet the card's bounds against the JAX
+    golden (chip_smoke.compare_bands): at 129^3 for both scenes and at
+    257^3 through the refine chain, and so do the meshes' counts."""
+    from giga_tpu_torch.geometry.generation import MeshGenerator, fetch
+    from giga_tpu_torch.models.registry import load_network
+    from giga_tpu_torch.scripts.profile_meshgen import SETTINGS, bench_scenes
+
+    golden = np.load(REPO / chip_smoke.GOLDEN_MESH)
+    np.testing.assert_array_equal(bench_scenes(2), golden["tsdf"])
+    net, _ = load_network(REPO / chip_smoke.GEO_CHECKPOINT, "giga_geo")
+    gen = MeshGenerator(net, **SETTINGS["single"], device="cpu")
+    for i, tsdf in enumerate(golden["tsdf"]):
+        gen.encode(tsdf)
+        ids, vals, count = fetch(*gen.band_program(gen._planes))
+        n = int(count)
+        assert n == golden["band_count"][i]
+        res = chip_smoke.compare_bands((ids[:n], vals[:n]),
+                                       (golden[f"band{i}_ids"], golden[f"band{i}_vals"]),
+                                       f"scene {i}")
+        assert res["only"] == (0, 0)
+        mesh = gen._mesh_from_band(ids[:n], vals[:n], {})
+        assert (len(mesh.vertices), len(mesh.faces)) == (golden["band_verts"][i],
+                                                         golden["band_faces"][i])
+    gen = MeshGenerator(net, **SETTINGS["refine"], device="cpu")
+    gen.encode(golden["tsdf"][0])
+    ids, vals, count_f, counts_p = fetch(*gen.refine_program(gen._planes, 0))
+    n = int(count_f)
+    np.testing.assert_array_equal(counts_p, golden["refine_counts_p"])
+    res = chip_smoke.compare_bands((ids[:n], vals[:n]),
+                                   (golden["refine_ids"], golden["refine_vals"]), "refine")
+    assert res["only"] == (0, 0) and n == golden["refine_count"]
+
+
 def test_golden_scenes_are_planner_tsdfs():
     """chip_smoke's analytic scenes follow the planner's TSDF convention:
     values in [0, 1], saturated far from surfaces, some voxels inside."""
@@ -338,7 +430,8 @@ if __name__ == "__main__" and "--write" in sys.argv:
                          (chip_smoke.GOLDEN_ENSEMBLE, golden_ensemble_arrays),
                          (chip_smoke.GOLDEN_VGN, golden_vgn_arrays),
                          (chip_smoke.GOLDEN_FUSION, golden_fusion_arrays),
-                         (chip_smoke.GOLDEN_TRAIN, golden_train_arrays)):
+                         (chip_smoke.GOLDEN_TRAIN, golden_train_arrays),
+                         (chip_smoke.GOLDEN_MESH, golden_mesh_arrays)):
         if words and not any(w in Path(path).name for w in words):
             continue
         np.savez_compressed(REPO / path, **arrays())

@@ -111,7 +111,9 @@ def test_port_imports_without_jax():
     """Every module imports in a process where jax, flax, msgpack, optax,
     orbax and pandas cannot be imported, and none of the JAX package is
     loaded; the modules include VGN, TSDF fusion, perception, meshes,
-    visualization and training."""
+    visualization, training and mesh generation. Using the geometry
+    library there loads the port's build and never the JAX package's
+    giga_tpu/geometry/_native.so."""
     assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
             "giga_tpu_torch.core.perception", "giga_tpu_torch.core.device",
             "giga_tpu_torch.geometry.mesh", "giga_tpu_torch.utils.visual",
@@ -119,7 +121,12 @@ def test_port_imports_without_jax():
             "giga_tpu_torch.train.checkpoint", "giga_tpu_torch.train.corpus",
             "giga_tpu_torch.train.soup", "giga_tpu_torch.train.data",
             "giga_tpu_torch.core.io", "giga_tpu_torch.utils.tensorboard",
-            "giga_tpu_torch.scripts.profile_train"} <= set(_modules())
+            "giga_tpu_torch.scripts.profile_train", "giga_tpu_torch.geometry.native",
+            "giga_tpu_torch.geometry.refine", "giga_tpu_torch.geometry.generation",
+            "giga_tpu_torch.geometry.eval", "giga_tpu_torch.utils.synthetic",
+            "giga_tpu_torch.utils.synthetic_grasps",
+            "giga_tpu_torch.scripts.eval_synthetic_geometry",
+            "giga_tpu_torch.scripts.profile_meshgen"} <= set(_modules())
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'optax', 'orbax', 'pandas', 'giga_tpu'):\n"
@@ -130,6 +137,11 @@ def test_port_imports_without_jax():
         "                                                      'optax', 'orbax', 'pandas')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
+        "from giga_tpu_torch.train.corpus import build_scene\n"
+        "import numpy as np\n"
+        "build_scene(np.random.RandomState(0), 0.3, 64, 2)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'giga_tpu/geometry/_native.so' not in maps and 'libgeometry-' in maps\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -145,7 +157,9 @@ def test_port_sources_name_no_jax_package():
     files = list(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     assert {PACKAGE / "ops" / "tsdf.py", PACKAGE / "utils" / "visual.py",
-            PACKAGE / "geometry" / "mesh.py", PACKAGE / "models" / "vgn.py"} <= set(files)
+            PACKAGE / "geometry" / "mesh.py", PACKAGE / "models" / "vgn.py",
+            PACKAGE / "geometry" / "native.py", PACKAGE / "geometry" / "generation.py",
+            PACKAGE / "utils" / "synthetic.py"} <= set(files)
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
