@@ -265,9 +265,9 @@ TOL_TRAIN_BF16_LOSS = 3e-2
 # are compared cell by cell: a shared cell's corner logits within one
 # float16 step of the larger plus TOL_BAND * (1 + |b|) (float32 sums in
 # another order: the port's CPU logits lie 1.5e-5 * (1 + |b|) from JAX's
-# at 65^3, measured on the CPU), and a cell in one band only must have a
-# corner within TOL_FLIP of the threshold (a corner whose float32 logit
-# changes sign between the two). The batched gate is
+# at 65^3, tests/test_torch_meshgen.py::test_float32_logits_match_jax), and
+# a cell in one band only must have a corner within TOL_FLIP of the
+# threshold (a corner whose float32 logit changes sign between the two). The batched gate is
 # tests/test_band_generation.py's; bf16 meshes are held by the median
 # distance of their vertices to the fp32 mesh's; the quality floors are
 # tests/test_geo_gate.py's, at scripts/eval_synthetic_geometry.py's default

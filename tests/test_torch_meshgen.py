@@ -7,13 +7,14 @@ Corner values (float16) must be equal, or apart by one float16 step of the
 larger plus TOL_LOGIT * (1 + |b|): two float32 decodes that sum in another
 order round a logit that lies near a float16 rounding boundary to its two
 neighbours, and a logit near 0 (where float16 steps are tiny) by the float32
-difference itself (the port's float32 logits lie 1.5e-5 * (1 + |b|) from
-JAX's at 65^3, measured on the CPU). In bf16 the decoder rounds every
-layer to bf16, and a flipped rounding of a unit-scale term moves a logit
-by a bf16 step of that term: TOL_BF16 * (1 + |b|) there (seeded params:
-4.9e-4 at most, measured on the CPU). Each case reports how many corners
-differ. Vertices from such bands lie within TOL_VERTEX of JAX's (in the
-[-0.5, 0.5] frame; one float16 step moved them 1.4e-4 at most here).
+difference itself (``test_float32_logits_match_jax`` holds the two float32
+lattice decodes within TOL_LOGIT * (1 + |b|) and prints how far they lie:
+1.5e-5 at 65^3). In bf16 the decoder rounds every layer to bf16, and a
+flipped rounding of a unit-scale term moves a logit by a bf16 step of that
+term: TOL_BF16 * (1 + |b|) there. Each case prints how many corners differ
+and by how much at most (``-s``). Vertices from such bands lie within
+TOL_VERTEX of JAX's (in the [-0.5, 0.5] frame; each case prints its
+largest difference).
 """
 
 from pathlib import Path
@@ -101,7 +102,8 @@ def assert_band(got, ref, what: str, tol: float = TOL_LOGIT) -> int:
     excess = np.abs(a - b) - step - tol * (1 + np.abs(b))
     assert excess.max(initial=-1.0) <= 0, (what, excess.max())
     differ = int((a != b).sum())
-    print(f"{what}: {n} cells, {differ} of {a.size} corners differ")
+    print(f"{what}: {n} cells, {differ} of {a.size} corners differ, by "
+          f"{np.abs(a - b).max(initial=0.0):.3g} at most")
     return differ
 
 
@@ -109,6 +111,7 @@ def assert_meshes(got, ref, what: str, tol: float = TOL_VERTEX):
     assert len(got.faces) == len(ref.faces) > 0, what
     np.testing.assert_array_equal(got.faces, ref.faces, err_msg=what)
     np.testing.assert_allclose(got.vertices, ref.vertices, atol=tol, rtol=0, err_msg=what)
+    print(f"{what}: vertices within {np.abs(got.vertices - ref.vertices).max():.3g}")
 
 
 # ------------------------------------------------------------- the primitives
@@ -176,6 +179,30 @@ def test_dense_band_65_matches_jax(jax_net, shipped, scenes):
     t.encode(scenes[0])
     assert_band(fetch(*t.band_program(t._planes)), jax.device_get(j._band(j.params, j._planes)),
                 "dense band 65^3")
+
+
+def test_float32_logits_match_jax(jax_net, shipped, scenes):
+    """The two float32 lattice decodes behind the band (JAX's XLA
+    ``decode_dense`` and the port's) at 65^3: within TOL_LOGIT * (1 + |b|)."""
+    from giga_tpu.inference.dense_decode import decode_dense as jax_decode_dense
+    from giga_tpu.inference.planner import _lattice_features
+    from giga_tpu_torch.inference.dense_decode import decode_dense
+
+    j, t = generators(jax_net, shipped, resolution0=16, upsampling_steps=2, strategy="dense")
+    j.encode(scenes[0])
+    t.encode(scenes[0])
+    n = t.final_n
+    coords = jnp.linspace(-0.5, 0.5, n, dtype=jnp.float32)
+    planes = {k: v[0] for k, v in j._planes.items()}
+    ref = np.asarray(jax_decode_dense(j.params["params"]["decoder_occ"],
+                                      _lattice_features(planes, coords, j.net.cfg), coords,
+                                      5)[0, ..., 0])
+    with torch.no_grad():
+        got = decode_dense(t._dec, t._lattice_feats({k: v[0] for k, v in t._planes.items()},
+                                                    t.coords(n)), t.coords(n), 5)[0, ..., 0]
+    rel = np.abs(got.numpy() - ref) / (1 + np.abs(ref))
+    print(f"float32 logits at {n}^3: within {rel.max():.3g} * (1 + |b|)")
+    assert rel.max() <= TOL_LOGIT
 
 
 def test_batched_band_matches_jax(jax_net, params, scenes):
@@ -308,8 +335,8 @@ def test_generate_meshes_matches_jax_and_per_scene(jax_net, shipped, scenes, str
 def test_estimate_normals_matches_jax(jax_net, shipped, scenes):
     """Normals within TOL_NORMALS of JAX's, and no farther from a float64
     evaluation of the same field (the port's net in double) than JAX's:
-    float32 itself puts JAX's 2.2e-5 and the port's 1.4e-5 from it at the
-    vertices of small gradient (measured on the CPU), so two float32
+    float32 itself puts each some 1e-5 from it at the vertices of small
+    gradient (printed: JAX's 2.2e-5, the port's 6.3e-6), so two float32
     evaluations cannot be held to 1e-5 of each other."""
     import copy
 
@@ -325,6 +352,8 @@ def test_estimate_normals_matches_jax(jax_net, shipped, scenes):
         p = torch.tensor(mj.vertices, requires_grad=True)
         (g,) = torch.autograd.grad(net64.decode_occupancy(planes64, p[None]).sum(), p)
     exact = -g.numpy() / np.linalg.norm(g.numpy(), axis=-1, keepdims=True)
+    print(f"normals from float64: JAX's {np.abs(ref - exact).max():.3g}, the port's "
+          f"{np.abs(got - exact).max():.3g}; apart {np.abs(got - ref).max():.3g}")
     assert np.abs(got - exact).max() <= np.abs(ref - exact).max()
 
 
