@@ -122,6 +122,26 @@ Phases (any failure exits non-zero; nothing is caught):
      scripts/eval_synthetic_geometry.py's protocol at the geo gate's
      floors; ms per scene, one call's split, kernels, idle share and peak
      memory.
+ 28. the planner's quality gate (``gsr_phase``): tests/test_gsr_gate.py's
+     protocol (16 scenes x top-5 on seeds 2000 and 3000, the geometric
+     oracle) through giga_tpu_torch/scripts/eval_synthetic_gsr.py on the
+     shipped checkpoint, GIGAPlanner.__call__ in fp32 and bf16 with K3's
+     counter zeroed before each seed (one launch a scene); the gate's
+     floors in each precision; fp32's scored grasps and oracle labels equal
+     to the JAX script's (golden_gsr_giga.npz); GSR, candidates, median
+     surface distance and seconds of each run.
+ 29. giga_grid at full width (``grid_phase``; no kernel of this package,
+     K1-K5's counters zeroed just before and read after): JAX's seeded
+     weights from golden_plan_giga_grid.npz through __call__, plan_batch
+     (B=64) and PlannerService, decisions equal to the golden's (JAX's
+     float64 programs), raw volumes against the CPU port's; bf16 __call__
+     and plan_batch by raw qual against fp32; the 129^3 band program and
+     the host refine path against the CPU's; one fp32 train step against
+     the CPU's; the batched program's ms (CUDA events) and __call__'s.
+ 30. the reference's .pt checkpoints (``pt_phase``): the shipped GIGA
+     checkpoint, giga_grid's and VGN's golden weights written under the
+     reference's names and read by load_network, each one's plan_batch
+     candidates bit-equal to the flax tree's.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -281,6 +301,37 @@ TOL_MESH_BF16 = 0.01    # median distance of bf16 vertices to the fp32 mesh
 GEO_IOU_FLOOR = 0.82
 GEO_FSCORE_FLOOR = 0.78
 GEO_CHAMFER_L1_CEIL = 0.0075
+
+# the planner's quality gate (phase 28): tests/test_gsr_gate.py's protocol
+# and floors (16 scenes x top-5 on each of two seeds; a mean GSR of 60 %, 5
+# candidates a scene, a median surface distance of 60 mm) through
+# giga_tpu_torch/scripts/eval_synthetic_gsr.py; the float32 run's scored
+# grasps are held to the JAX script's (golden_gsr_giga.npz): positions
+# within TOL_GSR_POS metres, quaternions within TOL_GSR_QUAT, equal labels
+GOLDEN_GSR = "giga_tpu_torch/testdata/golden_gsr_giga.npz"
+GSR_SEEDS = (2000, 3000)
+GSR_SCENES = 16
+GSR_TOP_K = 5
+GSR_FLOOR = 60.0
+GSR_MIN_CANDIDATES = 5.0
+GSR_MAX_MEDIAN_MM = 60.0
+TOL_GSR_POS = 1e-6
+TOL_GSR_QUAT = 1e-5
+# giga_grid (phase 29): JAX's seeded net.init weights (PRNGKey 0) in the
+# golden file, with its candidates from the JAX package's programs run in
+# float64 (jax.enable_x64): its float32 CPU programs carry flax GroupNorm's
+# float32 statistics error, 1.6e-3 at the first GroupNorm on scene 0 (the
+# port's 6e-7; tests/test_torch_grid.py prints both). The seeded qual lies in
+# 0.45-0.63 and the seeded widths outside the default window, so the plans
+# take qual_th 0.5, low_th 0.3 and the window GRID_WIDTHS. Raw volumes on the
+# card against the CPU port's within TOL_GRID_RAW; bf16 raw qual against
+# fp32 within TOL_GRID_BF16_MAX at most and TOL_QUAL_BF16_MEDIAN at the
+# median (tests/test_pallas_kernel.py:91-92)
+GOLDEN_GRID = "giga_tpu_torch/testdata/golden_plan_giga_grid.npz"
+GRID_KW = dict(best=True, force_detection=True, low_th=0.3, qual_th=0.5)
+GRID_WIDTHS = (-1.0, 1.0)
+TOL_GRID_RAW = 2e-5
+TOL_GRID_BF16_MAX = 2e-2
 
 # published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
 # the memory rate of one H100 SXM
@@ -589,6 +640,15 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of ``fn`` by the host clock (CPU rehearsals)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
@@ -2559,6 +2619,346 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
     return out
 
 
+def compare_gsr_rows(got: dict, ref: dict, what: str) -> dict:
+    """Two runs of the GSR protocol's scored grasps ({scene (n,), position
+    (n, 3), quat (n, 4), label (n,)}) held equal: the same grasps of the same
+    scenes in the same order, positions within TOL_GSR_POS metres,
+    quaternions up to sign within TOL_GSR_QUAT, and equal oracle labels.
+    Returns the largest position and quaternion differences."""
+    if not np.array_equal(got["scene"], ref["scene"]):
+        raise AssertionError(f"{what}: other scenes scored ({len(got['scene'])} grasps against "
+                             f"{len(ref['scene'])})")
+    pos = float(np.abs(got["position"] - ref["position"]).max(initial=0.0))
+    sign = np.sign(np.sum(got["quat"] * ref["quat"], axis=-1, keepdims=True))
+    quat = float(np.abs(got["quat"] * np.where(sign == 0, 1, sign) - ref["quat"]).max(initial=0.0))
+    flipped = np.nonzero(got["label"] != ref["label"])[0]
+    if pos > TOL_GSR_POS or quat > TOL_GSR_QUAT or len(flipped):
+        raise AssertionError(f"{what}: positions {pos:.3g} apart (tol {TOL_GSR_POS}), "
+                             f"quaternions {quat:.3g} (tol {TOL_GSR_QUAT}), labels differ at "
+                             f"grasps {flipped.tolist()}")
+    return {"pos": pos, "quat": quat}
+
+
+def gsr_rows(rows) -> dict:
+    """``evaluate_planner``'s recorded rows -> compare_gsr_rows' arrays."""
+    return {"scene": np.array([r[0] for r in rows], np.int32),
+            "position": np.array([r[1] for r in rows], np.float64).reshape(-1, 3),
+            "quat": np.array([r[2] for r in rows], np.float64).reshape(-1, 4),
+            "label": np.array([r[-1] for r in rows], np.float32)}
+
+
+def gsr_phase(card, device: str = "cuda") -> dict:
+    """Phase 28: the planner's quality gate (tests/test_gsr_gate.py's
+    protocol, giga_tpu_torch/scripts/eval_synthetic_gsr.py) on the shipped
+    checkpoint: GSR_SCENES scenes x top-GSR_TOP_K on each of GSR_SEEDS, the
+    single-scene program (K3) of GIGAPlanner.__call__ in fp32 and bf16, K3's
+    counter zeroed just before each seed and read after (one launch a
+    scene); the floors in each precision, and fp32's scored grasps and
+    labels against the JAX script's (golden_gsr_giga.npz). Returns the
+    summaries and seconds."""
+    import torch
+
+    from giga_tpu_torch.models.checkpoint import load_params
+    from giga_tpu_torch.ops.kernels import decoder as dk
+    from giga_tpu_torch.scripts.eval_synthetic_gsr import evaluate_planner, make_planner
+
+    root = Path(__file__).resolve().parent
+    golden = np.load(root / GOLDEN_GSR)
+    params = load_params(root / CHECKPOINT)
+    out = {}
+    for precision in ("fp32", "bf16"):
+        planner = make_planner("giga", params, precision=precision, device=device)
+        if planner._ensure_fn().paths["decode"] != "K3":
+            raise AssertionError(f"GSR {precision}: __call__ decodes on "
+                                 f"{planner._ensure_fn().paths}")
+        rows = []
+        for seed in GSR_SEEDS:
+            planner.rng = np.random.RandomState(0)
+            record = []
+            dk.fused_dense_decode.launches = 0
+            t0 = time.perf_counter()
+            summary = evaluate_planner(planner, GSR_SCENES, GSR_TOP_K, seed, record=record)
+            secs = time.perf_counter() - t0
+            launches = dk.fused_dense_decode.launches
+            if device == "cuda" and launches != GSR_SCENES:
+                raise AssertionError(f"GSR {precision} seed {seed}: K3 launched {launches} times "
+                                     f"in {GSR_SCENES} calls")
+            match = ""
+            if precision == "fp32":
+                ref = {k: golden[f"s{seed}_{k}"] for k in ("scene", "position", "quat", "label")}
+                worst = compare_gsr_rows(gsr_rows(record), ref, f"GSR fp32 seed {seed}")
+                match = (f", equal to the JAX script's {len(ref['label'])} grasps and labels "
+                         f"(positions {worst['pos']:.3g} m, quaternions {worst['quat']:.3g})")
+            if not (summary["mean_candidates"] >= GSR_MIN_CANDIDATES
+                    and summary["median_surface_dist_mm"] <= GSR_MAX_MEDIAN_MM):
+                raise AssertionError(f"GSR {precision} seed {seed} under the floors: {summary}")
+            rows.append(summary)
+            out[precision, seed] = dict(summary, seconds=secs, launches=launches)
+            print(f"phase 28: GSR {precision} seed {seed}: {summary['gsr']:.2f} % of "
+                  f"{summary['n_grasps']} grasps, {summary['mean_candidates']:.3f} candidates a "
+                  f"scene, median surface distance {summary['median_surface_dist_mm']:.3f} mm, "
+                  f"K3 launches {launches}, {secs:.2f} s{match} | {card}")
+        mean = float(np.mean([r["gsr"] for r in rows]))
+        if not mean >= GSR_FLOOR:
+            raise AssertionError(f"GSR {precision}: mean {mean} under the floor {GSR_FLOOR}")
+        out[precision, "mean"] = mean
+        print(f"phase 28: GSR {precision} mean {mean:.3f} % (floor {GSR_FLOOR}; JAX's CPU "
+              f"protocol {float(np.mean([golden[f's{s}_summary'][0] for s in GSR_SEEDS])):.3f})")
+    return out
+
+
+def grid_planner(params, device: str, precision: str = "fp32", net=None):
+    """GIGAPlanner of giga_grid on a flax tree (or a loaded ``net``), with
+    GRID_KW and GRID_WIDTHS."""
+    import dataclasses
+
+    from giga_tpu_torch.inference.planner import GIGAPlanner
+
+    planner = GIGAPlanner(params=params, net=net, model_type="giga_grid", size=SIZE,
+                          precision=precision, rng=np.random.RandomState(0), device=device,
+                          **GRID_KW)
+    planner.planner_cfg = dataclasses.replace(planner.planner_cfg, min_width=GRID_WIDTHS[0],
+                                              max_width=GRID_WIDTHS[1])
+    return planner
+
+
+def grid_phase(scenes, card, device: str = "cuda") -> dict:
+    """Phase 29: giga_grid at full width (40^3 grid of 32 channels, the 3D
+    U-Net of f_maps 32 at 3 levels, 5 blocks of hidden 32) on JAX's seeded
+    weights from golden_plan_giga_grid.npz: __call__, plan_batch (B=64) and
+    PlannerService with K1-K5's counters zeroed just before and read after
+    (0 each: the programs take the module path), their decisions against the
+    golden's (JAX's float64 program), the raw volumes of the card and of
+    the CPU port each within TOL_GRID_RAW * (1 + |b|) of the port's float64
+    evaluation on the CPU (the rule tests/test_torch_grid.py holds the CPU
+    to against JAX's float64); bf16 __call__ and plan_batch by their raw
+    qual against fp32; a 129^3 band and a refine mesh against the CPU's;
+    one fp32 train step against the CPU's. ``device="cpu"`` rehearses the
+    phase on the CPU. Returns the programs' times."""
+    import copy
+
+    import torch
+
+    from giga_tpu_torch.geometry.generation import MeshGenerator, fetch
+    from giga_tpu_torch.inference.planner import (
+        State, build_batched_giga_planner_fn, build_giga_planner_fn, candidates_to_host)
+    from giga_tpu_torch.inference.postprocess import GraspCandidates
+    from giga_tpu_torch.inference.serving import PlannerService
+
+    root = Path(__file__).resolve().parent
+    golden = np.load(root / GOLDEN_GRID)
+    np.testing.assert_allclose(golden["tsdf"], scenes[:len(golden["tsdf"])], atol=1e-6)
+    params = unflatten_params(golden)
+    n_gold, B, R = len(golden["tsdf"]), len(scenes), RESOLUTION
+    voxel = SIZE / R
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    planner = grid_planner(params, device)
+    module = {"encode": "module", "decode": "module"}
+    paths = (planner._ensure_fn().paths, planner._ensure_batched_fn().paths)
+    if paths != (module, module):
+        raise AssertionError(f"giga_grid programs chose {paths}")
+    zero_kernel_counts(all_five=True)
+    called = [planner(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)]
+    batch = planner.plan_batch(scenes)
+    with PlannerService(planner, batch_size=B, max_wait_ms=5.0) as svc:
+        served = [f.result(timeout=300) for f in [svc.submit(scenes[i]) for i in range(n_gold)]]
+    sync()
+    launches = kernel_counts(all_five=True)
+    if any(launches.values()):
+        raise AssertionError(f"giga_grid launched a kernel of this package: {launches}")
+    worst = 0.0
+    for prefix, got in (("call_", called), ("batch_", batch[:n_gold])):
+        gc = GraspCandidates(*(golden[prefix + f] for f in GraspCandidates._fields))
+        for i in range(n_gold):
+            ref = planner._to_grasps(GraspCandidates(*(np.asarray(x[i]) for x in gc)))
+            worst = max(worst, compare_grasps(got[i], ref, voxel,
+                                              f"giga_grid {prefix}scene {i} vs golden"))
+    for i in range(n_gold):
+        compare_grasps(served[i], batch[i], voxel, f"giga_grid service {i}", tol=1e-6)
+    # raw volumes: the card's and the CPU's against the port's float64 on the CPU
+    n_cpu = 2
+    tsdf = torch.from_numpy(scenes[:n_cpu])
+    raw = {}
+    for where, net in (("card", planner.net), ("cpu", copy.deepcopy(planner.net).cpu()),
+                       ("f64", copy.deepcopy(planner.net).cpu().double())):
+        d = device if where == "card" else "cpu"
+        fn = build_batched_giga_planner_fn(net, net.cfg, planner.planner_cfg, SIZE,
+                                           use_kernels=True, return_raw=True)
+        raw[where] = [v.double().cpu() for v in fn(tsdf.to(d), tsdf.to(d))[1]]
+    raw_err = {w: max(float(((a - b).abs() / (1 + b.abs())).max())
+                      for a, b in zip(raw[w], raw["f64"])) for w in ("card", "cpu")}
+    raw_diff = max(float((a - b).abs().max()) for a, b in zip(raw["card"], raw["cpu"]))
+    if not max(raw_err.values()) <= TOL_GRID_RAW:
+        raise AssertionError(f"giga_grid raw volumes from float64: {raw_err} * (1 + |b|) "
+                             f"(tol {TOL_GRID_RAW})")
+    print(f"phase 29: giga_grid __call__ ({sum(len(g) for g, _ in called)} grasps on {n_gold} "
+          f"scenes), plan_batch B={B} ({sum(len(g) for g, _ in batch)} grasps) and "
+          f"PlannerService: paths {paths[1]}, kernels launched {launches}; decisions equal to "
+          f"the golden (max diff {worst:.3g}); raw volumes from float64: card "
+          f"{raw_err['card']:.3g}, CPU {raw_err['cpu']:.3g} * (1 + |b|) (tol {TOL_GRID_RAW}), "
+          f"card vs CPU {raw_diff:.3g}")
+    # bf16 against fp32 by raw qual; decisions printed
+    bf = grid_planner(params, device, "bf16")
+    fp_single = build_giga_planner_fn(planner.net, planner.net.cfg, planner.planner_cfg, SIZE,
+                                      use_kernels=True, return_raw=True)
+    bf_single = build_giga_planner_fn(bf.net, bf.net.cfg, bf.planner_cfg, SIZE,
+                                      use_kernels=True, return_raw=True)
+    bf_batch = build_batched_giga_planner_fn(bf.net, bf.net.cfg, bf.planner_cfg, SIZE,
+                                             use_kernels=True, return_raw=True)
+    g0, td = tsdf[0].to(device), tsdf.to(device)
+    rows = []
+    for what, got, ref in (("__call__", bf_single(g0, g0)[1][0], fp_single(g0, g0)[1][0]),
+                           ("plan_batch", bf_batch(td, td)[1][0], raw["card"][0])):
+        d = np.abs(got.float().cpu().numpy().astype(np.float64)
+                   - ref.float().cpu().numpy().astype(np.float64))
+        if not (d.max() <= TOL_GRID_BF16_MAX and np.median(d) <= TOL_QUAL_BF16_MEDIAN):
+            raise AssertionError(f"giga_grid bf16 {what}: raw qual {d.max():.4g} at most (tol "
+                                 f"{TOL_GRID_BF16_MAX}), {np.median(d):.3g} at the median")
+        rows.append(f"{what} raw qual {d.max():.4g} at most, {np.median(d):.3g} at the median")
+    zero_kernel_counts(all_five=True)
+    bf_called = [bf(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)]
+    bf_batched = bf.plan_batch(scenes)
+    sync()
+    if any(kernel_counts(all_five=True).values()):
+        raise AssertionError(f"giga_grid bf16 launched {kernel_counts(all_five=True)}")
+    same = sum(decisions(a, voxel) == decisions(b, voxel)
+               for a, b in zip(bf_called + bf_batched, called + batch))
+    print(f"phase 29: giga_grid bf16 against fp32: " + "; ".join(rows) + f" (tol "
+          f"{TOL_GRID_BF16_MAX}, {TOL_QUAL_BF16_MEDIAN}); decisions (not gated, seeded weights) "
+          f"equal in {same} of {len(bf_called) + len(bf_batched)} scenes")
+    # meshes: the 129^3 band program and the host refine path, card vs CPU
+    mesh_rows = []
+    for strategy, res0, steps in (("dense", 32, 2), ("refine", 16, 2)):
+        gens = {d: MeshGenerator(copy.deepcopy(planner.net), resolution0=res0,
+                                 upsampling_steps=steps, strategy=strategy, device=d)
+                for d in (device, "cpu")}
+        if strategy == "dense":
+            bands, grids = {}, {}
+            for d, g in gens.items():
+                g.encode(scenes[0])
+                ids, vals, count = fetch(*g.band_program(g._planes))
+                bands[d] = (ids[:int(count)], vals[:int(count)])
+                grids[d] = fetch(g.dense_program(g._planes))[0]
+            mesh, stats = gens[device].generate_mesh(scenes[0])
+            if stats["path"] == "band":
+                res = compare_bands(bands[device], bands["cpu"],
+                                    "giga_grid 129^3 band, card vs CPU")
+                what = (f"band {res['cells']} cells, {res['corners']} corners differ, "
+                        f"{res['only']} in one band only")
+            else:  # the seeded field's band is past its budget: the full grid
+                a, b = (grids[d].astype(np.float64) for d in (device, "cpu"))
+                step = np.spacing(np.maximum(np.abs(grids[device]),
+                                             np.abs(grids["cpu"]))).astype(np.float64)
+                excess = float((np.abs(a - b) - step - TOL_BAND * (1 + np.abs(b))).max())
+                if excess > 0:
+                    raise AssertionError(f"giga_grid 129^3 full grid, card vs CPU: corners past "
+                                         f"one float16 step + {TOL_BAND} * (1 + |b|) by {excess}")
+                what = (f"band past its {gens[device].band_cells}-cell budget, so the full "
+                        f"grid: {int((a != b).sum())} of {a.size} logits differ, within one "
+                        f"float16 step + {TOL_BAND} * (1 + |b|)")
+            mesh_rows.append(f"129^3 {what}, {len(mesh.faces)} faces ({stats['path']})")
+        else:
+            meshes = {d: g.generate_mesh(scenes[0]) for d, g in gens.items()}
+            (mesh, stats), (ref, _) = meshes[device], meshes["cpu"]
+            if stats["path"] != "refine (host)":
+                raise AssertionError(f"giga_grid refine took {stats['path']}")
+            d = compare_batched([mesh], [ref], "giga_grid refine mesh, card vs CPU")
+            mesh_rows.append(f"{res0 * 2 ** steps + 1}^3 refine (host) {len(mesh.faces)} faces, "
+                             f"sorted vertices {d:.3g} from the CPU's")
+    # one fp32 train step against the CPU's
+    cfg = planner.net.cfg
+    step = compare_train_step(planner.net, cfg, train_batch(SEED, 4, 256), device)
+    launches = kernel_counts(all_five=True)
+    if any(launches.values()):
+        raise AssertionError(f"giga_grid meshes or training launched {launches}")
+    print(f"phase 29: giga_grid meshes: " + "; ".join(mesh_rows) + f"; train step B=4 loss "
+          f"{step['loss']:.6f} ({step['loss_err']:.3g} from the CPU's), gradients "
+          f"{step['grad_err']:.3g} * (1 + max |g|); kernels {launches}")
+    # times
+    t = torch.from_numpy(scenes).to(device)
+    times = {}
+    for name, p in (("fp32", planner), ("bf16", bf)):
+        fn = p._ensure_batched_fn()
+        times[name] = (cuda_ms(lambda: fn(t, t), 5) if device == "cuda"
+                       else host_ms(lambda: fn(t, t), 1))
+        state = State(tsdf=scenes[0][None])
+        p(state)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            p(state)
+        times[name + "_call"] = (time.perf_counter() - t0) / 10 * 1e3
+    sync()
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+    print(f"phase 29: giga_grid batched program B={B}: {times['fp32']:.3f} ms fp32, "
+          f"{times['bf16']:.3f} ms bf16 (CUDA events); __call__ {times['fp32_call']:.3f} ms fp32, "
+          f"{times['bf16_call']:.3f} ms bf16; peak {peak:.2f} GB | {card}")
+    return times
+
+
+def pt_phase(scenes, card, device: str = "cuda") -> None:
+    """Phase 30: the reference's .pt checkpoints. The shipped GIGA
+    checkpoint, giga_grid's golden weights and VGN's golden weights, each
+    written under the reference's names (``to_reference_state_dict``, then
+    ``torch.save``) and loaded by ``load_network``: plan_batch candidates
+    bit-equal to those of the same weights loaded from the flax tree."""
+    import torch
+
+    from giga_tpu_torch.inference.planner import GIGAPlanner, VGNPlanner
+    from giga_tpu_torch.models.checkpoint import load_params
+    from giga_tpu_torch.models.convert import to_reference_state_dict
+    from giga_tpu_torch.models.registry import load_network
+
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    vgn_params = unflatten_params(np.load(root / GOLDEN_VGN))
+    cases = (
+        ("giga", load_params(root / CHECKPOINT),
+         lambda **kw: GIGAPlanner(size=SIZE, rng=np.random.RandomState(0), device=device,
+                                  **PLANNER_KW, **kw)),
+        ("giga_grid", unflatten_params(np.load(root / GOLDEN_GRID)), None),
+        ("vgn", vgn_params, lambda **kw: VGNPlanner(device=device, precision="highest",
+                                                    rng=np.random.RandomState(0), **VGN_KW,
+                                                    **kw)),
+    )
+    rows = []
+    for name, params, make in cases:
+        if make is None:
+            flax_planner = grid_planner(params, device)
+        else:
+            flax_planner = make(params=params, model_type=name)
+        path = out_dir / f"smoke_{name}_ref.pt"
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in to_reference_state_dict(flax_planner.net.state_dict()).items()},
+                   path)
+        net, cfg = load_network(path)
+        if cfg.name != name:
+            raise AssertionError(f"{path.name} loaded as {cfg.name}")
+        if make is None:
+            pt_planner = grid_planner(None, device, net=net)
+        else:
+            pt_planner = make(net=net)
+        got, ref = (candidates_to_host_all(p, scenes) for p in (pt_planner, flax_planner))
+        for field, a, b in zip(got._fields, got, ref):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: .pt plan_batch {field} differ from the flax load's")
+        rows.append(f"{name} {int(np.sum(got.count))} candidates")
+    print(f"phase 30: .pt checkpoints under the reference's names, loaded by load_network: "
+          f"plan_batch B={len(scenes)} bit-equal to the flax tree's: " + ", ".join(rows)
+          + f" ({time.perf_counter() - t0:.2f} s) | {card}")
+
+
+def candidates_to_host_all(planner, scenes):
+    """The host candidates of ``planner``'s batched program on ``scenes``."""
+    import torch
+
+    from giga_tpu_torch.inference.planner import candidates_to_host
+
+    t = torch.from_numpy(scenes).to(planner.device)
+    return candidates_to_host(planner._ensure_batched_fn()(t, t))
+
+
 def main() -> int:
     import torch
 
@@ -2851,6 +3251,11 @@ def main() -> int:
     visual_phase(scenes, card)
     train = train_phase(card)
     meshgen = meshgen_phase(card)
+    t0 = time.perf_counter()
+    gsr = gsr_phase(card)
+    grid_ms = grid_phase(scenes, card)
+    pt_phase(scenes, card)
+    new_phases_s = time.perf_counter() - t0
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -2881,6 +3286,10 @@ def main() -> int:
     print("mesh generation (giga_geo, ms a scene end to end, program ms, peak GB): " + ", ".join(
         f"{k} {meshgen[k]['ms_per_scene']:.3f} ({meshgen[k]['program']:.3f}, "
         f"{meshgen[k]['peak_gb']:.3f})" for k in ("single", "batched", "refine")) + f" | {card}")
+    print(f"GSR gate (16 scenes x top-5, seeds 2000 and 3000): fp32 mean {gsr['fp32', 'mean']:.3f} "
+          f"%, bf16 mean {gsr['bf16', 'mean']:.3f} %; giga_grid batched program B={B} "
+          f"{grid_ms['fp32']:.3f} ms fp32, {grid_ms['bf16']:.3f} ms bf16, __call__ "
+          f"{grid_ms['fp32_call']:.3f} ms; phases 28-30 {new_phases_s:.1f} s | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

@@ -30,7 +30,8 @@ class UNet2DConfig:
 
 @dataclasses.dataclass(frozen=True)
 class UNet3DConfig:
-    """3D U-Net for the 'grid' branch (not ported yet; kept so configs match)."""
+    """3D U-Net of the 'grid' branch (reference: ConvONets/encoder/unet3d.py:477;
+    models/unet3d.py)."""
 
     f_maps: int = 32
     num_levels: int = 3
@@ -47,6 +48,8 @@ class EncoderConfig:
     kernel_size: int = 3
     padding: float = 0.0  # coordinate-normalization padding, 0 for GIGA
     unet: UNet2DConfig = UNet2DConfig()
+    # 'grid' branch: pool onto a 3D grid refined by a 3D U-Net instead of
+    # planes (reference voxels.py:74-86)
     grid_resolution: int = 32
     unet3d: UNet3DConfig = UNet3DConfig()
 
@@ -123,7 +126,10 @@ def giga_wide() -> GIGAConfig:
 
 
 def giga_grid() -> GIGAConfig:
-    """3D-feature-grid variant; its encoder branch is not ported yet."""
+    """3D-feature-grid variant (reference voxels.py:74-86 + unet3d.py:477):
+    a 40^3 grid of c_dim features refined by the 3D U-Net, sampled
+    trilinearly by the decoders, whose features sum (the reference's
+    grid + concat path is unreachable)."""
     return GIGAConfig(
         name="giga_grid",
         encoder=EncoderConfig(plane_types=("grid",), grid_resolution=40),

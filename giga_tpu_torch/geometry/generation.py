@@ -26,6 +26,9 @@ is the only wait. Its budgets, overflow rules and outputs are the JAX
 package's: a band past ``band_cells`` falls back to the full-grid decode and
 ``extract_mesh``, a refine tier past its budgets to the next tier and then
 to the host's hierarchical ``refine_grid``; ``stats`` records the path.
+A grid model (giga_grid) samples its feature grid trilinearly on the
+lattice (``lattice_features``), and under ``strategy="refine"`` refines on
+the host's ``refine_grid``, scene by scene, as the JAX package does.
 Nothing reaches a kernel of this package: the JAX package's mesh generation
 runs no Pallas kernel (its decodes are XLA), and the port's are PyTorch ops.
 
@@ -56,27 +59,15 @@ from giga_tpu_torch.inference.dense_decode import (
     decode_dense,
     decode_dense_batched,
     decode_lattice_points,
-    sample_planes_on_lattice,
-    sample_planes_on_lattice_batched,
+    lattice_features,
+    lattice_features_batched,
 )
 from giga_tpu_torch.models.conv_onet import GIGANet
 from giga_tpu_torch.models.convert import flax_to_state_dict
+from giga_tpu_torch.ops.sampling import linspace_f32
 
 OUTSIDE = -6.0e4     # float16-safe "outside" fill of the band's boundary pad
 GRID_OUTSIDE = -1e6  # extract_mesh's float64 boundary pad
-
-
-def linspace_f32(start: float, stop: float, n: int) -> np.ndarray:
-    """``jnp.linspace(start, stop, n, dtype=float32)``'s formula in float32:
-    start * (1 - s) + stop * s with s = i / (n - 1), and the last point
-    ``stop``. Bit for bit JAX's where n - 1 is a power of two (every
-    lattice of the generator: resolution0 * 2^steps + 1 with a power-of-two
-    resolution0); elsewhere XLA's CPU build divides through an approximate
-    reciprocal and lands up to an ulp away."""
-    div = np.float32(n - 1)
-    s = np.arange(n - 1, dtype=np.float32) / div
-    out = np.float32(start) * (np.float32(1) - s) + np.float32(stop) * s
-    return np.concatenate([out, [np.float32(stop)]]).astype(np.float32)
 
 
 def fetch(*tensors) -> list:
@@ -322,8 +313,14 @@ class MeshGenerator:
         return {t: v.to(self.compute_dtype) for t, v in planes.items()}
 
     def _lattice_feats(self, planes: dict, coords: torch.Tensor) -> dict:
-        return sample_planes_on_lattice(planes, coords, self.cfg.encoder.plane_resolution,
-                                        self.cfg.decoder.padding)
+        return lattice_features(planes, coords, self.cfg)
+
+    @property
+    def _device_refine(self) -> bool:
+        """Whether the refine chain runs on the device: it has a tier, and
+        the model has triplanes (the JAX package refines a grid model on
+        the host)."""
+        return bool(self._refine_tiers) and "grid" not in self.cfg.encoder.plane_types
 
     def _dense_logits(self, planes: dict, n: int) -> torch.Tensor:
         """One scene's occupancy logits on the (n, n, n) lattice, float16."""
@@ -358,8 +355,7 @@ class MeshGenerator:
         with torch.no_grad(), full_precision():
             planes = self._cast(self.net.encode(grids.float()))
             self._mark("encode")
-            feats = sample_planes_on_lattice_batched(
-                planes, coords, self.cfg.encoder.plane_resolution, self.cfg.decoder.padding)
+            feats = lattice_features_batched(planes, coords, self.cfg)
             logits = decode_dense_batched(self._dec, feats, coords,
                                           self.cfg.decoder.n_blocks)[0, ..., 0]
             self._mark("decode")
@@ -459,7 +455,7 @@ class MeshGenerator:
         if grids.ndim != 4:
             raise ValueError(f"expected (B, R, R, R) grids, got {grids.shape}")
         B = grids.shape[0]
-        if self.strategy == "refine" and not self._refine_tiers:
+        if self.strategy == "refine" and not self._device_refine:
             self.batch_stats = []
             meshes = []
             for g in grids:
@@ -520,7 +516,8 @@ class MeshGenerator:
                 mesh = self.extract_mesh(grid.astype(np.float64), stats)
         else:
             t0 = time.perf_counter()
-            for tier in range(_min_tier, len(self._refine_tiers)):
+            tiers = len(self._refine_tiers) if self._device_refine else 0
+            for tier in range(_min_tier, tiers):
                 K_f, K_ps = self._refine_tiers[tier]
                 ids, vals, count_f, counts_p = fetch(*self.refine_program(self._planes, tier))
                 if int(count_f) <= K_f and all(int(c) <= k for c, k in zip(counts_p, K_ps)):

@@ -10,7 +10,10 @@ R^3 hidden state. Only the ResnetBlockFC trunk runs on the full lattice.
 
 These functions are the module path: the planner's programs run
 ``ops/kernels/decoder.py`` (K2 batched, K3 single-scene) on the card, and
-the tests hold both against the JAX package. ``decode_lattice_points``
+the tests hold both against the JAX package. The grid variant's features
+are one dense (R, R, R, C) volume, sampled trilinearly on the lattice
+(``lattice_features``) and projected by each block's fc_c on the whole
+lattice; it decodes on this module path alone. ``decode_lattice_points``
 decodes at sparse lattice points.
 """
 
@@ -19,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from giga_tpu_torch.ops.sampling import interp_matrix_1d
+from giga_tpu_torch.ops.sampling import interp_matrix_1d, sample_grid_lattice_batched
 
 
 def lattice_coords(resolution: int, device=None) -> torch.Tensor:
@@ -52,6 +55,34 @@ def sample_planes_on_lattice(planes: dict, coords: torch.Tensor, plane_reso: int
     return {t: v[0] for t, v in out.items()}
 
 
+def lattice_features_batched(planes: dict, coords: torch.Tensor, model_cfg) -> dict:
+    """The decoder's input features on the R^3 query lattice of B scenes
+    (the JAX package's ``_lattice_features``, batched): triplanes
+    {t: (B, H, W, C)} -> {t: (B, R, R, C)} by the factorized bilinear
+    sampling; a grid {"grid": (B, D, H, W, C)} -> {"dense": (B, R, R, R, C)}
+    by trilinear sampling at the lattice positions."""
+    if "grid" in planes:
+        return {"dense": sample_grid_lattice_batched(planes["grid"], coords,
+                                                     model_cfg.decoder.padding)}
+    return sample_planes_on_lattice_batched(planes, coords, model_cfg.encoder.plane_resolution,
+                                            model_cfg.decoder.padding)
+
+
+def lattice_features(planes: dict, coords: torch.Tensor, model_cfg) -> dict:
+    """One scene's ``lattice_features_batched``: {t: (H, W, C)} or
+    {"grid": (D, H, W, C)} -> {t: (R, R, C)} or {"dense": (R, R, R, C)}."""
+    out = lattice_features_batched({t: v[None] for t, v in planes.items()}, coords, model_cfg)
+    return {t: v[0] for t, v in out.items()}
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w in the promoted dtype of the two, as the JAX package's einsum
+    promotes them: the grid variant's float32 lattice features (a bf16 grid
+    sampled with float32 weights) against bf16 weights run in float32."""
+    dtype = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dtype) @ w.to(dtype)
+
+
 def _fused_head_weights(dec: dict, n_blocks: int):
     """Repack the stacked per-head decoder weights into one feature space
     F = heads*hidden: block-diagonal trunk weights, shared-input
@@ -82,11 +113,16 @@ def _fused_head_weights(dec: dict, n_blocks: int):
 def decode_dense_batched(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
     """Fused-head trunk on the lattice of B scenes.
 
-    feats: {t: (B, R, R, C)}. Returns (heads, B, R, R, R, out_dim).
+    feats: {t: (B, R, R, C)}, or {"dense": (B, R, R, R, C)} for the grid
+    variant. Returns (heads, B, R, R, R, out_dim).
     """
-    c_dim = dec["fc_c0_kernel"].shape[1] // 3
-    fxz, fxy, fyz = feats["xz"], feats["xy"], feats["yz"]
-    B = fxz.shape[0]
+    dense = feats.get("dense")
+    if dense is None:
+        c_dim = dec["fc_c0_kernel"].shape[1] // 3
+        fxz, fxy, fyz = feats["xz"], feats["xy"], feats["yz"]
+        B = fxz.shape[0]
+    else:
+        B = dense.shape[0]
     R = coords.shape[0]
     pk, heads, _ = _fused_head_weights(dec, n_blocks)
     coords = coords.to(pk["fc_p_kernel"].dtype)
@@ -99,15 +135,18 @@ def decode_dense_batched(dec: dict, feats: dict, coords: torch.Tensor, n_blocks:
     net = net.expand((B,) + net.shape[1:])
     for i in range(n_blocks):
         w_c = pk[f"fc_c{i}_kernel"]
-        pxz = torch.einsum("bxzc,ch->bxzh", fxz, w_c[:c_dim])
-        pxy = torch.einsum("bxyc,ch->bxyh", fxy, w_c[c_dim:2 * c_dim])
-        pyz = torch.einsum("byzc,ch->byzh", fyz, w_c[2 * c_dim:])
-        net = (net + pxz[:, :, None, :, :] + pxy[:, :, :, None, :]
-               + pyz[:, None, :, :, :] + pk[f"fc_c{i}_bias"])
-        hid = torch.relu(net) @ pk[f"block{i}_fc0_kernel"] + pk[f"block{i}_fc0_bias"]
-        dx = torch.relu(hid) @ pk[f"block{i}_fc1_kernel"] + pk[f"block{i}_fc1_bias"]
+        if dense is not None:
+            net = net + _mm(dense, w_c) + pk[f"fc_c{i}_bias"]
+        else:
+            pxz = torch.einsum("bxzc,ch->bxzh", fxz, w_c[:c_dim])
+            pxy = torch.einsum("bxyc,ch->bxyh", fxy, w_c[c_dim:2 * c_dim])
+            pyz = torch.einsum("byzc,ch->byzh", fyz, w_c[2 * c_dim:])
+            net = (net + pxz[:, :, None, :, :] + pxy[:, :, :, None, :]
+                   + pyz[:, None, :, :, :] + pk[f"fc_c{i}_bias"])
+        hid = _mm(torch.relu(net), pk[f"block{i}_fc0_kernel"]) + pk[f"block{i}_fc0_bias"]
+        dx = _mm(torch.relu(hid), pk[f"block{i}_fc1_kernel"]) + pk[f"block{i}_fc1_bias"]
         net = net + dx
-    out = torch.relu(net) @ pk["fc_out_kernel"] + pk["fc_out_bias"]
+    out = _mm(torch.relu(net), pk["fc_out_kernel"]) + pk["fc_out_bias"]
     o = dec["fc_out_bias"].shape[-1]
     return out.reshape(B, R, R, R, heads, o).permute(4, 0, 1, 2, 3, 5)
 
@@ -145,14 +184,14 @@ def decode_lattice_points(dec: dict, feats: dict, coords: torch.Tensor, ix: torc
     for i in range(n_blocks):
         w_c = pk[f"fc_c{i}_kernel"]
         if dense is not None:
-            net = net + fd @ w_c + pk[f"fc_c{i}_bias"]
+            net = net + _mm(fd, w_c) + pk[f"fc_c{i}_bias"]
         else:
             net = (net + rows[0] @ w_c[:c_dim] + rows[1] @ w_c[c_dim:2 * c_dim]
                    + rows[2] @ w_c[2 * c_dim:] + pk[f"fc_c{i}_bias"])
-        hid = torch.relu(net) @ pk[f"block{i}_fc0_kernel"] + pk[f"block{i}_fc0_bias"]
-        dx = torch.relu(hid) @ pk[f"block{i}_fc1_kernel"] + pk[f"block{i}_fc1_bias"]
+        hid = _mm(torch.relu(net), pk[f"block{i}_fc0_kernel"]) + pk[f"block{i}_fc0_bias"]
+        dx = _mm(torch.relu(hid), pk[f"block{i}_fc1_kernel"]) + pk[f"block{i}_fc1_bias"]
         net = net + dx
-    out = torch.relu(net) @ pk["fc_out_kernel"] + pk["fc_out_bias"]  # (N, heads*o)
+    out = _mm(torch.relu(net), pk["fc_out_kernel"]) + pk["fc_out_bias"]  # (N, heads*o)
     o = dec["fc_out_bias"].shape[-1]
     return out.reshape(-1, heads, o).permute(1, 0, 2)
 

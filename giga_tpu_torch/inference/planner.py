@@ -68,8 +68,8 @@ from giga_tpu_torch.core.transform import Rotation, Transform
 from giga_tpu_torch.inference.dense_decode import (
     decode_affordance_dense,
     lattice_coords,
-    sample_planes_on_lattice,
-    sample_planes_on_lattice_batched,
+    lattice_features,
+    lattice_features_batched,
 )
 from giga_tpu_torch.inference.postprocess import (
     GraspCandidates,
@@ -142,13 +142,16 @@ def program_paths(model_cfg: GIGAConfig, planner_cfg: PlannerConfig, dtype: torc
     kernels' shape predicates when the program is built: {"encode": "K1" or
     "module", "decode": "K2" (batched) or "K3" (single-scene) or "module"}.
     The single-scene programs encode with ``net.encode``, as the JAX
-    package's do. A batch's size is not known at build time: the
-    predicates are asked for one scene, and a batch a kernel cannot take
-    (past 2^31 bf16 tiles) raises at its launch."""
+    package's do. A grid model (``plane_types=("grid",)``) takes the module
+    path for both: its lattice features are one dense volume, not the
+    per-plane projections K2 and K3 read, as the JAX package decodes it with
+    XLA. A batch's size is not known at build time: the predicates are asked
+    for one scene, and a batch a kernel cannot take (past 2^31 bf16 tiles)
+    raises at its launch."""
     P, R = model_cfg.encoder.plane_resolution, planner_cfg.resolution
     dec = model_cfg.decoder
     paths = {"encode": "module", "decode": "module"}
-    if not use_kernels:
+    if not use_kernels or "grid" in model_cfg.encoder.plane_types:
         return paths
     if batched and can_encode_fused(model_cfg.encoder, (1, P, P, P), dtype):
         paths["encode"] = "K1"
@@ -206,7 +209,7 @@ def build_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig
         coords, positions = lattice(tsdf.device)
         with torch.inference_mode(), full_precision():
             planes = {t: v[0] for t, v in net.encode(tsdf[None].to(dtype)).items()}
-            feats = sample_planes_on_lattice(planes, coords, P, model_cfg.decoder.padding)
+            feats = lattice_features(planes, coords, model_cfg)
             qual, rot, width = _decode_single(net.decoder_aff.params(), feats, coords, n_blocks,
                                               dtype, paths["decode"])
             cands = _postprocess(qual, rot, width, tsdf_process, positions, voxel_size,
@@ -308,8 +311,7 @@ def build_ensemble_giga_planner_fn(net, stacked: dict, model_cfg: GIGAConfig,
             vols = []
             for enc, dec in members:
                 planes = torch.func.functional_call(net.encoder, enc, (x,))
-                feats = sample_planes_on_lattice({t: v[0] for t, v in planes.items()}, coords, P,
-                                                 model_cfg.decoder.padding)
+                feats = lattice_features({t: v[0] for t, v in planes.items()}, coords, model_cfg)
                 vols.append(_decode_single(dec, feats, coords, n_blocks, dtype, paths["decode"]))
             qual, rot, width = combine_members(*(torch.stack(v) for v in zip(*vols)),
                                                combine=combine)
@@ -365,8 +367,7 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
                 planes = encode_planes_fused(net.encoder, tsdfs.to(dtype))
             else:
                 planes = net.encode(tsdfs.to(dtype))
-            feats = sample_planes_on_lattice_batched(
-                planes, coords, P, model_cfg.decoder.padding)
+            feats = lattice_features_batched(planes, coords, model_cfg)
             if paths["decode"] == "K2":
                 qual, rot, width = decode_affordance_dense_kernel_batched(
                     net.decoder_aff.params(), feats, coords, n_blocks, dtype, fold_b1=fold_b1,

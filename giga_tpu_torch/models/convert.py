@@ -20,9 +20,21 @@ names are already the reference's (``encoder.conv1``, ``decoder.conv1``,
 ``to_reference_state_dict`` returns its state unchanged, the form the JAX
 package's ``convert_vgn_state_dict`` reads.
 
+The grid encoder's 3D U-Net (``encoder.unet3d``) keeps the reference's
+names too (``encoders.{i}.basic_module.SingleConv1.groupnorm`` ...): flax's
+GroupNorm scale / bias are its weight / bias, its bias-free convs go
+(D, H, W, I, O) -> (O, I, D, H, W). A ``GlobalVoxelEncoder`` tree
+(``conv_in``, ``conv_0`` .. ``conv_3``, ``fc``) maps onto that module under
+the reference's names; its FC rows go from flax's channels-last flatten to
+torch's channel-major one.
+
 ``state_dict_to_flax`` is the inverse of ``flax_to_state_dict``: a module's
 state back to the flax tree ({"params": ...}) that the JAX package's
 ``load_params`` gives for a checkpoint of that model.
+``from_reference_state_dict`` reads the reference's own state dicts (a
+``.pt`` checkpoint): the counterpart of the JAX package's
+``convert_giga_state_dict`` / ``convert_vgn_state_dict`` /
+``convert_global_voxel_encoder_state_dict``, onto this package's names.
 """
 
 from __future__ import annotations
@@ -57,23 +69,108 @@ def _vgn_state_dict(p: dict) -> dict:
     return _tensors(sd)
 
 
+UNET3D_CONVS = ("SingleConv1", "SingleConv2")
+GLOBAL_CONVS = ("conv_in", "conv_0", "conv_1", "conv_2", "conv_3")
+
+
+def _unet3d_levels(names) -> dict:
+    """{"encoders": n, "decoders": n - 1} from flax names (``encoders_{i}``)
+    or state-dict names (``encoder.unet3d.encoders.{i}...``)."""
+    out = {}
+    for kind in ("encoders", "decoders"):
+        idx = {int(n.replace(".", "_").split(kind + "_")[1].split("_")[0])
+               for n in names if kind + "_" in n.replace(".", "_")}
+        out[kind] = max(idx) + 1 if idx else 0
+    return out
+
+
+def _unet3d_state_dict(sd: dict, prefix: str, tree: dict) -> None:
+    """Flax UNet3D tree -> the reference's state-dict names under ``prefix``."""
+    levels = _unet3d_levels(tree)
+    for kind, n in levels.items():
+        for i in range(n):
+            for c in UNET3D_CONVS:
+                t = tree[f"{kind}_{i}"][c]
+                key = f"{prefix}.{kind}.{i}.basic_module.{c}"
+                sd[key + ".groupnorm.weight"] = _f32(t["groupnorm"]["scale"])
+                sd[key + ".groupnorm.bias"] = _f32(t["groupnorm"]["bias"])
+                sd[key + ".conv.weight"] = _f32(t["conv"]["conv"]["kernel"]).transpose(4, 3, 0, 1, 2)
+    _conv3d(sd, f"{prefix}.final_conv", tree["final_conv"])
+
+
+def _unet3d_flax(sd: dict, prefix: str) -> dict:
+    """The inverse of ``_unet3d_state_dict``."""
+    tree = {}
+    for kind, n in _unet3d_levels([k[len(prefix):] for k in sd if k.startswith(prefix)]).items():
+        for i in range(n):
+            level = tree[f"{kind}_{i}"] = {}
+            for c in UNET3D_CONVS:
+                key = f"{prefix}.{kind}.{i}.basic_module.{c}"
+                level[c] = {
+                    "groupnorm": {"scale": sd[key + ".groupnorm.weight"],
+                                  "bias": sd[key + ".groupnorm.bias"]},
+                    "conv": {"conv": {"kernel": np.ascontiguousarray(
+                        sd[key + ".conv.weight"].transpose(2, 3, 4, 1, 0))}}}
+    key = f"{prefix}.final_conv"
+    tree["final_conv"] = {"conv": {
+        "kernel": np.ascontiguousarray(sd[key + ".weight"].transpose(2, 3, 4, 1, 0)),
+        "bias": sd[key + ".bias"]}}
+    return tree
+
+
+def _global_state_dict(p: dict) -> dict:
+    """Flax GlobalVoxelEncoder tree -> {name: torch.Tensor}: the FC's rows,
+    flax's (d, h, w, c)-major flatten of the 2^3 x 512 block, reordered to
+    torch's (c, d, h, w)-major one."""
+    sd = {}
+    for name in GLOBAL_CONVS:
+        sd[name + ".weight"] = _f32(p[name]["kernel"]).transpose(4, 3, 0, 1, 2)
+        sd[name + ".bias"] = _f32(p[name]["bias"])
+    w = _f32(p["fc"]["kernel"])  # (2*2*2*512, c_dim)
+    c_dim = w.shape[1]
+    sd["fc.weight"] = w.reshape(2, 2, 2, 512, c_dim).transpose(4, 3, 0, 1, 2).reshape(c_dim, -1)
+    sd["fc.bias"] = _f32(p["fc"]["bias"])
+    return _tensors(sd)
+
+
+def _global_flax(sd: dict) -> dict:
+    """The inverse of ``_global_state_dict``."""
+    p = {name: {"kernel": np.ascontiguousarray(sd[name + ".weight"].transpose(2, 3, 4, 1, 0)),
+                "bias": sd[name + ".bias"]} for name in GLOBAL_CONVS}
+    w = sd["fc.weight"]  # (c_dim, 512*2*2*2), (c, d, h, w)-major
+    c_dim = w.shape[0]
+    p["fc"] = {"kernel": np.ascontiguousarray(
+        w.reshape(c_dim, 512, 2, 2, 2).transpose(2, 3, 4, 1, 0).reshape(-1, c_dim)),
+        "bias": sd["fc.bias"]}
+    return {"params": p}
+
+
 def flax_to_state_dict(params: dict) -> dict:
-    """Flax GIGA or VGN param tree -> {name: torch.Tensor} for the module's
-    ``load_state_dict``."""
+    """Flax GIGA (triplane or grid), VGN or GlobalVoxelEncoder param tree ->
+    {name: torch.Tensor} for the module's ``load_state_dict``."""
     p = params.get("params", params)
     if "enc_conv1" in p:
         return _vgn_state_dict(p)
+    if "fc" in p and "conv_0" in p:
+        return _global_state_dict(p)
     enc = p["encoder"]
-    if "unet" not in enc:
-        raise NotImplementedError("only the triplane (U-Net) encoder is ported")
     sd = {}
     _conv3d(sd, "encoder.conv_in", enc["conv_in"])
+    if "unet3d" in enc:
+        _unet3d_state_dict(sd, "encoder.unet3d", enc["unet3d"])
+    else:
+        _unet2d_state_dict(sd, enc["unet"])
+    for dec in ("decoder_aff", "decoder_occ"):
+        for name, arr in p.get(dec, {}).items():
+            sd[f"{dec}.{name}"] = _f32(arr)
+    return _tensors(sd)
 
+
+def _unet2d_state_dict(sd: dict, unet: dict) -> None:
     def conv2d(key, tree):
         sd[key + ".weight"] = _f32(tree["conv"]["kernel"]).transpose(3, 2, 0, 1)
         sd[key + ".bias"] = _f32(tree["conv"]["bias"])
 
-    unet = enc["unet"]
     depth = sum(1 for k in unet if k.startswith("down"))
     for i in range(depth):
         for c in ("conv1", "conv2"):
@@ -87,16 +184,11 @@ def flax_to_state_dict(params: dict) -> dict:
             conv2d(f"encoder.unet.up_convs.{i}.{c}", up[c])
     conv2d("encoder.unet.conv_final", unet["conv_final"])
 
-    for dec in ("decoder_aff", "decoder_occ"):
-        for name, arr in p.get(dec, {}).items():
-            sd[f"{dec}.{name}"] = _f32(arr)
-    return _tensors(sd)
-
 
 def state_dict_to_flax(state: dict) -> dict:
-    """{name: tensor} of a GIGANet or VGNNet -> the flax parameter tree
-    {"params": ...} of numpy float32 arrays that ``flax_to_state_dict``
-    maps back to the same state, value for value."""
+    """{name: tensor} of a GIGANet, VGNNet or GlobalVoxelEncoder -> the flax
+    parameter tree {"params": ...} of numpy float32 arrays that
+    ``flax_to_state_dict`` maps back to the same state, value for value."""
     sd = {k: v.detach().cpu().numpy() for k, v in state.items()}
     p = {}
 
@@ -111,23 +203,28 @@ def state_dict_to_flax(state: dict) -> dict:
         for head in ("conv_qual", "conv_rot", "conv_width"):
             conv(p.setdefault(head, {}), head, (2, 3, 4, 1, 0))
         return {"params": p}
-    enc = p["encoder"] = {"conv_in": {}, "unet": {}}
+    if "fc.weight" in sd and "conv_0.weight" in sd:
+        return _global_flax(sd)
+    enc = p["encoder"] = {"conv_in": {}}
     conv(enc["conv_in"], "encoder.conv_in", (2, 3, 4, 1, 0))
-    unet = enc["unet"]
-    depth = sum(1 for k in sd
-                if k.startswith("encoder.unet.down_convs.") and k.endswith("conv1.weight"))
-    for i in range(depth):
-        down = unet[f"down{i}"] = {}
-        for c in ("conv1", "conv2"):
-            conv(down.setdefault(c, {}), f"encoder.unet.down_convs.{i}.{c}", (2, 3, 1, 0))
-    for i in range(depth - 1):
-        key = f"encoder.unet.up_convs.{i}"
-        up = unet[f"up{i}"] = {"upconv": {
-            "kernel": np.ascontiguousarray(sd[key + ".upconv.weight"].transpose(0, 2, 3, 1)),
-            "bias": sd[key + ".upconv.bias"]}}
-        for c in ("conv1", "conv2"):
-            conv(up.setdefault(c, {}), f"{key}.{c}", (2, 3, 1, 0))
-    conv(unet.setdefault("conv_final", {}), "encoder.unet.conv_final", (2, 3, 1, 0))
+    if "encoder.unet3d.final_conv.weight" in sd:
+        enc["unet3d"] = _unet3d_flax(sd, "encoder.unet3d")
+    else:
+        unet = enc["unet"] = {}
+        depth = sum(1 for k in sd
+                    if k.startswith("encoder.unet.down_convs.") and k.endswith("conv1.weight"))
+        for i in range(depth):
+            down = unet[f"down{i}"] = {}
+            for c in ("conv1", "conv2"):
+                conv(down.setdefault(c, {}), f"encoder.unet.down_convs.{i}.{c}", (2, 3, 1, 0))
+        for i in range(depth - 1):
+            key = f"encoder.unet.up_convs.{i}"
+            up = unet[f"up{i}"] = {"upconv": {
+                "kernel": np.ascontiguousarray(sd[key + ".upconv.weight"].transpose(0, 2, 3, 1)),
+                "bias": sd[key + ".upconv.bias"]}}
+            for c in ("conv1", "conv2"):
+                conv(up.setdefault(c, {}), f"{key}.{c}", (2, 3, 1, 0))
+        conv(unet.setdefault("conv_final", {}), "encoder.unet.conv_final", (2, 3, 1, 0))
     for dec in ("decoder_aff", "decoder_occ"):
         leaves = {k.split(".", 1)[1]: v for k, v in sd.items() if k.startswith(dec + ".")}
         if leaves:
@@ -140,11 +237,12 @@ def to_reference_state_dict(state: dict) -> dict:
 
     Each stacked head becomes its own LocalDecoder (``decoder_qual.fc_p`` ...,
     torch Linear layout (out, in)); fc_out keeps the stacked out_dim, so
-    converting back reproduces the stacked arrays exactly. A VGN state is
+    converting back reproduces the stacked arrays exactly. The encoders
+    (the 2D and the 3D U-Net) and a VGN or GlobalVoxelEncoder state are
     under the reference's names already.
     """
     sd = {k: v.detach().cpu().numpy() for k, v in state.items()}
-    if "conv_qual.weight" in sd:
+    if not any(k.startswith("decoder_") for k in sd):
         return sd
     out = {k: v for k, v in sd.items() if k.startswith("encoder.")}
     groups = {"decoder_aff": AFFORDANCE_HEADS, "decoder_occ": ("decoder_tsdf",)}
@@ -165,3 +263,52 @@ def to_reference_state_dict(state: dict) -> dict:
                 linear(f"{name}.blocks.{i}.fc_0", f"block{i}_fc0", h)
                 linear(f"{name}.blocks.{i}.fc_1", f"block{i}_fc1", h)
     return out
+
+
+def _stacked_heads(sd: dict, names, n_blocks: int, out_dim: int) -> dict:
+    """Per-head reference LocalDecoders -> one stacked decoder's leaves
+    (Linear weights (out, in) -> kernels (heads, in, out)); each head's
+    fc_out is zero-padded to ``out_dim`` (qual and width have one output)."""
+    def stack(key, part):
+        return np.stack([sd[f"{n}.{key}.{part}"].T if part == "weight"
+                         else sd[f"{n}.{key}.{part}"] for n in names])
+
+    dec = {"fc_p_kernel": stack("fc_p", "weight"), "fc_p_bias": stack("fc_p", "bias")}
+    for i in range(n_blocks):
+        for src, dst in ((f"fc_c.{i}", f"fc_c{i}"), (f"blocks.{i}.fc_0", f"block{i}_fc0"),
+                         (f"blocks.{i}.fc_1", f"block{i}_fc1")):
+            dec[dst + "_kernel"] = stack(src, "weight")
+            dec[dst + "_bias"] = stack(src, "bias")
+    hidden = dec["fc_p_kernel"].shape[-1]
+    wk = np.zeros((len(names), hidden, out_dim), np.float32)
+    bk = np.zeros((len(names), out_dim), np.float32)
+    for h, n in enumerate(names):
+        w, b = sd[f"{n}.fc_out.weight"], sd[f"{n}.fc_out.bias"]
+        wk[h, :, :w.shape[0]] = w.T
+        bk[h, :b.shape[0]] = b
+    dec["fc_out_kernel"], dec["fc_out_bias"] = wk, bk
+    return dec
+
+
+def from_reference_state_dict(state: dict, cfg=None) -> dict:
+    """A reference state dict ({name: tensor or array}, e.g. a ``.pt``
+    checkpoint's) -> this package's {name: torch.Tensor} for the module of
+    ``cfg`` (a GIGAConfig; None for a VGN or GlobalVoxelEncoder state, whose
+    names are this package's already). The encoders' names are shared; the
+    per-head decoders stack into ``decoder_aff`` (qual, rot, width) and
+    ``decoder_occ`` (tsdf)."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v, np.float32)
+          for k, v in state.items()}
+    if cfg is None or not any(k.startswith("decoder_") for k in sd):
+        return _tensors(sd)
+    out = {k: v for k, v in sd.items() if k.startswith("encoder.")}
+    n_blocks = cfg.decoder.n_blocks
+    groups = []
+    if cfg.has_affordance:
+        groups.append(("decoder_aff", AFFORDANCE_HEADS, 4))
+    if cfg.decoder_tsdf:
+        groups.append(("decoder_occ", ("decoder_tsdf",), 1))
+    for dec, names, out_dim in groups:
+        for name, arr in _stacked_heads(sd, names, n_blocks, out_dim).items():
+            out[f"{dec}.{name}"] = arr
+    return _tensors(out)

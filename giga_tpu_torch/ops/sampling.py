@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import math
 
+import numpy as np
 import torch
 
 from giga_tpu_torch.core.precision import full_precision
@@ -41,6 +42,19 @@ from giga_tpu_torch.core.precision import full_precision
 # first/second plane coordinate for each canonical plane, as indices into (x, y, z)
 PLANE_AXES = {"xz": (0, 2), "xy": (0, 1), "yz": (1, 2)}
 PLANE_ORDER = ("xz", "xy", "yz")
+
+
+def linspace_f32(start: float, stop: float, n: int) -> np.ndarray:
+    """``jnp.linspace(start, stop, n, dtype=float32)``'s formula in float32:
+    start * (1 - s) + stop * s with s = i / (n - 1), and the last point
+    ``stop``. Bit for bit JAX's where n - 1 is a power of two (every
+    lattice of the generator: resolution0 * 2^steps + 1 with a power-of-two
+    resolution0); elsewhere XLA's CPU build divides through an approximate
+    reciprocal and lands up to an ulp away."""
+    div = np.float32(n - 1)
+    s = np.arange(n - 1, dtype=np.float32) / div
+    out = np.float32(start) * (np.float32(1) - s) + np.float32(stop) * s
+    return np.concatenate([out, [np.float32(stop)]]).astype(np.float32)
 
 
 def _divide(p: torch.Tensor, d: float) -> torch.Tensor:
@@ -163,6 +177,34 @@ def sample_grid(grid: torch.Tensor, p: torch.Tensor, padding: float = 0.0) -> to
     c0 = c00 * (1 - wy) + c01 * wy
     c1 = c10 * (1 - wy) + c11 * wy
     return c0 * (1 - wz) + c1 * wz
+
+
+def _axis_taps(coords: torch.Tensor, n: int, padding: float):
+    """Lower and upper taps and the upper weight (``sample_grid``'s) of
+    coordinates ``coords`` (R,) on a grid axis of n samples."""
+    f = torch.clamp(normalize_3d_coordinate(coords, padding) * (n - 1), 0.0, n - 1)
+    i0, i1 = _taps(f, n)
+    return i0, i1, f - i0.to(f.dtype)
+
+
+def sample_grid_lattice_batched(grids: torch.Tensor, coords: torch.Tensor,
+                                padding: float = 0.0) -> torch.Tensor:
+    """``sample_grid`` of B (D, H, W, C) grids at every point of the lattice
+    ``coords`` (R,) cubed -> (B, R, R, R, C) indexed [b, ix, iy, iz, c].
+
+    Each axis's taps and weights depend on that axis's coordinate alone, so
+    the trilinear sample is three passes of 1D interpolation, x, then y,
+    then z: the same products and sums, in ``sample_grid``'s order, as its
+    eight gathers per point, at a third of their memory."""
+    D, H, W = grids.shape[1:4]
+    x0, x1, wx = _axis_taps(coords, W, padding)
+    y0, y1, wy = _axis_taps(coords, H, padding)
+    z0, z1, wz = _axis_taps(coords, D, padding)
+    wx, wy, wz = wx[:, None], wy[:, None, None], wz[:, None, None, None]
+    t = grids[:, :, :, x0] * (1 - wx) + grids[:, :, :, x1] * wx  # (B, D, H, Rx, C)
+    t = t[:, :, y0] * (1 - wy) + t[:, :, y1] * wy  # (B, D, Ry, Rx, C)
+    t = t[:, z0] * (1 - wz) + t[:, z1] * wz  # (B, Rz, Ry, Rx, C)
+    return t.permute(0, 3, 2, 1, 4)
 
 
 def interp_matrix_1d(coords: torch.Tensor, reso: int, padding: float = 0.0) -> torch.Tensor:

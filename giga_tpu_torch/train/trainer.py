@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import time
 from pathlib import Path
 from typing import Callable, Optional
@@ -57,7 +58,9 @@ class Adam:
     clipping scales by ``max_norm / norm`` as optax does (torch's
     ``clip_grad_norm_`` divides by ``norm + 1e-6``). Every state tensor lives
     on the params' device; the arithmetic runs as multi-tensor (``foreach``)
-    kernels.
+    kernels. ``lr`` is a number or, as an optax schedule, a function of the
+    step count (a 0-d int32 device tensor, the count of steps applied before
+    this one) that returns the rate as a 0-d tensor on the same device.
     """
 
     def __init__(self, params, lr: float = 2e-4, clip_norm: float | None = None,
@@ -96,7 +99,8 @@ class Adam:
         bc1 = 1 - torch.pow(torch.full_like(exponent, B1), exponent)
         bc2 = 1 - torch.pow(torch.full_like(exponent, B2), exponent)
         denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), EPS)
-        step = torch._foreach_mul(torch._foreach_div(torch._foreach_div(mu, bc1), denom), -self.lr)
+        lr = self.lr(self.count) if callable(self.lr) else self.lr
+        step = torch._foreach_mul(torch._foreach_div(torch._foreach_div(mu, bc1), denom), -lr)
         new = torch._foreach_add(params, step)
         if self.skip_nonfinite:
             new = [torch.where(apply, a, b) for a, b in zip(new, params)]
@@ -116,6 +120,19 @@ class Adam:
             dst.copy_(src)
         self.count.copy_(state["count"])
         self.notfinite_count.copy_(state["notfinite_count"])
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0):
+    """``optax.cosine_decay_schedule``: count -> init_value * ((1 - alpha) *
+    0.5 * (1 + cos(pi * min(count, decay_steps) / decay_steps)) + alpha), on
+    the count's device (``Adam``'s schedule form)."""
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = torch.clamp(count.to(torch.float32), max=float(decay_steps))
+        cosine = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
+        return init_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 @dataclasses.dataclass

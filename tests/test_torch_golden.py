@@ -25,7 +25,12 @@ after the first and the last step as each leaf's sum and seeded entries
 (``chip_smoke.leaf_entries``, the port's leaf names);
 ``golden_mesh_geo.npz`` JAX's mesh-generation bands with the shipped
 GIGA-Geo checkpoint on bench.py's first two scenes at 129^3 and the first
-at 257^3 through the refine chain (``golden_mesh_arrays``). These
+at 257^3 through the refine chain (``golden_mesh_arrays``);
+``golden_gsr_giga.npz`` the scored grasps and oracle labels of the JAX
+script scripts/eval_synthetic_gsr.py on the GSR gate's protocol
+(tests/test_torch_gsr_gate.py, which also holds it current);
+``golden_plan_giga_grid.npz`` JAX's seeded giga_grid weights and its float64
+programs' candidates (tests/test_torch_grid.py, which holds it current). These
 tests regenerate them and assert the committed files are current. Rewrite them all, or those whose names contain the given words,
 with
 
@@ -422,6 +427,9 @@ def test_golden_scenes_are_planner_tsdfs():
 
 
 if __name__ == "__main__" and "--write" in sys.argv:
+    from test_torch_grid import golden_grid_arrays
+    from test_torch_gsr_gate import golden_gsr_arrays
+
     words = sys.argv[sys.argv.index("--write") + 1:]
     for path, arrays in ((chip_smoke.GOLDEN, golden_arrays),
                          (chip_smoke.GOLDEN_BF16, golden_bf16_arrays),
@@ -431,7 +439,9 @@ if __name__ == "__main__" and "--write" in sys.argv:
                          (chip_smoke.GOLDEN_VGN, golden_vgn_arrays),
                          (chip_smoke.GOLDEN_FUSION, golden_fusion_arrays),
                          (chip_smoke.GOLDEN_TRAIN, golden_train_arrays),
-                         (chip_smoke.GOLDEN_MESH, golden_mesh_arrays)):
+                         (chip_smoke.GOLDEN_MESH, golden_mesh_arrays),
+                         (chip_smoke.GOLDEN_GSR, golden_gsr_arrays),
+                         (chip_smoke.GOLDEN_GRID, golden_grid_arrays)):
         if words and not any(w in Path(path).name for w in words):
             continue
         np.savez_compressed(REPO / path, **arrays())

@@ -111,7 +111,8 @@ def test_port_imports_without_jax():
     """Every module imports in a process where jax, flax, msgpack, optax,
     orbax and pandas cannot be imported, and none of the JAX package is
     loaded; the modules include VGN, TSDF fusion, perception, meshes,
-    visualization, training and mesh generation. Using the geometry
+    visualization, training, mesh generation, the grid family and the
+    CLIs. Using the geometry
     library there loads the port's build and never the JAX package's
     giga_tpu/geometry/_native.so."""
     assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
@@ -126,7 +127,10 @@ def test_port_imports_without_jax():
             "giga_tpu_torch.geometry.eval", "giga_tpu_torch.utils.synthetic",
             "giga_tpu_torch.utils.synthetic_grasps",
             "giga_tpu_torch.scripts.eval_synthetic_geometry",
-            "giga_tpu_torch.scripts.profile_meshgen"} <= set(_modules())
+            "giga_tpu_torch.scripts.profile_meshgen", "giga_tpu_torch.ops.scatter",
+            "giga_tpu_torch.models.unet3d", "giga_tpu_torch.scripts.eval_synthetic_gsr",
+            "giga_tpu_torch.scripts.build_corpus", "giga_tpu_torch.scripts.train",
+            "giga_tpu_torch.scripts.train_corpus"} <= set(_modules())
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'optax', 'orbax', 'pandas', 'giga_tpu'):\n"
