@@ -2867,20 +2867,35 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
                              f"sorted vertices {d:.3g} from the CPU's")
     # one fp32 train step against the CPU's
     cfg = planner.net.cfg
-    step = compare_train_step(planner.net, cfg, train_batch(SEED, 4, 256), device)
+    # a host copy: compare_train_step's float64 fallback runs on the CPU
+    step = compare_train_step(copy.deepcopy(planner.net).cpu(), cfg, train_batch(SEED, 4, 256),
+                              device)
     launches = kernel_counts(all_five=True)
     if any(launches.values()):
         raise AssertionError(f"giga_grid meshes or training launched {launches}")
     print(f"phase 29: giga_grid meshes: " + "; ".join(mesh_rows) + f"; train step B=4 loss "
           f"{step['loss']:.6f} ({step['loss_err']:.3g} from the CPU's), gradients "
-          f"{step['grad_err']:.3g} * (1 + max |g|); kernels {launches}")
-    # times
+          f"{step['grad_err']:.3g} * (1 + max |g|) from the CPU's ({step['n_f64']} leaves held "
+          f"by float64: {step['grad_err64']:.3g}); kernels {launches}")
+    # times: the batched program, and its encode and encode + lattice
+    # features alone, by CUDA events; __call__ by the host clock
+    from giga_tpu_torch.inference.dense_decode import lattice_coords, lattice_features_batched
+    from giga_tpu_torch.inference.planner import full_precision
+
     t = torch.from_numpy(scenes).to(device)
+    coords = lattice_coords(R, device)
+    clock = ((lambda fn, n: cuda_ms(fn, n)) if device == "cuda"
+             else (lambda fn, n: host_ms(fn, 1)))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     times = {}
     for name, p in (("fp32", planner), ("bf16", bf)):
         fn = p._ensure_batched_fn()
-        times[name] = (cuda_ms(lambda: fn(t, t), 5) if device == "cuda"
-                       else host_ms(lambda: fn(t, t), 1))
+        times[name] = clock(lambda: fn(t, t), 5)
+        with torch.inference_mode(), full_precision():
+            times[name + "_encode"] = clock(lambda: p.net.encode(t), 5)
+            times[name + "_feats"] = clock(
+                lambda: lattice_features_batched(p.net.encode(t), coords, p.net.cfg), 5)
         state = State(tsdf=scenes[0][None])
         p(state)
         t0 = time.perf_counter()
@@ -2889,9 +2904,11 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
         times[name + "_call"] = (time.perf_counter() - t0) / 10 * 1e3
     sync()
     peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
-    print(f"phase 29: giga_grid batched program B={B}: {times['fp32']:.3f} ms fp32, "
-          f"{times['bf16']:.3f} ms bf16 (CUDA events); __call__ {times['fp32_call']:.3f} ms fp32, "
-          f"{times['bf16_call']:.3f} ms bf16; peak {peak:.2f} GB | {card}")
+    print(f"phase 29: giga_grid batched program B={B} (CUDA events): " + "; ".join(
+        f"{n} {times[n]:.3f} ms (encode {times[n + '_encode']:.3f}, + lattice features "
+        f"{times[n + '_feats']:.3f})" for n in ("fp32", "bf16"))
+        + f"; __call__ {times['fp32_call']:.3f} ms fp32, {times['bf16_call']:.3f} ms bf16; peak "
+        f"{peak:.2f} GB | {card}")
     return times
 
 

@@ -1,8 +1,8 @@
 """GIGA model assembly (counterpart of giga_tpu/models/conv_onet.py;
 reference: ConvONets/conv_onet/models/__init__.py:15-226).
 
-Triplane encoder + stacked affordance decoder (qual/rot/width) + optional
-occupancy decoder. Heads:
+Triplane (or, for giga_grid, 3D grid) encoder + stacked affordance decoder
+(qual/rot/width) + optional occupancy decoder. Heads:
     qual  -> sigmoid         (grasp success probability)
     rot   -> L2-normalized 4-vector (quaternion, xyzw)
     width -> raw             (normalized gripper width)
