@@ -30,7 +30,7 @@ at 257^3 through the refine chain (``golden_mesh_arrays``);
 script scripts/eval_synthetic_gsr.py on the GSR gate's protocol
 (tests/test_torch_gsr_gate.py, which also holds it current);
 ``golden_plan_giga_grid.npz`` JAX's seeded giga_grid weights and its float64
-programs' candidates (tests/test_torch_grid.py, which holds it current). These
+programs' candidates (tests/test_torch_grid_golden.py, which holds it current). These
 tests regenerate them and assert the committed files are current. Rewrite them all, or those whose names contain the given words,
 with
 
@@ -427,7 +427,7 @@ def test_golden_scenes_are_planner_tsdfs():
 
 
 if __name__ == "__main__" and "--write" in sys.argv:
-    from test_torch_grid import golden_grid_arrays
+    from test_torch_grid_golden import golden_grid_arrays
     from test_torch_gsr_gate import golden_gsr_arrays
 
     words = sys.argv[sys.argv.index("--write") + 1:]
