@@ -142,6 +142,24 @@ Phases (any failure exits non-zero; nothing is caught):
      checkpoint, giga_grid's and VGN's golden weights written under the
      reference's names and read by load_network, each one's plan_batch
      candidates bit-equal to the flax tree's.
+ 31. the point models at full width (``points_phase``; no kernel of this
+     package, K1-K5 zeroed just before and read after; seeded weights):
+     LocalPoolPointnet (and its 32^3 grid branch), FCDecoder, PointNet++ in
+     eval and train mode and LocalPointDecoder, forward and backward on the
+     card against the CPU port (the grid branch and train mode against the
+     port's float64), FPS / ball-query indices card vs CPU, the first clouds
+     against the JAX golden (golden_points.npz); ms a call, kernels, idle
+     share and peak memory of each full batch.
+ 32. the crop model (``crop_phase``): a scene larger than the workspace
+     reconstructed through CropGenerator and SlidingWindowGenerator, every
+     crop's logits against the CPU's and the first against JAX's; the
+     sphere gate of tests/test_crop_model.py (240 Adam steps, loss ratio and
+     median surface error); the grid-only crop model's wiring.
+ 33. geometry evaluation on dataset scenes (``geoeval_phase``):
+     giga_tpu_torch/scripts/eval_geometry.py on the JAX test's fixture with
+     the shipped GIGA-Geo checkpoint, with and without --roi at --batch 1
+     and 2, against the CPU's and the JAX script's JSON
+     (golden_eval_geometry.json).
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -332,6 +350,65 @@ GRID_KW = dict(best=True, force_detection=True, low_th=0.3, qual_th=0.5)
 GRID_WIDTHS = (-1.0, 1.0)
 TOL_GRID_RAW = 2e-5
 TOL_GRID_BF16_MAX = 2e-2
+# the point models (phase 31) at the JAX package's defaults: LocalPoolPointnet
+# (EncoderConfig(): c_dim 32, 40^2 planes, a depth-3 U-Net of 32 filters;
+# hidden 32, 5 blocks) on POINT_BATCH clouds of POINT_CLOUD points sampled
+# from the synthetic scenes' surfaces, with and without its 32^3 grid branch
+# (the default UNet3D), FCDecoder at POINT_QUERIES queries a scene,
+# PointNet++ (c_dim 32) on PP_BATCH clouds of PP_POINTS points in eval and
+# train mode, LocalPointDecoder (sigma 0.1) on its features. No point
+# checkpoint ships: the weights are the port's ``seed_weights`` of
+# POINT_SEED. The card is held against the port on the CPU (the first
+# POINT_CHECK clouds of a batch where the model treats each cloud alone;
+# PointNet++ and its decoder at their whole batch), and against the port's
+# float64 where a GroupNorm (the grid branch) or train-mode BatchNorm
+# enters; golden_points.npz holds JAX's outputs for the first POINT_CHECK
+# clouds on the same weights (GOLDEN_ENTRIES seeded entries and the sum of
+# each output; float64 where such statistics enter) and for the first
+# CROP_GOLDEN crops of phase 32's scene
+GOLDEN_POINTS = "giga_tpu_torch/testdata/golden_points.npz"
+POINT_SEED = 0
+POINT_BATCH = 32
+POINT_CLOUD = 3000
+POINT_QUERIES = 2048
+POINT_GRID = 32
+POINT_CHECK = 2
+PP_BATCH = 8
+PP_POINTS = 2048
+POINT_SIGMA = 0.1
+GOLDEN_ENTRIES = 4096
+TOL_POINT_OUT = 2e-5    # |a - b| <= tol * (1 + |b|)
+TOL_POINT_GRAD = 1e-5   # |a - b| <= tol * (1 + max |g|), each leaf
+# where float32 itself is ill-conditioned (a GroupNorm, train-mode BatchNorm)
+# the card is held to the port's float64 no farther than FLOAT32_FACTOR times
+# the CPU's float32 distance from it (or the bounds above, the larger)
+FLOAT32_FACTOR = 4
+# the crop model (phase 32) at its defaults (EncoderConfig(), hidden 32, 5
+# blocks, unit size 0.02, linear; seeded weights) on a CROP_TILE x CROP_TILE
+# tile of the synthetic scenes (0.6 x 0.6 m) with CROP_SURFACE surface
+# points: 0.1 m query crops, 0.15 m input crops, CROP_RES^3 queries and
+# CROP_POINTS resampled points a crop; every crop's logits on the card held
+# against the CPU port's (the same draws), the first CROP_GOLDEN crops
+# against JAX's; then tests/test_crop_model.py's sphere protocol as the
+# quality gate
+CROP_TILE = 2
+CROP_SURFACE = 100_000
+CROP_QUERY = 0.1
+CROP_INPUT = 0.15
+CROP_RES = 32
+CROP_POINTS = 2048
+CROP_GOLDEN = 2
+SPHERE_STEPS = 240
+SPHERE_LR = 5e-4
+SPHERE_LOSS_RATIO = 0.7
+SPHERE_MEDIAN = 0.03
+# geometry evaluation on dataset scenes (phase 33): the JAX script's
+# fixture (tests/test_eval_geometry_script.py::_make_fixture) and the
+# shipped GIGA-Geo checkpoint; golden_eval_geometry.json holds the JAX
+# script's per-scene and mean JSON on it
+GOLDEN_GEOEVAL = "giga_tpu_torch/testdata/golden_eval_geometry.json"
+GEOEVAL_ARGS = dict(th=0.5, num_point_occ=2000, resolution0=8, upsampling_steps=1, seed=3)
+TOL_GEOEVAL = 1e-3
 
 # published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
 # the memory rate of one H100 SXM
@@ -2966,6 +3043,742 @@ def pt_phase(scenes, card, device: str = "cuda") -> None:
           + f" ({time.perf_counter() - t0:.2f} s) | {card}")
 
 
+def surface_mesh(objects, size: float = SIZE, offset=(0.0, 0.0)):
+    """A scene's surfaces as one TriMesh: the table top, each box, each
+    sphere as a 3-times subdivided icosphere; shifted by ``offset`` in x, y."""
+    from giga_tpu_torch.geometry.mesh import box_mesh, concatenate
+    from giga_tpu_torch.utils.synthetic import icosphere
+
+    parts = [box_mesh((size, size, 0.002), (size / 2, size / 2, 0.05 * size - 0.001))]
+    for kind, center, extent in objects:
+        parts.append(box_mesh(2 * np.broadcast_to(extent, (3,)), center) if kind == "box"
+                     else icosphere(extent, center, subdivisions=3))
+    mesh = concatenate(parts)
+    mesh.vertices = mesh.vertices + np.array([offset[0], offset[1], 0.0])
+    return mesh
+
+
+def point_clouds(n: int, points: int, seed: int = SEED) -> np.ndarray:
+    """(n, points, 3) float32 clouds: ``points`` surface samples of each of the
+    first n synthetic scenes, mapped into [-0.5, 0.5]^3."""
+    rng = np.random.RandomState(seed)
+    return np.stack([surface_mesh(o).sample_surface(points, rng=rng)[0] / SIZE - 0.5
+                     for o in scene_objects(n)]).astype(np.float32)
+
+
+def crop_scene(seed: int = SEED) -> np.ndarray:
+    """(CROP_SURFACE, 3) surface points of a CROP_TILE x CROP_TILE tile of
+    the first synthetic scenes: a scene larger than the workspace."""
+    from giga_tpu_torch.geometry.mesh import concatenate
+
+    objects = scene_objects(CROP_TILE ** 2)
+    mesh = concatenate([surface_mesh(objects[i * CROP_TILE + j], offset=(i * SIZE, j * SIZE))
+                        for i in range(CROP_TILE) for j in range(CROP_TILE)])
+    return mesh.sample_surface(CROP_SURFACE, rng=np.random.RandomState(seed))[0]
+
+
+def first_crops(gen, points: np.ndarray, n: int) -> list:
+    """The logits of the first n crops (with points) that ``gen`` (a
+    CropGenerator of either package) evaluates on ``points`` at phase 32's
+    crop sizes, in SlidingWindowGenerator's order and with its draws."""
+    from giga_tpu_torch.geometry.sliding_window import compute_crop_bounds
+
+    vb = compute_crop_bounds(points, CROP_QUERY, CROP_INPUT)
+    r, out = gen.resolution, []
+    for ci in range(vb["n_crop"]):
+        (in_lo, in_hi), (q_lo, q_hi) = vb["input_vol"][ci], vb["query_vol"][ci]
+        crop = points[np.all((points >= in_lo) & (points <= in_hi), axis=1)]
+        if len(crop) == 0:
+            continue
+        lin = [np.linspace(q_lo[d], q_hi[d], r, endpoint=False) for d in range(3)]
+        q = np.stack(np.meshgrid(*lin, indexing="ij"), -1).reshape(-1, 3)
+        out.append(np.asarray(gen._eval_crop(gen._encode_crop(crop, (in_lo, in_hi)),
+                                             q.astype(np.float32), (in_lo, in_hi))))
+        if len(out) == n:
+            break
+    return out
+
+
+def record_crops(gen, points: np.ndarray, query_crop: float, input_crop: float):
+    """``gen.generate_mesh`` with every crop's logits recorded -> (mesh,
+    [logits (r^3,) of each crop with points, in order])."""
+    logits, evaluate = [], gen._eval_crop
+
+    def recorded(planes, q, vol):
+        out = np.asarray(evaluate(planes, q, vol))
+        logits.append(out)
+        return out
+
+    gen._eval_crop = recorded
+    try:
+        mesh = gen.generate_mesh(points, query_crop, input_crop)
+    finally:
+        del gen._eval_crop
+    return mesh, logits
+
+
+def compare_crops(got: list, ref: list, what: str, tol: float = TOL_POINT_OUT) -> dict:
+    """Two runs' crop logits held crop by crop within ``tol`` * (1 + |b|); a
+    logit whose sign differs between them (a corner on the other side of
+    the 0.5 iso level) must lie within TOL_FLIP of it, PR 15's corner rule.
+    Returns the largest scaled difference and the sign flips."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{what}: {len(got)} crops against {len(ref)}")
+    err, flips = 0.0, 0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        e = float((np.abs(a - b) / (1 + np.abs(b))).max())
+        flip = (a > 0) != (b > 0)
+        if e > tol or (np.abs(b[flip]) > TOL_FLIP).any():
+            raise AssertionError(f"{what}: crop {i} logits {e:.3g} * (1 + |b|) apart (tol {tol}), "
+                                 f"{int(flip.sum())} signs differ")
+        err, flips = max(err, e), flips + int(flip.sum())
+    return {"err": err, "flips": flips}
+
+
+def geoeval_fixture(root: Path, n_scenes: int = 2):
+    """tests/test_eval_geometry_script.py::_make_fixture through the port's
+    modules: a 0.1 m box mesh on disk, n_scenes scenes of it at shifted
+    poses (mesh_pose_list), their 40^3 TSDFs, one successful grasp each and
+    a setup.json -> (processed root, raw root)."""
+    from giga_tpu_torch.core import io
+    from giga_tpu_torch.core.grasp import Grasp, Label
+    from giga_tpu_torch.core.perception import CameraIntrinsic
+    from giga_tpu_torch.core.transform import Rotation, Transform
+    from giga_tpu_torch.geometry.mesh import box_mesh
+    from giga_tpu_torch.utils.synthetic import mesh_to_tsdf
+
+    proc, raw = root / "proc", root / "raw"
+    (proc / "scenes").mkdir(parents=True)
+    (raw / "mesh_pose_list").mkdir(parents=True)
+    io.write_setup(raw, 0.3, CameraIntrinsic(64, 48, 54, 54, 32, 24), 0.08, 0.05)
+    rng = np.random.RandomState(0)
+    mesh = box_mesh([0.1, 0.1, 0.1], center=(0, 0, 0))
+    mesh_path = root / "obj.obj"
+    mesh.export(mesh_path)
+    for i in range(n_scenes):
+        sid = f"s{i}"
+        pose = np.eye(4)
+        pose[:3, 3] = [0.12 + 0.04 * i, 0.15, 0.05]
+        np.savez(raw / "mesh_pose_list" / (sid + ".npz"),
+                 pc=np.asarray([(str(mesh_path), 1.0, pose)], dtype=object))
+        grid = np.squeeze(mesh_to_tsdf(mesh.copy().apply_transform(pose), 0.3, 40, rng=rng))
+        io.write_voxel_grid(proc, sid, grid[None].astype(np.float32))
+        io.write_grasp(raw, sid, Grasp(Transform(Rotation.identity(), pose[:3, 3]), 0.04),
+                       Label.SUCCESS)
+    return proc, raw
+
+
+def geoeval_args(proc: Path, raw: Path, logdir: Path, roi: bool, batch: int, **kw):
+    """The eval_geometry flags of phase 33 (both packages' scripts read them)."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(model_path=str(Path(__file__).resolve().parent / GEO_CHECKPOINT),
+                           type="giga_geo", dataset=proc, dataset_raw=raw, logdir=logdir,
+                           roi=roi, batch=batch, **GEOEVAL_ARGS, **kw)
+
+
+def geoeval_results(logdir: Path) -> dict:
+    """{"mean": mean_results.json less its model path, "scenes": [results.json
+    of each scene]} of one eval_geometry run."""
+    mean = json.loads((logdir / "mean_results.json").read_text())
+    mean.pop("model_path")
+    return {"mean": mean, "scenes": [json.loads(p.read_text())
+                                     for p in sorted(logdir.glob("*/results.json"))]}
+
+
+def compare_geoeval(got: dict, ref: dict, what: str, tol: float = TOL_GEOEVAL,
+                    tol_iou: float | None = None) -> float:
+    """Two eval_geometry results: the same keys, every metric within ``tol``
+    (an IoU within ``tol_iou`` if given; nan where the other is nan).
+    Returns the largest difference."""
+    worst = 0.0
+    for a, b in [(got["mean"], ref["mean"])] + list(zip(got["scenes"], ref["scenes"])):
+        if set(a) != set(b) or len(got["scenes"]) != len(ref["scenes"]):
+            raise AssertionError(f"{what}: keys {sorted(set(a) ^ set(b))} differ")
+        for k in b:
+            t = tol_iou if tol_iou is not None and k.startswith("iou") else tol
+            if np.isnan(b[k]) != np.isnan(a[k]) or abs(a[k] - b[k]) > t:
+                raise AssertionError(f"{what}: {k} {a[k]} against {b[k]} (tol {t})")
+            if not np.isnan(b[k]):
+                worst = max(worst, abs(a[k] - b[k]))
+    return worst
+
+
+def point_models() -> dict:
+    """Phase 31's modules at the JAX package's defaults, each with the port's
+    ``seed_weights`` of POINT_SEED + its position (no point checkpoint
+    ships): LocalPoolPointnet, the same with its grid branch, FCDecoder,
+    PointNet++ (c_dim 32) and LocalPointDecoder (sigma POINT_SIGMA)."""
+    from giga_tpu_torch.core.config import DecoderConfig, EncoderConfig
+    from giga_tpu_torch.models.decoder import FCDecoder, LocalPointDecoder
+    from giga_tpu_torch.models.pointnet import LocalPoolPointnet
+    from giga_tpu_torch.models.pointnetpp import PointNetPlusPlus
+    from giga_tpu_torch.models.registry import seed_weights
+
+    models = {"lpp": LocalPoolPointnet(EncoderConfig()),
+              "lppg": LocalPoolPointnet(EncoderConfig(), grid_resolution=POINT_GRID,
+                                        use_grid=True),
+              "fc": FCDecoder(DecoderConfig()),
+              "pp": PointNetPlusPlus(c_dim=32),
+              "lpd": LocalPointDecoder(DecoderConfig(concat_feat=False), sigma=POINT_SIGMA)}
+    for i, m in enumerate(models.values()):
+        seed_weights(m, POINT_SEED + i).eval()
+    return models
+
+
+def point_inputs() -> dict:
+    """Phase 31's inputs: POINT_BATCH clouds of POINT_CLOUD surface points,
+    PP_BATCH clouds of PP_POINTS, and POINT_QUERIES uniform queries a cloud
+    for each, all in [-0.5, 0.5]^3."""
+    rng = np.random.RandomState(SEED + 1)
+    return {"clouds": point_clouds(POINT_BATCH, POINT_CLOUD),
+            "pp": point_clouds(PP_BATCH, PP_POINTS, seed=SEED + 1),
+            "queries": rng.uniform(-0.5, 0.5, (POINT_BATCH, POINT_QUERIES, 3)).astype(np.float32),
+            "pp_queries": rng.uniform(-0.5, 0.5, (PP_BATCH, POINT_QUERIES, 3)).astype(np.float32)}
+
+
+def golden_entries(size: int) -> np.ndarray:
+    """The flat indices of an output of ``size`` values that golden_points.npz
+    keeps: GOLDEN_ENTRIES of them, seeded by the size, sorted."""
+    n = min(size, GOLDEN_ENTRIES)
+    return np.sort(np.random.RandomState(size % (2 ** 32)).choice(size, n, replace=False))
+
+
+def golden_record(name: str, a) -> dict:
+    """{name_val: the golden entries of ``a``, name_sum: its float64 sum}."""
+    a = np.asarray(a, np.float64).reshape(-1)
+    return {name + "_val": a[golden_entries(a.size)], name + "_sum": np.array(a.sum())}
+
+
+def check_golden(golden, name: str, got, tol: float = TOL_POINT_OUT, what: str = "") -> float:
+    """An output against its golden entries within ``tol`` * (1 + |b|) (and
+    its sum within ``tol`` * (1 + sum |b| of the entries, scaled to the
+    whole)). Returns the entries' largest scaled difference."""
+    got = np.asarray(got, np.float64).reshape(-1)
+    ref = golden[name + "_val"]
+    err = float((np.abs(got[golden_entries(got.size)] - ref) / (1 + np.abs(ref))).max())
+    scale = np.abs(ref).sum() * got.size / ref.size
+    sum_err = abs(got.sum() - float(golden[name + "_sum"])) / (1 + scale)
+    if err > tol or sum_err > tol:
+        raise AssertionError(f"{what or name} vs the JAX golden: {err:.3g} * (1 + |b|), sum "
+                             f"{sum_err:.3g} (tol {tol})")
+    return err
+
+
+def _tensors_to(tree, device, dtype=None):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tensors_to(v, device, dtype) for k, v in tree.items()}
+    t = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(tree))
+    return t.to(device, dtype if dtype is not None and t.is_floating_point() else t.dtype)
+
+
+def _sum_sq(out):
+    import torch
+
+    leaves = out.values() if isinstance(out, dict) else [out]
+    return sum(torch.sum(v.double() ** 2) for v in leaves)
+
+
+def fwd_bwd(model, args, device, dtype=None, neighbours=None):
+    """(outputs on the host as float64, {name: gradient as float64},
+    {name: buffer}, {layer: the neighbours it picked}) of ``model`` (a copy
+    on ``device`` in ``dtype``; a PointNet++ on ``neighbours``, a dict as
+    the fourth item returns, where given) on ``args`` for the loss sum of
+    squares."""
+    import copy
+
+    import torch
+
+    from giga_tpu_torch.core.precision import full_precision
+
+    m = copy.deepcopy(model).to(device)
+    if dtype is not None:
+        m = m.to(dtype)
+    for name, mod in m.named_modules():
+        if neighbours is not None and name in neighbours:
+            mod.neighbours = _tensors_to(neighbours[name], device) if isinstance(
+                neighbours[name], torch.Tensor) else tuple(_tensors_to(t, device)
+                                                          for t in neighbours[name])
+    with full_precision():  # the backward's convolutions too: TF32 off
+        out = m(*(_tensors_to(a, device, dtype) for a in args))
+        if isinstance(out, tuple):  # PointNet++: (xyz, features)
+            out = out[1]
+        _sum_sq(out).backward()
+    host = ({k: v.detach().double().cpu().numpy() for k, v in out.items()} if isinstance(out, dict)
+            else out.detach().double().cpu().numpy())
+    grads = {k: p.grad.double().cpu().numpy() for k, p in m.named_parameters()}
+    stats = {k: b.double().cpu().numpy() for k, b in m.named_buffers()}
+    picked = {name: (mod.picked.cpu() if isinstance(mod.picked, torch.Tensor)
+                     else tuple(t.cpu() for t in mod.picked))
+              for name, mod in m.named_modules() if getattr(mod, "picked", None) is not None}
+    return host, grads, stats, picked
+
+
+def neighbours_differ(a: dict, b: dict) -> dict:
+    """{layer: indices that differ} between two runs' picked neighbours."""
+    import torch
+
+    flat = {k: (v,) if isinstance(v, torch.Tensor) else v for k, v in a.items()}
+    return {k: sum(int((x != y).sum()) for x, y in zip(v, (b[k],) if isinstance(
+        b[k], torch.Tensor) else b[k])) for k, v in flat.items()}
+
+
+def scaled_err(got, ref) -> float:
+    """max |a - b| / (1 + |b|) over matching outputs (dicts or arrays)."""
+    if isinstance(ref, dict):
+        return max(scaled_err(got[k], ref[k]) for k in ref)
+    return float((np.abs(got - ref) / (1 + np.abs(ref))).max())
+
+
+def grad_err(got: dict, ref: dict, whole: bool = False) -> float:
+    """The largest of each leaf's max |a - b| / (1 + max |b|); with ``whole``,
+    the largest |a - b| over (1 + the largest |b| of every leaf)."""
+    if whole:
+        return (max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+                / (1 + max(float(np.abs(v).max()) for v in ref.values())))
+    return max(float(np.abs(got[k] - ref[k]).max() / (1 + np.abs(ref[k]).max())) for k in ref)
+
+
+def hold(what: str, err: float, tol: float) -> float:
+    if not err <= tol:
+        raise AssertionError(f"{what}: {err:.3g} (tol {tol:.3g})")
+    return err
+
+
+def call_stats(fn, iters: int, device: str) -> dict:
+    """ms a call by CUDA events (host clock on the CPU), kernels a call and
+    the device's idle share (torch.profiler), and the peak memory of a call
+    beyond what was allocated before it."""
+    import torch
+
+    if device != "cuda":
+        return {"ms": host_ms(fn, 1), "kernels": float("nan"), "idle": float("nan"),
+                "peak_gb": float("nan")}
+    from giga_tpu_torch.scripts.profile_planner import _trace
+
+    ms = cuda_ms(fn, iters)
+    busy, wall, rows = _trace(fn, 2)
+    kernels = sum(r[1] for r in rows if not r[2].startswith(("Memcpy", "Memset")))
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return {"ms": ms, "kernels": kernels, "idle": max(0.0, 1 - busy / wall),
+            "peak_gb": (torch.cuda.max_memory_allocated() - live) / 1e9}
+
+
+def points_phase(card, device: str = "cuda") -> dict:
+    """Phase 31: the point encoders and decoders at full width on the card.
+
+    Each model's forward pass and one backward pass of the sum of squares of
+    its outputs, on the card against the port on the CPU (TOL_POINT_OUT,
+    TOL_POINT_GRAD): LocalPoolPointnet and FCDecoder on the first
+    POINT_CHECK clouds (each cloud is pooled, refined and decoded alone),
+    PointNet++ and LocalPointDecoder at their whole batch. Where a GroupNorm
+    (the grid branch), or PointNet++ (FP's weight 1 / (d^2 + 1e-8) at a
+    centroid, train-mode BatchNorm), float32 itself is ill-conditioned on
+    these seeded weights (the CPU's float32 lies up to 6e-5 from float64 on
+    the grid's outputs): the card is held to the port's float64 on the CPU
+    instead (PointNet++ on the card's neighbours; in train mode its float32
+    gradients printed and its float64 step held to the CPU's within 1e-9),
+    no farther from it than max(TOL, FLOAT32_FACTOR x the CPU's float32
+    distance), and
+    both distances and the card-vs-CPU gap are printed; the same for the
+    float64 goldens. FPS and ball-query indices of the card and
+    the CPU are counted where they differ, and the CPU's PointNet++ runs on
+    the card's neighbours (``neighbours``). The first POINT_CHECK clouds'
+    outputs against the JAX golden (its bound widened by twice the effect
+    of the card's other neighbours on the CPU's outputs); each model's full batch timed (CUDA
+    events), its kernels a call, the idle share and peak memory; K1-K5 not
+    launched."""
+    import copy
+
+    import torch
+
+    from giga_tpu_torch.ops.sampling import PLANE_ORDER
+
+    root = Path(__file__).resolve().parent
+    golden = np.load(root / GOLDEN_POINTS)
+    t0 = time.perf_counter()
+    models, x = point_models(), point_inputs()
+    n = POINT_CHECK
+    rows = []
+    zero_kernel_counts(all_five=True)
+    # LocalPoolPointnet, planes: card vs CPU at the first n clouds, and vs golden
+    lpp_args = (x["clouds"][:n],)
+    gpu, cpu = (fwd_bwd(models["lpp"], lpp_args, d) for d in (device, "cpu"))
+    e = (hold("LocalPoolPointnet outputs, card vs CPU", scaled_err(gpu[0], cpu[0]), TOL_POINT_OUT),
+         hold("LocalPoolPointnet gradients, card vs CPU", grad_err(gpu[1], cpu[1]),
+              TOL_POINT_GRAD),
+         max(check_golden(golden, f"lpp_{t}", gpu[0][t]) for t in PLANE_ORDER))
+    rows.append(f"LocalPoolPointnet (max): outputs {e[0]:.3g}, gradients {e[1]:.3g} from the "
+                f"CPU's, {e[2]:.3g} from JAX's")
+    planes_cpu = {t: v.astype(np.float32) for t, v in cpu[0].items()}
+    # the grid branch (GroupNorm): each side against the port's float64
+    lppg_args = (x["clouds"][:n],)
+    gpu, cpu, f64 = (fwd_bwd(models["lppg"], lppg_args, d, dt) for d, dt in (
+        (device, None), ("cpu", None), ("cpu", torch.float64)))
+    e = {w: (scaled_err(r[0], f64[0]), grad_err(r[1], f64[1])) for w, r in
+         (("card", gpu), ("cpu", cpu))}
+    for i, tol in ((0, TOL_POINT_OUT), (1, TOL_POINT_GRAD)):
+        hold("LocalPoolPointnet grid branch, card from float64", e["card"][i],
+             max(tol, FLOAT32_FACTOR * e["cpu"][i]))
+    tol = max(TOL_POINT_OUT, FLOAT32_FACTOR * max(check_golden(golden, f"lppg_{t}", cpu[0][t], 1.0)
+                                      for t in (*PLANE_ORDER, "grid")))
+    g = max(check_golden(golden, f"lppg_{t}", gpu[0][t], tol) for t in (*PLANE_ORDER, "grid"))
+    rows.append(f"LocalPoolPointnet + 32^3 grid: card {e['card'][0]:.3g} / {e['card'][1]:.3g}, "
+                f"CPU {e['cpu'][0]:.3g} / {e['cpu'][1]:.3g} from float64 (outputs / gradients), "
+                f"card vs CPU {scaled_err(gpu[0], cpu[0]):.3g}, {g:.3g} from JAX's float64")
+    # FCDecoder on the CPU's planes
+    fc_args = (planes_cpu, x["queries"][:n])
+    gpu, cpu = (fwd_bwd(models["fc"], fc_args, d) for d in (device, "cpu"))
+    e = (hold("FCDecoder outputs, card vs CPU", scaled_err(gpu[0], cpu[0]), TOL_POINT_OUT),
+         hold("FCDecoder gradients, card vs CPU", grad_err(gpu[1], cpu[1]), TOL_POINT_GRAD),
+         check_golden(golden, "fc", gpu[0]))
+    rows.append(f"FCDecoder: {e[0]:.3g} / {e[1]:.3g} from the CPU's, {e[2]:.3g} from JAX's")
+    # PointNet++ in eval mode: the card; the CPU on its own neighbours, and
+    # on the card's in float32 and float64. A query that is also a centroid
+    # gets d^2 ~ 0 by cancellation and FP's weight 1 / (d^2 + 1e-8), so the
+    # float32 sums' order moves the features: the card is held to float64
+    # on its neighbours; the index effect (the CPU on its own neighbours
+    # against the card's) widens the golden's bound
+    pp_eval = models["pp"]
+    gpu = fwd_bwd(pp_eval, (x["pp"],), device)
+    own = fwd_bwd(pp_eval, (x["pp"],), "cpu")
+    cpu, f64 = (fwd_bwd(pp_eval, (x["pp"],), "cpu", dt, neighbours=gpu[3])
+                for dt in (None, torch.float64))
+    differ = neighbours_differ(gpu[3], own[3])
+    delta = scaled_err(own[0][:n], cpu[0][:n])
+    e = {w: (scaled_err(r[0], f64[0]), grad_err(r[1], f64[1])) for w, r in
+         (("card", gpu), ("cpu", cpu))}
+    for i, tol in ((0, TOL_POINT_OUT), (1, TOL_POINT_GRAD)):
+        hold("PointNet++ eval card from float64", e["card"][i], max(tol, FLOAT32_FACTOR * e["cpu"][i]))
+    worst = max(gpu[1], key=lambda k: np.abs(gpu[1][k] - cpu[1][k]).max()
+                / (1 + np.abs(cpu[1][k]).max()))
+    tol = max(TOL_POINT_OUT, 2 * delta, FLOAT32_FACTOR * scaled_err(cpu[0][:n], f64[0][:n]))
+    g = check_golden(golden, "pp_eval", gpu[0][:n], tol)
+    feats_cpu = cpu[0].astype(np.float32)
+    rows.append(f"PointNet++ eval: card {e['card'][0]:.3g} / {e['card'][1]:.3g}, CPU "
+                f"{e['cpu'][0]:.3g} / {e['cpu'][1]:.3g} from float64 on the card's neighbours, "
+                f"card vs CPU {scaled_err(gpu[0], cpu[0]):.3g} / {grad_err(gpu[1], cpu[1]):.3g} "
+                f"(worst leaf {worst}); {g:.3g} from JAX's (tol {tol:.3g}); neighbours the card "
+                f"picked otherwise than the CPU: {differ} (their effect on the first {n} clouds "
+                f"{delta:.3g})")
+    pp_train = copy.deepcopy(pp_eval).train()
+    train = {}
+    for B, args in ((PP_BATCH, (x["pp"],)), (n, (x["pp"][:n],))):
+        gpu = fwd_bwd(pp_train, args, device)
+        cpu, f64, gpu64 = (fwd_bwd(pp_train, args, d, dt, neighbours=gpu[3]) for d, dt in (
+            ("cpu", None), ("cpu", torch.float64), (device, torch.float64)))
+        # gradients against the model's gradient scale: train-mode BatchNorm
+        # leaves float32 gradients ill-conditioned on both devices (a bias
+        # before it has a true gradient of 0, the mean being taken out), so
+        # the card's float32 gradients are printed, and the card's float64
+        # step is held to the CPU's instead
+        e = {w: (scaled_err(r[0], f64[0]), grad_err(r[1], f64[1], whole=True),
+                 scaled_err({k: v for k, v in r[2].items() if "running" in k},
+                            {k: v for k, v in f64[2].items() if "running" in k}))
+             for w, r in (("card", gpu), ("cpu", cpu), ("card64", gpu64))}
+        for i, tol in ((0, TOL_POINT_OUT), (2, TOL_POINT_OUT)):
+            hold(f"PointNet++ train B={B} card from float64", e["card"][i],
+                 max(tol, FLOAT32_FACTOR * e["cpu"][i]))
+        for i in range(3):
+            hold(f"PointNet++ train B={B} card's float64 from the CPU's", e["card64"][i], 1e-9)
+        train[B] = (e, scaled_err(gpu[0], cpu[0]), gpu[0], gpu[3])
+    own = fwd_bwd(pp_train, (x["pp"][:n],), "cpu")
+    on_card = fwd_bwd(pp_train, (x["pp"][:n],), "cpu", neighbours=train[n][3])
+    tol = max(TOL_POINT_OUT, FLOAT32_FACTOR * check_golden(golden, "pp_train", own[0], 1.0),
+              2 * scaled_err(own[0], on_card[0]))
+    g = check_golden(golden, "pp_train", train[n][2], tol)
+    e, gap, _, _ = train[PP_BATCH]
+    rows.append(f"PointNet++ train B={PP_BATCH}: card {e['card'][0]:.3g} / {e['card'][1]:.3g} / "
+                f"{e['card'][2]:.3g}, CPU {e['cpu'][0]:.3g} / {e['cpu'][1]:.3g} / "
+                f"{e['cpu'][2]:.3g} from float64 on the card's neighbours (features / gradients "
+                f"over the model's largest / running statistics), card vs CPU {gap:.3g}; the "
+                f"card's float64 {max(e['card64']):.3g} from the CPU's; B={n} "
+                f"{g:.3g} from JAX's float64 "
+                f"(tol {tol:.3g})")
+    # LocalPointDecoder on the CPU's PointNet++ features
+    lpd_args = (x["pp"], feats_cpu, x["pp_queries"])
+    gpu, cpu = (fwd_bwd(models["lpd"], lpd_args, d) for d in (device, "cpu"))
+    e = (hold("LocalPointDecoder outputs, card vs CPU", scaled_err(gpu[0], cpu[0]),
+              TOL_POINT_OUT),
+         hold("LocalPointDecoder gradients, card vs CPU", grad_err(gpu[1], cpu[1]),
+              TOL_POINT_GRAD),
+         check_golden(golden, "lpd", gpu[0][:n]))
+    rows.append(f"LocalPointDecoder: {e[0]:.3g} / {e[1]:.3g} from the CPU's, {e[2]:.3g} from "
+                f"JAX's")
+    for r in rows:
+        print(f"phase 31: {r}")
+    # the full batches on the card, timed
+    on = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
+    on["pp_train"] = copy.deepcopy(on["pp"]).train()
+    t = {k: _tensors_to(v, device) for k, v in x.items()}
+    with torch.no_grad():
+        planes = on["lpp"](t["clouds"])
+        feats = on["pp"](t["pp"])[1]
+        calls = {
+            f"LocalPoolPointnet B={POINT_BATCH}": lambda: on["lpp"](t["clouds"]),
+            "LocalPoolPointnet + grid": lambda: on["lppg"](t["clouds"]),
+            f"FCDecoder B={POINT_BATCH} x {POINT_QUERIES}": lambda: on["fc"](planes, t["queries"]),
+            f"PointNet++ eval B={PP_BATCH}": lambda: on["pp"](t["pp"]),
+            "PointNet++ train": lambda: on["pp_train"](t["pp"]),
+            f"LocalPointDecoder B={PP_BATCH} x {POINT_QUERIES}":
+                lambda: on["lpd"](t["pp"], feats, t["pp_queries"]),
+        }
+        stats = {k: call_stats(fn, 5, device) for k, fn in calls.items()}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = kernel_counts(all_five=True)
+    if any(launches.values()):
+        raise AssertionError(f"phase 31 launched a kernel of this package: {launches}")
+    print("phase 31: full batches (CUDA events): " + "; ".join(
+        f"{k} {v['ms']:.3f} ms, {v['kernels']} kernels, idle {v['idle']:.3f}, peak "
+        f"{v['peak_gb']:.3f} GB" for k, v in stats.items())
+          + f"; K1-K5 launches {launches}; {time.perf_counter() - t0:.1f} s | {card}")
+    return stats
+
+
+def crop_net(device=None, seed: int = POINT_SEED):
+    """Phase 32's crop model at its defaults with seeded weights."""
+    from giga_tpu_torch.models.crop import CropOccupancyNet
+    from giga_tpu_torch.models.registry import seed_weights
+
+    net = seed_weights(CropOccupancyNet(), seed).eval()
+    return net if device is None else net.to(device)
+
+
+def sphere_gate(device: str) -> dict:
+    """tests/test_crop_model.py::test_sphere_end_to_end's protocol with the
+    port: its tiny crop model (torch's default initialization from
+    torch.manual_seed(SEED)) trained SPHERE_STEPS Adam steps at SPHERE_LR on
+    one sphere's occupancy, then reconstructed through CropGenerator."""
+    import torch
+    import torch.nn.functional as F
+
+    from giga_tpu_torch.core.config import EncoderConfig
+    from giga_tpu_torch.core.precision import full_precision
+    from giga_tpu_torch.geometry.native import check_mesh_contains
+    from giga_tpu_torch.models.crop import (CropGenerator, CropOccupancyNet, crop_plane_indices,
+                                            crop_query_coords)
+    from giga_tpu_torch.train.trainer import Adam
+    from giga_tpu_torch.utils.synthetic import icosphere
+
+    size, center = 0.4, np.array([0.2, 0.2, 0.2])
+    mesh = icosphere(0.12, center, subdivisions=2)
+    r = np.random.RandomState(0)
+    surface, _ = mesh.sample_surface(4000, rng=r)
+    torch.manual_seed(SEED)
+    net = CropOccupancyNet(EncoderConfig(c_dim=16, plane_resolution=16), hidden_dim=16,
+                           n_blocks=2, unit_size=0.05).to(device)
+    T, N, input_crop, query_crop = 512, 256, 0.3, 0.2
+
+    def make_batch(rs):
+        lo = rs.uniform(-0.05, size - query_crop + 0.05, 3).astype(np.float32)
+        c = lo + query_crop / 2
+        in_lo = (c - input_crop / 2).astype(np.float32)
+        in_hi = (c + input_crop / 2).astype(np.float32)
+        crop = surface[np.all((surface >= in_lo) & (surface <= in_hi), axis=1)]
+        if len(crop) == 0:
+            crop = in_lo[None] + 1e-3
+        p = crop[rs.randint(0, len(crop), T)].astype(np.float32)
+        q = rs.uniform(lo, lo + query_crop, (N, 3)).astype(np.float32)
+        occ = check_mesh_contains(mesh, q).astype(np.float32)
+        return _tensors_to({"p": p[None], "q": q[None], "occ": occ[None], "lo": in_lo,
+                            "hi": in_hi}, device)
+
+    make_batch(r)  # the JAX test's draw for its init batch
+    adam = Adam(net.parameters(), lr=SPHERE_LR, clip_norm=None, skip_nonfinite=False)
+    params = list(net.parameters())
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(SPHERE_STEPS):
+        b = make_batch(r)
+        vol = (b["lo"], b["hi"])
+        with full_precision():
+            logits = net(b["p"], crop_plane_indices(b["p"], vol, 16), b["q"],
+                         crop_query_coords(b["q"], vol))
+            loss = -(b["occ"] * F.logsigmoid(logits)
+                     + (1 - b["occ"]) * F.logsigmoid(-logits)).mean()
+            grads = torch.autograd.grad(loss, params)
+        adam.update(params, grads)
+        losses.append(loss.detach())
+    losses = torch.stack(losses).cpu().numpy()
+    train_s = time.perf_counter() - t0
+    ratio = float(np.mean(losses[-40:]) / np.mean(losses[:40]))
+    t0 = time.perf_counter()
+    rec = CropGenerator(net, n_crop_points=T, resolution=16, device=device).generate_mesh(
+        surface, query_crop_size=query_crop, input_crop_size=input_crop)
+    med = float(np.median(np.abs(np.linalg.norm(rec.vertices - center, axis=1) - 0.12)))
+    if not (ratio < SPHERE_LOSS_RATIO and len(rec.faces) > 0 and med < SPHERE_MEDIAN):
+        raise AssertionError(f"sphere gate: loss ratio {ratio:.3f} (gate {SPHERE_LOSS_RATIO}), "
+                             f"{len(rec.faces)} faces, median surface error {med:.4f} m "
+                             f"(gate {SPHERE_MEDIAN})")
+    return {"ratio": ratio, "median": med, "faces": len(rec.faces), "train_s": train_s,
+            "mesh_s": time.perf_counter() - t0}
+
+
+def crop_phase(card, device: str = "cuda") -> dict:
+    """Phase 32: the crop model and sliding-window reconstruction.
+
+    (a) phase 32's seeded crop model reconstructs a CROP_TILE x CROP_TILE
+    tile of the synthetic scenes through CropGenerator on the card and on
+    the CPU (RandomState(SEED) each, so the same draws): every crop's logits
+    held by ``compare_crops``, the meshes equal where no corner changes
+    sign; the first CROP_GOLDEN crops against JAX's; a crop's encode and
+    decode by CUDA events, the scene end to end and its host marching by
+    the host clock. (b) the sphere gate (``sphere_gate``). (c)
+    tests/test_crop_model.py::TestCropGeneratorGridWiring's grid-only model
+    through the card's CropGenerator, against the CPU's. K1-K5 not
+    launched."""
+    import torch
+
+    from giga_tpu_torch.core.config import EncoderConfig, UNet3DConfig
+    from giga_tpu_torch.geometry import sliding_window
+    from giga_tpu_torch.models.crop import (CropGenerator, CropOccupancyNet, crop_plane_indices,
+                                            crop_query_coords)
+    from giga_tpu_torch.models.registry import seed_weights
+
+    root = Path(__file__).resolve().parent
+    golden = np.load(root / GOLDEN_POINTS)
+    t00 = time.perf_counter()
+    pts = crop_scene()
+    zero_kernel_counts(all_five=True)
+    gens = {d: CropGenerator(crop_net(), n_crop_points=CROP_POINTS, resolution=CROP_RES,
+                             rng=np.random.RandomState(SEED), device=d) for d in (device, "cpu")}
+    march = sliding_window.marching_tetrahedra
+    march_s = []
+
+    def timed(*a):
+        t = time.perf_counter()
+        out = march(*a)
+        march_s.append(time.perf_counter() - t)
+        return out
+
+    sliding_window.marching_tetrahedra = timed
+    try:
+        runs = {}
+        for d, g in gens.items():
+            if d == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[d] = record_crops(g, pts, CROP_QUERY, CROP_INPUT) + (time.perf_counter() - t0,)
+    finally:
+        sliding_window.marching_tetrahedra = march
+    (mesh, logits, scene_s), (ref, ref_logits, _) = runs[device], runs["cpu"]
+    res = compare_crops(logits, ref_logits, "crop logits, card vs CPU")
+    if len(mesh.faces) == 0:
+        raise AssertionError("the crop model's scene mesh is empty")
+    if res["flips"] == 0 and not (np.array_equal(mesh.faces, ref.faces)
+                                  and np.abs(mesh.vertices - ref.vertices).max() <= 1e-6):
+        raise AssertionError("crop scene mesh: the card's faces differ from the CPU's with no "
+                             "corner's sign changed")
+    gold = max(scaled_err(logits[i], golden[f"crop_{i}"]) for i in range(CROP_GOLDEN))
+    hold(f"the first {CROP_GOLDEN} crops vs JAX's", gold, TOL_POINT_OUT)
+    # a crop's encode and decode alone, by CUDA events
+    net = gens[device].net
+    x = _tensors_to({"p": pts[:CROP_POINTS][None].astype(np.float32)}, device)
+    lo, hi = (_tensors_to(np.asarray(v, np.float32), device) for v in (
+        pts.min(0) - 0.01, pts.min(0) - 0.01 + CROP_INPUT))
+    q = _tensors_to(np.random.RandomState(0).uniform(0, 0.1, (1, CROP_RES ** 3, 3))
+                    .astype(np.float32), device)
+    with torch.no_grad():
+        idx = crop_plane_indices(x["p"], (lo, hi), 40)
+        planes = net.encode(x["p"], idx)
+        q_n = crop_query_coords(q, (lo, hi))
+        crop_stats = {"encode": call_stats(lambda: net.encode(x["p"], idx), 10, device),
+                      "decode": call_stats(lambda: net.decode(planes, q, q_n), 10, device)}
+    print(f"phase 32: crop model (EncoderConfig(), hidden 32, 5 blocks, unit 0.02) on a "
+          f"{CROP_TILE}x{CROP_TILE} tile ({CROP_SURFACE} points): {len(logits)} crops of "
+          f"{CROP_RES}^3 queries, logits card vs CPU {res['err']:.3g} * (1 + |b|) ({res['flips']} "
+          f"signs differ), first {CROP_GOLDEN} {gold:.3g} from JAX's; mesh {len(mesh.faces)} "
+          f"faces ({len(ref.faces)} on the CPU); a crop's encode "
+          f"{crop_stats['encode']['ms']:.3f} ms, decode {crop_stats['decode']['ms']:.3f} ms "
+          f"(CUDA events; {crop_stats['encode']['kernels']} + {crop_stats['decode']['kernels']} "
+          f"kernels); the scene {scene_s * 1e3:.1f} ms end to end, host marching "
+          f"{march_s[0] * 1e3:.1f} ms of it | {card}")
+    gate = sphere_gate(device)
+    print(f"phase 32: sphere gate ({SPHERE_STEPS} Adam steps at {SPHERE_LR}): last-40 / first-40 "
+          f"loss {gate['ratio']:.3f} (gate {SPHERE_LOSS_RATIO}), mesh {gate['faces']} faces, "
+          f"median surface error {gate['median']:.4f} m (gate {SPHERE_MEDIAN}); training "
+          f"{gate['train_s']:.2f} s, reconstruction {gate['mesh_s']:.2f} s")
+    # the grid branch wired through CropGenerator
+    cfg = EncoderConfig(c_dim=16, plane_resolution=8, plane_types=("grid",), grid_resolution=8,
+                        unet3d=UNet3DConfig(f_maps=8, num_levels=2, num_groups=2))
+    net = seed_weights(CropOccupancyNet(cfg, hidden_dim=16, n_blocks=2, unit_size=0.05), SEED)
+    r = np.random.RandomState(0)
+    cloud = r.uniform(0.0, 0.4, (200, 3)).astype(np.float32)
+    vol = (np.zeros(3, np.float32), np.full(3, 0.4, np.float32))
+    q0 = r.uniform(0, 0.4, (32, 3)).astype(np.float32)
+    out = {}
+    for d in (device, "cpu"):
+        g = CropGenerator(net, n_crop_points=64, resolution=8, rng=np.random.RandomState(0),
+                          device=d)
+        planes = g._encode_crop(cloud, vol)
+        if set(planes) != {"grid"} or planes["grid"].ndim != 5:
+            raise AssertionError(f"grid crop model encoded {[(k, v.shape) for k, v in planes.items()]}")
+        out[d] = g._eval_crop(planes, q0, vol)
+    if not (out[device].shape == (32,) and np.isfinite(out[device]).all()):
+        raise AssertionError("grid crop model: bad logits")
+    e = hold("grid crop logits, card vs CPU", scaled_err(out[device], out["cpu"]), TOL_POINT_OUT)
+    launches = kernel_counts(all_five=True)
+    if any(launches.values()):
+        raise AssertionError(f"phase 32 launched a kernel of this package: {launches}")
+    print(f"phase 32: grid-only crop model through CropGenerator: 'grid' features "
+          f"{tuple(planes['grid'].shape)}, logits card vs CPU {e:.3g} * (1 + |b|); K1-K5 "
+          f"launches {launches}; {time.perf_counter() - t00:.1f} s")
+    return {"scene_s": scene_s, "march_s": march_s[0], "crops": len(logits),
+            "encode_ms": crop_stats["encode"]["ms"], "decode_ms": crop_stats["decode"]["ms"],
+            **{"gate_" + k: v for k, v in gate.items()}}
+
+
+def geoeval_phase(card, device: str = "cuda") -> dict:
+    """Phase 33: geometry evaluation on dataset scenes. The JAX test's
+    fixture built in-process (``geoeval_fixture``), then the port's
+    scripts/eval_geometry.py with the shipped GIGA-Geo checkpoint, with and
+    without --roi, at --batch 1 and 2, on the card and on the CPU: the
+    card's per-scene and mean metrics within TOL_GEOEVAL of the CPU's and of
+    the JAX script's (golden_eval_geometry.json). K1-K5 not launched."""
+    import shutil
+
+    from giga_tpu_torch.scripts.eval_geometry import main as eval_geometry
+
+    root = Path(__file__).resolve().parent
+    golden = json.loads((root / GOLDEN_GEOEVAL).read_text())
+    work = root / "build" / "chip_smoke" / "geoeval"
+    shutil.rmtree(work, ignore_errors=True)
+    proc, raw = geoeval_fixture(work)
+    zero_kernel_counts(all_five=True)
+    rows, seconds = [], {}
+    for roi in (False, True):
+        for batch in (1, 2):
+            res = {}
+            for d in (device, "cpu"):
+                t0 = time.perf_counter()
+                logdir = eval_geometry(geoeval_args(proc, raw, work / f"{d}_{roi}_{batch}", roi,
+                                                    batch, device=d))
+                seconds[d, roi, batch] = time.perf_counter() - t0
+                res[d] = geoeval_results(logdir)
+            key = f"roi={roi},batch={batch}"
+            gap = compare_geoeval(res[device], res["cpu"], f"eval_geometry {key}, card vs CPU")
+            gold = compare_geoeval(res[device], golden[key], f"eval_geometry {key} vs JAX's")
+            m = res[device]["mean"]
+            rows.append(f"{key}: IoU {m['iou']:.5f}, chamfer-L1 {m['chamfer-L1']:.5f}, F "
+                        f"{m['f-score']:.5f}" + (f", IoU_ROI {m['iou_ROI']:.5f}" if roi else "")
+                        + f"; card vs CPU {gap:.3g}, vs JAX {gold:.3g}; "
+                        f"{seconds[device, roi, batch]:.2f} s")
+    launches = kernel_counts(all_five=True)
+    if any(launches.values()):
+        raise AssertionError(f"phase 33 launched a kernel of this package: {launches}")
+    print("phase 33: eval_geometry on the JAX test's fixture (2 scenes, giga_geo checkpoint, "
+          f"tol {TOL_GEOEVAL}): " + "; ".join(rows) + f"; K1-K5 launches {launches} | {card}")
+    return seconds
+
+
 def candidates_to_host_all(planner, scenes):
     """The host candidates of ``planner``'s batched program on ``scenes``."""
     import torch
@@ -3273,6 +4086,11 @@ def main() -> int:
     grid_ms = grid_phase(scenes, card)
     pt_phase(scenes, card)
     new_phases_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    points = points_phase(card)
+    crops = crop_phase(card)
+    geoeval = geoeval_phase(card)
+    point_phases_s = time.perf_counter() - t0
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -3307,6 +4125,14 @@ def main() -> int:
           f"%, bf16 mean {gsr['bf16', 'mean']:.3f} %; giga_grid batched program B={B} "
           f"{grid_ms['fp32']:.3f} ms fp32, {grid_ms['bf16']:.3f} ms bf16, __call__ "
           f"{grid_ms['fp32_call']:.3f} ms; phases 28-30 {new_phases_s:.1f} s | {card}")
+
+    print("point models (full batches, ms a call by CUDA events): " + ", ".join(
+        f"{k} {v['ms']:.3f}" for k, v in points.items())
+        + f"; crop scene ({crops['crops']} crops) {crops['scene_s'] * 1e3:.1f} ms end to end, a "
+        f"crop's encode {crops['encode_ms']:.3f} ms, decode {crops['decode_ms']:.3f} ms; "
+        f"eval_geometry " + ", ".join(f"roi={roi} batch={b} {sec:.2f} s" for (d, roi, b), sec
+                                      in geoeval.items() if d == "cuda")
+        + f"; phases 31-33 {point_phases_s:.1f} s | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

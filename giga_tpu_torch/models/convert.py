@@ -39,6 +39,8 @@ state back to the flax tree ({"params": ...}) that the JAX package's
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -146,13 +148,16 @@ def _global_flax(sd: dict) -> dict:
 
 
 def flax_to_state_dict(params: dict) -> dict:
-    """Flax GIGA (triplane or grid), VGN or GlobalVoxelEncoder param tree ->
-    {name: torch.Tensor} for the module's ``load_state_dict``."""
+    """Flax GIGA (triplane or grid), VGN, GlobalVoxelEncoder or point-model
+    param tree -> {name: torch.Tensor} for the module's ``load_state_dict``
+    (a PointNet++'s ``batch_stats`` come from ``params["batch_stats"]``)."""
     p = params.get("params", params)
     if "enc_conv1" in p:
         return _vgn_state_dict(p)
     if "fc" in p and "conv_0" in p:
         return _global_state_dict(p)
+    if _is_point_tree(p):
+        return _tensors(_point_state_dict(p, params.get("batch_stats", {})))
     enc = p["encoder"]
     sd = {}
     _conv3d(sd, "encoder.conv_in", enc["conv_in"])
@@ -166,7 +171,7 @@ def flax_to_state_dict(params: dict) -> dict:
     return _tensors(sd)
 
 
-def _unet2d_state_dict(sd: dict, unet: dict) -> None:
+def _unet2d_state_dict(sd: dict, unet: dict, prefix: str = "encoder.unet") -> None:
     def conv2d(key, tree):
         sd[key + ".weight"] = _f32(tree["conv"]["kernel"]).transpose(3, 2, 0, 1)
         sd[key + ".bias"] = _f32(tree["conv"]["bias"])
@@ -174,21 +179,42 @@ def _unet2d_state_dict(sd: dict, unet: dict) -> None:
     depth = sum(1 for k in unet if k.startswith("down"))
     for i in range(depth):
         for c in ("conv1", "conv2"):
-            conv2d(f"encoder.unet.down_convs.{i}.{c}", unet[f"down{i}"][c])
+            conv2d(f"{prefix}.down_convs.{i}.{c}", unet[f"down{i}"][c])
     for i in range(depth - 1):
         up = unet[f"up{i}"]
-        sd[f"encoder.unet.up_convs.{i}.upconv.weight"] = (
+        sd[f"{prefix}.up_convs.{i}.upconv.weight"] = (
             _f32(up["upconv"]["kernel"]).transpose(0, 3, 1, 2))
-        sd[f"encoder.unet.up_convs.{i}.upconv.bias"] = _f32(up["upconv"]["bias"])
+        sd[f"{prefix}.up_convs.{i}.upconv.bias"] = _f32(up["upconv"]["bias"])
         for c in ("conv1", "conv2"):
-            conv2d(f"encoder.unet.up_convs.{i}.{c}", up[c])
-    conv2d("encoder.unet.conv_final", unet["conv_final"])
+            conv2d(f"{prefix}.up_convs.{i}.{c}", up[c])
+    conv2d(f"{prefix}.conv_final", unet["conv_final"])
+
+
+def _unet2d_flax(sd: dict, prefix: str = "encoder.unet") -> dict:
+    """The inverse of ``_unet2d_state_dict``."""
+    def conv(key: str) -> dict:
+        return {"conv": {"kernel": np.ascontiguousarray(sd[key + ".weight"].transpose(2, 3, 1, 0)),
+                         "bias": sd[key + ".bias"]}}
+
+    unet = {}
+    depth = sum(1 for k in sd if k.startswith(prefix + ".down_convs.") and k.endswith("conv1.weight"))
+    for i in range(depth):
+        unet[f"down{i}"] = {c: conv(f"{prefix}.down_convs.{i}.{c}") for c in ("conv1", "conv2")}
+    for i in range(depth - 1):
+        key = f"{prefix}.up_convs.{i}"
+        unet[f"up{i}"] = {"upconv": {
+            "kernel": np.ascontiguousarray(sd[key + ".upconv.weight"].transpose(0, 2, 3, 1)),
+            "bias": sd[key + ".upconv.bias"]}}
+        unet[f"up{i}"].update({c: conv(f"{key}.{c}") for c in ("conv1", "conv2")})
+    unet["conv_final"] = conv(f"{prefix}.conv_final")
+    return unet
 
 
 def state_dict_to_flax(state: dict) -> dict:
-    """{name: tensor} of a GIGANet, VGNNet or GlobalVoxelEncoder -> the flax
-    parameter tree {"params": ...} of numpy float32 arrays that
-    ``flax_to_state_dict`` maps back to the same state, value for value."""
+    """{name: tensor} of a GIGANet, VGNNet, GlobalVoxelEncoder or point model
+    -> the flax variables {"params": ...} (and a PointNet++'s
+    "batch_stats") of numpy float32 arrays that ``flax_to_state_dict`` maps
+    back to the same state, value for value."""
     sd = {k: v.detach().cpu().numpy() for k, v in state.items()}
     p = {}
 
@@ -205,26 +231,14 @@ def state_dict_to_flax(state: dict) -> dict:
         return {"params": p}
     if "fc.weight" in sd and "conv_0.weight" in sd:
         return _global_flax(sd)
+    if "encoder.conv_in.weight" not in sd:
+        return _point_flax(sd)
     enc = p["encoder"] = {"conv_in": {}}
     conv(enc["conv_in"], "encoder.conv_in", (2, 3, 4, 1, 0))
     if "encoder.unet3d.final_conv.weight" in sd:
         enc["unet3d"] = _unet3d_flax(sd, "encoder.unet3d")
     else:
-        unet = enc["unet"] = {}
-        depth = sum(1 for k in sd
-                    if k.startswith("encoder.unet.down_convs.") and k.endswith("conv1.weight"))
-        for i in range(depth):
-            down = unet[f"down{i}"] = {}
-            for c in ("conv1", "conv2"):
-                conv(down.setdefault(c, {}), f"encoder.unet.down_convs.{i}.{c}", (2, 3, 1, 0))
-        for i in range(depth - 1):
-            key = f"encoder.unet.up_convs.{i}"
-            up = unet[f"up{i}"] = {"upconv": {
-                "kernel": np.ascontiguousarray(sd[key + ".upconv.weight"].transpose(0, 2, 3, 1)),
-                "bias": sd[key + ".upconv.bias"]}}
-            for c in ("conv1", "conv2"):
-                conv(up.setdefault(c, {}), f"{key}.{c}", (2, 3, 1, 0))
-        conv(unet.setdefault("conv_final", {}), "encoder.unet.conv_final", (2, 3, 1, 0))
+        enc["unet"] = _unet2d_flax(sd)
     for dec in ("decoder_aff", "decoder_occ"):
         leaves = {k.split(".", 1)[1]: v for k, v in sd.items() if k.startswith(dec + ".")}
         if leaves:
@@ -312,3 +326,138 @@ def from_reference_state_dict(state: dict, cfg=None) -> dict:
         for name, arr in _stacked_heads(sd, names, n_blocks, out_dim).items():
             out[f"{dec}.{name}"] = arr
     return _tensors(out)
+
+
+# --- the point models (models/pointnet.py, pointnetpp.py, decoder.py, crop.py) -----------
+#
+# Their module names are the reference's: ``fc_pos``, ``blocks.{i}.fc_0``,
+# ``fc_c`` (the encoders' single Linear) or ``fc_c.{i}`` (the decoders'),
+# ``fc_p``, ``fc_out``, ``fc``, ``unet``, ``unet3d``, a crop model's
+# ``encoder.`` / ``decoder.``. The flax names are ``block{i}`` and
+# ``fc_c{i}``; a Linear's kernel (in, out) is the transpose of its weight.
+# A PointNet++ SharedMLP's ``conv{i}`` is flax's ``conv{i}_kernel`` /
+# ``conv{i}_bias`` leaves, its ``bn{i}`` weight / bias flax's scale / bias,
+# its running mean / var flax's ``batch_stats`` mean / var.
+
+_POINT_TOPS = ("fc_pos", "fc_p", "sa1")
+_PP_LAYERS = ("sa1", "sa2", "sa3", "fp1", "fp2", "fp3")
+
+
+def _is_point_tree(p: dict) -> bool:
+    return (any(k in p for k in _POINT_TOPS) or ("fc" in p and "conv_0" not in p)
+            or ("fc_pos" in p.get("encoder", {})))
+
+
+def _point_state_dict(p: dict, stats: dict, prefix: str = "") -> dict:
+    sd = {}
+
+    def dense(key: str, tree: dict) -> None:
+        sd[key + ".weight"] = _f32(tree["kernel"]).T
+        if "bias" in tree:
+            sd[key + ".bias"] = _f32(tree["bias"])
+
+    for name, tree in p.items():
+        key = prefix + name
+        if name in ("encoder", "decoder"):
+            sd.update(_point_state_dict(tree, stats.get(name, {}), key + "."))
+        elif name == "unet":
+            _unet2d_state_dict(sd, tree, key)
+        elif name == "unet3d":
+            _unet3d_state_dict(sd, key, tree)
+        elif name in _PP_LAYERS:
+            mlp, bn_stats = tree["mlp"], stats[name]["mlp"]
+            for i in range(sum(1 for k in mlp if k.endswith("_kernel"))):
+                m = f"{key}.mlp"
+                sd[f"{m}.conv{i}.weight"] = _f32(mlp[f"conv{i}_kernel"]).T
+                sd[f"{m}.conv{i}.bias"] = _f32(mlp[f"conv{i}_bias"])
+                sd[f"{m}.bn{i}.weight"] = _f32(mlp[f"bn{i}"]["scale"])
+                sd[f"{m}.bn{i}.bias"] = _f32(mlp[f"bn{i}"]["bias"])
+                sd[f"{m}.bn{i}.running_mean"] = _f32(bn_stats[f"bn{i}"]["mean"])
+                sd[f"{m}.bn{i}.running_var"] = _f32(bn_stats[f"bn{i}"]["var"])
+        elif re.fullmatch(r"block\d+", name):
+            for fc in ("fc_0", "fc_1", "shortcut"):
+                if fc in tree:
+                    dense(f"{prefix}blocks.{name[5:]}.{fc}", tree[fc])
+        elif re.fullmatch(r"fc_c\d+", name):
+            dense(f"{prefix}fc_c.{name[4:]}", tree)
+        else:
+            dense(key, tree)
+    return sd
+
+
+def _point_flax(sd: dict) -> dict:
+    """The inverse of ``_point_state_dict``: {"params": ...} (+ "batch_stats")."""
+    params, stats = {}, {}
+    for prefix in ("encoder.", "decoder."):
+        sub = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        if sub:
+            tree = _point_flax(sub)
+            params[prefix[:-1]] = tree["params"]
+    sd = {k: v for k, v in sd.items() if not k.startswith(("encoder.", "decoder."))}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if parts[0] in ("unet", "unet3d"):
+            continue
+        if parts[0] in _PP_LAYERS:
+            layer, (_, mod, leaf) = parts[0], parts[1:]
+            mlp = params.setdefault(layer, {}).setdefault("mlp", {})
+            if mod.startswith("conv"):
+                mlp[f"{mod}_{'kernel' if leaf == 'weight' else 'bias'}"] = (
+                    np.ascontiguousarray(v.T) if leaf == "weight" else v)
+            elif leaf in ("running_mean", "running_var"):
+                bn = stats.setdefault(layer, {}).setdefault("mlp", {}).setdefault(mod, {})
+                bn["mean" if leaf == "running_mean" else "var"] = v
+            else:
+                mlp.setdefault(mod, {})["scale" if leaf == "weight" else "bias"] = v
+            continue
+        *path, leaf = parts
+        if path[0] == "blocks":
+            path = [f"block{path[1]}", *path[2:]]
+        elif path[0] == "fc_c" and len(path) == 2:
+            path = [f"fc_c{path[1]}"]
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        node["kernel" if leaf == "weight" else "bias"] = (
+            np.ascontiguousarray(v.T) if leaf == "weight" else v)
+    if any(k.startswith("unet.") for k in sd):
+        params["unet"] = _unet2d_flax(sd, "unet")
+    if any(k.startswith("unet3d.") for k in sd):
+        params["unet3d"] = _unet3d_flax(sd, "unet3d")
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def _reference_keys(state: dict, keys) -> dict:
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v, np.float32)
+          for k, v in state.items()}
+    return _tensors({k: sd[k] for k in keys(sd)})
+
+
+def convert_pointnet_state_dict(state: dict, n_blocks: int = 5) -> dict:
+    """A reference LocalPoolPointnet (or PatchLocalPoolPointnet) state dict
+    (pointnet.py:11-290) -> {name: torch.Tensor} for this package's module of
+    the same names: fc_pos, ``n_blocks`` blocks, fc_c, and whichever of the
+    2D (``unet``) and 3D (``unet3d``) U-Nets its keys hold, at the depth
+    they hold (giga_tpu/models/torch_convert.py::convert_pointnet_state_dict)."""
+    def keys(sd):
+        out = [f"{n}.{w}" for n in ("fc_pos", "fc_c") for w in ("weight", "bias")]
+        for i in range(n_blocks):
+            out += [k for k in sd if k.startswith(f"blocks.{i}.")]
+        return out + [k for k in sd if k.startswith(("unet.", "unet3d."))]
+
+    return _reference_keys(state, keys)
+
+
+def convert_patch_decoder_state_dict(state: dict, n_blocks: int = 5) -> dict:
+    """A reference PatchLocalDecoder state dict (decoder.py:208-301) ->
+    {name: torch.Tensor} for this package's module: fc_p, fc_out and
+    ``n_blocks`` of fc_c and blocks
+    (giga_tpu/models/torch_convert.py::convert_patch_decoder_state_dict)."""
+    def keys(sd):
+        out = [f"{n}.{w}" for n in ("fc_p", "fc_out") for w in ("weight", "bias")]
+        for i in range(n_blocks):
+            out += [f"fc_c.{i}.weight", f"fc_c.{i}.bias"]
+            out += [k for k in sd if k.startswith(f"blocks.{i}.")]
+        return out
+
+    return _reference_keys(state, keys)

@@ -6,6 +6,7 @@ Weights always come from a converted checkpoint or seeded parameter tree
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 
@@ -25,3 +26,24 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
 
     def __init__(self, in_features: int, features: int):
         super().__init__(in_features, features, kernel_size=2, stride=2)
+
+
+class ResnetBlockFC(nn.Module):
+    """Fully-connected ResNet block (giga_tpu/models/layers.py:60; reference
+    ConvONets/layers.py:6-47): shortcut(x) + fc_1(relu(fc_0(relu(x)))),
+    the shortcut a bias-free Linear where the sizes differ, else the
+    identity. fc_1 starts at zero, as the reference initializes it."""
+
+    def __init__(self, size_in: int, size_out: int | None = None, size_h: int | None = None):
+        super().__init__()
+        size_out = size_out or size_in
+        size_h = size_h or min(size_in, size_out)
+        self.fc_0 = nn.Linear(size_in, size_h)
+        self.fc_1 = nn.Linear(size_h, size_out)
+        nn.init.zeros_(self.fc_1.weight)
+        self.shortcut = nn.Linear(size_in, size_out, bias=False) if size_in != size_out else None
+
+    def forward(self, x):
+        dx = self.fc_1(torch.relu(self.fc_0(torch.relu(x))))
+        x_s = x if self.shortcut is None else self.shortcut(x)
+        return x_s + dx

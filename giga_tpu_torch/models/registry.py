@@ -70,15 +70,13 @@ def save_network(net: torch.nn.Module, path) -> None:
     save_params(state_dict_to_flax(net.state_dict()), path)
 
 
-def init_network(name: str, seed: int = 0):
-    """(module in eval mode, config) of a preset with seeded random weights,
-    for presets that ship no checkpoint: every weight and bias uniform in
+def seed_weights(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """``net`` with seeded random weights: every weight and bias uniform in
     +-1/sqrt(fan_in) of its layer (torch's default bound for Linear and
     Conv layers; a stacked decoder weight (heads, fan_in, out) and its bias
-    take the weight's; a GroupNorm keeps scale 1 and bias 0), drawn in
-    parameter order from a ``torch.Generator``
-    seeded with ``seed``."""
-    net, cfg = get_network(name)
+    take the weight's; a GroupNorm or BatchNorm keeps scale 1 and bias 0),
+    drawn in parameter order from a ``torch.Generator`` seeded with
+    ``seed``."""
     params = dict(net.named_parameters())
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -91,4 +89,11 @@ def init_network(name: str, seed: int = 0):
                     continue
                 fan_in = torch.nn.init._calculate_fan_in_and_fan_out(weight)[0]
             p.uniform_(-fan_in ** -0.5, fan_in ** -0.5, generator=gen)
-    return net.eval(), cfg
+    return net
+
+
+def init_network(name: str, seed: int = 0):
+    """(module in eval mode, config) of a preset with seeded random weights
+    (``seed_weights``), for presets that ship no checkpoint."""
+    net, cfg = get_network(name)
+    return seed_weights(net, seed).eval(), cfg

@@ -131,7 +131,7 @@ def normalize_coord(p: torch.Tensor, vol_range, plane_type: str = "xz") -> torch
     if plane_type == "grid":
         return u
     a0, a1 = PLANE_AXES[plane_type]
-    return u[..., [a0, a1]]
+    return torch.stack((u[..., a0], u[..., a1]), dim=-1)  # a list index would sync the card
 
 
 def positional_encoding_sincos(p: torch.Tensor, num_freqs: int = 10) -> torch.Tensor:

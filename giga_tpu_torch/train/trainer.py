@@ -41,7 +41,7 @@ from giga_tpu_torch.train.loss import (
 )
 
 MESH_TODO = ("data-parallel training over a device mesh is not ported yet "
-             "(ROADMAP Queue 1 item 10)")
+             "(ROADMAP Queue 1, parallelism)")
 # optax.adam's defaults and apply_if_finite's limit as create_train_state sets it
 B1, B2, EPS = 0.9, 0.999, 1e-8
 MAX_CONSECUTIVE_ERRORS = 100

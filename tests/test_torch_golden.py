@@ -30,7 +30,12 @@ at 257^3 through the refine chain (``golden_mesh_arrays``);
 script scripts/eval_synthetic_gsr.py on the GSR gate's protocol
 (tests/test_torch_gsr_gate.py, which also holds it current);
 ``golden_plan_giga_grid.npz`` JAX's seeded giga_grid weights and its float64
-programs' candidates (tests/test_torch_grid_golden.py, which holds it current). These
+programs' candidates (tests/test_torch_grid_golden.py, which holds it current);
+``golden_points.npz`` JAX's point-model outputs of chip_smoke's phases 31-32
+(tests/test_torch_points_golden.py) and ``golden_eval_geometry.json`` the JAX
+script scripts/eval_geometry.py's JSON of phase 33
+(tests/test_torch_dataset_geometry.py; the word ``geoeval``), each held
+current there. These
 tests regenerate them and assert the committed files are current. Rewrite them all, or those whose names contain the given words,
 with
 
@@ -427,8 +432,13 @@ def test_golden_scenes_are_planner_tsdfs():
 
 
 if __name__ == "__main__" and "--write" in sys.argv:
+    import json
+    import tempfile
+
+    from test_torch_dataset_geometry import golden_geoeval
     from test_torch_grid_golden import golden_grid_arrays
     from test_torch_gsr_gate import golden_gsr_arrays
+    from test_torch_points_golden import golden_points_arrays
 
     words = sys.argv[sys.argv.index("--write") + 1:]
     for path, arrays in ((chip_smoke.GOLDEN, golden_arrays),
@@ -441,8 +451,16 @@ if __name__ == "__main__" and "--write" in sys.argv:
                          (chip_smoke.GOLDEN_TRAIN, golden_train_arrays),
                          (chip_smoke.GOLDEN_MESH, golden_mesh_arrays),
                          (chip_smoke.GOLDEN_GSR, golden_gsr_arrays),
-                         (chip_smoke.GOLDEN_GRID, golden_grid_arrays)):
-        if words and not any(w in Path(path).name for w in words):
+                         (chip_smoke.GOLDEN_GRID, golden_grid_arrays),
+                         (chip_smoke.GOLDEN_POINTS, golden_points_arrays),
+                         (chip_smoke.GOLDEN_GEOEVAL, golden_geoeval)):
+        # "geoeval" names golden_eval_geometry.json
+        name = Path(path).name.replace("eval_geometry", "geoeval")
+        if words and not any(w in name for w in words):
             continue
-        np.savez_compressed(REPO / path, **arrays())
+        if path.endswith(".json"):
+            with tempfile.TemporaryDirectory() as tmp:
+                (REPO / path).write_text(json.dumps(arrays(Path(tmp)), indent=1) + "\n")
+        else:
+            np.savez_compressed(REPO / path, **arrays())
         print("wrote", path)

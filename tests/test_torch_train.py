@@ -336,9 +336,9 @@ def test_skip_nonfinite_step_preserves_state():
 def test_mesh_paths_wait():
     net, cfg = init_network("giga_geo", seed=0)
     for make in (tt.make_train_step, tt.make_eval_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
             make(net, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
         tt.Trainer(net, cfg, None, mesh=object())
 
 

@@ -111,8 +111,8 @@ def test_port_imports_without_jax():
     """Every module imports in a process where jax, flax, msgpack, optax,
     orbax and pandas cannot be imported, and none of the JAX package is
     loaded; the modules include VGN, TSDF fusion, perception, meshes,
-    visualization, training, mesh generation, the grid family and the
-    CLIs. Using the geometry
+    visualization, training, mesh generation, the grid family, the point
+    and crop models, geometry evaluation on dataset scenes and the CLIs. Using the geometry
     library there loads the port's build and never the JAX package's
     giga_tpu/geometry/_native.so."""
     assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
@@ -130,7 +130,13 @@ def test_port_imports_without_jax():
             "giga_tpu_torch.scripts.profile_meshgen", "giga_tpu_torch.ops.scatter",
             "giga_tpu_torch.models.unet3d", "giga_tpu_torch.scripts.eval_synthetic_gsr",
             "giga_tpu_torch.scripts.build_corpus", "giga_tpu_torch.scripts.train",
-            "giga_tpu_torch.scripts.train_corpus"} <= set(_modules())
+            "giga_tpu_torch.scripts.train_corpus", "giga_tpu_torch.models.pointnet",
+            "giga_tpu_torch.models.pointnetpp", "giga_tpu_torch.models.crop",
+            "giga_tpu_torch.geometry.sliding_window", "giga_tpu_torch.geometry.voxelize",
+            "giga_tpu_torch.geometry.voxelgrid", "giga_tpu_torch.geometry.icp",
+            "giga_tpu_torch.geometry.datasets", "giga_tpu_torch.utils.urdf",
+            "giga_tpu_torch.utils.implicit", "giga_tpu_torch.sim.noise",
+            "giga_tpu_torch.scripts.eval_geometry"} <= set(_modules())
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'optax', 'orbax', 'pandas', 'giga_tpu'):\n"
@@ -163,7 +169,9 @@ def test_port_sources_name_no_jax_package():
     assert {PACKAGE / "ops" / "tsdf.py", PACKAGE / "utils" / "visual.py",
             PACKAGE / "geometry" / "mesh.py", PACKAGE / "models" / "vgn.py",
             PACKAGE / "geometry" / "native.py", PACKAGE / "geometry" / "generation.py",
-            PACKAGE / "utils" / "synthetic.py"} <= set(files)
+            PACKAGE / "utils" / "synthetic.py", PACKAGE / "models" / "pointnetpp.py",
+            PACKAGE / "models" / "crop.py", PACKAGE / "geometry" / "datasets.py",
+            PACKAGE / "scripts" / "eval_geometry.py", PACKAGE / "sim" / "noise.py"} <= set(files)
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
