@@ -142,7 +142,7 @@ Phases (any failure exits non-zero; nothing is caught):
      checkpoint, giga_grid's and VGN's golden weights written under the
      reference's names and read by load_network, each one's plan_batch
      candidates bit-equal to the flax tree's.
- 31. the point models at full width (``points_phase``; no kernel of this
+ 31. the point models at full width (``point_models_phase``; no kernel of this
      package, K1-K5 zeroed just before and read after; seeded weights):
      LocalPoolPointnet (and its 32^3 grid branch), FCDecoder, PointNet++ in
      eval and train mode and LocalPointDecoder, forward and backward on the
@@ -3371,7 +3371,7 @@ def call_stats(fn, iters: int, device: str) -> dict:
             "peak_gb": (torch.cuda.max_memory_allocated() - live) / 1e9}
 
 
-def points_phase(card, device: str = "cuda") -> dict:
+def point_models_phase(card, device: str = "cuda") -> dict:
     """Phase 31: the point encoders and decoders at full width on the card.
 
     Each model's forward pass and one backward pass of the sum of squares of
@@ -4087,7 +4087,7 @@ def main() -> int:
     pt_phase(scenes, card)
     new_phases_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    points = points_phase(card)
+    points = point_models_phase(card)
     crops = crop_phase(card)
     geoeval = geoeval_phase(card)
     point_phases_s = time.perf_counter() - t0
