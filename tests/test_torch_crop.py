@@ -17,7 +17,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -83,22 +82,20 @@ def _batch(rng, surface, lo_hi=(0.0, 0.4), T=64, N=32):
     return p, q, vol
 
 
-@pytest.mark.parametrize("grid", [False, True])
-def test_crop_model_forward_and_grad(grid):
-    """tests/test_crop_model.py::test_forward_shapes_and_grads' model and
-    inputs (and the grid-only model of TestCropGeneratorGridWiring)."""
+def test_grid_crop_model_forward_and_grad():
+    """The grid-only model of TestCropGeneratorGridWiring on
+    tests/test_crop_model.py::test_forward_shapes_and_grads' inputs. The
+    planes model's gradients are held by test_three_adam_steps_match_optax
+    (its parameters after three steps)."""
     rng = np.random.RandomState(0)
     p, q, vol = _batch(rng, None)
-    jnet, tnet = tiny(JC, grid=grid), tiny(TC, grid=grid)
-    types = ("grid",) if grid else ("xz", "xy", "yz")
-    idx = ({"grid": JC.crop_grid_indices(p, vol, 8)} if grid
-           else JC.crop_plane_indices(jnp.asarray(p), vol, 8))
-    q_n = JC.crop_query_coords(jnp.asarray(q), vol, types)
+    jnet, tnet = tiny(JC, grid=True), tiny(TC, grid=True)
+    idx = {"grid": JC.crop_grid_indices(p, vol, 8)}
+    q_n = JC.crop_query_coords(jnp.asarray(q), vol, ("grid",))
     ref, gref = jax_fwd_grad(jnet, seeded(tnet), p, idx, q, q_n)
     tv = tuple(_t(a) for a in vol)
-    tidx = ({"grid": TC.crop_grid_indices(_t(p), tv, 8)} if grid
-            else TC.crop_plane_indices(_t(p), tv, 8))
-    out = tnet(_t(p), tidx, _t(q), TC.crop_query_coords(_t(q), tv, types))
+    out = tnet(_t(p), {"grid": TC.crop_grid_indices(_t(p), tv, 8)}, _t(q),
+               TC.crop_query_coords(_t(q), tv, ("grid",)))
     assert out.shape == (1, 32)
     close(out, ref)
     close_grads(port_grads(tnet, out), jax_grads_as_port(gref))

@@ -279,12 +279,13 @@ def golden_geoeval(tmp: Path) -> dict:
     return out
 
 
-@pytest.mark.parametrize("roi,batch", GEOEVAL_CASES)
+@pytest.mark.parametrize("roi,batch", [(False, 2), (True, 1)])
 def test_eval_geometry_json_equals_jax(fixture_dirs, tmp_path, roi, batch):
     """The port's script (device="cpu") against the golden JSON of the JAX
-    script, and against the
-    JAX script run here (one of the four cases, to keep the run short),
-    which must equal the golden."""
+    script, and (with --roi) against the JAX script run here, which must
+    equal the golden. Two of the golden's four flag sets run here, to keep
+    Tier-1 short (each run evaluates 100,000 surface samples a mesh);
+    chip_smoke.py's phase 33 holds the card against all four."""
     from giga_tpu_torch.scripts.eval_geometry import main
 
     root, raw = fixture_dirs

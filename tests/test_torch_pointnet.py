@@ -100,14 +100,14 @@ def test_resnet_block_fc_with_shortcut():
     assert not ResnetBlockFC(8).fc_1.weight.any()  # zero-initialized, as the reference's
 
 
-@pytest.mark.parametrize("scatter_type", ["max", "mean"])
-def test_local_pool_pointnet(scatter_type):
+def test_local_pool_pointnet():
     """tests/test_encoders.py's sizes: planes 16^2, hidden 8, 3 blocks, B=2,
-    64 points, a quarter of them duplicates."""
+    64 points, a quarter of them duplicates. Mean pooling (``pool_local``,
+    which both encoders share) is held in test_patch_local_pool_pointnet."""
     cfg, jcfg = EncoderConfig(plane_resolution=16), JEncoderConfig(plane_resolution=16)
     p = clouds(0, 2, 64)
-    jm = jpn.LocalPoolPointnet(jcfg, hidden_dim=8, n_blocks=3, scatter_type=scatter_type)
-    tm = tpn.LocalPoolPointnet(cfg, hidden_dim=8, n_blocks=3, scatter_type=scatter_type)
+    jm = jpn.LocalPoolPointnet(jcfg, hidden_dim=8, n_blocks=3, scatter_type="max")
+    tm = tpn.LocalPoolPointnet(cfg, hidden_dim=8, n_blocks=3, scatter_type="max")
     v = seeded(tm)
     ref, gref = jax_run(jm, v, p)
     out = tm(torch.from_numpy(p))

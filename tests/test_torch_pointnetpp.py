@@ -7,9 +7,10 @@ Indices are held equal: farthest-point sampling, ball queries and the
 distance, which ``lax.top_k`` orders by the lower index and the port's
 stable sort too). In eval mode the features are held within 2e-5 * (1 + |b|)
 of JAX's float32 and each gradient leaf within 1e-5 * (1 + max |g|). In
-train mode BatchNorm normalizes by the batch's statistics; there the port's
-float64 step is held to JAX's float64 step (``jax.enable_x64``), far within
-those bounds, and the port's float32 distance from it is printed.
+train mode BatchNorm normalizes by the batch's statistics; there the full
+network's float64 forward is held to JAX's float64 (``jax.enable_x64``),
+and SharedMLP's train step (forward, gradients, running statistics) to
+JAX's in float32 and float64.
 """
 
 import numpy as np
@@ -147,41 +148,101 @@ def jax_fps_x64(xyz, npoint: int):
     return jax.vmap(one)(xyz)
 
 
-def test_train_step_against_float64(cloud, variables, monkeypatch):
-    """Train mode: the batch's statistics, flax's momentum 0.99 and biased
-    variance for the running averages. The port's float64 step is held to
-    JAX's float64 step (its FPS typed for x64, ``jax_fps_x64``): features
-    and running statistics within 1e-9, gradients within 1e-6.
-
-    The port's float32 distance from it is printed, not bounded: BatchNorm
-    on these features is ill-conditioned in float32 (channels whose |mean|
-    lies far above their spread), past the bounds of eval mode: 1.2e-4 *
-    (1 + |b|) on the features and 7e-3 to 1.2e-2 * (1 + max |g|) on the
-    gradients, depending on the weights, where flax's own float32 (whose
-    variance is E[x^2] - E[x]^2) lies at 1.7e-3 and 0.39."""
+def test_train_forward_against_float64(cloud, variables, monkeypatch):
+    """Train mode at full depth: the batch's statistics, flax's momentum 0.99
+    and biased variance for the running averages. The port's float64
+    forward is held to JAX's float64 (its FPS typed for x64,
+    ``jax_fps_x64``): features and running statistics within 1e-9. The
+    port's float32 distance from it is printed, not bounded: on these
+    features float32 is ill-conditioned in train mode (1.3e-4 * (1 + |b|)
+    on the features; flax's own float32, whose variance is E[x^2] - E[x]^2,
+    1.7e-3). The train-mode gradients are held on SharedMLP
+    (test_shared_mlp_train_step)."""
     net = J.PointNetPlusPlus(c_dim=16)
 
-    def step(v, x):
-        def loss(p):
-            (_, f), upd = net.apply({**v, "params": p}, x, train=True, mutable=["batch_stats"])
-            return jnp.sum(f ** 2), (f, upd["batch_stats"])
-
-        (_, (f, stats)), g = jax.value_and_grad(loss, has_aux=True)(v["params"])
-        return f, g, stats
+    def fwd(v, x):
+        (_, f), upd = net.apply(v, x, train=True, mutable=["batch_stats"])
+        return f, upd["batch_stats"]
 
     monkeypatch.setattr(J, "farthest_point_sample", jax_fps_x64)
     with jax.enable_x64(True):
-        j64 = jax.device_get(jax.jit(step)(f64(variables), f64(cloud)))
-    ref = (j64[0], jax_grads_as_port(j64[1], j64[2]), _running(j64[2]))
-    for dtype, tols in ((torch.float64, (1e-9, 1e-6, 1e-9)), (torch.float32, (1.0, 1.0, 1.0))):
+        f, stats = jax.device_get(jax.jit(fwd)(f64(variables), f64(cloud)))
+    ref = _running(stats)
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1.0)):
         tm = port_net(variables).to(dtype).train()
-        _, out = tm(torch.from_numpy(cloud).to(dtype))
-        grads = port_grads(tm, out)
-        stats = {k: v.numpy() for k, v in tm.state_dict().items() if "running" in k}
-        err = (close(out.detach(), ref[0], tols[0]), close_grads(grads, ref[1], tols[1]),
-               max(close(stats[k], ref[2][k], tols[2]) for k in ref[2]))
+        with torch.no_grad():
+            _, out = tm(torch.from_numpy(cloud).to(dtype))
+        got = {k: v.numpy() for k, v in tm.state_dict().items() if "running" in k}
+        err = (close(out, f, tol), max(close(got[k], ref[k], tol) for k in ref))
         print(f"the port's {dtype} from JAX's float64: features {err[0]:.3g} * (1 + |b|), "
-              f"gradients {err[1]:.3g} * (1 + max |g|), running statistics {err[2]:.3g}")
+              f"running statistics {err[1]:.3g}")
+
+
+def test_shared_mlp_train_step():
+    """SharedMLP's train mode, its forward, its gradients and its running
+    statistics, against flax's on a (4, 24, 6) batch: float32 within 2e-5 *
+    (1 + |b|) and 1e-5 * (1 + max |g|) of JAX's float32, float64 within
+    1e-9 of JAX's float64. max |g| is the largest of all leaves: a bias
+    before a train-mode BatchNorm has a true gradient of 0 (the batch mean
+    takes it out), which float32 leaves as rounding noise."""
+    x = np.random.RandomState(6).randn(4, 24, 6).astype(np.float32)
+    tm = T.SharedMLP(6, (16, 8))
+    v = seeded_mlp(tm)
+    jm = J.SharedMLP((16, 8))
+
+    def step(v, x):
+        def loss(p):
+            out, upd = jm.apply({**v, "params": p}, x, True, mutable=["batch_stats"])
+            return jnp.sum(out ** 2), (out, upd["batch_stats"])
+
+        (_, (out, stats)), g = jax.value_and_grad(loss, has_aux=True)(v["params"])
+        return out, g, stats
+
+    refs = {torch.float32: jax.device_get(jax.jit(step)(v, x))}
+    with jax.enable_x64(True):
+        refs[torch.float64] = jax.device_get(jax.jit(step)(f64(v), f64(x)))
+    for dtype, (tol, tol_g) in ((torch.float32, (2e-5, 1e-5)), (torch.float64, (1e-9, 1e-9))):
+        out, g, stats = refs[dtype]
+        m = T.SharedMLP(6, (16, 8)).to(dtype).train()
+        m.load_state_dict({k: t.to(dtype) for k, t in tm.state_dict().items()})
+        got = m(torch.from_numpy(x).to(dtype))
+        close(got, out, tol)
+        grads = port_grads(m, got)
+        close_grads(grads, {k: v for k, v in mlp_state(g, stats).items() if k in grads}, tol_g,
+                    whole=True)
+        running = {k: v.numpy() for k, v in m.state_dict().items() if "running" in k}
+        ref = mlp_state(g, stats)
+        for k in running:
+            close(running[k], ref[k], tol)
+
+
+def seeded_mlp(m) -> dict:
+    """The port's seed_weights in a SharedMLP, as flax variables."""
+    from giga_tpu_torch.models.registry import seed_weights
+
+    seed_weights(m, 2)
+    sd = {k: v.detach().numpy() for k, v in m.state_dict().items()}
+    params, stats = {}, {}
+    for i in range(m.n):
+        params[f"conv{i}_kernel"] = sd[f"conv{i}.weight"].T.copy()
+        params[f"conv{i}_bias"] = sd[f"conv{i}.bias"]
+        params[f"bn{i}"] = {"scale": sd[f"bn{i}.weight"], "bias": sd[f"bn{i}.bias"]}
+        stats[f"bn{i}"] = {"mean": sd[f"bn{i}.running_mean"], "var": sd[f"bn{i}.running_var"]}
+    return {"params": params, "batch_stats": stats}
+
+
+def mlp_state(params: dict, stats: dict) -> dict:
+    """A flax SharedMLP tree (params or their gradients, and batch_stats)
+    under the port's names."""
+    out = {}
+    for i in range(len(stats)):
+        out[f"conv{i}.weight"] = np.asarray(params[f"conv{i}_kernel"]).T
+        out[f"conv{i}.bias"] = np.asarray(params[f"conv{i}_bias"])
+        out[f"bn{i}.weight"] = np.asarray(params[f"bn{i}"]["scale"])
+        out[f"bn{i}.bias"] = np.asarray(params[f"bn{i}"]["bias"])
+        out[f"bn{i}.running_mean"] = np.asarray(stats[f"bn{i}"]["mean"])
+        out[f"bn{i}.running_var"] = np.asarray(stats[f"bn{i}"]["var"])
+    return out
 
 
 def _running(stats: dict) -> dict:

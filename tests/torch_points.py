@@ -76,13 +76,16 @@ def jax_grads_as_port(grads: dict, stats: dict | None = None) -> dict:
     return {k: v.numpy() for k, v in flax_to_state_dict(grads).items()}
 
 
-def close_grads(got: dict, ref: dict, tol: float = TOL_GRAD) -> float:
-    """Every leaf within ``tol`` * (1 + max |g|) of the reference's."""
+def close_grads(got: dict, ref: dict, tol: float = TOL_GRAD, whole: bool = False) -> float:
+    """Every leaf within ``tol`` * (1 + max |g|) of the reference's: its own
+    max |g|, or with ``whole`` the largest of every leaf's."""
     assert set(got) == set(ref), set(got) ^ set(ref)
     worst = 0.0
+    scale = max(float(np.abs(np.asarray(g, np.float64)).max()) for g in ref.values())
     for k, g in ref.items():
         g = np.asarray(g, np.float64)
-        err = float(np.abs(np.asarray(got[k], np.float64) - g).max() / (1 + np.abs(g).max()))
+        err = float(np.abs(np.asarray(got[k], np.float64) - g).max()
+                    / (1 + (scale if whole else np.abs(g).max())))
         assert err <= tol, (k, err)
         worst = max(worst, err)
     return worst
