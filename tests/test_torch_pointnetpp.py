@@ -7,10 +7,12 @@ Indices are held equal: farthest-point sampling, ball queries and the
 distance, which ``lax.top_k`` orders by the lower index and the port's
 stable sort too). In eval mode the features are held within 2e-5 * (1 + |b|)
 of JAX's float32 and each gradient leaf within 1e-5 * (1 + max |g|). In
-train mode BatchNorm normalizes by the batch's statistics; there the full
-network's float64 forward is held to JAX's float64 (``jax.enable_x64``),
-and SharedMLP's train step (forward, gradients, running statistics) to
-JAX's in float32 and float64.
+train mode BatchNorm normalizes by the batch's statistics; SharedMLP's
+train step (forward, gradients, running statistics) is held to JAX's in
+float32 and float64 (``jax.enable_x64``), and the full network's train-mode
+forward in float64 to JAX's float64 at phase 31's size through the golden
+file (tests/test_torch_points_golden.py, within 1e-9). ``jax_fps_x64``
+runs JAX's FPS under ``enable_x64`` for that golden.
 """
 
 import numpy as np
@@ -146,36 +148,6 @@ def jax_fps_x64(xyz, npoint: int):
         return jnp.concatenate([jnp.zeros(1, jnp.int32), idx])
 
     return jax.vmap(one)(xyz)
-
-
-def test_train_forward_against_float64(cloud, variables, monkeypatch):
-    """Train mode at full depth: the batch's statistics, flax's momentum 0.99
-    and biased variance for the running averages. The port's float64
-    forward is held to JAX's float64 (its FPS typed for x64,
-    ``jax_fps_x64``): features and running statistics within 1e-9. The
-    port's float32 distance from it is printed, not bounded: on these
-    features float32 is ill-conditioned in train mode (1.3e-4 * (1 + |b|)
-    on the features; flax's own float32, whose variance is E[x^2] - E[x]^2,
-    1.7e-3). The train-mode gradients are held on SharedMLP
-    (test_shared_mlp_train_step)."""
-    net = J.PointNetPlusPlus(c_dim=16)
-
-    def fwd(v, x):
-        (_, f), upd = net.apply(v, x, train=True, mutable=["batch_stats"])
-        return f, upd["batch_stats"]
-
-    monkeypatch.setattr(J, "farthest_point_sample", jax_fps_x64)
-    with jax.enable_x64(True):
-        f, stats = jax.device_get(jax.jit(fwd)(f64(variables), f64(cloud)))
-    ref = _running(stats)
-    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1.0)):
-        tm = port_net(variables).to(dtype).train()
-        with torch.no_grad():
-            _, out = tm(torch.from_numpy(cloud).to(dtype))
-        got = {k: v.numpy() for k, v in tm.state_dict().items() if "running" in k}
-        err = (close(out, f, tol), max(close(got[k], ref[k], tol) for k in ref))
-        print(f"the port's {dtype} from JAX's float64: features {err[0]:.3g} * (1 + |b|), "
-              f"running statistics {err[1]:.3g}")
 
 
 def test_shared_mlp_train_step():
