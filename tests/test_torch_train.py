@@ -51,7 +51,10 @@ class _Preset:
 def jax_state(name, net, **kw):
     """(JAX network, config, JAX TrainState) on ``net``'s weights."""
     jnet, jcfg = jax_get_network(name)
-    params = jax.tree.map(jnp.asarray, state_dict_to_flax(net.state_dict()))
+    # jnp.array copies: state_dict_to_flax hands back numpy views of the
+    # biases, which jnp.asarray may alias, and the port's step then updates
+    # them in place while JAX's asynchronous step may still be reading them
+    params = jax.tree.map(jnp.array, state_dict_to_flax(net.state_dict()))
     return jnet, jcfg, jt.create_train_state(_Preset(jnet, params), jcfg, None, **kw)
 
 
