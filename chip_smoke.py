@@ -161,6 +161,30 @@ Phases (any failure exits non-zero; nothing is caught):
      and 2, against the CPU's and the JAX script's JSON
      (golden_eval_geometry.json).
 
+ 34. clutter removal on the card (``clutter_phase``), GIGA's own evaluation
+     protocol: this machine has no pybullet, so a kinematic double
+     (tests/torch_fake_pybullet.py) stands in for physics, which is host code
+     in both packages, as are the depth renders and the logs; the scans'
+     TSDF fusion and the planner run on the card. The JAX golden's protocol
+     (golden_clutter_giga.npz: pile, then packed, 2 rounds each, 5 fixture
+     blocks, one 640x480 view fused at 40^3 and 120^3) through
+     ClutterRemovalSim(device="cuda") and GIGAPlanner fp32, counters zeroed
+     just before: K3 once per planning call, K1, K2, K4 and K5 never; every
+     attempt's 40^3 grid within 1e-6 of the CPU port's, the attempts,
+     labels, GSR/DR and decisions equal to the golden's and the CPU's; bf16
+     for one pile round (its first plan by phase 16's gates against fp32's)
+     and VGN highest for one round against the CPU's; per attempt the
+     render ms (host), fusion ms (CUDA events), plan ms and execute seconds,
+     and each round's seconds.
+ 35. the data chain (``chain_phase``): generate_data_parallel,
+     clean_balance_data, construct_dataset_parallel and
+     save_occ_data_parallel on the fixture world with two ``spawn``ed
+     processes a pool, against the same chain on the CPU.
+ 36. rollout capture and render (``rollout_phase``): sim_grasp_save_scene
+     with its snapshots on the card, then on the CPU replaying the card's
+     plans (the same snapshots), then render_rollouts on both, frames
+     byte-equal.
+
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
 truncation at 4 voxels). The last line of standard output is
@@ -409,6 +433,41 @@ SPHERE_MEDIAN = 0.03
 GOLDEN_GEOEVAL = "giga_tpu_torch/testdata/golden_eval_geometry.json"
 GEOEVAL_ARGS = dict(th=0.5, num_point_occ=2000, resolution0=8, upsampling_steps=1, seed=3)
 TOL_GEOEVAL = 1e-3
+# clutter removal (phases 34-36), GIGA's own evaluation protocol: the card's
+# machine has no pybullet, so the kinematic double tests/torch_fake_pybullet.py
+# stands in for physics (``install_pybullet_double``); physics, depth
+# rendering and the logs are host code in both packages, the scans' TSDF
+# fusion and the planner run on the card. The objects are the test fixture's
+# (tests/fixtures/urdfs: the real object sets are not in the repository).
+# golden_clutter_giga.npz holds JAX's clutter_removal.run with the shipped
+# checkpoint over this protocol (the sim_grasp_multiple CLI's defaults: 5
+# objects of the "blocks" set, one view; pile, then packed, CLUTTER_ROUNDS
+# rounds each, seed CLUTTER_SEED); the card's run and the CPU port's are held
+# to its decisions (grasp positions within TOL_CLUTTER_POS, quaternions within
+# TOL_CLUTTER_QUAT), labels, object counts and GSR/DR, scores and widths
+# within TOL_CLUTTER_SCORE
+SIM_URDF_ROOT = "tests/fixtures/urdfs"
+GOLDEN_CLUTTER = "giga_tpu_torch/testdata/golden_clutter_giga.npz"
+CLUTTER_SCENES = ("pile", "packed")
+CLUTTER_OBJECT_SET = "blocks"
+CLUTTER_OBJECTS = 5
+CLUTTER_VIEWS = 1
+CLUTTER_ROUNDS = 2
+CLUTTER_SEED = 0
+CLUTTER_KW = dict(best=True, qual_th=0.9, out_th=0.1)
+# VGN's clutter round: its seeded weights (GOLDEN_VGN) with sim_grasp_multiple's
+# out_th and --best --force --qual-th 0.85 (the seeded qualities of VGN_KW)
+CLUTTER_VGN_KW = dict(best=True, force_detection=True, qual_th=0.85, out_th=0.1)
+TOL_CLUTTER_POS = 1e-6
+TOL_CLUTTER_QUAT = 1e-5
+TOL_CLUTTER_SCORE = 1e-5
+# the data chain (phase 35) on the fixture world, as tests/test_data_chain.py
+# runs it at half its grasps (one scene a worker), with two processes in
+# each pool
+CHAIN_KW = dict(scene="packed", object_set="cubes", num_grasps=12, grasps_per_scene=6,
+                save_scene=True, random=False, sim_gui=False, seed=11)
+CHAIN_PROCS = 2
+CHAIN_OCC = (128, 2)  # points a shard, shards a scene
 
 # published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
 # the memory rate of one H100 SXM
@@ -3779,6 +3838,515 @@ def geoeval_phase(card, device: str = "cuda") -> dict:
     return seconds
 
 
+PYBULLET_SHIMS = {
+    "pybullet.py": "import sys\nimport torch_fake_pybullet as _fake\n"
+                   "sys.modules[__name__] = _fake\n",
+    "pybullet_utils/__init__.py": "import sys\nimport torch_fake_pybullet as _fake\n"
+                                  "sys.modules[__name__ + '.bullet_client'] = _fake.bullet_client\n"
+                                  "sys.modules[__name__] = _fake.pybullet_utils\n",
+}
+
+
+def install_pybullet_double(shim_dir: Path | None = None) -> None:
+    """Install the kinematic pybullet double (tests/torch_fake_pybullet.py)
+    as ``pybullet`` in this process and into the port's btsim, as the test
+    fixtures do. With ``shim_dir``, also write there modules named
+    ``pybullet`` and ``pybullet_utils`` that resolve to the double and put
+    the directory on sys.path, which processes ``spawn``ed from here inherit:
+    the data chain's pools then find the double too."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:  # a top-level module: a ``tests`` package may be installed
+        sys.path.insert(0, tests)
+    import torch_fake_pybullet as fake
+    from giga_tpu_torch.sim import btsim
+
+    sys.modules["pybullet"] = fake
+    sys.modules["pybullet_utils"] = fake.pybullet_utils
+    sys.modules["pybullet_utils.bullet_client"] = fake.bullet_client
+    btsim._pb, btsim._bullet_client, btsim.PYBULLET_AVAILABLE = fake, fake.bullet_client, True
+    if shim_dir is not None:
+        for name, text in PYBULLET_SHIMS.items():
+            (shim_dir / name).parent.mkdir(parents=True, exist_ok=True)
+            (shim_dir / name).write_text(text)
+        sys.path.insert(0, str(shim_dir))
+
+
+class ClutterTrace:
+    """Per-trial times of a clutter-removal run, taken by wrapping the
+    simulator's classes for the run (``with ClutterTrace(sim_module):``):
+    the depth render's host ms, each fusion's ms by CUDA events (40^3 and
+    120^3; the host clock on the CPU), the grasp execution's host seconds and
+    a round's host seconds (from one ``reset`` to the next or the end). The
+    plan's ms is the planner's own ``toc`` (host clock, ending at the
+    candidate fetch), which the caller records."""
+
+    def __init__(self, sim_module):
+        self.sim_module = sim_module
+        self.render_ms, self.execute_s, self.round_s = [], [], []
+        self.fuse_ms = {}
+        self._pending, self._saved = [], []
+
+    def _wrap(self, owner, name, make):
+        original = getattr(owner, name)
+        self._saved.append((owner, name, original))
+        setattr(owner, name, make(original))
+
+    def __enter__(self):
+        import torch
+
+        def render(original):
+            def timed(cam, *a, **k):
+                t0 = time.perf_counter()
+                out = original(cam, *a, **k)
+                self.render_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed
+
+        def integrate(original):
+            def timed(vol, *a, **k):
+                if vol.device.type != "cuda":
+                    t0 = time.perf_counter()
+                    original(vol, *a, **k)
+                    self.fuse_ms.setdefault(vol.resolution, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+                    return
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                original(vol, *a, **k)
+                end.record()
+                self._pending.append((vol.resolution, start, end))
+            return timed
+
+        def execute(original):
+            def timed(sim, *a, **k):
+                t0 = time.perf_counter()
+                out = original(sim, *a, **k)
+                self.execute_s.append(time.perf_counter() - t0)
+                return out
+            return timed
+
+        def reset(original):
+            def stamped(sim, *a, **k):
+                self._round_stamp()
+                return original(sim, *a, **k)
+            return stamped
+
+        sim_cls = self.sim_module.ClutterRemovalSim
+        self._t_round = None
+        self._wrap(self.sim_module.btsim.BtCamera, "render", render)
+        self._wrap(self.sim_module.TSDFVolume, "integrate", integrate)
+        self._wrap(sim_cls, "execute_grasp", execute)
+        self._wrap(sim_cls, "reset", reset)
+        return self
+
+    def _round_stamp(self):
+        now = time.perf_counter()
+        if self._t_round is not None:
+            self.round_s.append(now - self._t_round)
+        self._t_round = now
+
+    def __exit__(self, *exc):
+        self._round_stamp()
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+        for res, start, end in self._pending:
+            end.synchronize()
+            self.fuse_ms.setdefault(res, []).append(start.elapsed_time(end))
+        return False
+
+
+def clutter_protocol(cr, plan_fn, logroot: Path, scenes=CLUTTER_SCENES,
+                     rounds: int = CLUTTER_ROUNDS, **kw) -> dict:
+    """Run ``cr.run`` (either package's clutter_removal module) with
+    ``plan_fn`` over the golden's protocol, one run a scene type, logs under
+    ``logroot``; ``kw`` goes to ``run`` (the port's ``device``). Returns
+    numpy arrays: per attempt its scene type (index into ``scenes``),
+    round, the objects on the table before it, the grasp's position,
+    quaternion, width and score, its label and the planner's seconds
+    (``plan_s``); per run GSR, DR, the aborts (after consecutive failures,
+    for want of a grasp) and each round's objects. The pybullet double must
+    be installed for ``cr``'s package."""
+    from giga_tpu_torch.core import io
+
+    sim_cls = cr.ClutterRemovalSim
+    original = sim_cls.execute_grasp
+    objects = []
+
+    def execute(sim, *a, **k):
+        objects.append(sim.num_objects)
+        return original(sim, *a, **k)
+
+    root = Path(__file__).resolve().parent / SIM_URDF_ROOT
+    trials, runs = [], []
+    sim_cls.execute_grasp = execute
+    try:
+        for i, scene in enumerate(scenes):
+            logdir, result = logroot / scene, logroot / f"{scene}.txt"
+            gsr, dr = cr.run(plan_fn, logdir, scene=scene, object_set=CLUTTER_OBJECT_SET,
+                             num_objects=CLUTTER_OBJECTS, n=CLUTTER_VIEWS, num_rounds=rounds,
+                             seed=CLUTTER_SEED, silence=True, urdf_root=str(root),
+                             result_path=result, **kw)
+            run_dir = next(p for p in logdir.iterdir() if p.is_dir())
+            g = io.read_csv(run_dir / "grasps.csv", ints=("round_id", "label"))
+            r = io.read_csv(run_dir / "rounds.csv", ints=("round_id", "object_count"))
+            aborts = [int(a) for a in result.read_text().split(";")[1].split(",")]
+            trials.append((np.full(len(g), i), g))
+            runs.append((gsr, dr, aborts, r["object_count"]))
+    finally:
+        sim_cls.execute_grasp = original
+    cat = lambda k: np.concatenate([g[k] for _, g in trials])  # noqa: E731
+    return {
+        "scene": np.concatenate([s for s, _ in trials]), "round": cat("round_id"),
+        "objects": np.asarray(objects, np.int64),
+        "position": np.stack([cat(c) for c in ("x", "y", "z")], axis=-1),
+        "quaternion": np.stack([cat(c) for c in ("qx", "qy", "qz", "qw")], axis=-1),
+        "width": cat("width"), "score": cat("score"), "label": cat("label"),
+        "plan_s": cat("planning_time"),
+        "gsr": np.array([r[0] for r in runs]), "dr": np.array([r[1] for r in runs]),
+        "aborts": np.array([r[2] for r in runs], np.int64),
+        "round_objects": np.stack([r[3] for r in runs]),
+    }
+
+
+def compare_clutter(got: dict, ref: dict, what: str, decisions_only: bool = False) -> dict:
+    """Hold one clutter_protocol result to another: the same attempts (scene
+    type, round, objects on the table, label), positions within
+    TOL_CLUTTER_POS, quaternions within TOL_CLUTTER_QUAT, the same GSR, DR,
+    aborts and round objects; scores and widths within TOL_CLUTTER_SCORE
+    unless ``decisions_only``. Returns the largest differences."""
+    for k in ("scene", "round", "objects", "label", "aborts", "round_objects", "gsr", "dr"):
+        if not np.array_equal(got[k], ref[k]):
+            raise AssertionError(f"{what}: {k} {got[k].tolist()} against {ref[k].tolist()}")
+    worst = {k: float(np.abs(got[k] - ref[k]).max(initial=0.0))
+             for k in ("position", "quaternion", "width", "score")}
+    tol = {"position": TOL_CLUTTER_POS, "quaternion": TOL_CLUTTER_QUAT,
+           "width": TOL_CLUTTER_SCORE, "score": TOL_CLUTTER_SCORE}
+    for k, d in worst.items():
+        if not d <= tol[k] and not (decisions_only and k in ("width", "score")):
+            raise AssertionError(f"{what}: {k} differs by {d} > {tol[k]}")
+    return worst
+
+
+class PlanRecorder:
+    """A planner as ``clutter_removal.run``'s plan function that keeps each
+    call's result and the 40^3 grid it planned from."""
+
+    def __init__(self, planner):
+        self.planner, self.results, self.grids = planner, [], []
+
+    def __call__(self, state, *args):
+        self.grids.append(state.tsdf.get_grid())
+        out = self.planner(state, *args)
+        self.results.append(out[:2])
+        return out
+
+
+def clutter_phase(card, device: str = "cuda") -> dict:
+    """Phase 34: clutter removal on ``device``. The golden's protocol through
+    ClutterRemovalSim(device) and GIGAPlanner fp32 (the shipped checkpoint,
+    640x480 views fused at 40^3 and 120^3), K1-K5 counters zeroed just
+    before: K3 once per planning call, K1, K2, K4 and K5 never; the same
+    protocol through the port on the CPU; every attempt's fused 40^3 grid
+    within TOL_TSDF of the CPU's, and the run's attempts, labels, GSR/DR and
+    decisions equal to the golden's and the CPU's. Then GIGAPlanner(precision
+    ="bf16") for one pile round (K3 bf16 once per call; its first plan held
+    by phase 16's bf16 gates against fp32's first) and VGNPlanner highest
+    (chip_smoke's seeded weights) for one round, against the CPU's. Prints
+    per attempt the render ms (host), fusion ms (CUDA events), plan ms (the
+    planner's host clock up to the candidate fetch) and execute seconds, and
+    each round's seconds. Returns the timings."""
+    import tempfile
+
+    from giga_tpu_torch.experiments import clutter_removal
+    from giga_tpu_torch.inference.planner import GIGAPlanner, VGNPlanner
+    from giga_tpu_torch.sim import simulation
+
+    install_pybullet_double()
+    root = Path(__file__).resolve().parent
+    golden = dict(np.load(root / GOLDEN_CLUTTER))
+    ckpt = root / CHECKPOINT
+    sync = (lambda: __import__("torch").cuda.synchronize()) if device == "cuda" else (lambda: None)
+    voxel = SIZE / RESOLUTION
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cpu_plan = PlanRecorder(GIGAPlanner(ckpt, "giga", device="cpu", **CLUTTER_KW))
+        cpu = clutter_protocol(clutter_removal, cpu_plan, tmp / "cpu", device="cpu")
+        plan = PlanRecorder(GIGAPlanner(ckpt, "giga", device=device, **CLUTTER_KW))
+        zero_kernel_counts(all_five=True)
+        with ClutterTrace(simulation) as trace:
+            got = clutter_protocol(clutter_removal, plan, tmp / "card", device=device)
+        sync()
+        launches = kernel_counts(all_five=True)
+        calls = len(plan.results)
+        expect = {"K1": 0, "K2": 0, "K3": calls, "K4": 0, "K5": 0}
+        if device == "cuda" and launches != expect:
+            raise AssertionError(f"{calls} planning calls launched {launches}, not {expect}")
+        worst = {"golden": compare_clutter(got, golden, f"{device} vs golden"),
+                 "cpu": compare_clutter(got, cpu, f"{device} vs the CPU port")}
+        if len(plan.grids) != len(cpu_plan.grids):
+            raise AssertionError(f"{len(plan.grids)} vs {len(cpu_plan.grids)} scans")
+        grid_err = max(float(np.abs(a - b).max()) for a, b in zip(plan.grids, cpu_plan.grids))
+        if not grid_err <= TOL_TSDF:
+            raise AssertionError(f"a fused 40^3 grid differs from the CPU's by {grid_err}")
+
+        bf16 = PlanRecorder(GIGAPlanner(ckpt, "giga", precision="bf16", device=device,
+                                        **CLUTTER_KW))
+        zero_kernel_counts(all_five=True)
+        bf16_run = clutter_protocol(clutter_removal, bf16, tmp / "bf16", scenes=("pile",),
+                                    rounds=1, device=device)
+        sync()
+        bf16_launches = kernel_counts(all_five=True)
+        if device == "cuda" and bf16_launches != {**expect, "K3": len(bf16.results)}:
+            raise AssertionError(f"bf16: {len(bf16.results)} calls launched {bf16_launches}")
+        if not np.array_equal(bf16.grids[0], plan.grids[0]):
+            raise AssertionError("the bf16 run's first scan differs from the fp32 run's")
+        gates = bf16_gates(plan.results[:1], bf16.results[:1], voxel,
+                           "bf16 first plan vs fp32")
+
+        params = unflatten_params(np.load(root / GOLDEN_VGN))
+        vgn_runs = {}
+        for role, d in (("run", device), ("cpu", "cpu")):
+            vgn = VGNPlanner(params=params, precision="highest", device=d, **CLUTTER_VGN_KW)
+            zero_kernel_counts(all_five=True)
+            vgn_runs[role] = clutter_protocol(clutter_removal, vgn, tmp / f"vgn_{role}",
+                                              scenes=("pile",), rounds=1, device=d)
+            sync()
+            if device == "cuda" and any(kernel_counts(all_five=True).values()):
+                raise AssertionError(f"VGN launched {kernel_counts(all_five=True)}")
+        vgn_worst = compare_clutter(vgn_runs["run"], vgn_runs["cpu"], "VGN vs the CPU")
+    n = len(got["label"])
+    print(f"phase 34: clutter removal ({'/'.join(CLUTTER_SCENES)}, {CLUTTER_ROUNDS} rounds "
+          f"each, {CLUTTER_OBJECTS} {CLUTTER_OBJECT_SET}, seed {CLUTTER_SEED}) on {device}: "
+          f"{n} attempts, {int(got['label'].sum())} successes, GSR {got['gsr'].tolist()}, "
+          f"DR {got['dr'].tolist()}, aborts {got['aborts'].tolist()}; equal to the JAX "
+          f"golden (max diffs {worst['golden']}) and the CPU port ({worst['cpu']}); fused "
+          f"40^3 grids within {grid_err:.3g} of the CPU's; {calls} planning calls launched "
+          f"{launches}")
+    print(f"phase 34: bf16 pile round: GSR {bf16_run['gsr'].tolist()}, DR "
+          f"{bf16_run['dr'].tolist()}, {len(bf16.results)} planning calls, launches "
+          f"{bf16_launches}; first plan against fp32 {gates}")
+    print(f"phase 34: VGN highest pile round: {len(vgn_runs['run']['label'])} attempts, GSR "
+          f"{vgn_runs['run']['gsr'].tolist()}, equal to the CPU's (max diffs {vgn_worst})")
+    fuse = {r: trace.fuse_ms[r] for r in sorted(trace.fuse_ms)}
+    for i in range(n):
+        print(f"phase 34: attempt {i}: render {trace.render_ms[i]:.3f} ms (host), fusion "
+              + ", ".join(f"{r}^3 {ms[i]:.3f} ms" for r, ms in fuse.items())
+              + f" ({'CUDA events' if device == 'cuda' else 'host'}), plan "
+              f"{got['plan_s'][i] * 1e3:.3f} ms (host, to the candidate fetch), execute "
+              f"{trace.execute_s[i]:.3f} s | {card}")
+    print(f"phase 34: round seconds {[round(s, 3) for s in trace.round_s]} | {card}")
+    return {"render_ms": float(np.median(trace.render_ms)),
+            "plan_ms": float(np.median(got["plan_s"])) * 1e3,
+            "execute_s": float(np.median(trace.execute_s)),
+            "round_s": float(np.median(trace.round_s)),
+            **{f"fuse{r}_ms": float(np.median(ms)) for r, ms in fuse.items()}}
+
+
+def chain_scenes(raw: Path) -> dict:
+    """{a hash of a scene's sensor data: (its id, its grasp rows without the
+    id)} of a generated raw root, so two roots whose ids differ can be
+    matched scene by scene."""
+    import hashlib
+
+    from giga_tpu_torch.core import io
+
+    df = io.read_df(raw)
+    out = {}
+    for sid in dict.fromkeys(df["scene_id"]):
+        depth, extr = io.read_sensor_data(raw, sid)
+        key = hashlib.sha256(depth.tobytes() + extr.tobytes()).hexdigest()
+        rows = np.flatnonzero(df["scene_id"] == sid)
+        out[key] = (sid, np.stack([df.row(i, [c for c in df.columns if c != "scene_id"])
+                                   for i in rows]))
+    return out
+
+
+def chain_phase(card, device: str = "cuda") -> dict:
+    """Phase 35: the data chain with CHAIN_PROCS processes in each pool
+    (``spawn``ed; the double reaches them through ``install_pybullet_double``'s
+    shims). generate_data_parallel on ``device`` and on the CPU, matched
+    scene by scene by their sensor data (the workers' order of writing
+    differs run to run): the same scenes with the same grasp rows (within
+    TOL_CLUTTER_POS) and labels, and the same setup.json; then on the card's
+    raw root clean_balance (host code), construct_dataset_parallel on
+    ``device`` and on the CPU (40^3 grids within TOL_TSDF, clouds and grasp
+    tables equal) and save_occ_data_parallel (host code: every shard's
+    labels equal to the containment test rerun here). Returns seconds."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from giga_tpu_torch.core import io
+    from giga_tpu_torch.geometry.native import check_mesh_contains
+    from giga_tpu_torch.scripts import (clean_balance_data, construct_dataset_parallel,
+                                        generate_data_parallel, save_occ_data_parallel)
+    from giga_tpu_torch.utils.implicit import get_scene_from_mesh_pose_list
+
+    urdfs = str(Path(__file__).resolve().parent / SIM_URDF_ROOT)
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        install_pybullet_double(tmp / "shim")
+        raws = {}
+        for role, d in (("run", device), ("cpu", "cpu")):
+            raws[role] = tmp / role / "raw"
+            t0 = time.perf_counter()
+            generate_data_parallel.main(SimpleNamespace(
+                root=raws[role], num_proc=CHAIN_PROCS, urdf_root=urdfs, device=d, **CHAIN_KW))
+            seconds[f"generate_{role}"] = time.perf_counter() - t0
+        got, ref = chain_scenes(raws["run"]), chain_scenes(raws["cpu"])
+        if set(got) != set(ref) or not got:
+            raise AssertionError(f"generated scenes differ: {len(got)} vs {len(ref)}")
+        gen_err = 0.0
+        for key, (_, rows) in got.items():
+            other = ref[key][1]
+            if rows.shape != other.shape or not np.array_equal(rows[:, -1], other[:, -1]):
+                raise AssertionError("a scene's grasps or labels differ from the CPU's")
+            gen_err = max(gen_err, float(np.abs(rows - other).max()))
+        if not gen_err <= TOL_CLUTTER_POS:
+            raise AssertionError(f"generated grasps differ from the CPU's by {gen_err}")
+        if (raws["run"] / "setup.json").read_text() != (raws["cpu"] / "setup.json").read_text():
+            raise AssertionError("setup.json differs from the CPU's")
+
+        raw = raws["run"]
+        np.random.seed(SEED)
+        clean_balance_data.main(SimpleNamespace(root=raw))
+        sets = {}
+        for role, d in (("run", device), ("cpu", "cpu")):
+            sets[role] = tmp / role / "dataset"
+            t0 = time.perf_counter()
+            construct_dataset_parallel.main(SimpleNamespace(
+                raw=raw, dataset=sets[role], num_proc=CHAIN_PROCS, single_view=False,
+                add_noise="", device=d))
+            seconds[f"construct_{role}"] = time.perf_counter() - t0
+        if (sets["run"] / "grasps.csv").read_text() != (sets["cpu"] / "grasps.csv").read_text():
+            raise AssertionError("the dataset's grasp table differs from the CPU's")
+        kept = sorted(p.stem for p in (raw / "scenes").iterdir())
+        grid_err = 0.0
+        for sid in kept:
+            a, b = (io.read_voxel_grid(sets[r], sid) for r in ("run", "cpu"))
+            grid_err = max(grid_err, float(np.abs(a - b).max()))
+            if not np.array_equal(io.read_point_cloud(sets["run"], sid),
+                                  io.read_point_cloud(sets["cpu"], sid)):
+                raise AssertionError(f"scene {sid}: the dataset's cloud differs from the CPU's")
+        if not grid_err <= TOL_TSDF:
+            raise AssertionError(f"dataset grids differ from the CPU's by {grid_err}")
+
+        t0 = time.perf_counter()
+        save_occ_data_parallel.main(SimpleNamespace(
+            raw=str(raw), num_point_per_file=CHAIN_OCC[0], num_file=CHAIN_OCC[1],
+            num_proc=CHAIN_PROCS, uniform=False))
+        seconds["save_occ"] = time.perf_counter() - t0
+        lists = sorted((raw / "mesh_pose_list").glob("*.npz"))
+        occupied = 0
+        for f in lists:
+            _, meshes = get_scene_from_mesh_pose_list(np.load(f, allow_pickle=True)["pc"],
+                                                      return_list=True)
+            shards = sorted((raw / "occ" / f.stem).glob("*.npz"))
+            if len(shards) != CHAIN_OCC[1]:
+                raise AssertionError(f"scene {f.stem}: {len(shards)} occupancy shards")
+            for s in shards:
+                shard = np.load(s)
+                pts = shard["points"].astype(np.float32)
+                occ = np.zeros(len(pts), bool)
+                for m in meshes:
+                    occ |= check_mesh_contains(m, pts)
+                if not np.array_equal(occ, shard["occ"]):
+                    raise AssertionError(f"{s}: occupancy labels differ from the containment test")
+                occupied += int(occ.sum())
+        if not occupied:
+            raise AssertionError("no occupied sample in any shard")
+    print(f"phase 35: data chain with {CHAIN_PROCS} spawned processes a pool: generated "
+          f"{len(got)} scenes on {device}, each equal to the CPU's (grasp rows within "
+          f"{gen_err:.3g}, labels equal); after clean_balance {len(kept)} scenes, the dataset "
+          f"built on {device} equal to the CPU's (grids within {grid_err:.3g}, clouds and "
+          f"table equal); {len(lists)} scenes of occupancy shards, labels equal to the "
+          f"containment test ({occupied} occupied samples); seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f" | {card}")
+    return seconds
+
+
+class PlanReplay:
+    """A plan function that returns a PlanRecorder's results in turn."""
+
+    def __init__(self, recorder: PlanRecorder):
+        self.results = iter(recorder.results)
+
+    def __call__(self, state, *args):
+        grasps, scores = next(self.results)
+        return grasps, scores, 0.0
+
+
+def rollout_phase(card, device: str = "cuda") -> dict:
+    """Phase 36: rollout capture and render. sim_grasp_save_scene (GIGA fp32,
+    one round of 3 objects, a snapshot every 8 steps) on ``device``, its
+    planner's results recorded; the same command line on the CPU with a
+    planner that replays them: the same results and snapshot files (poses
+    within 1e-12). The replay keeps the two trajectories step for step: a
+    planner's float32 rounding on another device moves a quaternion by ~1e-7,
+    which can move the approach's step count int(0.05 / 0.002) by one (a
+    perturbation of 1e-7 gave 109 snapshots for 108 on the CPU). Then
+    render_rollouts (the software rasterizer) on both: byte-equal frames.
+    Returns seconds."""
+    import pickle
+    import tempfile
+
+    from giga_tpu_torch.scripts import render_rollouts, sim_grasp_save_scene
+
+    install_pybullet_double()
+    root = Path(__file__).resolve().parent
+    build = sim_grasp_save_scene.build_planner
+    recorder = []
+
+    def record(args):
+        recorder.append(PlanRecorder(build(args)))
+        return recorder[0]
+
+    planners = {"run": record, "cpu": lambda args: PlanReplay(recorder[0])}
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for role, d in (("run", device), ("cpu", "cpu")):
+            sim_grasp_save_scene.build_planner = planners[role]
+            try:
+                t0 = time.perf_counter()
+                sim_grasp_save_scene.main(sim_grasp_save_scene.parser().parse_args(
+                    ["--model", str(root / CHECKPOINT), "--type", "giga", "--save-dir",
+                     str(tmp / role / "rollouts"), "--num-rounds", "1", "--num-objects", "3",
+                     "--best", "--out-th", "0.1", "--urdf-root", str(root / SIM_URDF_ROOT),
+                     "--device", d]))
+                seconds[f"capture_{role}"] = time.perf_counter() - t0
+            finally:
+                sim_grasp_save_scene.build_planner = build
+            t0 = time.perf_counter()
+            render_rollouts.main(render_rollouts.parser().parse_args(
+                [str(tmp / role / "rollouts"), str(tmp / role / "frames"), "--software"]))
+            seconds[f"render_{role}"] = time.perf_counter() - t0
+        got, ref = tmp / "run", tmp / "cpu"
+        results = json.loads((got / "rollouts" / "results.json").read_text())
+        if results != json.loads((ref / "rollouts" / "results.json").read_text()):
+            raise AssertionError("the rollout's results differ from the CPU's")
+        snaps = sorted(p.relative_to(got) for p in (got / "rollouts").rglob("*.pkl"))
+        ref_snaps = sorted(p.relative_to(ref) for p in (ref / "rollouts").rglob("*.pkl"))
+        if snaps != ref_snaps:
+            raise AssertionError(f"{len(snaps)} snapshots against the CPU's {len(ref_snaps)}")
+        for s in snaps:
+            a, b = (pickle.loads((r / s).read_bytes()) for r in (got, ref))
+            if a.keys() != b.keys() or any(
+                    a[k][:2] != b[k][:2]
+                    or not np.abs(a[k][2].as_matrix() - b[k][2].as_matrix()).max() <= 1e-12
+                    for k in a):
+                raise AssertionError(f"snapshot {s} differs from the CPU's")
+        frames = sorted(p.relative_to(got) for p in (got / "frames").rglob("*.png"))
+        if len(frames) != len(snaps) or any((got / f).read_bytes() != (ref / f).read_bytes()
+                                            for f in frames):
+            raise AssertionError("the rendered frames differ from the CPU's")
+    print(f"phase 36: sim_grasp_save_scene on {device}: results {results}, "
+          f"{len(recorder[0].results)} plans, {len(snaps)} snapshots equal to the CPU's replay "
+          f"of those plans; render_rollouts: {len(frames)} frames byte-equal to the CPU run's; "
+          f"seconds " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f" | {card}")
+    return seconds
+
+
 def candidates_to_host_all(planner, scenes):
     """The host candidates of ``planner``'s batched program on ``scenes``."""
     import torch
@@ -4091,6 +4659,11 @@ def main() -> int:
     crops = crop_phase(card)
     geoeval = geoeval_phase(card)
     point_phases_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clutter = clutter_phase(card)
+    chain_s = chain_phase(card)
+    rollout_s = rollout_phase(card)
+    sim_phases_s = time.perf_counter() - t0
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -4133,6 +4706,12 @@ def main() -> int:
         f"eval_geometry " + ", ".join(f"roi={roi} batch={b} {sec:.2f} s" for (d, roi, b), sec
                                       in geoeval.items() if d == "cuda")
         + f"; phases 31-33 {point_phases_s:.1f} s | {card}")
+    print(f"clutter removal (GIGA fp32, medians a trial): render {clutter['render_ms']:.3f} ms "
+          f"(host), fusion 40^3 {clutter['fuse40_ms']:.3f} ms and 120^3 "
+          f"{clutter['fuse120_ms']:.3f} ms (CUDA events), plan {clutter['plan_ms']:.3f} ms, "
+          f"execute {clutter['execute_s']:.3f} s, a round {clutter['round_s']:.3f} s; data chain "
+          f"{sum(chain_s.values()):.1f} s, rollout capture and render "
+          f"{sum(rollout_s.values()):.1f} s; phases 34-36 {sim_phases_s:.1f} s | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

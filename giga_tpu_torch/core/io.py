@@ -3,7 +3,8 @@ giga_tpu/core/io.py; reference src/vgn/io.py:12-126).
 
 Formats:
     setup.json            {"size", "intrinsic", "max_opening_width", "finger_depth"}
-    scenes/<id>.npz       processed: 40^3 "grid"
+    scenes/<id>.npz       raw: depth_imgs + extrinsics; processed: 40^3 "grid"
+    full_scenes/<id>.npz  raw: depth_imgs + extrinsics of every view
     grasps.csv            scene_id, qx, qy, qz, qw, x, y, z, width, label
                           (voxel units i, j, k in place of x, y, z in a
                           processed root)
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import csv
 import json
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +49,10 @@ class GraspTable:
         """Row ``i`` of the float ``columns`` as float64."""
         return np.array([self.columns[c][i] for c in columns], np.float64)
 
+    def take(self, rows) -> "GraspTable":
+        """The table of ``rows`` (indices or a boolean mask), in that order."""
+        return GraspTable({k: v[rows] for k, v in self.columns.items()})
+
 
 # --- setup.json ---------------------------------------------------------------------
 
@@ -73,6 +79,35 @@ def read_setup(root: Path):
     )
 
 
+# --- scene sensor data --------------------------------------------------------------
+
+
+def write_sensor_data(root: Path, depth_imgs, extrinsics, scene_id: str | None = None) -> str:
+    if scene_id is None:
+        scene_id = uuid.uuid4().hex
+    path = Path(root) / "scenes" / (scene_id + ".npz")
+    np.savez_compressed(path, depth_imgs=depth_imgs, extrinsics=extrinsics)
+    return scene_id
+
+
+def write_full_sensor_data(root: Path, depth_imgs, extrinsics, scene_id: str | None = None) -> str:
+    if scene_id is None:
+        scene_id = uuid.uuid4().hex
+    path = Path(root) / "full_scenes" / (scene_id + ".npz")
+    np.savez_compressed(path, depth_imgs=depth_imgs, extrinsics=extrinsics)
+    return scene_id
+
+
+def read_sensor_data(root: Path, scene_id: str):
+    data = np.load(Path(root) / "scenes" / (scene_id + ".npz"))
+    return data["depth_imgs"], data["extrinsics"]
+
+
+def read_full_sensor_data(root: Path, scene_id: str):
+    data = np.load(Path(root) / "full_scenes" / (scene_id + ".npz"))
+    return data["depth_imgs"], data["extrinsics"]
+
+
 # --- grasps.csv ---------------------------------------------------------------------
 
 
@@ -92,20 +127,26 @@ def read_grasp(df: GraspTable, i: int):
     return scene_id, Grasp(Transform(orientation, position), df["width"][i]), df["label"][i]
 
 
-def read_df(root: Path) -> GraspTable:
-    with (Path(root) / "grasps.csv").open(newline="") as f:
+def read_csv(path: Path, text=("scene_id",), ints=("label",)) -> GraspTable:
+    """A csv file as a GraspTable: the ``text`` columns as str, the ``ints``
+    as int64, every other column float64."""
+    with Path(path).open(newline="") as f:
         rows = list(csv.reader(f))
     header, body = rows[0], rows[1:]
     columns = {}
     for c, name in enumerate(header):
         col = [r[c] for r in body]
-        if name == "scene_id":
+        if name in text:
             columns[name] = np.array(col, dtype=str)
-        elif name == "label":
+        elif name in ints:
             columns[name] = np.array([int(v) for v in col], np.int64)
         else:
             columns[name] = np.array([float(v) for v in col], np.float64)
     return GraspTable(columns)
+
+
+def read_df(root: Path) -> GraspTable:
+    return read_csv(Path(root) / "grasps.csv")
 
 
 def write_df(df: GraspTable, root: Path) -> None:

@@ -17,9 +17,14 @@ voxel_size)``; its code fuses the y term's product into its add to the x
 term, and the running mean's ``tsdf * weight + stored``, into fused
 multiply-adds. This module does the same (the fused multiply-adds in
 float64, which rounds them once), and matches JAX's volumes bit for bit at
-40^3, and at 60^3 but for one-view scans (tests/test_torch_tsdf.py); at
-120^3 XLA also fuses the z term, and the two lie a float32 step of depth
-apart. Scalars enter as
+40^3, and at 60^3 but for one-view scans (tests/test_torch_tsdf.py). From
+``FMA_Z_RESOLUTION`` (96) up the jitted ``integrate_tsdf`` also fuses the z
+term's product into the sum (``fma(z, R, fma(y, R, R * x)) + t``), which
+``integrate_tsdf`` follows there: bit for bit at 96^3, 120^3 (the
+simulator's cloud volume) and 160^3 over three views, all but 462 and 1
+voxels at 100^3 and 128^3 (measured on the CPU); ``fuse_views`` keeps the
+unfused z term, and its scans at 120^3 lie a float32 step of depth from
+XLA's. Scalars enter as
 float32 tensors on the device, the counterparts of JAX's weak-typed Python
 floats, and each operation is between tensors: eager ops are not
 contracted, and a Python-scalar divisor would go through its rounded
@@ -43,6 +48,9 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
+FMA_Z_RESOLUTION = 96
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a * b + c in float32, rounded once as a fused multiply-add rounds it:
     the product of two float32 values is exact in float64."""
@@ -50,10 +58,11 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _integrate(tsdf, weight, depth_img, K, extrinsic, size: float, sdf_trunc: float,
-               depth_trunc: float, fold_voxel_size: bool):
+               depth_trunc: float, fold_voxel_size: bool, fuse_z: bool = False):
     """One view's update; ``fold_voxel_size`` takes the camera transform's
     products as XLA's jitted ``integrate_tsdf`` does (see the module
-    docstring), else as its ``fuse_views`` scan does."""
+    docstring), else as its ``fuse_views`` scan does; ``fuse_z`` fuses the z
+    term's product into the sum as well."""
     res = tsdf.shape[0]
     H, W = depth_img.shape
     voxel_size = _scalar(size / res, tsdf)
@@ -71,9 +80,12 @@ def _integrate(tsdf, weight, depth_img, K, extrinsic, size: float, sdf_trunc: fl
     px = idx[:, None, None]
     py = idx[None, :, None]
     pz = idx[None, None, :]
-    cx_ = _fma(py, R_cw[0, 1], R_cw[0, 0] * px) + R_cw[0, 2] * pz + t_cw[0]
-    cy_ = _fma(py, R_cw[1, 1], R_cw[1, 0] * px) + R_cw[1, 2] * pz + t_cw[1]
-    cz_ = _fma(py, R_cw[2, 1], R_cw[2, 0] * px) + R_cw[2, 2] * pz + t_cw[2]
+
+    def camera(r: int) -> torch.Tensor:
+        xy = _fma(py, R_cw[r, 1], R_cw[r, 0] * px)
+        return (_fma(pz, R_cw[r, 2], xy) if fuse_z else xy + R_cw[r, 2] * pz) + t_cw[r]
+
+    cx_, cy_, cz_ = camera(0), camera(1), camera(2)
 
     # project to pixel coordinates (nearest-neighbour depth lookup)
     u = torch.round(K[0, 0] * cx_ / cz_ + K[0, 2]).to(torch.int32)
@@ -114,7 +126,7 @@ def integrate_tsdf(tsdf: torch.Tensor, weight: torch.Tensor, depth_img: torch.Te
         (tsdf, weight) updated, new tensors on the same device.
     """
     return _integrate(tsdf, weight, depth_img, K, extrinsic, size, sdf_trunc, depth_trunc,
-                      fold_voxel_size=True)
+                      fold_voxel_size=True, fuse_z=tsdf.shape[0] >= FMA_Z_RESOLUTION)
 
 
 def fuse_views(depth_imgs: torch.Tensor, K: torch.Tensor, extrinsics: torch.Tensor, *,

@@ -34,8 +34,9 @@ programs' candidates (tests/test_torch_grid_golden.py, which holds it current);
 ``golden_points.npz`` JAX's point-model outputs of chip_smoke's phases 31-32
 (tests/test_torch_points_golden.py) and ``golden_eval_geometry.json`` the JAX
 script scripts/eval_geometry.py's JSON of phase 33
-(tests/test_torch_dataset_geometry.py; the word ``geoeval``), each held
-current there. These
+(tests/test_torch_dataset_geometry.py; the word ``geoeval``), and
+``golden_clutter_giga.npz`` JAX's clutter-removal run of phase 34
+(tests/test_torch_clutter_golden.py), each held current there. These
 tests regenerate them and assert the committed files are current. Rewrite them all, or those whose names contain the given words,
 with
 
@@ -435,6 +436,7 @@ if __name__ == "__main__" and "--write" in sys.argv:
     import json
     import tempfile
 
+    from test_torch_clutter_golden import golden_clutter_arrays
     from test_torch_dataset_geometry import golden_geoeval
     from test_torch_grid_golden import golden_grid_arrays
     from test_torch_gsr_gate import golden_gsr_arrays
@@ -453,7 +455,8 @@ if __name__ == "__main__" and "--write" in sys.argv:
                          (chip_smoke.GOLDEN_GSR, golden_gsr_arrays),
                          (chip_smoke.GOLDEN_GRID, golden_grid_arrays),
                          (chip_smoke.GOLDEN_POINTS, golden_points_arrays),
-                         (chip_smoke.GOLDEN_GEOEVAL, golden_geoeval)):
+                         (chip_smoke.GOLDEN_GEOEVAL, golden_geoeval),
+                         (chip_smoke.GOLDEN_CLUTTER, golden_clutter_arrays)):
         # "geoeval" names golden_eval_geometry.json
         name = Path(path).name.replace("eval_geometry", "geoeval")
         if words and not any(w in name for w in words):

@@ -19,7 +19,9 @@ for path in (REPO, REPO / "scripts"):
     if str(path) not in sys.path:
         sys.path.insert(0, str(path))
 
-CLIS = ["eval_synthetic_gsr", "build_corpus", "train", "train_corpus"]
+CLIS = ["eval_synthetic_gsr", "build_corpus", "train", "train_corpus", "sim_grasp_multiple",
+        "sim_grasp_save_scene", "render_rollouts", "generate_data_parallel",
+        "clean_balance_data", "construct_dataset_parallel", "save_occ_data_parallel"]
 
 
 @pytest.mark.parametrize("name", CLIS)

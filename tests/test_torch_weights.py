@@ -112,7 +112,9 @@ def test_port_imports_without_jax():
     orbax and pandas cannot be imported, and none of the JAX package is
     loaded; the modules include VGN, TSDF fusion, perception, meshes,
     visualization, training, mesh generation, the grid family, the point
-    and crop models, geometry evaluation on dataset scenes and the CLIs. Using the geometry
+    and crop models, geometry evaluation on dataset scenes, the simulator,
+    the clutter-removal experiments, the renderers, the rollout saver, the
+    data-generation chain and the CLIs. Using the geometry
     library there loads the port's build and never the JAX package's
     giga_tpu/geometry/_native.so."""
     assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
@@ -136,7 +138,18 @@ def test_port_imports_without_jax():
             "giga_tpu_torch.geometry.voxelgrid", "giga_tpu_torch.geometry.icp",
             "giga_tpu_torch.geometry.datasets", "giga_tpu_torch.utils.urdf",
             "giga_tpu_torch.utils.implicit", "giga_tpu_torch.sim.noise",
-            "giga_tpu_torch.scripts.eval_geometry"} <= set(_modules())
+            "giga_tpu_torch.scripts.eval_geometry", "giga_tpu_torch.sim.btsim",
+            "giga_tpu_torch.sim.simulation", "giga_tpu_torch.utils.saver",
+            "giga_tpu_torch.experiments.clutter_removal",
+            "giga_tpu_torch.experiments.clutter_removal_single",
+            "giga_tpu_torch.utils.render", "giga_tpu_torch.utils.nvisii_render",
+            "giga_tpu_torch.scripts.sim_grasp_multiple",
+            "giga_tpu_torch.scripts.sim_grasp_save_scene",
+            "giga_tpu_torch.scripts.render_rollouts",
+            "giga_tpu_torch.scripts.generate_data_parallel",
+            "giga_tpu_torch.scripts.clean_balance_data",
+            "giga_tpu_torch.scripts.construct_dataset_parallel",
+            "giga_tpu_torch.scripts.save_occ_data_parallel"} <= set(_modules())
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'optax', 'orbax', 'pandas', 'giga_tpu'):\n"
@@ -171,7 +184,16 @@ def test_port_sources_name_no_jax_package():
             PACKAGE / "geometry" / "native.py", PACKAGE / "geometry" / "generation.py",
             PACKAGE / "utils" / "synthetic.py", PACKAGE / "models" / "pointnetpp.py",
             PACKAGE / "models" / "crop.py", PACKAGE / "geometry" / "datasets.py",
-            PACKAGE / "scripts" / "eval_geometry.py", PACKAGE / "sim" / "noise.py"} <= set(files)
+            PACKAGE / "scripts" / "eval_geometry.py", PACKAGE / "sim" / "noise.py",
+            PACKAGE / "sim" / "btsim.py", PACKAGE / "sim" / "simulation.py",
+            PACKAGE / "utils" / "saver.py", PACKAGE / "utils" / "render.py",
+            PACKAGE / "utils" / "nvisii_render.py",
+            PACKAGE / "experiments" / "clutter_removal.py",
+            PACKAGE / "experiments" / "clutter_removal_single.py",
+            *(PACKAGE / "scripts" / f"{name}.py" for name in (
+                "sim_grasp_multiple", "sim_grasp_save_scene", "render_rollouts",
+                "generate_data_parallel", "clean_balance_data", "construct_dataset_parallel",
+                "save_occ_data_parallel"))} <= set(files)
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
