@@ -184,6 +184,21 @@ Phases (any failure exits non-zero; nothing is caught):
      with its snapshots on the card, then on the CPU replaying the card's
      plans (the same snapshots), then render_rollouts on both, frames
      byte-equal.
+ 37. parallelism on the card (``parallel_phase``): giga_tpu_torch/parallel/
+     dryrun.py twice, NCCL with one rank a card, then gloo with 4 ranks
+     sharing card 0 (the rank split, the gathers and the 2 x 2 dp x sp mesh
+     with real peers even on one card); on every rank, with the shipped
+     checkpoint: dp batched serving of phase 4's 64 scenes in float32 and
+     bf16 (K1 and K2 once per rank per call, the counters zeroed just
+     before; candidates equal to the single-process program's on the whole
+     batch, float32 scores within 1e-5, bf16 decisions), then on the
+     module path; the dp train step (giga, B=32, 2048 points, fp32 mm, 3
+     steps: terms and all-reduced gradients against the single-process step
+     at the same params, params bit-identical across ranks) and eval step;
+     the sp planner and (4 ranks) dp x sp against the single-device module
+     programs. Each rank's program, gather, train step and all-reduce ms by
+     CUDA events; the gloo times of ranks that share one card measure
+     correctness and overhead, not scaling.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -4276,6 +4291,63 @@ class PlanReplay:
         return grasps, scores, 0.0
 
 
+def parallel_phase(card, scenes) -> dict:
+    """Phase 37: every sharded program on the card (giga_tpu_torch/parallel/
+    dryrun.py; the checks run in the ranks and any failure raises here):
+    NCCL with one rank a card, then gloo with 4 ranks on card 0. Asserts
+    each rank's device and K1/K2's launches (1 per rank per dp call in
+    float32 and bf16) and prints each rank's readings. Returns the seconds
+    of each run."""
+    import torch
+
+    from giga_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    cards = torch.cuda.device_count()
+    out = {}
+    for name, world, backend, device in (("nccl", cards, "nccl", None),
+                                         ("gloo", 4, "gloo", "cuda:0")):
+        t0 = time.perf_counter()
+        reports = dryrun_multichip(world, backend=backend, device=device, scenes=scenes,
+                                   batch=BATCH, train_batch=TRAIN_BATCH,
+                                   train_points=TRAIN_POINTS, steps=3, timeout=600)
+        out[name] = time.perf_counter() - t0
+        for r in reports:
+            want = device or f"cuda:{r['rank'] % cards}"
+            if r["device"] != want or r["backend"] != backend:
+                raise AssertionError(f"{name} rank {r['rank']} on {r['device']} "
+                                     f"({r['backend']}), expected {want} ({backend})")
+            for prec in ("fp32", "bf16"):
+                if r["serve"][prec]["launches"] != {"stem_pool": 1, "dense_decode": 1}:
+                    raise AssertionError(f"{name} rank {r['rank']} {prec}: launches "
+                                         f"{r['serve'][prec]['launches']} on one dp call")
+            if world >= 4 and "dp_sp" not in r:
+                raise AssertionError(f"{name} rank {r['rank']}: no dp x sp run")
+            sv, tr, sp = r["serve"], r["train"], r["sp"]
+            print(f"phase 37: {name} rank {r['rank']}/{world} on {r['device']}: dp serving "
+                  + "; ".join(
+                      f"{p} {sv[p]['scenes']} scenes -> {sv[p]['grasps']} grasps, launches "
+                      f"{sv[p]['launches']}, equal to single-process (max score diff "
+                      f"{sv[p]['score_diff']:.3g}, bit-equal {sv[p]['bit_equal']}), program "
+                      f"{sv[p]['program_ms']:.3f} ms on {sv[p]['scenes'] // world} scenes, "
+                      f"gather {sv[p]['gather_ms']:.3f} ms, call {sv[p]['call_ms']:.3f} ms"
+                      for p in ("fp32", "bf16", "module"))
+                  + f" | train B={TRAIN_BATCH} N={TRAIN_POINTS} {tr['steps']} steps: terms "
+                  f"{tr['loss']:.3g}, gradients {tr['grad']:.3g} (tol {TOL_TRAIN_GRAD}; "
+                  f"{tr['n_f64']} leaves held by float64 at {tr['grad_f64']:.3g}), params "
+                  f"bit-identical across ranks, eval accuracy {tr['eval']['accuracy']:.4f}; "
+                  f"step {tr['step_ms']:.3f} ms, all-reduce {tr['allreduce_ms']:.3f} ms | sp "
+                  f"planner {sp['grasps']} grasps, raw qual diff {sp['raw_diff']:.3g}, "
+                  f"bit-equal {sp['bit_equal']}, {sp['call_ms']:.3f} ms"
+                  + (f" | dp x sp {r['dp_sp']['mesh']} on {r['dp_sp']['scenes']} scenes: "
+                     f"equal (bit-equal {r['dp_sp']['bit_equal']}), {r['dp_sp']['call_ms']:.3f} "
+                     f"ms" if "dp_sp" in r else "")
+                  + f" | {card}")
+        print(f"phase 37: {name}, {world} rank(s): every check passed in {out[name]:.1f} s "
+              f"(spawn and build included) | {card}")
+    return out
+
+
 def rollout_phase(card, device: str = "cuda") -> dict:
     """Phase 36: rollout capture and render. sim_grasp_save_scene (GIGA fp32,
     one round of 3 objects, a snapshot every 8 steps) on ``device``, its
@@ -4664,6 +4736,7 @@ def main() -> int:
     chain_s = chain_phase(card)
     rollout_s = rollout_phase(card)
     sim_phases_s = time.perf_counter() - t0
+    parallel_s = parallel_phase(card, scenes)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -4712,6 +4785,9 @@ def main() -> int:
           f"execute {clutter['execute_s']:.3f} s, a round {clutter['round_s']:.3f} s; data chain "
           f"{sum(chain_s.values()):.1f} s, rollout capture and render "
           f"{sum(rollout_s.values()):.1f} s; phases 34-36 {sim_phases_s:.1f} s | {card}")
+    print(f"parallelism (phase 37): NCCL, {torch.cuda.device_count()} rank(s), "
+          f"{parallel_s['nccl']:.1f} s; gloo, 4 ranks on card 0, {parallel_s['gloo']:.1f} s | "
+          f"{card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

@@ -8,6 +8,13 @@ on three R^2 lattices (two small matmuls per plane), and each block's fc_c
 projection splits into three per-plane projections broadcast-added into the
 R^3 hidden state. Only the ResnetBlockFC trunk runs on the full lattice.
 
+``shard_constraint`` (the JAX package's ``with_sharding_constraint`` on
+the hidden state) shards the lattice's x axis over a mesh axis: each rank
+decodes its ``torch.tensor_split`` of the x rows (an uneven split works, as
+GSPMD pads one) and the ranks all-gather the slabs in rank order, so the
+full volume comes back on every rank. The plane features replicate (~600
+KB), so no halo is needed.
+
 These functions are the module path: the planner's programs run
 ``ops/kernels/decoder.py`` (K2 batched, K3 single-scene) on the card, and
 the tests hold both against the JAX package. The grid variant's features
@@ -110,24 +117,50 @@ def _fused_head_weights(dec: dict, n_blocks: int):
     return packed, e, h
 
 
-def decode_dense_batched(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+def _x_slab(shard_constraint, R: int):
+    """(mesh, axis, sizes, lo, hi): this rank's x rows [lo, hi) of R under
+    ``shard_constraint`` (a ``parallel.mesh.NamedSharding`` whose spec
+    names the mesh axis of the (B, Rx, Ry, Rz, F) hidden state's x
+    dimension), or None when x is whole on every rank."""
+    spec = tuple(shard_constraint.spec) if shard_constraint is not None else ()
+    axis = spec[1] if len(spec) > 1 else None
+    if axis is None:
+        return None
+    from giga_tpu_torch.parallel.mesh import split_sizes
+
+    mesh = shard_constraint.mesh
+    sizes = split_sizes(R, mesh.size(axis))
+    lo = sum(sizes[:mesh.rank(axis)])
+    return mesh, axis, sizes, lo, lo + sizes[mesh.rank(axis)]
+
+
+def decode_dense_batched(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5,
+                         shard_constraint=None):
     """Fused-head trunk on the lattice of B scenes.
 
     feats: {t: (B, R, R, C)}, or {"dense": (B, R, R, R, C)} for the grid
     variant. Returns (heads, B, R, R, R, out_dim).
+
+    ``shard_constraint``: a ``parallel.mesh.NamedSharding`` of the (B, Rx,
+    Ry, Rz, F) hidden state. Its x entry names the mesh axis the lattice's x
+    rows are split over (see the module docstring); its batch entry says how
+    the caller split the batch, which arrives here already as this rank's.
     """
     dense = feats.get("dense")
+    R = coords.shape[0]
+    slab = _x_slab(shard_constraint, R)
+    lo, hi = (slab[3], slab[4]) if slab is not None else (0, R)
     if dense is None:
         c_dim = dec["fc_c0_kernel"].shape[1] // 3
-        fxz, fxy, fyz = feats["xz"], feats["xy"], feats["yz"]
+        fxz, fxy, fyz = feats["xz"][:, lo:hi], feats["xy"][:, lo:hi], feats["yz"]
         B = fxz.shape[0]
     else:
+        dense = dense[:, lo:hi]
         B = dense.shape[0]
-    R = coords.shape[0]
     pk, heads, _ = _fused_head_weights(dec, n_blocks)
     coords = coords.to(pk["fc_p_kernel"].dtype)
     w_p = pk["fc_p_kernel"]
-    px = coords[:, None] * w_p[0]
+    px = coords[lo:hi, None] * w_p[0]
     py = coords[:, None] * w_p[1]
     pz = coords[:, None] * w_p[2]
     net = (px[None, :, None, None, :] + py[None, None, :, None, :]
@@ -148,13 +181,26 @@ def decode_dense_batched(dec: dict, feats: dict, coords: torch.Tensor, n_blocks:
         net = net + dx
     out = _mm(torch.relu(net), pk["fc_out_kernel"]) + pk["fc_out_bias"]
     o = dec["fc_out_bias"].shape[-1]
-    return out.reshape(B, R, R, R, heads, o).permute(4, 0, 1, 2, 3, 5)
+    out = out.reshape(B, hi - lo, R, R, heads, o).permute(4, 0, 1, 2, 3, 5)
+    if slab is None:
+        return out
+    from giga_tpu_torch.parallel.mesh import all_gather_dim
+
+    mesh, axis, sizes = slab[:3]
+    return all_gather_dim(mesh, out, axis, dim=2, sizes=sizes)
 
 
-def decode_dense(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
+def decode_dense(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5,
+                 shard_constraint=None):
     """One scene, a unit-batch wrapper over ``decode_dense_batched`` as in the
-    JAX package: feats {t: (R, R, C)} -> (heads, R, R, R, out_dim)."""
-    out = decode_dense_batched(dec, {t: v[None] for t, v in feats.items()}, coords, n_blocks)
+    JAX package: feats {t: (R, R, C)} -> (heads, R, R, R, out_dim).
+    ``shard_constraint`` names the sharding of the (Rx, Ry, Rz, F) hidden
+    state; an unsharded batch dimension is put before its spec."""
+    if shard_constraint is not None:
+        shard_constraint = type(shard_constraint)(shard_constraint.mesh,
+                                                  (None, *shard_constraint.spec))
+    out = decode_dense_batched(dec, {t: v[None] for t, v in feats.items()}, coords, n_blocks,
+                               shard_constraint)
     return out[:, 0]
 
 
@@ -206,11 +252,14 @@ def _affordance(out: torch.Tensor):
 
 
 def decode_affordance_dense_batched(dec: dict, feats: dict, coords: torch.Tensor,
-                                    n_blocks: int = 5):
-    """Batched (qual, rot, width): (B,R,R,R), (B,R,R,R,4), (B,R,R,R)."""
-    return _affordance(decode_dense_batched(dec, feats, coords, n_blocks))
+                                    n_blocks: int = 5, shard_constraint=None):
+    """Batched (qual, rot, width): (B,R,R,R), (B,R,R,R,4), (B,R,R,R).
+    ``shard_constraint`` as in ``decode_dense_batched``."""
+    return _affordance(decode_dense_batched(dec, feats, coords, n_blocks, shard_constraint))
 
 
-def decode_affordance_dense(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5):
-    """One scene's (qual, rot, width): (R,R,R), (R,R,R,4), (R,R,R)."""
-    return _affordance(decode_dense(dec, feats, coords, n_blocks))
+def decode_affordance_dense(dec: dict, feats: dict, coords: torch.Tensor, n_blocks: int = 5,
+                            shard_constraint=None):
+    """One scene's (qual, rot, width): (R,R,R), (R,R,R,4), (R,R,R).
+    ``shard_constraint`` as in ``decode_dense``."""
+    return _affordance(decode_dense(dec, feats, coords, n_blocks, shard_constraint))

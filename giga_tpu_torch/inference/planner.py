@@ -325,7 +325,8 @@ def build_ensemble_giga_planner_fn(net, stacked: dict, model_cfg: GIGAConfig,
 
 def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig,
                                   size: float, use_kernels: bool = False, fold_b1: bool = False,
-                                  hidden_bf16: bool = False, return_raw: bool = False):
+                                  hidden_bf16: bool = False, return_raw: bool = False,
+                                  mesh=None, axis: str = "dp", sp_axis: str | None = None):
     """Batched serving program: (tsdfs (B,P,P,P), tsdf_process (B,R,R,R)) ->
     GraspCandidates with a leading batch axis, left on the tensors' device.
 
@@ -345,6 +346,20 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     on the module path, as in the JAX package's Pallas and XLA paths. The
     candidates are the same either way. Without it the program returns the
     candidates alone, where the JAX package's returns ``(cands, None)``.
+
+    With ``mesh`` (``parallel.mesh.Mesh``; one process per card, every rank
+    calling the program with the same global batch, host arrays or
+    tensors), the batch axis is sharded over ``axis``: each rank runs the
+    program above on its B/n scenes (with ``use_kernels`` on the card, K1
+    and K2 on every rank), and the ranks all-gather the fixed-shape
+    candidates, so the global batch's candidates (and raw volumes) come back
+    on every rank, on its device. The pipeline is a pure map over scenes: no
+    collective runs before the gather. B must divide by the mesh size along
+    ``axis``. ``sp_axis`` composes spatial sharding on a 2-D mesh: the
+    batch over ``axis`` and the module decode's lattice x axis over
+    ``sp_axis`` (``decode_dense_batched``'s ``shard_constraint``); it runs on
+    the module path only, as the JAX package's composition runs on its XLA
+    path. ``plan.local`` is the per-rank program.
     """
     voxel_size = size / planner_cfg.resolution
     R = planner_cfg.resolution
@@ -354,6 +369,15 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     dtype = net_dtype(net)
     paths = program_paths(model_cfg, planner_cfg, dtype, use_kernels, batched=True,
                           fold_b1=fold_b1)
+    shard_constraint = None
+    if mesh is not None and sp_axis is not None:
+        if use_kernels:
+            raise ValueError("sp composition runs the module decode: build it without "
+                             "use_kernels")
+        from giga_tpu_torch.parallel.mesh import NamedSharding
+
+        # (B, Rx, Ry, Rz, F) hidden state: batch over dp, lattice x over sp
+        shard_constraint = NamedSharding(mesh, (axis, sp_axis))
 
     def plan(tsdfs: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
         if tsdfs.ndim != 4 or tuple(tsdfs.shape[1:]) != (P, P, P):
@@ -374,13 +398,72 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
                     hidden_bf16=hidden_bf16)
             else:
                 qual, rot, width = (v.float() for v in
-                                    net.decode_affordance_lattice(feats, coords))
+                                    net.decode_affordance_lattice(feats, coords,
+                                                                  shard_constraint))
             masked = mask_quality(qual, tsdf_process, width, planner_cfg)
             masked = bound_quality(masked, voxel_size, planner_cfg)
             cands = select_grasps_batched(masked, rot, width, positions, planner_cfg)
             return (cands, (qual, rot, width)) if return_raw else cands
 
     plan.paths = paths
+    if mesh is None:
+        return plan
+    from giga_tpu_torch.parallel.mesh import gather_batch, shard_batch
+
+    def sharded(tsdfs, tsdf_process):
+        local = shard_batch(mesh, {"tsdfs": tsdfs, "process": tsdf_process}, axis)
+        out = plan(local["tsdfs"], local["process"])
+        with torch.inference_mode():
+            if not return_raw:
+                return gather_batch(mesh, out, axis)
+            cands, raw = out
+            return gather_batch(mesh, cands, axis), gather_batch(mesh, raw, axis)
+
+    sharded.paths, sharded.local = paths, plan
+    return sharded
+
+
+def build_sharded_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig,
+                                  size: float, mesh, axis: str = "sp"):
+    """Spatially-sharded single-scene program (counterpart of the JAX
+    package's ``build_sharded_giga_planner_fn``): (tsdf (P,P,P), tsdf_process
+    (R,R,R)) -> (unbatched GraspCandidates, the float32 (qual, rot, width)
+    volumes), as the JAX program returns them; every rank of ``mesh`` calls
+    it with the same scene (host arrays or tensors).
+
+    The encode and the lattice sampling are replicated; the dense R^3 decode
+    is split along the lattice's x axis over ``axis``
+    (``decode_affordance_dense``'s ``shard_constraint``) and all-gathered,
+    and the postprocess runs on the full volumes on every rank, so the
+    candidates and the raw volumes are the same on all ranks. As the JAX
+    program (XLA, no Pallas), it decodes on the module path, in float32
+    with TF32 off."""
+    from giga_tpu_torch.core.device import to_device
+    from giga_tpu_torch.parallel.mesh import NamedSharding
+
+    voxel_size = size / planner_cfg.resolution
+    R = planner_cfg.resolution
+    P = model_cfg.encoder.plane_resolution
+    n_blocks = model_cfg.decoder.n_blocks
+    lattice = _Lattice(R)
+    dtype = net_dtype(net)
+    net_sharding = NamedSharding(mesh, (axis,))  # (Rx, Ry, Rz, heads*h)
+
+    def plan(tsdf, tsdf_process) -> GraspCandidates:
+        x = to_device({"tsdf": tsdf, "process": tsdf_process}, mesh.device)
+        tsdf, tsdf_process = x["tsdf"], x["process"]
+        _check_single(tsdf, tsdf_process, P, R)
+        coords, positions = lattice(tsdf.device)
+        with torch.inference_mode(), full_precision():
+            planes = {t: v[0] for t, v in net.encode(tsdf[None].to(dtype)).items()}
+            feats = lattice_features(planes, coords, model_cfg)
+            qual, rot, width = (v.float() for v in decode_affordance_dense(
+                net.decoder_aff.params(), feats, coords, n_blocks, net_sharding))
+            cands = _postprocess(qual, rot, width, tsdf_process, positions, voxel_size,
+                                 planner_cfg)
+            return cands, (qual, rot, width)
+
+    plan.paths = {"encode": "module", "decode": "module"}
     return plan
 
 

@@ -112,8 +112,11 @@ class GIGANet(nn.Module):
                 qual, rot, width = self.decode_affordance(planes, p)
         return qual, p, rot, width
 
-    def decode_affordance_lattice(self, feats: dict, coords: torch.Tensor):
+    def decode_affordance_lattice(self, feats: dict, coords: torch.Tensor,
+                                  shard_constraint=None):
         """Affordance trunk on the R^3 query lattice (plain PyTorch):
-        feats {t: (B, R, R, C)} -> qual (B,R,R,R), rot (B,R,R,R,4), width (B,R,R,R)."""
+        feats {t: (B, R, R, C)} -> qual (B,R,R,R), rot (B,R,R,R,4), width (B,R,R,R).
+        ``shard_constraint`` as ``decode_dense_batched``'s."""
         return decode_affordance_dense_batched(
-            self.decoder_aff.params(), feats, coords, self.cfg.decoder.n_blocks)
+            self.decoder_aff.params(), feats, coords, self.cfg.decoder.n_blocks,
+            shard_constraint)

@@ -5,15 +5,22 @@ reference scripts/train_{giga,giga_aff,giga_geo,vgn}.py unified).
     python3 -m giga_tpu_torch.scripts.train --dataset DIR [--dataset_raw DIR]
         [--net giga] [--epochs 10] [--batch-size 32] [--lr 2e-4]
         [--clip-norm 0] [--val-split 0.1] [--augment] [--load-path CKPT]
-        [--seed 0] [--bf16] [--orbax] [--workers 4] [--device cuda]
+        [--seed 0] [--bf16] [--orbax] [--workers 4] [--device cuda] [--dp]
+
+    torchrun --nproc-per-node N -m giga_tpu_torch.scripts.train --dp --dataset DIR ...
 
 Run from the repository root. Defaults match the reference: Adam lr 2e-4,
 batch 32, 10 epochs, 0.9/0.1 split. The weights start from
 ``init_network(net, seed)`` (seeded, without the JAX package) or from
 ``--load-path`` (.msgpack or the reference's .pt). ``--orbax`` keeps the
 params, optimizer state and epoch for resuming (Trainer's ``save_state``).
-Training runs on the card unless ``--device`` says otherwise; ``--dp``
-(data parallelism over a device mesh) is not ported and raises.
+Training runs on the card unless ``--device`` says otherwise.
+
+``--dp`` trains data-parallel, one process per card (``torchrun`` starts
+them and names each one's rank): every rank loads the same global batches
+and keeps its shard, the gradients are averaged across ranks each step,
+and rank 0 alone writes the logs and checkpoints. ``--device cpu`` runs the
+ranks on the CPU over gloo. Without a launcher ``--dp`` raises.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 NETS = ["giga", "giga_aff", "giga_geo", "giga_detach", "giga_grid", "vgn"]
+DP_LAUNCH = ("--dp runs one process per card: start it with torchrun --nproc-per-node N "
+             "-m giga_tpu_torch.scripts.train --dp ...")
 
 
 def main(args) -> None:
@@ -37,10 +46,18 @@ def main(args) -> None:
         create_train_val_loaders,
         create_vgn_train_val_loaders,
     )
-    from giga_tpu_torch.train.trainer import MESH_TODO, Trainer, create_train_state
+    from giga_tpu_torch.parallel import distributed
+    from giga_tpu_torch.train.trainer import Trainer, create_train_state
 
+    mesh, device = None, args.device
     if args.dp:
-        raise NotImplementedError(MESH_TODO)
+        if not distributed.initialize(device=args.device):
+            raise RuntimeError(DP_LAUNCH)
+        from giga_tpu_torch.parallel.mesh import make_mesh
+
+        device = distributed.local_device(args.device)
+        mesh = make_mesh(device=device)
+        print(f"data parallel over {mesh.size()} processes (this one on {device})")
     if args.load_path:
         net, model_cfg = load_network(args.load_path, args.net)
     else:
@@ -55,6 +72,12 @@ def main(args) -> None:
         name = (f"{stamp}_dataset={Path(args.dataset).name},augment={args.augment},"
                 f"net={args.net},batch_size={args.batch_size},lr={args.lr:.0e}")
         logdir = args.logdir / name
+    if mesh is not None:  # rank 0's stamp: the ranks may start in different minutes
+        import torch.distributed as dist
+
+        names = [str(logdir)]
+        dist.broadcast_object_list(names, src=0)
+        logdir = Path(names[0])
     if args.net == "vgn":
         train_loader, val_loader = create_vgn_train_val_loaders(
             args.dataset, args.batch_size, args.val_split, args.augment, seed=args.seed)
@@ -64,13 +87,23 @@ def main(args) -> None:
             load_occ=args.net != "giga_aff", seed=args.seed)
     state = create_train_state(net, lr=args.lr,
                                clip_norm=args.clip_norm if args.clip_norm > 0 else None,
-                               device=args.device)
+                               device=device)
+    if mesh is not None:  # every rank starts from rank 0's weights
+        from giga_tpu_torch.parallel.mesh import replicate
+
+        with torch.no_grad():
+            for k, v in replicate(mesh, state.params).items():
+                state.params[k].copy_(v)
     if args.workers > 0:
         train_loader = PrefetchLoader(train_loader, num_workers=args.workers)
         val_loader = PrefetchLoader(val_loader, num_workers=args.workers)
-    trainer = Trainer(net, model_cfg, train_cfg, logdir=logdir, save_state=args.orbax,
-                      dtype=torch.bfloat16 if args.bf16 else None)
-    trainer.fit(state, train_loader, val_loader, epochs=args.epochs)
+    trainer = Trainer(net, model_cfg, train_cfg, mesh=mesh, logdir=logdir,
+                      save_state=args.orbax, dtype=torch.bfloat16 if args.bf16 else None)
+    try:
+        trainer.fit(state, train_loader, val_loader, epochs=args.epochs)
+    finally:
+        if mesh is not None:
+            distributed.shutdown()
 
 
 def parser() -> argparse.ArgumentParser:
@@ -92,7 +125,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--load-path", type=str, default="")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel over a device mesh (not ported: raises)")
+                   help="data-parallel, one process per card, under torchrun")
     p.add_argument("--bf16", action="store_true",
                    help="mixed-precision training (bf16 compute, fp32 state)")
     p.add_argument("--orbax", action="store_true",

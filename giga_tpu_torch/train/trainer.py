@@ -12,6 +12,23 @@ an epoch). Checkpointing: params as flax ``.msgpack`` (last and best by
 validation accuracy, like the reference's ignite ModelCheckpoint,
 train_giga.py:97-117), plus params + optimizer state + epoch through
 ``train/checkpoint.py`` for resuming.
+
+Data parallelism (``mesh=``, a ``parallel.mesh.Mesh``; one process per
+card): every rank holds the same params and takes its shard of the global
+batch (``shard_batch``). After the backward pass the ranks all-reduce the
+gradients to their mean in ONE collective over one flat buffer (the step
+is launch-bound; a reduction per leaf would add ~70 collectives a step),
+before Adam's clip and non-finite skip, so every rank takes the same
+decision and the params stay bit-identical across ranks. The loss terms
+(batch means) are averaged over ranks and the classification counts summed,
+in one more collective, so the step returns the global batch's terms on
+every rank, as the JAX package's global program does. Mean-of-means equals
+the global mean because the shards are equal (B must divide by the mesh
+size). The gradient all-reduce is exact because no statistic crosses
+samples on these paths: GroupNorm (models/unet3d.py) is per sample, and
+PointNet++'s BatchNorm is not reached by ``make_loss_fn``. DDP is not
+needed: the step takes gradients through ``torch.autograd.grad`` on a
+params dict, not ``.backward()``.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ from torch.func import functional_call
 from giga_tpu_torch.core.config import GIGAConfig, TrainConfig
 from giga_tpu_torch.core.device import resolve_device, to_device
 from giga_tpu_torch.core.precision import full_precision
+from giga_tpu_torch.parallel import distributed
 from giga_tpu_torch.train.loss import (
     binary_cross_entropy,
     classification_metrics,
@@ -40,8 +58,9 @@ from giga_tpu_torch.train.loss import (
     rot_loss,
 )
 
-MESH_TODO = ("data-parallel training over a device mesh is not ported yet "
-             "(ROADMAP Queue 1, parallelism)")
+# classification_metrics' counts: summed over ranks; every other term is a
+# batch mean, averaged over ranks
+COUNT_TERMS = ("tp", "fp", "fn", "correct", "n")
 # optax.adam's defaults and apply_if_finite's limit as create_train_state sets it
 B1, B2, EPS = 0.9, 0.999, 1e-8
 MAX_CONSECUTIVE_ERRORS = 100
@@ -300,6 +319,34 @@ def make_value_and_grad(net, cfg, dtype=None, sampler: Optional[str] = "mm") -> 
     return value_and_grad
 
 
+def _reducer(mesh, axis: str):
+    """(grads, terms) -> their means over the ranks along ``axis`` (counts
+    summed): the identity without a mesh."""
+    if mesh is None:
+        return lambda grads, terms: (grads, terms)
+    from giga_tpu_torch.parallel.mesh import all_reduce_sum
+
+    n = mesh.size(axis)
+
+    def reduce(grads, terms):
+        grads = [g / n for g in all_reduce_sum(mesh, grads, axis)] if grads else grads
+        keys = list(terms)
+        summed = all_reduce_sum(mesh, [terms[k].to(torch.float32) for k in keys], axis)
+        return grads, {k: v if k in COUNT_TERMS else v / n for k, v in zip(keys, summed)}
+
+    return reduce
+
+
+def _placer(mesh, axis: str):
+    """batch, device -> the batch this rank computes on: its shard of the
+    global batch with a mesh, else the whole batch uploaded in one copy."""
+    if mesh is None:
+        return to_device
+    from giga_tpu_torch.parallel.mesh import shard_batch
+
+    return lambda batch, device: shard_batch(mesh, batch, axis)
+
+
 def make_train_step(net, cfg, mesh=None, axis: str = "dp", dtype=None,
                     assemble=None, sampler: Optional[str] = "mm") -> Callable:
     """step(state, batch) -> (state, terms): one Adam step, the state updated
@@ -325,22 +372,27 @@ def make_train_step(net, cfg, mesh=None, axis: str = "dp", dtype=None,
 
     A batch's numpy arrays are uploaded to the state's device in one copy
     (``to_device``); tensors already there are used as they are.
-    """
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
-    value_and_grad = make_value_and_grad(net, cfg, dtype, sampler)
 
-    def step(state: TrainState, batch):
-        batch = to_device(batch, _device(state.module))
+    ``mesh``: data parallelism over ``axis`` (module docstring): the batch
+    is the global one (or this rank's ``shard_batch`` of it), the state is
+    replicated, and the terms are the global batch's on every rank. With
+    ``assemble`` the corpus is replicated (every rank holds it on its
+    device) and ``sel`` is batch-sharded.
+    """
+    value_and_grad = make_value_and_grad(net, cfg, dtype, sampler)
+    place, reduce = _placer(mesh, axis), _reducer(mesh, axis)
+
+    def local_step(state: TrainState, batch):
         (loss, (terms, out)), grads = value_and_grad(state.params, batch)
+        grads, terms = reduce(grads, {**terms, **_step_metrics(cfg, out, batch)})
         state.apply_gradients(grads)
-        return state, {**terms, **_step_metrics(cfg, out, batch)}
+        return state, terms
 
     if assemble is None:
-        return step
+        return lambda state, batch: local_step(state, place(batch, _device(state.module)))
 
     def corpus_step(state: TrainState, corpus: dict, sel):
-        return step(state, assemble(corpus, to_device(sel, _device(state.module))))
+        return local_step(state, assemble(corpus, place(sel, _device(state.module))))
 
     return corpus_step
 
@@ -348,16 +400,16 @@ def make_train_step(net, cfg, mesh=None, axis: str = "dp", dtype=None,
 def make_eval_step(net, cfg, mesh=None, axis: str = "dp",
                    sampler: Optional[str] = "mm") -> Callable:
     """step(params, batch) -> terms: the metrics pass, fp32 with TF32 off,
-    no gradients. ``sampler`` as in make_train_step."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+    no gradients. ``sampler`` as in make_train_step; ``mesh`` as there (the
+    terms of the global batch on every rank)."""
     loss_fn = make_loss_fn(_with_sampler(net, cfg, sampler), cfg)
+    place, reduce = _placer(mesh, axis), _reducer(mesh, axis)
 
     def step(params, batch):
-        batch = to_device(batch, next(iter(params.values())).device)
+        batch = place(batch, next(iter(params.values())).device)
         with full_precision(), torch.no_grad():
             loss, (terms, out) = loss_fn(params, batch)
-            return {**terms, **_step_metrics(cfg, out, batch)}
+            return reduce([], {**terms, **_step_metrics(cfg, out, batch)})[1]
 
     return step
 
@@ -409,7 +461,14 @@ def fetch_terms(accum: list[dict]) -> list[dict]:
 class Trainer:
     """Epoch loop with validation, history and tensorboard logging, and
     last+best checkpointing. ``save_state`` also keeps params + optimizer
-    state + epoch for ``try_resume`` (the JAX package's ``use_orbax``)."""
+    state + epoch for ``try_resume`` (the JAX package's ``use_orbax``).
+
+    With ``mesh`` every rank runs ``fit`` on the same global batches and
+    keeps its shard (``_put``); the terms and so the logs agree on every
+    rank. Only rank 0 writes tensorboard, the history and the checkpoints,
+    and the ranks then wait for it (a barrier): the JAX single controller
+    writes once, N ranks writing to one logdir would race. Every rank reads
+    a checkpoint to resume."""
 
     net: object
     model_cfg: GIGAConfig
@@ -427,12 +486,14 @@ class Trainer:
         self.ckpt_mgr = None
         self.start_epoch = 1
         self.tb_writer = None
+        self.writes = self.mesh is None or distributed.is_primary()
         if self.logdir is not None:
             self.logdir = Path(self.logdir)
             self.logdir.mkdir(parents=True, exist_ok=True)
             from giga_tpu_torch.utils.tensorboard import SummaryWriter
 
-            self.tb_writer = SummaryWriter(self.logdir)
+            if self.writes:
+                self.tb_writer = SummaryWriter(self.logdir)
             if self.save_state:
                 from giga_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -451,6 +512,14 @@ class Trainer:
         print(f"resumed from epoch {epoch}")
         return state
 
+    def _put(self, batch):
+        """This rank's shard of a global batch with a mesh, else the batch."""
+        if self.mesh is None:
+            return batch
+        from giga_tpu_torch.parallel.mesh import shard_batch
+
+        return shard_batch(self.mesh, batch)
+
     def fit(self, state: TrainState, train_loader, val_loader, epochs: int, log=print):
         state = self.try_resume(state)
         history = self._load_history()
@@ -458,9 +527,9 @@ class Trainer:
             t0 = time.time()
             # terms stay on the device: a host fetch a step would make every
             # step wait for the card; one fetch an epoch below
-            accum = [self.train_step(state, batch)[1] for batch in train_loader]
+            accum = [self.train_step(state, self._put(batch))[1] for batch in train_loader]
             train_metrics = summarize_metrics(fetch_terms(accum))
-            accum = [self.eval_step(state.params, batch) for batch in val_loader]
+            accum = [self.eval_step(state.params, self._put(batch)) for batch in val_loader]
             val_metrics = summarize_metrics(fetch_terms(accum))
 
             dt = time.time() - t0
@@ -473,9 +542,12 @@ class Trainer:
             history.append({"epoch": epoch, "train": train_metrics, "val": val_metrics})
 
             if self.logdir is not None:
-                self._log_history(history)
-                self._log_tensorboard(epoch, train_metrics, val_metrics)
-                self._checkpoint(state, val_metrics, epoch)
+                if self.writes:
+                    self._log_history(history)
+                    self._log_tensorboard(epoch, train_metrics, val_metrics)
+                    self._checkpoint(state, val_metrics, epoch)
+                if self.mesh is not None:
+                    distributed.barrier()
         if self.tb_writer is not None:
             self.tb_writer.close()  # guards double-close; releases the event file
         return state, history

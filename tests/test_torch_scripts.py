@@ -67,11 +67,16 @@ def test_build_corpus_then_train_corpus_on_the_cpu(tmp_path, capsys):
     assert out.with_suffix(".history.jsonl").read_text().count("\n") == 1
 
 
-def test_dp_flag_raises_the_trainers_text(tmp_path):
+def test_dp_flag_raises_the_trainers_text(tmp_path, monkeypatch):
+    """--dp runs one process per card under a launcher; without one it
+    raises the script's text naming torchrun (the dp run itself:
+    tests/test_torch_parallel_train.py)."""
+    from giga_tpu_torch.parallel import distributed
     from giga_tpu_torch.scripts import train
-    from giga_tpu_torch.train.trainer import MESH_TODO
 
+    for var in (*distributed._CLUSTER_ENV_VARS, "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     args = train.parser().parse_args(["--dataset", str(tmp_path), "--dp", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         train.main(args)
-    assert "not ported" in MESH_TODO
+    assert "torchrun" in train.DP_LAUNCH

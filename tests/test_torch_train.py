@@ -336,13 +336,36 @@ def test_skip_nonfinite_step_preserves_state():
     assert np.isfinite(float(terms2["loss_all"])) and int(state.tx.count) == 2
 
 
-def test_mesh_paths_wait():
+def test_mesh_paths_wait(tmp_path):
+    """The mesh= paths run: on a mesh of one CPU rank the train and eval
+    steps give the single-process steps' terms and params exactly, and a
+    Trainer builds on it (2 ranks against JAX's sharded steps:
+    tests/test_torch_parallel_train.py)."""
+    from giga_tpu_torch.parallel import distributed
+    from giga_tpu_torch.parallel.mesh import make_mesh
+
     net, cfg = init_network("giga_geo", seed=0)
-    for make in (tt.make_train_step, tt.make_eval_step):
-        with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
-            make(net, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
-        tt.Trainer(net, cfg, None, mesh=object())
+    b = batch(1)
+    assert distributed.initialize(f"file://{tmp_path / 'rendezvous'}", 1, 0, device="cpu",
+                                  timeout=60)
+    try:
+        mesh = make_mesh(1, device="cpu")
+        out = {}
+        for m in (None, mesh):
+            state = tt.create_train_state(init_network("giga_geo", seed=0)[0], device="cpu")
+            state, terms = tt.make_train_step(net, cfg, mesh=m)(state, b)
+            out[m] = state, terms, tt.make_eval_step(net, cfg, mesh=m)(state.params, b)
+        (s0, t0, e0), (s1, t1, e1) = out[None], out[mesh]
+        assert set(t1) == set(t0) and set(e1) == set(e0)
+        for k in t0:
+            assert float(t1[k]) == float(t0[k]), k
+        for k in e0:
+            assert float(e1[k]) == float(e0[k]), k
+        for k, v in s0.params.items():
+            assert torch.equal(s1.params[k], v), k
+        assert tt.Trainer(net, cfg, None, mesh=mesh).writes
+    finally:
+        distributed.shutdown()
 
 
 def test_full_precision_nests_in_fp32_step():

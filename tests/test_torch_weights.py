@@ -114,7 +114,8 @@ def test_port_imports_without_jax():
     visualization, training, mesh generation, the grid family, the point
     and crop models, geometry evaluation on dataset scenes, the simulator,
     the clutter-removal experiments, the renderers, the rollout saver, the
-    data-generation chain and the CLIs. Using the geometry
+    data-generation chain, the CLIs, the parallel layer and the timing
+    utilities. Using the geometry
     library there loads the port's build and never the JAX package's
     giga_tpu/geometry/_native.so."""
     assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
@@ -149,7 +150,10 @@ def test_port_imports_without_jax():
             "giga_tpu_torch.scripts.generate_data_parallel",
             "giga_tpu_torch.scripts.clean_balance_data",
             "giga_tpu_torch.scripts.construct_dataset_parallel",
-            "giga_tpu_torch.scripts.save_occ_data_parallel"} <= set(_modules())
+            "giga_tpu_torch.scripts.save_occ_data_parallel", "giga_tpu_torch.parallel",
+            "giga_tpu_torch.parallel.distributed", "giga_tpu_torch.parallel.mesh",
+            "giga_tpu_torch.parallel.dryrun", "giga_tpu_torch.utils.benchmark",
+            "giga_tpu_torch.utils.profiling"} <= set(_modules())
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'optax', 'orbax', 'pandas', 'giga_tpu'):\n"
@@ -193,7 +197,10 @@ def test_port_sources_name_no_jax_package():
             *(PACKAGE / "scripts" / f"{name}.py" for name in (
                 "sim_grasp_multiple", "sim_grasp_save_scene", "render_rollouts",
                 "generate_data_parallel", "clean_balance_data", "construct_dataset_parallel",
-                "save_occ_data_parallel"))} <= set(files)
+                "save_occ_data_parallel")),
+            *(PACKAGE / "parallel" / f"{name}.py" for name in (
+                "__init__", "distributed", "mesh", "dryrun")),
+            PACKAGE / "utils" / "benchmark.py", PACKAGE / "utils" / "profiling.py"} <= set(files)
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
