@@ -11,7 +11,7 @@ reference scripts/train_{giga,giga_aff,giga_geo,vgn}.py unified).
 
 Run from the repository root. Defaults match the reference: Adam lr 2e-4,
 batch 32, 10 epochs, 0.9/0.1 split. The weights start from
-``init_network(net, seed)`` (seeded, without the JAX package) or from
+``reference_init(net, seed)`` (the JAX package's ``net.init`` rules) or from
 ``--load-path`` (.msgpack or the reference's .pt). ``--orbax`` keeps the
 params, optimizer state and epoch for resuming (Trainer's ``save_state``).
 Training runs on the card unless ``--device`` says otherwise.
@@ -40,7 +40,7 @@ def main(args) -> None:
     import torch
 
     from giga_tpu_torch.core.config import TrainConfig
-    from giga_tpu_torch.models.registry import init_network, load_network
+    from giga_tpu_torch.models.registry import get_network, load_network, reference_init
     from giga_tpu_torch.train.data import (
         PrefetchLoader,
         create_train_val_loaders,
@@ -61,7 +61,8 @@ def main(args) -> None:
     if args.load_path:
         net, model_cfg = load_network(args.load_path, args.net)
     else:
-        net, model_cfg = init_network(args.net, args.seed)
+        net, model_cfg = get_network(args.net)
+        reference_init(net, args.seed)
     train_cfg = TrainConfig(net=args.net, batch_size=args.batch_size, lr=args.lr,
                             epochs=args.epochs, val_split=args.val_split, augment=args.augment,
                             seed=args.seed)

@@ -20,8 +20,8 @@ eval_synthetic_gsr's protocol over ``--eval-reps`` seeds (the raw params
 and their EMA), then a greedy soup of the scored checkpoints; giga_geo by
 held-out occupancy accuracy. Checkpoints are flax ``.msgpack`` files; the
 validation history goes next to ``--out``. The weights start from
-``init_network(net, seed)``. Training runs on the card unless ``--device``
-says otherwise.
+``reference_init(net, seed)``, the JAX package's ``net.init`` rules.
+Training runs on the card unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def main(args) -> int:
     from giga_tpu_torch.core.device import resolve_device
     from giga_tpu_torch.models.checkpoint import save_params
     from giga_tpu_torch.models.convert import state_dict_to_flax
-    from giga_tpu_torch.models.registry import init_network
+    from giga_tpu_torch.models.registry import get_network, reference_init
     from giga_tpu_torch.train.corpus import (
         CorpusSampler,
         assemble_batch,
@@ -85,7 +85,8 @@ def main(args) -> int:
     print(f"corpus: {n_scenes} scenes, {corpus_np['grasp_label'].shape[1]} grasps/scene, "
           f"positive fraction {corpus_np['grasp_label'].mean():.3f}", flush=True)
 
-    net, cfg = init_network(args.net, args.seed)
+    net, cfg = get_network(args.net)
+    reference_init(net, args.seed)
     is_geo = getattr(cfg, "tsdf_only", False)
     state = create_train_state(net, lr=cosine_decay_schedule(args.lr, args.steps, alpha=0.02),
                                clip_norm=1.0, skip_nonfinite=True, device=device)
