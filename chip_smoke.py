@@ -199,6 +199,17 @@ Phases (any failure exits non-zero; nothing is caught):
      programs. Each rank's program, gather, train step and all-reduce ms by
      CUDA events; the gloo times of ranks that share one card measure
      correctness and overhead, not scaling.
+ 38. the end-to-end learning self-check (``selfcheck_phase``):
+     giga_tpu_torch/scripts/selfcheck_e2e.py's protocol, training from
+     scratch (``reference_init``) on synthetic scenes. geo mode at the JAX
+     script's defaults (24 scenes, 8,192 occupancy points, B=8 x 1,024, 400
+     steps, lr 2e-4, clip 1.0), gated by the held-out scene's IoU >= 0.5;
+     giga mode at SELFCHECK_GIGA's scale, gated by the top-10 oracle GSR >=
+     30 % with a median surface distance under 60 mm. K1-K5's counters
+     zeroed just before each training run and read after (no launch), and
+     before the planning call (K3 once, the others never). The loss every
+     50 steps, ms a step by CUDA events, the dataset's host seconds and the
+     phase's seconds.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -334,6 +345,12 @@ TOL_TRAIN_PARAM = 5e-5
 TRAIN_LR = 2e-4
 ADAM_STEP = 1.01
 TOL_TRAIN_BF16_LOSS = 3e-2
+# the end-to-end learning self-check (phase 38): the JAX script's gates and
+# defaults (scripts/selfcheck_e2e.py:181-201); giga mode at the scale whose
+# GSR the JAX package documents (CLAUDE.md: --steps 3000 --n-scenes 40
+# --n-grasps 160)
+SELFCHECK_GEO = ()
+SELFCHECK_GIGA = ("--steps", "3000", "--n-scenes", "40", "--n-grasps", "160")
 # mesh generation (phase 27): the shipped GIGA-Geo checkpoint in bench.py's
 # settings (resolution0 32 with 2 upsampling steps, the 129^3 band program,
 # one scene and a batch of MESH_BATCH; 3 steps, the 257^3 refine chain) on
@@ -4348,6 +4365,84 @@ def parallel_phase(card, scenes) -> dict:
     return out
 
 
+def selfcheck_phase(card, device: str = "cuda") -> dict:
+    """Phase 38: giga_tpu_torch/scripts/selfcheck_e2e.py's protocol in geo
+    mode (SELFCHECK_GEO's flags) and giga mode (SELFCHECK_GIGA's), each
+    trained from scratch with ``reference_init``: K1-K5's counters zeroed
+    just before training and read after (no launch: training reaches no
+    kernel of this package), then the gate, which raises on a miss (geo:
+    IoU, giga: GSR and median surface distance, with K3 once in the
+    planning call and K1, K2, K4, K5 never). Prints the loss every 50 steps
+    and the last, ms a step by CUDA events over the whole loop (batch draw
+    and upload included), the dataset's host seconds and the mode's
+    seconds. Returns the readings of each mode."""
+    import torch
+
+    from giga_tpu_torch.models.registry import get_network, reference_init
+    from giga_tpu_torch.scripts import selfcheck_e2e as sc
+    from giga_tpu_torch.train.trainer import make_train_step
+
+    out = {}
+    for mode, flags in (("geo", SELFCHECK_GEO), ("giga", SELFCHECK_GIGA)):
+        args = sc.parser().parse_args(["--mode", mode, "--device", device, *flags])
+        t_mode = time.perf_counter()
+        scenes, tsdfs, occ_pts, occ_lbls = sc.build_dataset(
+            args.n_scenes, sc.SIZE, sc.RESOLUTION, args.n_occ, args.seed)
+        grasps = (sc.build_grasp_labels(scenes, sc.SIZE, args.n_grasps, args.seed)
+                  if mode == "giga" else None)
+        data_s = time.perf_counter() - t_mode
+        net, cfg = get_network("giga" if mode == "giga" else "giga_geo")
+        reference_init(net, args.seed)
+        state = sc.make_state(net, args, device)
+        step = make_train_step(net, cfg)
+        zero_kernel_counts(all_five=True)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, losses = sc.train_loop(state, step, (tsdfs, occ_pts, occ_lbls, grasps), args,
+                                      log=lambda m: None)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / args.steps
+        train_counts = kernel_counts(all_five=True)
+        if any(train_counts.values()):
+            raise AssertionError(f"selfcheck {mode}: training launched {train_counts}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"selfcheck {mode}: non-finite loss {losses}")
+        print(f"phase 38: selfcheck {mode}: loss " + ", ".join(
+            f"step {i} {v:.4f}" for i, v in losses.items()) + f" | {card}")
+        if mode == "giga":
+            zero_kernel_counts(all_five=True)
+            ok, gate = sc.check_planner(state.module, cfg, scenes[-1], tsdfs[-1], sc.SIZE,
+                                        args, device, card)
+            torch.cuda.synchronize()
+            counts = kernel_counts(all_five=True)
+            if counts != {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0}:
+                raise AssertionError(f"selfcheck giga: the planning call launched {counts}")
+            gate["launches"] = counts
+            what = (f"top-{args.top_k} GSR {gate['gsr']:.1f} % (threshold {args.gsr_threshold}), "
+                    f"median surface distance {gate['median_mm']:.2f} mm (under 60), "
+                    f"{gate['grasps']} grasps, launches {counts}")
+        else:
+            ok, gate = sc.check_geometry(state.module, scenes[-1], tsdfs[-1], sc.SIZE, args,
+                                         device)
+            counts = kernel_counts(all_five=True)
+            if any(counts.values()):
+                raise AssertionError(f"selfcheck geo: reconstruction launched {counts}")
+            what = (f"IoU {gate['iou']:.4f} (threshold {args.iou_threshold}), F-score "
+                    f"{gate['f-score']:.4f}, Chamfer-L1 {gate['chamfer-L1']:.5f}")
+        if not ok:
+            raise AssertionError(f"selfcheck {mode} failed its gate: {what}")
+        secs = time.perf_counter() - t_mode
+        out[mode] = dict(gate, step_ms=step_ms, data_s=data_s, seconds=secs, steps=args.steps,
+                         losses=losses)
+        print(f"phase 38: selfcheck {mode} PASSED: {what}; {args.steps} steps of B={args.batch} "
+              f"x {args.batch_occ} points on {args.n_scenes - 1} scenes, {step_ms:.3f} ms a step "
+              f"(CUDA events over the loop), dataset {data_s:.2f} s (host), phase {secs:.1f} s, "
+              f"training launched {train_counts} | {card}")
+    return out
+
+
 def rollout_phase(card, device: str = "cuda") -> dict:
     """Phase 36: rollout capture and render. sim_grasp_save_scene (GIGA fp32,
     one round of 3 objects, a snapshot every 8 steps) on ``device``, its
@@ -4737,6 +4832,7 @@ def main() -> int:
     rollout_s = rollout_phase(card)
     sim_phases_s = time.perf_counter() - t0
     parallel_s = parallel_phase(card, scenes)
+    selfcheck = selfcheck_phase(card)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -4788,6 +4884,12 @@ def main() -> int:
     print(f"parallelism (phase 37): NCCL, {torch.cuda.device_count()} rank(s), "
           f"{parallel_s['nccl']:.1f} s; gloo, 4 ranks on card 0, {parallel_s['gloo']:.1f} s | "
           f"{card}")
+
+    print("end-to-end self-check (phase 38): " + "; ".join(
+        f"{m} {v['steps']} steps {v['step_ms']:.3f} ms a step, dataset {v['data_s']:.2f} s, "
+        f"phase {v['seconds']:.1f} s" for m, v in selfcheck.items())
+        + f", geo IoU {selfcheck['geo']['iou']:.4f}, giga GSR {selfcheck['giga']['gsr']:.1f} % "
+        f"(median {selfcheck['giga']['median_mm']:.2f} mm) | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",
