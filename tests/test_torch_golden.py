@@ -207,7 +207,7 @@ def golden_train_arrays() -> dict:
     batch = {k: jnp.asarray(v) for k, v in train_batch().items()}
     loss_fn = make_loss_fn(_with_sampler(net, cfg, "mm"), cfg)
     with jax.default_matmul_precision("highest"):
-        _, grads = jax.value_and_grad(loss_fn, has_aux=True)(state.params, batch)
+        _, grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(state.params, batch)
     grads = {k: v.numpy() for k, v in flax_to_state_dict(jax.device_get(grads)).items()}
     terms, params = [], []
     for _ in range(chip_smoke.GOLDEN_TRAIN_STEPS):

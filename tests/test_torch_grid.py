@@ -85,7 +85,8 @@ def f64(tree):
 
 
 def jax_ref(fn, params, *args):
-    """(fn(params, *args) in float32, the same in float64) as numpy trees."""
+    """(fn(params, *args) in float32, the same in float64) as numpy trees;
+    ``fn`` jitted by the caller, so each precision is one program."""
     f32 = jax.device_get(fn(params, *(jnp.asarray(a) for a in args)))
     with jax.enable_x64(True):
         d = jax.device_get(fn(f64(params), *(jnp.asarray(np.asarray(a, np.float64))
@@ -109,7 +110,7 @@ def grid_params():
     """JAX's seeded giga_grid params (PRNGKey 0), the golden file's."""
     jnet, _ = jax_get_network("giga_grid")
     z, p = jnp.zeros((1, 40, 40, 40)), jnp.zeros((1, 1, 3))
-    return jax.device_get(jnet.init(jax.random.PRNGKey(0), z, p, p))
+    return jax.device_get(jax.jit(jnet.init)(jax.random.PRNGKey(0), z, p, p))
 
 
 @pytest.fixture(scope="module")
@@ -134,13 +135,13 @@ def test_unet3d_matches_jax(size):
     odd one (pooled 25 -> 12, resized back by the JAX index formula)."""
     ju = JUNet3D(4, f_maps=8, num_levels=2)
     x = np.random.RandomState(size).rand(2, size, size, size, 4).astype(np.float32)
-    params = jax.device_get(ju.init(jax.random.PRNGKey(1), jnp.asarray(x)))
+    params = jax.device_get(jax.jit(ju.init)(jax.random.PRNGKey(1), jnp.asarray(x)))
     sd = {}
     _unet3d_state_dict(sd, "u", params["params"])
     net = UNet3D(4, 4, f_maps=8, num_levels=2)
     net.load_state_dict({k[2:]: v for k, v in _tensors(sd).items()})
     with jax.default_matmul_precision("highest"):
-        ref32, ref64 = jax_ref(ju.apply, params, x)
+        ref32, ref64 = jax_ref(jax.jit(ju.apply), params, x)
     with torch.no_grad():
         got = net(torch.from_numpy(x)).numpy()
     assert got.shape == ref64.shape == (2, size, size, size, 4)
@@ -187,7 +188,7 @@ def test_encoder_grid_branch_matches_jax(res):
                                      EncoderConfig(unet3d=UNet3DConfig(**u3), **kw),
                                      (2, res, res, res))
     with jax.default_matmul_precision("highest"):
-        ref32, ref64 = jax_ref(jenc.apply, params, x)
+        ref32, ref64 = jax_ref(jax.jit(jenc.apply), params, x)
     with torch.no_grad():
         got = enc(torch.from_numpy(x))["grid"].numpy()
     assert got.shape == (2, 8, 8, 8, 8)
@@ -214,12 +215,13 @@ def test_giga_grid_forward_matches_jax(grid_params, grid_net):
     """GIGANet's forward (encode, affordance and occupancy at points) on a
     random TSDF and on chip_smoke's first scene."""
     jnet, _ = jax_get_network("giga_grid")
+    apply = jax.jit(jnet.apply)  # one program a precision for both TSDFs
     rng = np.random.RandomState(0)
     p = rng.uniform(-0.5, 0.5, (1, 64, 3)).astype(np.float32)
     for name, tsdf in (("random", rng.rand(1, 40, 40, 40).astype(np.float32)),
                        ("scene", chip_smoke.make_scenes(1))):
         with jax.default_matmul_precision("highest"):
-            ref32, ref64 = jax_ref(jnet.apply, grid_params, tsdf, p, p)
+            ref32, ref64 = jax_ref(apply, grid_params, tsdf, p, p)
         with torch.no_grad():
             got = grid_net(torch.from_numpy(tsdf), torch.from_numpy(p), torch.from_numpy(p))
         assert set(got) == set(ref64) == {"qual", "rot", "width", "occ"}

@@ -290,6 +290,7 @@ def test_adam_matches_optax(kw):
     tx = _optax_chain(params, **kw)
     jp = jax.tree.map(jnp.asarray, params)
     opt_state = tx.init(jp)
+    update = jax.jit(tx.update)  # one program a step, not an op-by-op dispatch
     tp = [torch.from_numpy(params[k].copy()) for k in shapes]
     adam = tt.Adam(tp, **kw)
     skip = kw.get("skip_nonfinite", False)
@@ -300,7 +301,7 @@ def test_adam_matches_optax(kw):
             g["a"][0, 0] = np.inf if i % 2 else np.nan
         before = [t.clone() for t in tp] + [t.clone() for t in adam.mu + adam.nu]
         count = int(adam.count)
-        updates, opt_state = tx.update(jax.tree.map(jnp.asarray, g), opt_state, jp)
+        updates, opt_state = update(jax.tree.map(jnp.asarray, g), opt_state, jp)
         jp = jax.tree.map(lambda p, u: p + u, jp, updates)
         adam.update(tp, [torch.from_numpy(g[k]) for k in shapes])
         for t, k in zip(tp, shapes):
