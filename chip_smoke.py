@@ -4365,7 +4365,7 @@ def parallel_phase(card, scenes) -> dict:
     return out
 
 
-def selfcheck_phase(card, device: str = "cuda") -> dict:
+def selfcheck_phase(card, device: str = "cuda", modes=None) -> dict:
     """Phase 38: giga_tpu_torch/scripts/selfcheck_e2e.py's protocol in geo
     mode (SELFCHECK_GEO's flags) and giga mode (SELFCHECK_GIGA's), each
     trained from scratch with ``reference_init``: K1-K5's counters zeroed
@@ -4383,7 +4383,7 @@ def selfcheck_phase(card, device: str = "cuda") -> dict:
     from giga_tpu_torch.train.trainer import make_train_step
 
     out = {}
-    for mode, flags in (("geo", SELFCHECK_GEO), ("giga", SELFCHECK_GIGA)):
+    for mode, flags in (modes or {"geo": SELFCHECK_GEO, "giga": SELFCHECK_GIGA}).items():
         args = sc.parser().parse_args(["--mode", mode, "--device", device, *flags])
         t_mode = time.perf_counter()
         scenes, tsdfs, occ_pts, occ_lbls = sc.build_dataset(

@@ -65,6 +65,27 @@ def host_ms(fn, reps: int) -> float:
     return float(np.median(ts))
 
 
+def marked(gen, fn):
+    """(``fn()``'s outputs, {stage: ms}): the program's stage marks
+    (``gen.marks``, CUDA events) as times from the previous mark, the first
+    from an event recorded just before ``fn``; no stages on the CPU."""
+    import torch
+
+    if gen.device.type != "cuda":
+        return fn(), {}
+    gen.marks = []
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    torch.cuda.synchronize()
+    marks, gen.marks = gen.marks, None
+    times, prev = {}, start
+    for name, ev in marks:
+        times[name] = prev.elapsed_time(ev)
+        prev = ev
+    return out, times
+
+
 def split_call(gen, grids: np.ndarray, simplify_nfaces: int) -> dict:
     """One reconstruction of ``grids`` ((R, R, R), or (B, R, R, R) for the
     batched band program) split by stage, in ms: encode, program and fetch

@@ -1,5 +1,6 @@
 """The port's command-line scripts (giga_tpu_torch/scripts/): ``--help`` of
-the GSR evaluation and the three training CLIs, as tests/test_scripts.py
+the GSR evaluation, the training CLIs, the data chain, the end-to-end
+self-check and the root diagnostics' counterparts, as tests/test_scripts.py
 checks the JAX package's; a tiny build_corpus -> train_corpus run on the
 CPU, the corpus shards equal to those of the JAX package's build_corpus on
 the same arguments and the checkpoint readable by the JAX package; and the
@@ -21,7 +22,9 @@ for path in (REPO, REPO / "scripts"):
 
 CLIS = ["eval_synthetic_gsr", "build_corpus", "train", "train_corpus", "sim_grasp_multiple",
         "sim_grasp_save_scene", "render_rollouts", "generate_data_parallel",
-        "clean_balance_data", "construct_dataset_parallel", "save_occ_data_parallel"]
+        "clean_balance_data", "construct_dataset_parallel", "save_occ_data_parallel",
+        "selfcheck_e2e", "profile_geo", "profile_postprocess", "profile_vgn", "measure_meshgen",
+        "diag_meshgen128", "diagnose_meshgen256", "profile_meshgen256"]
 
 
 @pytest.mark.parametrize("name", CLIS)

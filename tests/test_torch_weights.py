@@ -114,8 +114,8 @@ def test_port_imports_without_jax():
     visualization, training, mesh generation, the grid family, the point
     and crop models, geometry evaluation on dataset scenes, the simulator,
     the clutter-removal experiments, the renderers, the rollout saver, the
-    data-generation chain, the CLIs, the parallel layer and the timing
-    utilities. Using the geometry
+    data-generation chain, the CLIs, the parallel layer, the timing
+    utilities, the end-to-end self-check and the root diagnostics. Using the geometry
     library there loads the port's build and never the JAX package's
     giga_tpu/geometry/_native.so."""
     assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
@@ -153,7 +153,12 @@ def test_port_imports_without_jax():
             "giga_tpu_torch.scripts.save_occ_data_parallel", "giga_tpu_torch.parallel",
             "giga_tpu_torch.parallel.distributed", "giga_tpu_torch.parallel.mesh",
             "giga_tpu_torch.parallel.dryrun", "giga_tpu_torch.utils.benchmark",
-            "giga_tpu_torch.utils.profiling"} <= set(_modules())
+            "giga_tpu_torch.utils.profiling", "giga_tpu_torch.scripts.selfcheck_e2e",
+            "giga_tpu_torch.scripts.profile_geo", "giga_tpu_torch.scripts.profile_postprocess",
+            "giga_tpu_torch.scripts.profile_vgn", "giga_tpu_torch.scripts.measure_meshgen",
+            "giga_tpu_torch.scripts.diag_meshgen128",
+            "giga_tpu_torch.scripts.diagnose_meshgen256",
+            "giga_tpu_torch.scripts.profile_meshgen256"} <= set(_modules())
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'optax', 'orbax', 'pandas', 'giga_tpu'):\n"
@@ -200,7 +205,11 @@ def test_port_sources_name_no_jax_package():
                 "save_occ_data_parallel")),
             *(PACKAGE / "parallel" / f"{name}.py" for name in (
                 "__init__", "distributed", "mesh", "dryrun")),
-            PACKAGE / "utils" / "benchmark.py", PACKAGE / "utils" / "profiling.py"} <= set(files)
+            PACKAGE / "utils" / "benchmark.py", PACKAGE / "utils" / "profiling.py",
+            *(PACKAGE / "scripts" / f"{name}.py" for name in (
+                "selfcheck_e2e", "profile_geo", "profile_postprocess", "profile_vgn",
+                "measure_meshgen", "diag_meshgen128", "diagnose_meshgen256",
+                "profile_meshgen256"))} <= set(files)
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
