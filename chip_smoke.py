@@ -204,8 +204,10 @@ Phases (any failure exits non-zero; nothing is caught):
      scratch (``reference_init``) on synthetic scenes. geo mode at the JAX
      script's defaults (24 scenes, 8,192 occupancy points, B=8 x 1,024, 400
      steps, lr 2e-4, clip 1.0), gated by the held-out scene's IoU >= 0.5;
-     giga mode at SELFCHECK_GIGA's scale, gated by the top-10 oracle GSR >=
-     30 % with a median surface distance under 60 mm. K1-K5's counters
+     giga mode at the same defaults (64 grasps a scene), gated by the
+     top-10 oracle GSR >= 30 % with a median surface distance under 60 mm;
+     cuDNN's deterministic algorithms on for the phase, so a run repeats
+     its losses and gates on one card. K1-K5's counters
      zeroed just before each training run and read after (no launch), and
      before the planning call (K3 once, the others never). The loss every
      50 steps, ms a step by CUDA events, the dataset's host seconds and the
@@ -346,11 +348,12 @@ TRAIN_LR = 2e-4
 ADAM_STEP = 1.01
 TOL_TRAIN_BF16_LOSS = 3e-2
 # the end-to-end learning self-check (phase 38): the JAX script's gates and
-# defaults (scripts/selfcheck_e2e.py:181-201); giga mode at the scale whose
+# defaults (scripts/selfcheck_e2e.py:181-201) in both modes. The scale whose
 # GSR the JAX package documents (CLAUDE.md: --steps 3000 --n-scenes 40
-# --n-grasps 160)
+# --n-grasps 160) took 5 minutes of the phase on the card, so it runs once
+# through the script instead (PERF.md, PR 20)
 SELFCHECK_GEO = ()
-SELFCHECK_GIGA = ("--steps", "3000", "--n-scenes", "40", "--n-grasps", "160")
+SELFCHECK_GIGA = ()
 # mesh generation (phase 27): the shipped GIGA-Geo checkpoint in bench.py's
 # settings (resolution0 32 with 2 upsampling steps, the 129^3 band program,
 # one scene and a batch of MESH_BATCH; 3 steps, the 257^3 refine chain) on
@@ -4375,7 +4378,22 @@ def selfcheck_phase(card, device: str = "cuda", modes=None) -> dict:
     planning call and K1, K2, K4, K5 never). Prints the loss every 50 steps
     and the last, ms a step by CUDA events over the whole loop (batch draw
     and upload included), the dataset's host seconds and the mode's
-    seconds. Returns the readings of each mode."""
+    seconds. cuDNN's deterministic algorithms are on for the phase (the
+    flag restored after), so two runs on one card train alike. Returns the
+    readings of each mode."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _selfcheck_modes(card, device, modes or {"geo": SELFCHECK_GEO,
+                                                        "giga": SELFCHECK_GIGA})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _selfcheck_modes(card, device: str, modes: dict) -> dict:
+    """selfcheck_phase's body: each mode's run and gate."""
     import torch
 
     from giga_tpu_torch.models.registry import get_network, reference_init
@@ -4383,7 +4401,7 @@ def selfcheck_phase(card, device: str = "cuda", modes=None) -> dict:
     from giga_tpu_torch.train.trainer import make_train_step
 
     out = {}
-    for mode, flags in (modes or {"geo": SELFCHECK_GEO, "giga": SELFCHECK_GIGA}).items():
+    for mode, flags in modes.items():
         args = sc.parser().parse_args(["--mode", mode, "--device", device, *flags])
         t_mode = time.perf_counter()
         scenes, tsdfs, occ_pts, occ_lbls = sc.build_dataset(
@@ -4420,7 +4438,8 @@ def selfcheck_phase(card, device: str = "cuda", modes=None) -> dict:
             if counts != {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0}:
                 raise AssertionError(f"selfcheck giga: the planning call launched {counts}")
             gate["launches"] = counts
-            what = (f"top-{args.top_k} GSR {gate['gsr']:.1f} % (threshold {args.gsr_threshold}), "
+            what = (f"top-{min(args.top_k, gate['grasps'])} GSR {gate['gsr']:.1f} % "
+                    f"(threshold {args.gsr_threshold}), "
                     f"median surface distance {gate['median_mm']:.2f} mm (under 60), "
                     f"{gate['grasps']} grasps, launches {counts}")
         else:
