@@ -42,23 +42,14 @@ TOL_AGREE = 2e-5  # mm against gather at highest, |a - b| <= tol * (1 + |b|)
 PRECISIONS = ("highest", "tf32", "bf16")
 
 
-def leaves(out) -> list:
-    """The tensors of a result: a tensor, or dicts / tuples / lists of them."""
-    import torch
-
-    if isinstance(out, torch.Tensor):
-        return [out]
-    if isinstance(out, dict):
-        out = list(out.values())
-    return [t for x in out for t in leaves(x)] if isinstance(out, (list, tuple)) else []
-
-
 def reduce_all(out):
     """The sum of every finite entry of every output tensor, in float32."""
     import torch
 
+    from giga_tpu_torch.utils.benchmark import _leaves
+
     return sum(torch.nan_to_num(t.float(), nan=0.0, posinf=0.0, neginf=0.0).sum()
-               for t in leaves(out))
+               for t in _leaves(out))
 
 
 def chain_ms(fn, x, inner: int, repeats: int) -> float:
@@ -115,6 +106,7 @@ def main(argv=None) -> int:
     from giga_tpu_torch.models.registry import get_network, reference_init
     from giga_tpu_torch.ops.sampling import sample_planes_concat_mm
     from giga_tpu_torch.scripts.profile_batched import card_line
+    from giga_tpu_torch.utils.benchmark import _leaves
 
     device = resolve_device("cpu" if args.cpu else args.device)
     card = card_line(device)
@@ -170,7 +162,7 @@ def main(argv=None) -> int:
                 outs[name] = fn(grid)
     agree = {"features": scaled_err(outs["+sample_mm[highest]"], outs["+sample"]),
              "logits": scaled_err(outs["+trunk_mm[highest] (full)"], outs["+trunk (full)"])}
-    if not all(torch.isfinite(t.float()).all() for o in outs.values() for t in leaves(o)):
+    if not all(torch.isfinite(t.float()).all() for o in outs.values() for t in _leaves(o)):
         raise AssertionError("a stage gave non-finite outputs")
     if not max(agree.values()) <= TOL_AGREE:
         raise AssertionError(f"mm against gather at highest: {agree} > {TOL_AGREE} * (1 + |b|)")

@@ -97,7 +97,8 @@ def main(argv=None) -> int:
     from giga_tpu_torch.inference.planner import lattice_positions
     from giga_tpu_torch.ops.filters import gaussian_blur_3d, max_filter_3d
     from giga_tpu_torch.scripts.profile_batched import card_line
-    from giga_tpu_torch.scripts.profile_geo import chain_ms, leaves
+    from giga_tpu_torch.scripts.profile_geo import chain_ms
+    from giga_tpu_torch.utils.benchmark import _leaves
 
     device = resolve_device(args.device)
     card = card_line(device)
@@ -146,9 +147,9 @@ def main(argv=None) -> int:
         blur_err = float((out["blur taps (correlate)"] - out["blur matmul"]).abs().max())
         nms_equal = bool(torch.equal(out[f"nms dense {size}^3 window"],
                                      out["nms separable 3x1D"]))
-        ref = leaves(out["postprocess blur=matmul nms=sep"])
+        ref = _leaves(out["postprocess blur=matmul nms=sep"])
         nms_post_equal = all(torch.equal(a, b) for a, b in
-                             zip(leaves(out["postprocess blur=matmul nms=dense"]), ref))
+                             zip(_leaves(out["postprocess blur=matmul nms=dense"]), ref))
         counts = [int(c) for c in out["postprocess blur=matmul nms=sep"].count.cpu()]
     if not blur_err <= TOL_BLUR:
         raise AssertionError(f"blur taps against the matrix form: {blur_err} > {TOL_BLUR}")
