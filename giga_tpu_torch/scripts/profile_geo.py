@@ -93,32 +93,19 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-
+def build_stages(net, cfg, pts) -> list:
+    """[(name, precision, fn(grid) -> outputs)] of the query program's
+    prefixes on ``net`` (and a bf16 copy of it) at the points ``pts``."""
     import copy
     import dataclasses
 
     import torch
 
-    from giga_tpu_torch.core.device import resolve_device
     from giga_tpu_torch.models.decoder import query_planes
-    from giga_tpu_torch.models.registry import get_network, reference_init
     from giga_tpu_torch.ops.sampling import sample_planes_concat_mm
-    from giga_tpu_torch.scripts.profile_batched import card_line
-    from giga_tpu_torch.utils.benchmark import _leaves
 
-    device = resolve_device("cpu" if args.cpu else args.device)
-    card = card_line(device)
-    net, cfg = get_network("giga_geo")
-    net = reference_init(net, 3).to(device).eval()
-    nets = {"highest": net, "tf32": net,
-            "bf16": copy.deepcopy(net).to(torch.bfloat16)}
-    rng = np.random.RandomState(0)
-    grid = torch.from_numpy(rng.rand(1, 40, 40, 40).astype(np.float32)).to(device)
-    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, args.n, 3)).astype(np.float32)).to(device)
+    nets = {"highest": net, "tf32": net, "bf16": copy.deepcopy(net).to(torch.bfloat16)}
     dec = cfg.decoder
-
     gather_dec = dataclasses.replace(dec, sampler="gather")
 
     def encode(n, g):
@@ -151,9 +138,19 @@ def main(argv=None) -> int:
               ("+sample", "highest", lambda g: query_planes(encode(net, g), pts, gather_dec)),
               ("+trunk (full)", "highest", gather_full)]
     for p in PRECISIONS:
-        fns = stage_fns(nets[p])
         stages += list(zip((f"encode[{p}]", f"+sample_mm[{p}]", f"+trunk_mm[{p}] (full)"),
-                           (p,) * 3, fns))
+                           (p,) * 3, stage_fns(nets[p])))
+    return stages
+
+
+def check_variants(stages, grid) -> tuple:
+    """Run every stage once; raise unless all outputs are finite and the mm
+    features and logits at highest lie within TOL_AGREE * (1 + |b|) of the
+    gather's. Returns ({features, logits}: that distance, {precision: its
+    logits' distance from highest's})."""
+    import torch
+
+    from giga_tpu_torch.utils.benchmark import _leaves
 
     outs = {}
     with torch.inference_mode():
@@ -168,6 +165,27 @@ def main(argv=None) -> int:
         raise AssertionError(f"mm against gather at highest: {agree} > {TOL_AGREE} * (1 + |b|)")
     distance = {p: scaled_err(outs[f"+trunk_mm[{p}] (full)"], outs["+trunk_mm[highest] (full)"])
                 for p in PRECISIONS[1:]}
+    return agree, distance
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+
+    import torch
+
+    from giga_tpu_torch.core.device import resolve_device
+    from giga_tpu_torch.models.registry import get_network, reference_init
+    from giga_tpu_torch.scripts.profile_batched import card_line
+
+    device = resolve_device("cpu" if args.cpu else args.device)
+    card = card_line(device)
+    net, cfg = get_network("giga_geo")
+    net = reference_init(net, 3).to(device).eval()
+    rng = np.random.RandomState(0)
+    grid = torch.from_numpy(rng.rand(1, 40, 40, 40).astype(np.float32)).to(device)
+    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, args.n, 3)).astype(np.float32)).to(device)
+    stages = build_stages(net, cfg, pts)
+    agree, distance = check_variants(stages, grid)
     print(f"N={args.n}: mm against gather at highest, features {agree['features']:.3g}, logits "
           f"{agree['logits']:.3g} * (1 + |b|) (tol {TOL_AGREE}); logits from highest's: "
           + ", ".join(f"{p} {d:.3g}" for p, d in distance.items()) + f" | {card}")

@@ -46,6 +46,46 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def fused_heads(net):
+    """f(x) -> (qual, rot, width): the three heads of ``net`` as ONE 6-channel
+    k5 conv of the trunk's features, its bias inside the conv (the JAX
+    script's fused form)."""
+    import torch
+    import torch.nn.functional as F
+
+    from giga_tpu_torch.models.conv_onet import normalize_quat
+    from giga_tpu_torch.models.vgn import HEADS
+
+    fk = torch.cat([getattr(net, h).weight for h in HEADS])
+    fb = torch.cat([getattr(net, h).bias for h in HEADS])
+
+    def heads(x):
+        out = F.conv3d(x, fk, fb, padding=2)
+        return torch.sigmoid(out[:, 0]), normalize_quat(out[:, 1:5], dim=1), out[:, 5]
+
+    return heads
+
+
+def fused_qual_error(net, grid) -> float:
+    """max |qual| difference of the fused form against the shipped program's
+    raw qual volume, both at highest (TF32 off); raises past TOL_FUSED."""
+    import torch
+
+    from giga_tpu_torch.core.config import PlannerConfig
+    from giga_tpu_torch.core.precision import full_precision
+    from giga_tpu_torch.inference.planner import build_vgn_planner_fn
+
+    with torch.inference_mode():
+        with full_precision():
+            fused = fused_heads(net)(net.trunk(grid[None]))[0][0]
+        shipped = build_vgn_planner_fn(net, PlannerConfig(), SIZE, precision="highest",
+                                       return_raw=True)(grid, grid)[1][0]
+        err = float((fused - shipped).abs().max())
+    if not err <= TOL_FUSED:
+        raise AssertionError(f"fused qual against the shipped program's: {err} > {TOL_FUSED}")
+    return err
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
@@ -59,9 +99,8 @@ def main(argv=None) -> int:
     from giga_tpu_torch.core.precision import full_precision, tf32_precision
     from giga_tpu_torch.inference.planner import build_vgn_planner_fn, lattice_positions
     from giga_tpu_torch.inference.postprocess import bound_quality, mask_quality, select_grasps
-    from giga_tpu_torch.models.conv_onet import normalize_quat
     from giga_tpu_torch.models.registry import get_network, reference_init
-    from giga_tpu_torch.models.vgn import HEADS, upsample2
+    from giga_tpu_torch.models.vgn import upsample2
     from giga_tpu_torch.scripts.profile_batched import card_line
     from giga_tpu_torch.scripts.profile_geo import chain_ms
 
@@ -131,24 +170,9 @@ def main(argv=None) -> int:
     report("encoder+decoder+heads", chain(lambda g: net(g[None])))
 
     # 5. the three heads as one 6-channel conv, the bias inside it
-    fk = torch.cat([getattr(net, h).weight for h in HEADS])
-    fb = torch.cat([getattr(net, h).bias for h in HEADS])
-
-    def fused_full(g):
-        out = F.conv3d(enc_dec(g), fk, fb, padding=2)
-        return torch.sigmoid(out[:, 0]), normalize_quat(out[:, 1:5], dim=1), out[:, 5]
-
-    report("enc+dec+fused heads", chain(fused_full))
-
-    with torch.inference_mode():
-        with full_precision():
-            fused_qual = fused_full(grid)[0][0]
-        shipped = build_vgn_planner_fn(net, PlannerConfig(), SIZE, precision="highest",
-                                       return_raw=True)
-        shipped_qual = shipped(grid, grid)[1][0]
-        err = float((fused_qual - shipped_qual).abs().max())
-    if not err <= TOL_FUSED:
-        raise AssertionError(f"fused qual against the shipped program's: {err} > {TOL_FUSED}")
+    heads = fused_heads(net)
+    report("enc+dec+fused heads", chain(lambda g: heads(enc_dec(g))))
+    err = fused_qual_error(net, grid)
     print(f"fused-head qual within {err:.3g} of the shipped program's at highest (tol "
           f"{TOL_FUSED}) | {card}")
     print(json.dumps({"script": "profile_vgn", "card": card, "ms": ms, "fused_qual_err": err}))

@@ -20,13 +20,17 @@ JAX's rule, not to its numbers:
 JAX's parameters depend only on module paths and channel widths, not on
 the input's size, so each preset's JAX init runs on an 8^3 volume with its
 plane and grid resolutions cut to 8 (test_reduced_init_is_the_full_one
-holds that premise on one preset). ``seed_weights``, which the kernel and
-parity tests use, is unchanged: one hash of its giga weights.
+holds that premise on giga_grid against the golden file's full-size init).
+The crop model's case covers its patch encoder and patch decoder.
+``seed_weights``, which the kernel and parity tests use, is unchanged: one
+hash of its giga weights. The port's side runs on one torch thread.
 """
 
 import dataclasses
+import functools
 import hashlib
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -54,6 +58,9 @@ from giga_tpu_torch.models.convert import flax_to_state_dict
 from giga_tpu_torch.models.crop import CropOccupancyNet
 from giga_tpu_torch.models.encoder import GlobalVoxelEncoder
 from giga_tpu_torch.models.registry import get_network, reference_init, seed_weights
+from torch_sim import one_torch_thread  # noqa: F401  (autouse)
+
+import chip_smoke  # noqa: E402
 
 PRESETS = ["giga", "giga_aff", "giga_geo", "giga_detach", "giga_wide", "giga_grid", "vgn"]
 SEED_WEIGHTS_GIGA_SHA256 = "f826dc8b3926058fef0eedac9aff969eecee7c691e224b64d83129a582a9db93"
@@ -124,13 +131,13 @@ def _jax_small(net, cfg):
     return JGIGANet(cfg), cfg
 
 
-def jax_preset_init(name: str, small: bool = True) -> dict:
-    net, cfg = jax_get_network(name)
-    if small:
-        net, cfg = _jax_small(net, cfg)
-    shape = (1, 8, 8, 8) if small else (1, 40, 40, 40)
+@functools.lru_cache(maxsize=None)
+def jax_preset_init(name: str) -> dict:
+    """JAX's ``create_train_state(..., PRNGKey(0))`` params of a preset, its
+    plane and grid resolutions cut to 8 (the same parameters)."""
+    net, cfg = _jax_small(*jax_get_network(name))
     return jax.device_get(jax_create_train_state(net, cfg, jax.random.PRNGKey(0),
-                                                 tsdf_shape=shape).params)
+                                                 tsdf_shape=(1, 8, 8, 8)).params)
 
 
 @pytest.mark.parametrize("name", PRESETS)
@@ -146,13 +153,24 @@ def test_preset_follows_jax_init(name):
 
 
 def test_reduced_init_is_the_full_one():
-    small, full = jax_preset_init("giga_geo"), jax_preset_init("giga_geo", small=False)
-    for a, b in zip(jax.tree.leaves(small), jax.tree.leaves(full)):
-        np.testing.assert_array_equal(a, b)
+    """giga_grid at resolution 8 gives the params that
+    golden_plan_giga_grid.npz stores from JAX's ``net.init(PRNGKey(0))`` on
+    a 40^3 volume (tests/test_torch_grid_golden.py keeps that file current)."""
+    stored = np.load(Path(__file__).resolve().parents[1] / chip_smoke.GOLDEN_GRID)
+    full = chip_smoke.flatten_params(chip_smoke.unflatten_params(
+        {k: stored[k] for k in stored.files}))
+    small = chip_smoke.flatten_params(jax_preset_init("giga_grid"))
+    assert sorted(small) == sorted(full)
+    for k, v in full.items():
+        np.testing.assert_array_equal(small[k], v, err_msg=k)
 
 
-def test_init_is_seeded_and_device_free():
-    a, b, c = (reference_init(get_network("giga_geo")[0], s).state_dict() for s in (3, 3, 4))
+def test_init_is_seeded():
+    def draw(seed):
+        return reference_init(tpn.LocalPoolPointnet(EncoderConfig(plane_resolution=16),
+                                                    hidden_dim=8, n_blocks=3), seed).state_dict()
+
+    a, b, c = draw(3), draw(3), draw(4)
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     assert any(not torch.equal(a[k], c[k]) for k in a if a[k].any())
@@ -174,16 +192,8 @@ def _point_cases():
                                           n_blocks=3),
             lambda: tpn.LocalPoolPointnet(EncoderConfig(plane_resolution=16), hidden_dim=8,
                                           n_blocks=3), (p,)),
-        "patch_local_pool_pointnet": (
-            lambda: jpn.PatchLocalPoolPointnet(JEncoderConfig(plane_resolution=8), hidden_dim=8,
-                                               n_blocks=2),
-            lambda: tpn.PatchLocalPoolPointnet(EncoderConfig(plane_resolution=8), hidden_dim=8,
-                                               n_blocks=2), (p + 0.5, idx8)),
         "fc_decoder": (lambda: jdec.FCDecoder(JDecoderConfig()),
                        lambda: tdec.FCDecoder(DecoderConfig()), (planes32, p)),
-        "patch_local_decoder": (lambda: jdec.PatchLocalDecoder(JDecoderConfig(c_dim=96)),
-                                lambda: tdec.PatchLocalDecoder(DecoderConfig(c_dim=96)),
-                                (p + 0.5, p_n, planes96)),
         "local_point_decoder": (
             lambda: jdec.LocalPointDecoder(JDecoderConfig(c_dim=16, concat_feat=False)),
             lambda: tdec.LocalPointDecoder(DecoderConfig(c_dim=16, concat_feat=False)),

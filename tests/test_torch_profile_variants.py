@@ -1,37 +1,46 @@
 """The variant pairs of the port's stage profilers
 (giga_tpu_torch/scripts/profile_{geo,postprocess,vgn}.py) on the CPU at a
-tiny size, each with the tolerance its script asserts:
+tiny size, through the functions the scripts assert with and their own
+tolerances (the timings run only on the card):
 
-* profile_geo: the mm sampler's features and logits at ``highest`` within
-  2e-5 * (1 + |b|) of the gather sampler's (the script's run, 500 points);
+* profile_geo: every stage of the query program once, the mm sampler's
+  features and logits at ``highest`` within 2e-5 * (1 + |b|) of the gather
+  sampler's (``check_variants``, 64 points);
 * profile_postprocess: the blur as taps within 1e-6 of the matrix form
-  (``ops.filters.gaussian_blur_3d``), and the dense 4^3 window equal to
+  (``ops.filters.gaussian_blur_3d``); the dense window equal to
   ``max_filter_3d``, on random volumes and on volumes full of ties; the
-  script's run at B=2;
+  postprocess with the dense window giving the shipped one's candidates;
 * profile_vgn: the fused 6-channel head's qual within 1e-5 of the shipped
-  program's (the script's run).
+  program's (``fused_qual_error``).
 """
 
-import json
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from giga_tpu_torch.core.config import PlannerConfig
+from giga_tpu_torch.inference import postprocess as post
+from giga_tpu_torch.inference.planner import lattice_positions
+from giga_tpu_torch.models.registry import get_network, reference_init
 from giga_tpu_torch.ops.filters import gaussian_blur_3d, max_filter_3d
 from giga_tpu_torch.scripts import profile_geo, profile_postprocess, profile_vgn
+from torch_sim import one_torch_thread  # noqa: F401  (autouse)
 
 
-def last_json(capsys) -> dict:
-    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-
-
-def test_profile_geo_mm_agrees_with_gather(capsys):
-    assert profile_geo.main(["--cpu", "--n", "500", "--repeats", "1", "--n-hi", "2"]) == 0
-    out = last_json(capsys)
-    assert max(out["agree"].values()) <= profile_geo.TOL_AGREE
-    assert set(out["distance_from_highest"]) == {"tf32", "bf16"}
-    assert {"encode", "+sample", "+trunk (full)", "+trunk_mm[bf16] (full)"} <= set(out["ms"])
+def test_profile_geo_mm_agrees_with_gather():
+    net, cfg = get_network("giga_geo")
+    net = reference_init(net, 3).eval()
+    rng = np.random.RandomState(0)
+    grid = torch.from_numpy(rng.rand(1, 40, 40, 40).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 64, 3)).astype(np.float32))
+    stages = profile_geo.build_stages(net, cfg, pts)
+    assert [n for n, _, _ in stages][:3] == ["encode", "+sample", "+trunk (full)"]
+    assert len(stages) == 3 + 3 * len(profile_geo.PRECISIONS)
+    agree, distance = profile_geo.check_variants(stages, grid)
+    assert max(agree.values()) <= profile_geo.TOL_AGREE
+    assert set(distance) == {"tf32", "bf16"} and distance["tf32"] == 0.0  # no TF32 on a CPU
 
 
 @pytest.mark.parametrize("shape,ties", [((2, 9, 7, 8), False), ((1, 6, 6, 6), True)])
@@ -47,16 +56,33 @@ def test_blur_and_nms_forms_agree(shape, ties):
         assert torch.equal(profile_postprocess.nms_dense(v, size), max_filter_3d(v, size))
 
 
-def test_profile_postprocess_run(capsys):
-    assert profile_postprocess.main(["--device", "cpu", "--batch", "2", "--repeats", "1",
-                                     "--n-hi", "2"]) == 0
-    out = last_json(capsys)
-    assert out["blur_err"] <= profile_postprocess.TOL_BLUR and out["nms_equal"]
-    assert "chain: +select (full)" in out["ms"]
+def test_postprocess_with_the_dense_window_equals_the_shipped_one():
+    """The script's swap of the postprocess's max filter on 2 scenes of 12^3
+    whose thresholds leave candidates: the same candidates."""
+    R = 12
+    rng = np.random.RandomState(1)
+    cfg = dataclasses.replace(PlannerConfig(resolution=R), qual_th=0.5, low_th=0.1,
+                              force_detection=True, min_width=0.0, max_width=1.0)
+    qual = torch.from_numpy(rng.rand(2, R, R, R).astype(np.float32))
+    tsdf = torch.from_numpy(rng.rand(2, R, R, R).astype(np.float32))
+    rot = torch.from_numpy(rng.rand(2, R, R, R, 4).astype(np.float32))
+    width = torch.from_numpy(rng.rand(2, R, R, R).astype(np.float32) * 0.8)
+    positions = lattice_positions((torch.arange(R, dtype=torch.float32) + 0.5) / R)
+
+    def candidates(nms):
+        with profile_postprocess.swapped(post, gaussian_blur_3d, nms):
+            m = post.bound_quality(post.mask_quality(qual, tsdf, width, cfg), 0.3 / R, cfg)
+            return post.select_grasps_batched(m, rot, width, positions, cfg)
+
+    got, ref = candidates(profile_postprocess.nms_dense), candidates(max_filter_3d)
+    assert int(ref.count.sum()) > 0
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert post.max_filter_3d is max_filter_3d  # the swap is undone
 
 
-def test_profile_vgn_fused_head_matches_shipped(capsys):
-    assert profile_vgn.main(["--device", "cpu", "--inner", "1", "--repeats", "1"]) == 0
-    out = last_json(capsys)
-    assert out["fused_qual_err"] <= profile_vgn.TOL_FUSED
-    assert {"plan highest", "plan default", "plan bf16", "enc+dec+fused heads"} <= set(out["ms"])
+def test_profile_vgn_fused_head_matches_shipped():
+    net, _ = get_network("vgn")
+    net = reference_init(net, 0).eval()
+    grid = torch.from_numpy(np.random.RandomState(0).rand(40, 40, 40).astype(np.float32))
+    assert profile_vgn.fused_qual_error(net, grid) <= profile_vgn.TOL_FUSED

@@ -20,6 +20,8 @@
   points): it prints SELFCHECK, exits 0 at ``--iou-threshold
   0`` and 1 at 1.01, and ``--save-params`` writes the trained weights as a
   file the JAX package's ``load_params`` reads back equal.
+
+The port's side runs on one torch thread.
 """
 
 import argparse
@@ -38,6 +40,7 @@ from giga_tpu_torch.models.convert import flax_to_state_dict, state_dict_to_flax
 from giga_tpu_torch.models.registry import get_network
 from giga_tpu_torch.scripts import selfcheck_e2e as tsc
 from giga_tpu_torch.train.trainer import make_train_step
+from torch_sim import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("jax_selfcheck_e2e",
