@@ -238,7 +238,7 @@ def test_forward(sampler):
     jnet, params, net = small_nets(sampler)
     tsdf, p, p_occ = scenes()
     got = net(_t(tsdf), _t(p), _t(p_occ))
-    ref = jnet.apply(params, jnp.asarray(tsdf), jnp.asarray(p), jnp.asarray(p_occ))
+    ref = jax.jit(jnet.apply)(params, jnp.asarray(tsdf), jnp.asarray(p), jnp.asarray(p_occ))
     assert sorted(got) == sorted(ref) == ["occ", "qual", "rot", "width"]
     for k in ref:
         assert tuple(got[k].shape) == ref[k].shape
@@ -303,7 +303,7 @@ def test_occupancy_gradient_reaches_encoder_unless_detached(detach):
     def jloss(prm):
         return jnet.apply(prm, jnp.asarray(tsdf), None, jnp.asarray(p_occ))["occ"].sum()
 
-    jgrads = jax.grad(jloss)(params)["params"]["encoder"]
+    jgrads = jax.jit(jax.grad(jloss))(params)["params"]["encoder"]
     jnorm = float(sum(jnp.abs(g).sum() for g in jax.tree.leaves(jgrads)))
     enc = list(net.encoder.parameters())
     grads = torch.autograd.grad(net(_t(tsdf), None, _t(p_occ))["occ"].sum(), enc,

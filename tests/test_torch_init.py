@@ -21,7 +21,9 @@ JAX's parameters depend only on module paths and channel widths, not on
 the input's size, so each preset's JAX init runs on an 8^3 volume with its
 plane and grid resolutions cut to 8 (test_reduced_init_is_the_full_one
 holds that premise on giga_grid against the golden file's full-size init).
-The crop model's case covers its patch encoder and patch decoder.
+The crop model's case covers its patch encoder and patch decoder. The
+point models' JAX inits run as one jitted program each (faster than op by
+op for them; the presets share their ops, so theirs run op by op).
 ``seed_weights``, which the kernel and parity tests use, is unchanged: one
 hash of its giga weights. The port's side runs on one torch thread.
 """
@@ -218,10 +220,7 @@ def test_point_model_follows_jax_init(case):
     (TorchDense, ResnetBlockFC, SharedMLP, their U-Nets), at
     tests/test_torch_pointnet.py's and test_torch_crop.py's sizes."""
     jax_ctor, port_ctor, args = _point_cases()[case]
-    init = jax_ctor().init
-    if case == "pointnetpp":  # its sampling loops run faster as one program
-        init = jax.jit(init)
-    ref = jax.device_get(init(jax.random.PRNGKey(0), *args))
+    ref = jax.device_get(jax.jit(jax_ctor().init)(jax.random.PRNGKey(0), *args))
     net = reference_init(port_ctor(), 0)
     counts = check_rule(net.state_dict(), flax_to_state_dict(ref))
     assert counts["uniform"] > 0
