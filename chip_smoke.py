@@ -351,7 +351,7 @@ TOL_TRAIN_BF16_LOSS = 3e-2
 # defaults (scripts/selfcheck_e2e.py:181-201) in both modes. The scale whose
 # GSR the JAX package documents (CLAUDE.md: --steps 3000 --n-scenes 40
 # --n-grasps 160) took 5 minutes of the phase on the card, so it runs once
-# through the script instead (PERF.md, PR 20)
+# through the script instead (PERF.md §6)
 SELFCHECK_GEO = ()
 SELFCHECK_GIGA = ()
 # mesh generation (phase 27): the shipped GIGA-Geo checkpoint in bench.py's
