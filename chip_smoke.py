@@ -212,6 +212,14 @@ Phases (any failure exits non-zero; nothing is caught):
      before the planning call (K3 once, the others never). The loss every
      50 steps, ms a step by CUDA events, the dataset's host seconds and the
      phase's seconds.
+ 39. giga at the scale the JAX package documents (40 scenes, 160 grasps a
+     scene; ``selfcheck_scale_phase``) from JAX's own PRNGKey(0) weights
+     (giga_tpu_torch/testdata/golden_selfcheck_giga.npz): the first 16
+     steps' loss terms within a bound measured on the CPU of the JAX
+     script's and the same steps skipped, no kernel launched; then JAX's
+     weights after its 3,000 steps plan the JAX script's grasps on the
+     held-out scene with the same oracle labels and GSR (K3 once, the
+     others never).
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -354,6 +362,23 @@ TOL_TRAIN_BF16_LOSS = 3e-2
 # through the script instead (PERF.md §6)
 SELFCHECK_GEO = ()
 SELFCHECK_GIGA = ()
+# phase 39: giga training at that documented scale from JAX's own initial
+# weights (giga_tpu_torch/scripts/selfcheck_scale.py's GOLDEN, written by
+# JAX's script on the CPU: its params at PRNGKey(0), each loss term and
+# skip of its first SELFCHECK_GOLDEN_STEPS steps, its params and planner
+# result after all 3000). The card's first SELFCHECK_TRAJ_STEPS steps are
+# held to JAX's: every term within TOL_SELFCHECK_TRAJ * (1 + |b|) and the
+# same steps skipped. The bound is measured: on the CPU the port's terms
+# from JAX's init lie 1.06e-7 * (1 + |b|) from JAX's at step 1, 1.85e-4 at
+# step 10, 8.84e-4 at steps 14-16 and 2.96e-3 at step 17, past 1e-3; the
+# port nudged one ulp a weight drifts from itself as fast (8.77e-4 at step
+# 16, past 1e-3 at 17): float32 rounding carries this training off, so N is
+# 16, not the golden's 200, and the bound 4x the CPU's 8.84e-4 (`python3 -m
+# giga_tpu_torch.scripts.selfcheck_scale --device cpu --init golden
+# --trajectory 40 --control`)
+SELFCHECK_GOLDEN_STEPS = 200
+SELFCHECK_TRAJ_STEPS = 16
+TOL_SELFCHECK_TRAJ = 3.5e-3
 # mesh generation (phase 27): the shipped GIGA-Geo checkpoint in bench.py's
 # settings (resolution0 32 with 2 upsampling steps, the 129^3 band program,
 # one scene and a batch of MESH_BATCH; 3 steps, the 257^3 refine chain) on
@@ -4462,6 +4487,107 @@ def _selfcheck_modes(card, device: str, modes: dict) -> dict:
     return out
 
 
+def selfcheck_scale_phase(card, device: str = "cuda") -> dict:
+    """Phase 39: the giga self-check at the scale the JAX package documents,
+    from JAX's own weights (selfcheck_scale.GOLDEN). The documented data
+    (selfcheck_e2e's ``build_dataset`` and ``build_grasp_labels``), JAX's
+    PRNGKey(0) params loaded, SELFCHECK_TRAJ_STEPS steps of ``train_loop`` on
+    ``device`` with cuDNN deterministic: each step's loss terms within
+    TOL_SELFCHECK_TRAJ * (1 + |b|) of the JAX script's, the same steps
+    skipped as non-finite, and no kernel launched. Then JAX's params after
+    its 3000 steps plan on the held-out scene through ``check_planner``: the
+    JAX script's grasps (``compare_grasps``: positions, quaternions, widths
+    and scores within TOL_SCORE), the same oracle labels and GSR, surface
+    distances within TOL_SCORE (the positions' bound), with K3 once and K1,
+    K2, K4, K5 never (on the card). Returns the readings."""
+    import torch
+
+    from giga_tpu_torch.core.grasp import Grasp
+    from giga_tpu_torch.core.transform import Rotation, Transform
+    from giga_tpu_torch.models.registry import get_network
+    from giga_tpu_torch.scripts import selfcheck_e2e as sc
+    from giga_tpu_torch.scripts import selfcheck_scale as ss
+
+    root = Path(__file__).resolve().parent
+    golden = np.load(root / ss.GOLDEN)
+    steps = SELFCHECK_TRAJ_STEPS
+    args = ss.parser().parse_args(["--device", device, "--steps", str(steps)])
+    cuda = torch.device(device).type == "cuda"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t_phase = time.perf_counter()
+        scenes, tsdfs, occ_pts, occ_lbls = sc.build_dataset(
+            args.n_scenes, sc.SIZE, sc.RESOLUTION, args.n_occ, args.seed)
+        grasps = sc.build_grasp_labels(scenes, sc.SIZE, args.n_grasps, args.seed)
+        data_s = time.perf_counter() - t_phase
+        net, cfg = get_network("giga")
+        net.load_state_dict(ss.golden_state_dict(golden, "init/"))
+        zero_kernel_counts(all_five=True)
+        state, rec, step_ms = ss.train(net, cfg, (tsdfs, occ_pts, occ_lbls, grasps), args,
+                                       device, log=lambda m: None)
+        train_counts = kernel_counts(all_five=True)
+        if any(train_counts.values()):
+            raise AssertionError(f"phase 39: training launched {train_counts}")
+        del state, net
+        env = ss.envelope(rec, ss.golden_traj(golden), steps)
+        ref_skips = np.asarray(golden["traj/skipped"][:steps])
+        readings = {"steps": steps, "envelope": float(env[-1]), "data_s": data_s,
+                    "step_ms": step_ms, "skipped": int(rec["skipped"].sum()),
+                    "jax_skipped": int(ref_skips.sum()),
+                    "saturated": int(rec["saturated"].sum())}
+        print(f"phase 39: {steps} steps of B={args.batch} x {args.batch_occ} points from JAX's "
+              f"PRNGKey(0) params: envelope of the loss terms against JAX's "
+              + ", ".join(f"step {i} {env[i - 1]:.3e}" for i in (1, 10, 50, 100, steps)
+                          if i <= steps)
+              + f" (bound {TOL_SELFCHECK_TRAJ}); skipped {readings['skipped']} (JAX "
+              f"{readings['jax_skipped']}); {step_ms:.3f} ms a step, dataset {data_s:.2f} s "
+              f"(host) | {card}")
+        if not env[-1] <= TOL_SELFCHECK_TRAJ:
+            raise AssertionError(f"phase 39: the trajectory left its bound: {env[-1]} > "
+                                 f"{TOL_SELFCHECK_TRAJ} (first over it at step "
+                                 f"{int(np.argmax(env > TOL_SELFCHECK_TRAJ)) + 1})")
+        if not np.array_equal(rec["skipped"], ref_skips):
+            raise AssertionError(f"phase 39: skipped steps {np.flatnonzero(rec['skipped'])} "
+                                 f"against JAX's {np.flatnonzero(ref_skips)}")
+
+        net, cfg = get_network("giga")
+        net.load_state_dict(ss.golden_state_dict(golden, "trained/params/"))
+        zero_kernel_counts(all_five=True)
+        _, gate = sc.check_planner(net, cfg, scenes[-1], tsdfs[-1], sc.SIZE, args, device, card)
+        if cuda:
+            torch.cuda.synchronize()
+        counts = kernel_counts(all_five=True)
+        if cuda and counts != {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0}:
+            raise AssertionError(f"phase 39: the planning call launched {counts}")
+        ref = ([Grasp(Transform(Rotation.from_quat(q), p), w) for p, q, w in
+                zip(golden["trained/pos"], golden["trained/quat"], golden["trained/width"])],
+               list(golden["trained/score"]))
+        readings["worst"] = compare_grasps(gate["plan"], ref, SIZE / RESOLUTION,
+                                           "phase 39: JAX's trained params")
+        dist = float(np.abs(np.asarray(gate["dists"]) - golden["trained/dists"]).max())
+        readings["dist_err"] = dist
+        # a surface distance moves no farther than its grasp's position
+        if not (np.array_equal(np.asarray(gate["labels"]), golden["trained/labels"])
+                and gate["gsr"] == float(golden["trained/gsr"]) and dist <= TOL_SCORE):
+            raise AssertionError(f"phase 39: labels {gate['labels']}, GSR {gate['gsr']}, "
+                                 f"distances {gate['dists']} against JAX's "
+                                 f"{golden['trained/labels'].tolist()}, "
+                                 f"{golden['trained/gsr']}, "
+                                 f"{golden['trained/dists'].tolist()}")
+        readings.update(grasps=gate["grasps"], gsr=gate["gsr"], median_mm=gate["median_mm"],
+                        launches=counts, seconds=time.perf_counter() - t_phase)
+        print(f"phase 39: JAX's 3000-step params plan JAX's {gate['grasps']} grasps on the "
+              f"held-out scene (worst difference {readings['worst']}, distances "
+              f"{dist}), top-"
+              f"{min(args.top_k, gate['grasps'])} GSR {gate['gsr']:.1f} %, median "
+              f"{gate['median_mm']:.2f} mm, launches {counts}; phase "
+              f"{readings['seconds']:.1f} s | {card}")
+        return readings
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def rollout_phase(card, device: str = "cuda") -> dict:
     """Phase 36: rollout capture and render. sim_grasp_save_scene (GIGA fp32,
     one round of 3 objects, a snapshot every 8 steps) on ``device``, its
@@ -4852,6 +4978,7 @@ def main() -> int:
     sim_phases_s = time.perf_counter() - t0
     parallel_s = parallel_phase(card, scenes)
     selfcheck = selfcheck_phase(card)
+    scale = selfcheck_scale_phase(card)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -4909,6 +5036,12 @@ def main() -> int:
         f"phase {v['seconds']:.1f} s" for m, v in selfcheck.items())
         + f", geo IoU {selfcheck['geo']['iou']:.4f}, giga GSR {selfcheck['giga']['gsr']:.1f} % "
         f"(median {selfcheck['giga']['median_mm']:.2f} mm) | {card}")
+    print(f"documented-scale self-check from JAX's weights (phase 39): {scale['steps']} steps "
+          f"{scale['step_ms']:.3f} ms a step, envelope {scale['envelope']:.3e} (bound "
+          f"{TOL_SELFCHECK_TRAJ}), skipped {scale['skipped']} (JAX {scale['jax_skipped']}), "
+          f"dataset {scale['data_s']:.2f} s; JAX's trained params {scale['grasps']} grasps, GSR "
+          f"{scale['gsr']:.1f} %, median {scale['median_mm']:.2f} mm, K3 "
+          f"{scale['launches']['K3']}; phase {scale['seconds']:.1f} s | {card}")
 
     def entry(name, source, replaces, n, err, ms, plain, bnd):
         return {"name": name, "route": "cuda", "source": f"giga_tpu_torch/csrc/{source}",

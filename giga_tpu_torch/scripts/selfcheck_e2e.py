@@ -216,8 +216,10 @@ def check_geometry(net, test_mesh, test_tsdf, size, args, device):
 
 def check_planner(net, cfg, test_mesh, test_tsdf, size, args, device, card=""):
     """Plan on the held-out scene and score the top ``args.top_k`` grasps
-    with the oracle, the JAX script's draws. Returns (passed, {"grasps",
-    "gsr", "median_mm"})."""
+    with the oracle, the JAX script's draws. Returns (passed, {"grasps"
+    (their count), "gsr", "median_mm", "plan" (the planner's grasps and
+    scores), "labels" and "dists" (the top grasps' oracle labels and
+    surface distances in metres)})."""
     from scipy.spatial import cKDTree
 
     from giga_tpu_torch.inference.planner import GIGAPlanner, State
@@ -230,7 +232,8 @@ def check_planner(net, cfg, test_mesh, test_tsdf, size, args, device, card=""):
     print(f"planner returned {len(grasps)} grasps in {toc * 1e3:.1f} ms | {card}")
     if not grasps:
         print("SELFCHECK FAILED: no grasps returned")
-        return False, {"grasps": 0, "gsr": 0.0, "median_mm": float("inf")}
+        return False, {"grasps": 0, "gsr": 0.0, "median_mm": float("inf"),
+                       "plan": (grasps, scores), "labels": [], "dists": []}
 
     rng = np.random.RandomState(123)
     surf, _ = test_mesh.sample_surface(20000, rng=rng)
@@ -247,7 +250,8 @@ def check_planner(net, cfg, test_mesh, test_tsdf, size, args, device, card=""):
     print(f"SELFCHECK {'PASSED' if ok else 'FAILED'}: GSR {gsr:.0f}% "
           f"(threshold {args.gsr_threshold}%)")
     return ok, {"grasps": len(grasps), "gsr": float(gsr),
-                "median_mm": float(np.median(dists) * 1e3)}
+                "median_mm": float(np.median(dists) * 1e3), "plan": (grasps, scores),
+                "labels": labels, "dists": dists}
 
 
 def parser() -> argparse.ArgumentParser:

@@ -24,7 +24,7 @@ CLIS = ["eval_synthetic_gsr", "build_corpus", "train", "train_corpus", "sim_gras
         "sim_grasp_save_scene", "render_rollouts", "generate_data_parallel",
         "clean_balance_data", "construct_dataset_parallel", "save_occ_data_parallel",
         "selfcheck_e2e", "profile_geo", "profile_postprocess", "profile_vgn", "measure_meshgen",
-        "diag_meshgen128", "diagnose_meshgen256", "profile_meshgen256"]
+        "diag_meshgen128", "diagnose_meshgen256", "profile_meshgen256", "selfcheck_scale"]
 
 
 @pytest.mark.parametrize("name", CLIS)

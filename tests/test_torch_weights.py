@@ -115,7 +115,8 @@ def test_port_imports_without_jax():
     and crop models, geometry evaluation on dataset scenes, the simulator,
     the clutter-removal experiments, the renderers, the rollout saver, the
     data-generation chain, the CLIs, the parallel layer, the timing
-    utilities, the end-to-end self-check and the root diagnostics. Using the geometry
+    utilities, the end-to-end self-check, its documented-scale study and
+    the root diagnostics. Using the geometry
     library there loads the port's build and never the JAX package's
     giga_tpu/geometry/_native.so."""
     assert {"giga_tpu_torch.models.vgn", "giga_tpu_torch.ops.tsdf",
@@ -158,7 +159,8 @@ def test_port_imports_without_jax():
             "giga_tpu_torch.scripts.profile_vgn", "giga_tpu_torch.scripts.measure_meshgen",
             "giga_tpu_torch.scripts.diag_meshgen128",
             "giga_tpu_torch.scripts.diagnose_meshgen256",
-            "giga_tpu_torch.scripts.profile_meshgen256"} <= set(_modules())
+            "giga_tpu_torch.scripts.profile_meshgen256",
+            "giga_tpu_torch.scripts.selfcheck_scale"} <= set(_modules())
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'msgpack', 'optax', 'orbax', 'pandas', 'giga_tpu'):\n"
@@ -209,7 +211,7 @@ def test_port_sources_name_no_jax_package():
             *(PACKAGE / "scripts" / f"{name}.py" for name in (
                 "selfcheck_e2e", "profile_geo", "profile_postprocess", "profile_vgn",
                 "measure_meshgen", "diag_meshgen128", "diagnose_meshgen256",
-                "profile_meshgen256"))} <= set(files)
+                "profile_meshgen256", "selfcheck_scale"))} <= set(files)
     for f in files:
         hits = pattern.findall(f.read_text())
         assert not hits, (f, hits)
