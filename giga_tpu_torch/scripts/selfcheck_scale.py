@@ -5,7 +5,7 @@ than one held-out scene: a diagnostic, with no gate.
 
     python3 -m giga_tpu_torch.scripts.selfcheck_scale
         [--init golden|seed:S [...]] [--weights golden] [--trajectory N]
-        [--extra-scenes 8] [--extra-seed 1000] [--out PATH]
+        [--control] [--out PATH]
         [selfcheck_e2e's flags, at the documented scale by default]
         [--device cuda]
 
@@ -16,15 +16,17 @@ params in GOLDEN (``golden``: the JAX script's ``create_train_state(...,
 PRNGKey(0))``) or from ``reference_init(net, S)`` (``seed:S``); ``--weights
 golden`` scores JAX's params after its own 3000 steps, without training.
 Every run is scored by selfcheck_e2e's ``check_planner`` (its planner, its
-oracle, its draws) on the script's held-out scene and on ``--extra-scenes``
-more, ``build_dataset(M, ..., seed=--extra-seed)``: per scene the grasps,
-the top-``--top-k`` GSR and the median surface distance, then the mean and
-the spread over scenes. A run prints the loss every 50 steps, the steps
-skipped as non-finite (``steps - tx.count``: the port's Adam does not count
-a skipped step), the batches with a positive whose qual is exactly 1.0 and
-those with any qual exactly 1.0 or 0.0 (``saturation``), ms a step by CUDA
-events over the loop (batch draw and upload included) and the card's name
-and power limit.
+oracle, its draws) on the script's held-out scene and on EXTRA_SCENES
+more, ``build_dataset(EXTRA_SCENES, ..., seed=EXTRA_SEED)`` (scenes the
+training never sees): per scene the grasps, the top-``--top-k`` GSR and the
+median surface distance, then the mean and the spread over scenes. A run
+prints the loss every 50 steps, the steps skipped as non-finite (a step
+whose gradient was not finite: ``apply_if_finite``'s ``notfinite_count``
+above 0 after it, JAX's ``not last_finite``, which past 100 such steps in
+a row applies the update all the same), the batches with a positive whose
+qual is exactly 1.0 and those with any qual exactly 1.0 or 0.0, ms a step
+by CUDA events over the loop (batch draw and upload included) and the
+card's name and power limit.
 ``--out`` appends each run's readings as a JSON line.
 
 ``--trajectory N`` trains N steps from each ``--init`` and holds each
@@ -52,6 +54,9 @@ GOLDEN = "giga_tpu_torch/testdata/golden_selfcheck_giga.npz"
 DOCUMENTED = dict(mode="giga", steps=3000, n_scenes=40, n_grasps=160)
 TERMS = ("loss_all", "loss_qual", "loss_rot", "loss_width", "loss_occ")
 SATURATION = ("saturated_pos", "saturated")
+# the held-out scenes beyond the script's own: build_dataset's seed 1000
+EXTRA_SCENES = 8
+EXTRA_SEED = 1000
 
 
 def parser() -> argparse.ArgumentParser:
@@ -68,8 +73,6 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--control", action="store_true",
                    help="with --trajectory: also train from the weights nudged one ulp and "
                         "hold that run to the first")
-    p.add_argument("--extra-scenes", type=int, default=8)
-    p.add_argument("--extra-seed", type=int, default=1000)
     p.add_argument("--out", default="", help="append each run's readings here (JSON lines)")
     return p
 
@@ -90,34 +93,41 @@ def golden_state_dict(golden, prefix: str) -> dict:
     return flax_to_state_dict({"params": tree})
 
 
-def saturation(out: dict, batch: dict) -> dict:
-    """Whether the batch has a positive whose qual is exactly 1.0, and
-    whether any qual is exactly 1.0 or 0.0 (``make_train_step``'s
-    ``observe``). The BCE clamps log(p) and log1p(-p) at -100; at p == 1.0
-    (or 0.0) the clamped branch's gradient is 0 * inf = NaN whatever the
-    label, so such a batch's step is skipped."""
-    qual, label = out["qual"], batch["label"]
-    return {"saturated_pos": ((qual == 1.0) & (label == 1.0)).any(),
-            "saturated": ((qual == 1.0) | (qual == 0.0)).any()}
-
-
 def train(net, cfg, data, args, device, log=print) -> tuple:
     """``args.steps`` steps of selfcheck_e2e's ``train_loop`` from ``net``'s
     weights. Returns (state, {term or saturation flag: (steps,) array,
     "skipped": (steps,) bool}, ms a step). Every step's readings stay on
-    the device until the loop ends and come back in one copy."""
+    the device until the loop ends and come back in one copy.
+
+    A step is saturated when its batch has a positive whose qual is exactly
+    1.0 (``saturated_pos``) or any qual exactly 1.0 or 0.0 (``saturated``):
+    the BCE clamps log(p) and log1p(-p) at -100, and at p == 1.0 (or 0.0)
+    the clamped branch's gradient is 0 * inf = NaN whatever the label, so
+    such a step is skipped. The qual is read by a forward hook: the step
+    runs ``net``'s params through a twin of its class (the training
+    sampler's), so the hook is global, kept to that class, and removed when
+    the loop ends."""
     import torch
+    from torch.nn.modules.module import register_module_forward_hook
 
     from giga_tpu_torch.train.trainer import make_train_step
 
     state = sc.make_state(net, args, device)
-    step = make_train_step(net, cfg, observe=saturation)
+    step = make_train_step(net, cfg)
     keys = TERMS + SATURATION
-    rows = []
+    quals, rows = [], []
+
+    def keep_qual(module, inputs, out):
+        if isinstance(module, type(net)):
+            quals.append(out["qual"].detach()[:, 0])
 
     def recorded(state, batch):
         state, terms = step(state, batch)
-        rows.append([terms[k] for k in keys] + [state.tx.count])
+        qual = quals.pop()
+        label = torch.as_tensor(batch["label"], device=qual.device)
+        rows.append([terms[k] for k in TERMS]
+                    + [((qual == 1.0) & (label == 1.0)).any(),
+                       ((qual == 1.0) | (qual == 0.0)).any(), state.tx.notfinite_count])
         return state, terms
 
     cuda = torch.device(device).type == "cuda"
@@ -126,7 +136,11 @@ def train(net, cfg, data, args, device, log=print) -> tuple:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
     t0 = time.perf_counter()
-    state, _ = sc.train_loop(state, recorded, data, args, log=log)
+    handle = register_module_forward_hook(keep_qual)
+    try:
+        state, _ = sc.train_loop(state, recorded, data, args, log=log)
+    finally:
+        handle.remove()
     if cuda:
         end.record()
         end.synchronize()
@@ -136,8 +150,7 @@ def train(net, cfg, data, args, device, log=print) -> tuple:
     table = torch.stack([torch.stack([v.to(torch.float32) for v in r]) for r in rows])
     table = table.cpu().numpy().astype(np.float64)
     rec = {k: table[:, i] for i, k in enumerate(keys)}
-    count = table[:, -1]
-    rec["skipped"] = np.diff(count, prepend=0.0) == 0
+    rec["skipped"] = table[:, -1] > 0
     for k in SATURATION:
         rec[k] = rec[k] > 0
     return state, rec, ms
@@ -225,9 +238,9 @@ def main(argv=None) -> int:
         args.n_scenes, sc.SIZE, sc.RESOLUTION, args.n_occ, args.seed)
     grasps = sc.build_grasp_labels(scenes, sc.SIZE, args.n_grasps, args.seed) if inits else None
     held_out = [(scenes[-1], tsdfs[-1])]
-    if not args.trajectory and args.extra_scenes:
+    if not args.trajectory and EXTRA_SCENES:
         extra, extra_tsdfs, _, _ = sc.build_dataset(
-            args.extra_scenes, sc.SIZE, sc.RESOLUTION, args.n_occ, args.extra_seed)
+            EXTRA_SCENES, sc.SIZE, sc.RESOLUTION, args.n_occ, EXTRA_SEED)
         held_out += list(zip(extra, extra_tsdfs))
     print(f"dataset built in {time.perf_counter() - t0:.2f} s (host); {len(held_out)} "
           f"held-out scenes | {card}", flush=True)

@@ -348,8 +348,7 @@ def _placer(mesh, axis: str):
 
 
 def make_train_step(net, cfg, mesh=None, axis: str = "dp", dtype=None,
-                    assemble=None, sampler: Optional[str] = "mm",
-                    observe: Optional[Callable] = None) -> Callable:
+                    assemble=None, sampler: Optional[str] = "mm") -> Callable:
     """step(state, batch) -> (state, terms): one Adam step, the state updated
     in place (the JAX step donates it), terms a dict of 0-d device tensors.
 
@@ -379,10 +378,6 @@ def make_train_step(net, cfg, mesh=None, axis: str = "dp", dtype=None,
     replicated, and the terms are the global batch's on every rank. With
     ``assemble`` the corpus is replicated (every rank holds it on its
     device) and ``sel`` is batch-sharded.
-
-    ``observe``: optional ``(outputs, batch) -> {name: 0-d device tensor}``
-    whose entries join the returned terms (this rank's, not reduced), for
-    a diagnostic that reads the heads' outputs of the step itself.
     """
     value_and_grad = make_value_and_grad(net, cfg, dtype, sampler)
     place, reduce = _placer(mesh, axis), _reducer(mesh, axis)
@@ -391,8 +386,6 @@ def make_train_step(net, cfg, mesh=None, axis: str = "dp", dtype=None,
         (loss, (terms, out)), grads = value_and_grad(state.params, batch)
         grads, terms = reduce(grads, {**terms, **_step_metrics(cfg, out, batch)})
         state.apply_gradients(grads)
-        if observe is not None:
-            terms.update(observe(out, batch))
         return state, terms
 
     if assemble is None:

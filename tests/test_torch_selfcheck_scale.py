@@ -274,7 +274,7 @@ def tiny():
 @pytest.mark.parametrize("qual_bias", [None, 30.0])
 def test_train_records_the_self_checks_steps(tiny, qual_bias):
     """selfcheck_scale.train records each step's terms of selfcheck_e2e's own
-    loop and step (``observe`` changes nothing: the same terms and params
+    loop and step (its qual hook changes nothing: the same terms and params
     as the plain step); with the qual head's bias at 30 every qual is
     exactly 1.0 (float32's sigmoid), every step's gradient is NaN, and each
     step is skipped, counted as saturated, and leaves the params as they
@@ -320,6 +320,48 @@ def test_train_records_the_self_checks_steps(tiny, qual_bias):
             np.testing.assert_array_equal(params[k].numpy(), sd[k].numpy(), err_msg=k)
 
 
+def test_train_records_a_skip_from_the_gradient_past_the_limit(tiny, monkeypatch):
+    """A step counts as skipped when its gradient is not finite, as JAX's
+    ``apply_if_finite`` records ``not last_finite``, even where the run of
+    non-finite steps has passed the limit and the update is applied: with
+    the limit at 1 and every qual at 1.0, step 1 is skipped and steps 2 and 3
+    apply their NaN updates (the step count advances), and all three count
+    as skipped."""
+    from giga_tpu_torch.models.registry import get_network
+    from giga_tpu_torch.train import trainer
+
+    args, data, sd = tiny
+    sd = dict(sd, **{"decoder_aff.fc_out_bias": sd["decoder_aff.fc_out_bias"].clone()})
+    sd["decoder_aff.fc_out_bias"][0, 0] = 30.0
+    monkeypatch.setattr(trainer, "MAX_CONSECUTIVE_ERRORS", 1)
+    net, cfg = get_network("giga")
+    net.load_state_dict(sd)
+    state, rec, _ = ssc.train(net, cfg, data, args, "cpu", log=lambda m: None)
+    assert int(state.tx.count) == args.steps - 1
+    assert rec["skipped"].tolist() == [True] * args.steps
+
+
+def test_phase_39_holds_each_step_to_its_own_bound():
+    """chip_smoke's phase 39 check: the golden's own trajectory passes; a
+    run whose terms move by 1e-4 at step 1 and not after it (TF32's size of
+    error in one step) fails at step 1, though it lies far inside the bound
+    of step 16; a run whose skips differ from JAX's fails."""
+    golden = np.load(GOLDEN)
+    ref = ssc.golden_traj(golden)
+    n = chip_smoke.SELFCHECK_TRAJ_STEPS
+    assert n <= chip_smoke.SELFCHECK_GOLDEN_STEPS == len(ref["loss_all"])
+    skips = ref["skipped"][:n]
+    chip_smoke.check_selfcheck_trajectory(ssc.envelope(ref, ref, n), skips, skips)
+    moved = {k: v.copy() for k, v in ref.items()}
+    moved["loss_occ"][0] += 1e-4 * (1 + abs(moved["loss_occ"][0]))
+    env = ssc.envelope(moved, ref, n)
+    assert env[-1] < chip_smoke.TOL_SELFCHECK_TRAJ[-1]
+    with pytest.raises(AssertionError, match="at step 1:"):
+        chip_smoke.check_selfcheck_trajectory(env, skips, skips)
+    with pytest.raises(AssertionError, match="skipped steps"):
+        chip_smoke.check_selfcheck_trajectory(ssc.envelope(ref, ref, n), ~skips, skips)
+
+
 def test_saturated_qual_gives_nan_gradient_in_both_packages():
     """The lead the skips are read against: a qual of exactly 1.0 (float32
     sigmoid of 20) gives a NaN gradient through both packages' BCE, for a
@@ -339,14 +381,14 @@ def test_saturated_qual_gives_nan_gradient_in_both_packages():
         assert float(jax.nn.sigmoid(jnp.float32(20.0))) == float(torch.sigmoid(x.detach())) == 1.0
 
 
-def test_cli_scores_every_held_out_scene(tiny, tmp_path, capsys):
+def test_cli_scores_every_held_out_scene(tiny, tmp_path, capsys, monkeypatch):
     """The CLI at TINY's size: a seeded run and JAX's trained weights, each
     scored on the held-out scene and one more, with its JSON line."""
     import json
 
     out = tmp_path / "runs.jsonl"
-    assert ssc.main([*TINY, "--init", "seed:1", "--weights", "golden", "--extra-scenes", "1",
-                     "--out", str(out)]) == 0
+    monkeypatch.setattr(ssc, "EXTRA_SCENES", 1)
+    assert ssc.main([*TINY, "--init", "seed:1", "--weights", "golden", "--out", str(out)]) == 0
     lines = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["run"] for r in lines] == ["init seed:1", "weights golden"]
     for r in lines:
