@@ -173,3 +173,26 @@ def test_train_and_plan_on_the_port_dataset(chains, tmp_path):
     grasps, scores, toc = planner(State(tsdf=grid))
     assert isinstance(grasps, list) and len(grasps) == len(scores) and toc > 0
     assert pickle.dumps(grasps)  # plain host objects
+
+
+def test_chain_occupancy_check_allows_only_float16_rounding():
+    """chip_smoke's occupancy check (phase 35): labels drawn at float32
+    points on a cube's face, stored as float16 as save_occ stores them, pass
+    though some read the other label at their stored value; a label flipped
+    at a point well inside the cube fails."""
+    import chip_smoke
+    from giga_tpu_torch.geometry.mesh import box_mesh
+    from giga_tpu_torch.geometry.native import check_mesh_contains
+
+    cube = box_mesh((0.05, 0.05, 0.05), center=(0.15, 0.15, 0.05))
+    x = 0.175 + np.linspace(-2e-4, 2e-4, 41)
+    pts = np.stack([x, np.full_like(x, 0.14), np.full_like(x, 0.04)], 1).astype(np.float32)
+    pts = np.concatenate([pts, np.array([[0.15, 0.14, 0.04]], np.float32)])
+    labels = check_mesh_contains(cube, pts)
+    points16 = pts.astype(np.float16)
+    assert (check_mesh_contains(cube, points16) != labels).any()
+    occupied, rounded = chip_smoke.check_occ_labels([cube], points16, labels, "face")
+    assert occupied == labels.sum() and rounded > 0
+    labels[-1] = ~labels[-1]
+    with pytest.raises(AssertionError, match="beyond float16 rounding"):
+        chip_smoke.check_occ_labels([cube], points16, labels, "inside")
