@@ -65,6 +65,7 @@ from giga_tpu_torch.inference.dense_decode import (
 from giga_tpu_torch.models.conv_onet import GIGANet
 from giga_tpu_torch.models.convert import flax_to_state_dict
 from giga_tpu_torch.ops.sampling import linspace_f32
+from giga_tpu_torch.utils.profiling import next_call, span
 
 OUTSIDE = -6.0e4     # float16-safe "outside" fill of the band's boundary pad
 GRID_OUTSIDE = -1e6  # extract_mesh's float64 boundary pad
@@ -80,6 +81,12 @@ def fetch(*tensors) -> list:
         ready.record(torch.cuda.current_stream(tensors[0].device))
         ready.synchronize()
     return [h.numpy() for h in host]
+
+
+def _mesh_counts(meshes) -> dict:
+    """A ``meshgen.marching`` span's counts of a batch's meshes."""
+    return {"meshes": len(meshes), "vertices": sum(len(m.vertices) for m in meshes),
+            "faces": sum(len(m.faces) for m in meshes)}
 
 
 def compact_mask(mask: torch.Tensor, k_half: int, k: int, sort: bool = False):
@@ -450,22 +457,38 @@ class MeshGenerator:
         of the whole batch in one program and one fetch. The refine chain
         runs its half-budget tier on the batch; a scene past a budget falls
         back alone (past the band budget, or to the full tier). Each
-        scene's stats are in ``batch_stats``."""
+        scene's stats are in ``batch_stats``.
+
+        Traced (utils/profiling.py) as sibling spans of one call:
+        ``meshgen.upload`` (``bytes``), ``meshgen.enqueue`` (the band or
+        refine program's launches), ``meshgen.fetch`` and
+        ``meshgen.marching`` (the per-scene triangulation and any fallback;
+        ``meshes``, ``vertices``, ``faces``, ``fallbacks``). A model refined
+        on the host has the last alone."""
         grids = np.asarray(tsdf_grids, np.float32)
         if grids.ndim != 4:
             raise ValueError(f"expected (B, R, R, R) grids, got {grids.shape}")
         B = grids.shape[0]
+        call = next_call()
         if self.strategy == "refine" and not self._device_refine:
             self.batch_stats = []
             meshes = []
-            for g in grids:
-                mesh, stats = self.generate_mesh(g)
-                meshes.append(mesh)
-                self.batch_stats.append(stats)
+            with span("meshgen.marching", call) as s:
+                for g in grids:
+                    mesh, stats = self.generate_mesh(g)
+                    meshes.append(mesh)
+                    self.batch_stats.append(stats)
+                if s:
+                    s.count(**_mesh_counts(meshes), fallbacks=B)
             return meshes
+        with span("meshgen.upload", call, bytes=grids.nbytes):
+            dev = self.upload(grids)
         if self.strategy == "refine":
             K_f, K_ps = self._refine_tiers[0]
-            ids, vals, counts, counts_p = fetch(*self.refine_program_batched(self.upload(grids), 0))
+            with span("meshgen.enqueue", call):
+                out = self.refine_program_batched(dev, 0)
+            with span("meshgen.fetch", call):
+                ids, vals, counts, counts_p = fetch(*out)
             fits = [int(counts[b]) <= K_f and all(int(c) <= k for c, k in zip(counts_p[b], K_ps))
                     for b in range(B)]
             fallback = {"_min_tier": 1}
@@ -473,20 +496,26 @@ class MeshGenerator:
                    "refine cells (band/points-per-level)": (
                        int(counts[b]), tuple(int(c) for c in counts_p[b]))} for b in range(B)]
         else:
-            ids, vals, counts = fetch(*self.band_program_batched(self.upload(grids)))
+            with span("meshgen.enqueue", call):
+                out = self.band_program_batched(dev)
+            with span("meshgen.fetch", call):
+                ids, vals, counts = fetch(*out)
             fits = [int(counts[b]) <= self.band_cells for b in range(B)]
             fallback = {}
             ok = [{"path": "band"} for _ in range(B)]
         meshes, self.batch_stats = [], []
-        for b in range(B):
-            if fits[b]:
-                cnt = int(counts[b])
-                stats = ok[b]
-                meshes.append(self._mesh_from_band(ids[b, :cnt], vals[b, :cnt], stats))
-            else:  # past a budget: this scene alone, on the exact fallback
-                mesh, stats = self.generate_mesh(grids[b], **fallback)
-                meshes.append(mesh)
-            self.batch_stats.append(stats)
+        with span("meshgen.marching", call) as s:
+            for b in range(B):
+                if fits[b]:
+                    cnt = int(counts[b])
+                    stats = ok[b]
+                    meshes.append(self._mesh_from_band(ids[b, :cnt], vals[b, :cnt], stats))
+                else:  # past a budget: this scene alone, on the exact fallback
+                    mesh, stats = self.generate_mesh(grids[b], **fallback)
+                    meshes.append(mesh)
+                self.batch_stats.append(stats)
+            if s:
+                s.count(**_mesh_counts(meshes), fallbacks=B - sum(fits))
         return meshes
 
     def generate_mesh(self, tsdf_grid: np.ndarray, return_stats: bool = True,

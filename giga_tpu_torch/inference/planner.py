@@ -89,6 +89,7 @@ from giga_tpu_torch.ops.kernels.decoder import (
     decode_affordance_dense_kernel,
     decode_affordance_dense_kernel_batched,
 )
+from giga_tpu_torch.utils.profiling import next_call, span
 
 
 class State(NamedTuple):
@@ -805,18 +806,35 @@ class GIGAPlanner:
     def plan_batch(self, tsdf_grids, process_grids=None):
         """Plan a whole batch of scenes in one program.
 
+        Traced (utils/profiling.py) as four sibling spans of one call:
+        ``planner.upload`` (counts ``bytes``, ``pinned``), ``planner.enqueue``
+        (the program's launches; ``scenes``), ``planner.fetch`` (the wait on
+        the card and the copy) and ``planner.convert`` (``scenes``,
+        ``grasps``).
+
         Args:
             tsdf_grids: (B, R, R, R) float32.
         Returns:
             list of (grasps, scores) per scene.
         """
         fn = self._ensure_batched_fn()
-        grids = torch.from_numpy(_as_batch(tsdf_grids)).to(self.device)
-        proc = grids if process_grids is None else torch.from_numpy(
-            _as_batch(process_grids)).to(self.device)
-        host = candidates_to_host(fn(grids, proc))
-        return [self._to_grasps(GraspCandidates(*(x[i] for x in host)))
-                for i in range(grids.shape[0])]
+        call = next_call()
+        with span("planner.upload", call, pinned=False) as s:
+            grids = torch.from_numpy(_as_batch(tsdf_grids)).to(self.device)
+            proc = grids if process_grids is None else torch.from_numpy(
+                _as_batch(process_grids)).to(self.device)
+            if s:
+                s.count(bytes=grids.nbytes + (0 if proc is grids else proc.nbytes))
+        B = grids.shape[0]
+        with span("planner.enqueue", call, scenes=B):
+            cands = fn(grids, proc)
+        with span("planner.fetch", call):
+            host = candidates_to_host(cands)
+        with span("planner.convert", call, scenes=B) as s:
+            out = [self._to_grasps(GraspCandidates(*(x[i] for x in host))) for i in range(B)]
+            if s:
+                s.count(grasps=sum(len(g) for g, _ in out))
+        return out
 
 
 class VGNPlanner:

@@ -22,6 +22,12 @@ Decisions:
   the batch to fill; under light load requests still see bounded latency,
   under heavy load batches run full (best scenes/s).
 
+Tracing (utils/profiling.py): each worker iteration is a ``service.gather``
+span (counts ``requests``, ``padded``), then for a batch a
+``service.dispatch`` span (stack, upload, program, queued fetch) and, when
+it drains, a ``service.resolve`` span (the event wait, the conversion, the
+futures; ``grasps``), tied by the batch's ``call`` number.
+
 Lifecycle contract: every accepted submit() resolves — with a result, the
 batch's exception, or CancelledError if the caller cancelled before the
 batch was packed. close() drains already-queued work (so no accepted future
@@ -42,24 +48,19 @@ import numpy as np
 import torch
 
 from giga_tpu_torch.inference.postprocess import GraspCandidates
+from giga_tpu_torch.utils.profiling import next_call, span
 
 __all__ = ["PlannerService", "ServiceStats", "fetch_async"]
 
 
 @dataclass
 class ServiceStats:
-    """Aggregate counters (read via PlannerService.stats()).
-
-    ``busy_s`` accumulates only wall time spent dispatching/fetching (idle
-    polling excluded), so ``scenes_per_sec`` reflects serving capacity, not
-    how long the service has been sitting around.
-    """
+    """Aggregate counters (read via PlannerService.stats())."""
 
     requests: int = 0
     batches: int = 0
     padded_slots: int = 0
     errors: int = 0
-    busy_s: float = 0.0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def snapshot(self) -> dict:
@@ -74,9 +75,6 @@ class ServiceStats:
                 "batches": self.batches,
                 "mean_batch_occupancy": occ,
                 "errors": self.errors,
-                "scenes_per_sec": self.requests / self.busy_s
-                if self.busy_s > 0
-                else 0.0,
             }
 
 
@@ -225,20 +223,25 @@ class PlannerService:
         batch = torch.from_numpy(np.stack(grids)).to(self.planner.device)
         return fetch_async(self._vfn(batch, batch)), items, pad
 
-    def _resolve(self, fetch, items):
+    def _resolve(self, fetch, items, call: int):
         """Wait for a batch's fetch (the wait on the card) and resolve futures."""
-        cands, ready = fetch
-        if ready is not None:
-            ready.synchronize()
-        host = GraspCandidates(*(t.numpy() for t in cands))
-        for i, (_, fut) in enumerate(items):
-            cands = GraspCandidates(*(x[i] for x in host))
-            fut.set_result(self.planner._to_grasps(cands))
+        with span("service.resolve", call) as s:
+            cands, ready = fetch
+            if ready is not None:
+                ready.synchronize()
+            host = GraspCandidates(*(t.numpy() for t in cands))
+            grasps = 0
+            for i, (_, fut) in enumerate(items):
+                result = self.planner._to_grasps(GraspCandidates(*(x[i] for x in host)))
+                grasps += len(result[0])
+                fut.set_result(result)
+            if s:
+                s.count(grasps=grasps)
 
     def _drain_one(self, pending: deque):
-        fetch, batch_items = pending.popleft()
+        fetch, batch_items, call = pending.popleft()
         try:
-            self._resolve(fetch, batch_items)
+            self._resolve(fetch, batch_items, call)
         except Exception as e:  # noqa: BLE001 — fail the batch, not the service
             with self._stats._lock:
                 self._stats.errors += len(batch_items)
@@ -250,17 +253,22 @@ class PlannerService:
         pending: deque = deque()  # lag-1: at most one un-fetched batch
         while True:
             stopping = self._stop.is_set()
-            items = self._gather_batch()
-            # transition accepted futures to RUNNING; a future whose caller
-            # cancelled before packing is dropped here (and its waiters
-            # notified) — afterwards cancel() can no longer race set_result
-            live = [(g, f) for g, f in items
-                    if f.set_running_or_notify_cancel()]
-            t_iter = time.monotonic() if (live or pending) else None
+            call = next_call()
+            with span("service.gather", call) as s:
+                items = self._gather_batch()
+                # transition accepted futures to RUNNING; a future whose caller
+                # cancelled before packing is dropped here (and its waiters
+                # notified) — afterwards cancel() can no longer race set_result
+                live = [(g, f) for g, f in items
+                        if f.set_running_or_notify_cancel()]
+                if s:
+                    s.count(requests=len(live),
+                            padded=self.batch_size - len(live) if live else 0)
             if live:
                 try:
-                    pending.append(self._dispatch(live)[:2])
-                    pad = self.batch_size - len(live)
+                    with span("service.dispatch", call):
+                        fetch, _, pad = self._dispatch(live)
+                    pending.append((fetch, live, call))
                     with self._stats._lock:
                         self._stats.requests += len(live)
                         self._stats.batches += 1
@@ -278,8 +286,5 @@ class PlannerService:
             while pending and (stopping or len(pending) > 1
                                or self._queue.empty()):
                 self._drain_one(pending)
-            if t_iter is not None:
-                with self._stats._lock:
-                    self._stats.busy_s += time.monotonic() - t_iter
             if stopping and not pending and self._queue.empty():
                 return

@@ -161,20 +161,21 @@ def test_benchmark_protocols_on_the_cpu():
 
 
 def test_profiling_timer_stage_and_trace(tmp_path):
-    timer = profiling.Timer()
-    for _ in range(3):
-        with timer.section("a"):
-            torch.ones(4).sum()
-    s = timer.summary()["a"]
-    assert s["count"] == 3 and 0 <= s["min"] <= s["median"] <= s["max"]
-    assert "a" in timer.report()
-    timer.reset()
-    assert timer.summary() == {}
-    with profiling.stage("stage_a"):
-        pass
-    assert profiling.GLOBAL_TIMER.summary()["stage_a"]["count"] >= 1
+    """The tracer: spans are off (the shared no-op) outside a profile, and
+    inside ``device_trace`` they are host ranges of its Chrome trace and
+    records of ``spans()``."""
+    profiling.spans()
+    assert profiling.span("stage_a") is profiling.OFF
     with profiling.device_trace(tmp_path / "trace") as prof:
-        with profiling.annotate("span"):
-            (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+        for _ in range(3):
+            with profiling.span("span", profiling.next_call(), n=64) as s:
+                (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+            assert s
     assert (tmp_path / "trace" / "trace.json").exists()
-    assert any(e.key == "span" for e in prof.key_averages())
+    assert '"span"' in (tmp_path / "trace" / "trace.json").read_text()
+    assert next(e for e in prof.key_averages() if e.key == "span").count == 3
+    records = [r for r in profiling.spans() if r.name == "span"]
+    assert len(records) == 3
+    assert all(r.counts == {"n": 64} and r.end_ns > r.start_ns for r in records)
+    assert len({r.call for r in records}) == 3
+    assert profiling.spans() == []
