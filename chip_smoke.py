@@ -112,8 +112,10 @@ Phases (any failure exits non-zero; nothing is caught):
      memory; giga_geo and VGN one step each against the CPU; the device
      corpus (assemble_batch on the card equal to the CPU's, 5 corpus
      steps); Trainer.fit with checkpoints and resume.
- 27. mesh generation (``meshgen_phase``; no kernel of this package, counters
-     of K1-K5 zeroed just before and read after) with the shipped GIGA-Geo
+ 27. mesh generation (``meshgen_phase``; K1-K5's launches counted around
+     each call: K2 once per fp32 dense band program, batched or single, and
+     per full-grid fallback; K1, K3, K4, K5 and the refine programs never)
+     with the shipped GIGA-Geo
      checkpoint in bench.py's settings: the 129^3 band program's and the
      257^3 refine chain's bands against a JAX golden
      (golden_mesh_geo.npz) and the CPU; generate_meshes on a batch of 8
@@ -121,7 +123,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the programs under set_sync_debug_mode("error") up to their fetch;
      scripts/eval_synthetic_geometry.py's protocol at the geo gate's
      floors; ms per scene, one call's split, kernels, idle share and peak
-     memory.
+     memory; K2 alone at B=8, 129^3, one head, against its bound and the
+     module path's decode.
  28. the planner's quality gate (``gsr_phase``): tests/test_gsr_gate.py's
      protocol (16 scenes x top-5 on seeds 2000 and 3000, the geometric
      oracle) through giga_tpu_torch/scripts/eval_synthetic_gsr.py on the
@@ -159,7 +162,8 @@ Phases (any failure exits non-zero; nothing is caught):
      giga_tpu_torch/scripts/eval_geometry.py on the JAX test's fixture with
      the shipped GIGA-Geo checkpoint, with and without --roi at --batch 1
      and 2, against the CPU's and the JAX script's JSON
-     (golden_eval_geometry.json).
+     (golden_eval_geometry.json); K2 once per band program on the card,
+     K1, K3, K4 and K5 never.
 
  34. clutter removal on the card (``clutter_phase``), GIGA's own evaluation
      protocol: this machine has no pybullet, so a kinematic double
@@ -209,7 +213,9 @@ Phases (any failure exits non-zero; nothing is caught):
      cuDNN's deterministic algorithms on for the phase, so a run repeats
      its losses and gates on one card. K1-K5's counters
      zeroed just before each training run and read after (no launch), and
-     before the planning call (K3 once, the others never). The loss every
+     before the planning call (K3 once, the others never) and the geo
+     mode's mesh (K2 for its band program, and once more for a full-grid
+     fallback). The loss every
      50 steps, ms a step by CUDA events, the dataset's host seconds and the
      phase's seconds.
  39. giga at the scale the JAX package documents (40 scenes, 160 grasps a
@@ -2644,10 +2650,11 @@ def compare_batched(meshes, refs, what: str) -> float:
 def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
                   eval_points: int = 100_000) -> dict:
     """Phase 27: mesh generation on the card (geometry/generation.py's
-    MeshGenerator with the shipped GIGA-Geo checkpoint at full width; no
-    kernel of this package: the JAX package's mesh generation reaches no
-    Pallas kernel), every counter, K4 and K5 included, zeroed just before
-    and read after:
+    MeshGenerator with the shipped GIGA-Geo checkpoint at full width), the
+    launches of K1-K5 counted around each call and held to the routing: the
+    band program's fp32 lattice decode, batched or single, and the full-grid
+    fallback's, launch K2 once each; K1, K3, K4, K5, bf16 and the refine
+    programs launch nothing (the CPU's plain versions count nothing):
       a. the golden file's scenes: the 129^3 band program's bands (two
          scenes) and the 257^3 refine chain's (one) against JAX's, cell by
          cell (``compare_bands``), and the meshes' counts against its;
@@ -2663,7 +2670,9 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
          scenes, ``eval_points`` points) at the geo gate's floors;
       g. ms per scene (129^3 single, batched, 257^3 refine), one call's
          split, kernels a call, idle share and peak memory
-         (scripts/profile_meshgen.py).
+         (scripts/profile_meshgen.py); K2 alone on the batch's 129^3
+         lattice (B=8, one head), its share of ``bound()`` and the module
+         path's decode of the same lattice (CUDA events).
     ``device``, ``eval_scenes`` and ``eval_points`` let the phase rehearse
     on the CPU at a small size (no sync check, no timings there). Returns
     the timings."""
@@ -2688,13 +2697,43 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
     same_tsdf = bool(np.array_equal(scenes[:len(golden["tsdf"])], golden["tsdf"]))
     gen = {k: MeshGenerator(net, **SETTINGS[k], device=device) for k in ("single", "refine")}
     cpu = {k: MeshGenerator(cpu_net, **SETTINGS[k], device="cpu") for k in ("single", "refine")}
+    if gen["single"].band_decode != "K2":
+        raise AssertionError(f"the 129^3 band program decodes on {gen['single'].band_decode}")
     zero_kernel_counts(all_five=True)
+    routed_total = {"K2": 0}
+
+    def routed(k2, what: str, fn):
+        """fn()'s result, its launches held to the routing: K2 ``k2`` times
+        on the card (a number, a function of the result, or None: not held),
+        K1, K3, K4 and K5 never."""
+        before = kernel_counts(all_five=True)
+        out = fn()
+        got = {k: v - before[k] for k, v in kernel_counts(all_five=True).items()}
+        n = got["K2"] if k2 is None else k2(out) if callable(k2) else k2
+        want = {k: n if k == "K2" and on_card else 0 for k in got}
+        if got != want:
+            raise AssertionError(f"{what}: kernel launches {got}, the routing gives {want}")
+        routed_total["K2"] += want["K2"]
+        return out
+
+    def mesh_k2(stats) -> int:
+        """K2 launches of one ``generate_mesh``: its band program's, and the
+        full-grid fallback's past the band budget."""
+        return 0 if stats["decode"] != "K2" else 1 + (stats["path"] == "full grid")
 
     def band(g, tsdf, refine: bool = False):
         g.encode(tsdf)
-        out = fetch(*(g.refine_program(g._planes, 0) if refine else g.band_program(g._planes)))
+        out = routed(int(not refine and g.band_decode == "K2" and g.device.type == "cuda"),
+                     f"{'refine' if refine else 'band'} program on {g.device}",
+                     lambda: fetch(*(g.refine_program(g._planes, 0) if refine
+                                     else g.band_program(g._planes))))
         n = int(out[2])
         return (out[0][:n], out[1][:n]), out
+
+    def meshes(g, tsdf):
+        """g.generate_mesh(tsdf), its K2 launches held to its stats."""
+        return routed(lambda r: mesh_k2(r[1]) if g.device.type == "cuda" else 0,
+                      f"generate_mesh on {g.device}", lambda: g.generate_mesh(tsdf))
 
     # a, b. the golden's bands, and the CPU's
     rows = []
@@ -2702,11 +2741,11 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
         got, _ = band(gen["single"], tsdf)
         ref = (golden[f"band{i}_ids"], golden[f"band{i}_vals"])
         res = compare_bands(got, ref, f"129^3 band, golden scene {i}")
-        mesh, stats = gen["single"].generate_mesh(tsdf)
+        mesh, stats = meshes(gen["single"], tsdf)
         compare_mesh_counts(mesh, int(golden["band_verts"][i]), int(golden["band_faces"][i]),
                             res, f"129^3 mesh, golden scene {i}")
-        if stats["path"] != "band":
-            raise AssertionError(f"golden scene {i} took {stats['path']}")
+        if (stats["path"], stats["decode"]) != ("band", "K2"):
+            raise AssertionError(f"golden scene {i} took {stats['path']} on {stats['decode']}")
         rows.append(f"scene {i} {res['cells']} cells, {res['corners']} corners differ, "
                     f"{res['only']} in one band only, {len(mesh.faces)} faces")
         if i == 0:
@@ -2718,7 +2757,7 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
     K_f, K_ps = gen["refine"]._refine_tiers[0]
     if not all(int(c) <= k for c, k in zip(counts_p, K_ps)):
         raise AssertionError(f"257^3 refine chain past tier 0: {counts_p} against {K_ps}")
-    mesh, stats = gen["refine"].generate_mesh(golden["tsdf"][0])
+    mesh, stats = meshes(gen["refine"], golden["tsdf"][0])
     compare_mesh_counts(mesh, int(golden["refine_verts"]), int(golden["refine_faces"]), ref_res,
                         "257^3 mesh, golden scene 0")
     cpu_got, cpu_out = band(cpu["refine"], golden["tsdf"][0], refine=True)
@@ -2738,19 +2777,25 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
     batch = scenes[1:1 + MESH_BATCH]
     worst = {}
     for k in ("single", "refine"):
-        meshes = gen[k].generate_meshes(batch)
+        # one band program for the batch, and a full-grid fallback per scene past the band
+        batched = routed(lambda _: (gen[k].band_decode == "K2" and gen[k].strategy == "dense")
+                         * (1 + sum(mesh_k2(st) for st in gen[k].batch_stats
+                                    if st["path"] == "full grid")),
+                         f"{k} generate_meshes", lambda: gen[k].generate_meshes(batch))
         paths = [st["path"] for st in gen[k].batch_stats]
-        singles = [gen[k].generate_mesh(g) for g in batch]
+        singles = [meshes(gen[k], g) for g in batch]
         if paths != [st["path"] for _, st in singles]:
             raise AssertionError(f"{k} batched paths {paths} against per-scene "
                                  f"{[st['path'] for _, st in singles]}")
-        worst[k] = (compare_batched(meshes, [m for m, _ in singles], f"{k} generate_meshes"),
+        worst[k] = (compare_batched(batched, [m for m, _ in singles], f"{k} generate_meshes"),
                     paths)
-    fp32_meshes = [m for m, _ in [gen["single"].generate_mesh(g) for g in batch]]
+    fp32_meshes = [meshes(gen["single"], g)[0] for g in batch]
 
     # d. bf16 against fp32
     gen_bf16 = MeshGenerator(net, **SETTINGS["single"], precision="bf16", device=device)
-    bf16_meshes = gen_bf16.generate_meshes(batch)
+    bf16_meshes = routed(0, "bf16 generate_meshes", lambda: gen_bf16.generate_meshes(batch))
+    if {st["decode"] for st in gen_bf16.batch_stats} != {"module"}:
+        raise AssertionError(f"bf16 decodes on {[st['decode'] for st in gen_bf16.batch_stats]}")
     medians = [float(np.median(cKDTree(r.vertices).query(m.vertices)[0]))
                for m, r in zip(bf16_meshes, fp32_meshes)]
     if not max(medians) < TOL_MESH_BF16:
@@ -2773,11 +2818,12 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
                     "refine": lambda: gen["refine"].refine_program(planes, 0),
                     "refine batched": lambda: gen["refine"].refine_program_batched(devb, 0)}
         for name, fn in programs.items():
-            warm = fetch(*fn())
+            k2 = int(name.startswith("band"))
+            warm = routed(k2, f"the {name} program", lambda: fetch(*fn()))
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                out = fn()
+                out = routed(k2, f"the {name} program", fn)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             if not all(np.array_equal(a, b) for a, b in zip(fetch(*out), warm)):
@@ -2787,8 +2833,16 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
 
     # f. the evaluation protocol
     t0 = time.perf_counter()
-    metrics = evaluate_geo_checkpoint(root / GEO_CHECKPOINT, n_scenes=eval_scenes,
-                                      n_eval_points=eval_points, device=device)
+    before = routed_total["K2"]
+    metrics = routed(None, "the evaluation",
+                     lambda: evaluate_geo_checkpoint(root / GEO_CHECKPOINT,
+                                                     n_scenes=eval_scenes,
+                                                     n_eval_points=eval_points, device=device))
+    eval_k2 = routed_total["K2"] - before
+    # one band program a scene, and a full-grid fallback's past the band budget
+    if on_card and not eval_scenes <= eval_k2 <= 2 * eval_scenes:
+        raise AssertionError(f"the evaluation's {eval_scenes} generate_mesh calls launched K2 "
+                             f"{eval_k2} times")
     eval_s = time.perf_counter() - t0
     if not (metrics["iou"] >= GEO_IOU_FLOOR and metrics["f-score"] >= GEO_FSCORE_FLOOR
             and metrics["chamfer-L1"] <= GEO_CHAMFER_L1_CEIL):
@@ -2803,7 +2857,8 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
     out = {"eval": metrics}
     if on_card:
         for setting in ("single", "batched", "refine"):
-            r = profile(setting, net, scenes, 5, 10000)
+            r = routed(0 if setting == "refine" else None, f"profile {setting}",
+                       lambda: profile(setting, net, scenes, 5, 10000))
             out[setting] = r
             stages = ", ".join(f"{k} {v:.3f}" for k, v in r["stages"].items())
             print(f"phase 27: {setting} ({SETTINGS[setting]}): {r['ms_per_scene']:.3f} ms a "
@@ -2812,13 +2867,51 @@ def meshgen_phase(card, device: str = "cuda", eval_scenes: int = 16,
                   f"{r['marching']:.3f} ms, simplify to 10000 faces {r['simplify']:.3f} ms; "
                   f"{r['kernels']} kernels a call, device idle share {r['idle']:.3f}, peak "
                   f"{r['peak_gb']:.3f} GB | {card}")
+        out["k2"] = routed(None, "K2 alone", lambda: k2_alone(gen["single"], devb, card))
         torch.cuda.synchronize()
     launches = kernel_counts(all_five=True)
-    if any(launches.values()):
-        raise AssertionError(f"mesh generation launched a kernel of this package: {launches}")
-    print(f"phase 27: kernel launches {launches} (none expected: mesh generation reaches no "
-          f"Pallas kernel in the JAX package)")
+    if launches != {k: routed_total["K2"] if k == "K2" else 0 for k in launches}:
+        raise AssertionError(f"mesh generation launched {launches}, the routing gives "
+                             f"{routed_total['K2']} of K2 and nothing else")
+    print(f"phase 27: kernel launches {launches} (K2 once per fp32 dense band program, batched "
+          f"or single, and per full-grid fallback; K1, K3, K4, K5, bf16 and the refine programs "
+          f"none)")
     return out
+
+
+def k2_alone(gen, grids, card) -> dict:
+    """Phase 27's K2 reading: the band program's lattice decode of ``grids``
+    (B=8 at 129^3 in bench.py's settings) on K2 alone, one head padded to
+    four outputs, by CUDA events; its share of ``bound()``; the module
+    path's decode of the same lattice, and the two's logits."""
+    import torch
+
+    from giga_tpu_torch.core.precision import full_precision
+    from giga_tpu_torch.inference.dense_decode import decode_dense_batched, lattice_features_batched
+    from giga_tpu_torch.ops.kernels import decoder as dk
+
+    n_blocks, H = gen.cfg.decoder.n_blocks, gen.cfg.decoder.hidden_size
+    coords = gen.coords(gen.final_n)
+    B, R = grids.shape[0], gen.final_n
+    with torch.no_grad(), full_precision():
+        feats = lattice_features_batched(gen._cast(gen.net.encode(grids)), coords, gen.cfg)
+        inputs = dk.prepare_projections_batched(gen._dec_k2, feats, coords, n_blocks)
+        ms = cuda_ms(lambda: dk.dense_decode_batched(*inputs), 10)
+        module_ms = cuda_ms(lambda: decode_dense_batched(gen._dec, feats, coords, n_blocks), 3,
+                            warmup=1)
+        got = dk.dense_decode_batched(*inputs)[:, 0].reshape(B, R, R, R)
+        ref = decode_dense_batched(gen._dec, feats, coords, n_blocks)[0, ..., 0]
+        rel = float(((got - ref).abs() / (1 + ref.abs())).max())
+    if rel > TOL_DECODE:
+        raise AssertionError(f"K2's 129^3 logits {rel} * (1 + |b|) from the module path's")
+    bnd = bound(trunk_flops(B * R ** 3, 1, H, n_blocks, dk.KERNEL_O),
+                nbytes(*inputs) + 4 * B * dk.KERNEL_O * R ** 3)
+    print(f"phase 27: K2 alone on the band program's lattice (B={B}, {R}^3, one head padded to "
+          f"{dk.KERNEL_O} outputs): {ms:.3f} ms, {bnd[0] / ms:.1%} of its bound ({bnd[0]:.3f} ms "
+          f"by {bnd[1]}); the module path's decode {module_ms:.3f} ms; logits within "
+          f"{rel:.3g} * (1 + |b|) of it (tol {TOL_DECODE}) | {card}")
+    return {"ms": ms, "bound_ms": bnd[0], "share": bnd[0] / ms, "module_ms": module_ms,
+            "rel": rel}
 
 
 def compare_gsr_rows(got: dict, ref: dict, what: str) -> dict:
@@ -3867,7 +3960,10 @@ def geoeval_phase(card, device: str = "cuda") -> dict:
     scripts/eval_geometry.py with the shipped GIGA-Geo checkpoint, with and
     without --roi, at --batch 1 and 2, on the card and on the CPU: the
     card's per-scene and mean metrics within TOL_GEOEVAL of the CPU's and of
-    the JAX script's (golden_eval_geometry.json). K1-K5 not launched."""
+    the JAX script's (golden_eval_geometry.json). K2 launched once per
+    band program on the card (a ``generate_mesh`` call or a batch's
+    ``generate_meshes``), and at most once more per scene for a full-grid
+    fallback; K1, K3, K4 and K5 not launched."""
     import shutil
 
     from giga_tpu_torch.scripts.eval_geometry import main as eval_geometry
@@ -3879,6 +3975,7 @@ def geoeval_phase(card, device: str = "cuda") -> dict:
     proc, raw = geoeval_fixture(work)
     zero_kernel_counts(all_five=True)
     rows, seconds = [], {}
+    programs = scenes = 0  # the card's band programs and scenes
     for roi in (False, True):
         for batch in (1, 2):
             res = {}
@@ -3889,6 +3986,8 @@ def geoeval_phase(card, device: str = "cuda") -> dict:
                 seconds[d, roi, batch] = time.perf_counter() - t0
                 res[d] = geoeval_results(logdir)
             key = f"roi={roi},batch={batch}"
+            n = len(res[device]["scenes"])
+            programs, scenes = programs + -(-n // batch), scenes + n
             gap = compare_geoeval(res[device], res["cpu"], f"eval_geometry {key}, card vs CPU")
             gold = compare_geoeval(res[device], golden[key], f"eval_geometry {key} vs JAX's")
             m = res[device]["mean"]
@@ -3897,10 +3996,14 @@ def geoeval_phase(card, device: str = "cuda") -> dict:
                         + f"; card vs CPU {gap:.3g}, vs JAX {gold:.3g}; "
                         f"{seconds[device, roi, batch]:.2f} s")
     launches = kernel_counts(all_five=True)
-    if any(launches.values()):
-        raise AssertionError(f"phase 33 launched a kernel of this package: {launches}")
+    k2 = (programs, programs + scenes) if device != "cpu" else (0, 0)
+    if (any(v for k, v in launches.items() if k != "K2")
+            or not k2[0] <= launches["K2"] <= k2[1]):
+        raise AssertionError(f"phase 33 launched {launches}: K2 {k2[0]} to {k2[1]} times "
+                             f"expected, nothing else")
     print("phase 33: eval_geometry on the JAX test's fixture (2 scenes, giga_geo checkpoint, "
-          f"tol {TOL_GEOEVAL}): " + "; ".join(rows) + f"; K1-K5 launches {launches} | {card}")
+          f"tol {TOL_GEOEVAL}): " + "; ".join(rows) + f"; K1-K5 launches {launches} (K2 once "
+          f"per band program: {programs}) | {card}")
     return seconds
 
 
@@ -4507,7 +4610,9 @@ def _selfcheck_modes(card, device: str, modes: dict) -> dict:
             ok, gate = sc.check_geometry(state.module, scenes[-1], tsdfs[-1], sc.SIZE, args,
                                          device)
             counts = kernel_counts(all_five=True)
-            if any(counts.values()):
+            # the band program's K2 launch, and the full-grid fallback's past its budget
+            if (any(v for k, v in counts.items() if k != "K2")
+                    or counts["K2"] not in ((1, 2) if device != "cpu" else (0,))):
                 raise AssertionError(f"selfcheck geo: reconstruction launched {counts}")
             what = (f"IoU {gate['iou']:.4f} (threshold {args.iou_threshold}), F-score "
                     f"{gate['f-score']:.4f}, Chamfer-L1 {gate['chamfer-L1']:.5f}")

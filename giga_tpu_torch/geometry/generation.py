@@ -29,8 +29,19 @@ to the host's hierarchical ``refine_grid``; ``stats`` records the path.
 A grid model (giga_grid) samples its feature grid trilinearly on the
 lattice (``lattice_features``), and under ``strategy="refine"`` refines on
 the host's ``refine_grid``, scene by scene, as the JAX package does.
-Nothing reaches a kernel of this package: the JAX package's mesh generation
-runs no Pallas kernel (its decodes are XLA), and the port's are PyTorch ops.
+
+The band program's lattice decode (and the full-grid fallback's) runs
+kernel K2 (ops/kernels/decoder.py's ``dense_decode_batched``, one launch a
+program, batched or single) where the model has triplanes, the decode is
+float32 and K2 takes the shapes (``can_dense_decode``), chosen once when
+the generator is built (``band_decode``): the occupancy head's one output
+is padded with exact zeros to the kernel's four, and channel 0 read back.
+Otherwise, and in the refine chain, it decodes on the module path
+(inference/dense_decode.py's PyTorch ops): a grid model (its features are
+one dense volume), bf16 (the JAX package's meshing decode is XLA's, whose
+bf16 numerics K2's bf16 mode does not share). On CPU tensors K2's wrapper
+runs its plain version. The JAX package decodes its meshing lattice with
+XLA throughout; K2 sums the same terms in another order (~1e-6 a logit).
 
 Every program runs under ``full_precision`` (TF32 off), the counterpart of
 the JAX package's float32 decode. ``precision="bf16"`` decodes with the
@@ -64,6 +75,12 @@ from giga_tpu_torch.inference.dense_decode import (
 )
 from giga_tpu_torch.models.conv_onet import GIGANet
 from giga_tpu_torch.models.convert import flax_to_state_dict
+from giga_tpu_torch.ops.kernels.decoder import (
+    KERNEL_O,
+    can_dense_decode,
+    dense_decode_batched,
+    prepare_projections_batched,
+)
 from giga_tpu_torch.ops.sampling import linspace_f32
 from giga_tpu_torch.utils.profiling import next_call, span
 
@@ -294,6 +311,18 @@ class MeshGenerator:
         self._coords = {}
         self._dec = {k: v.detach().to(self.compute_dtype)
                      for k, v in self.net.decoder_occ.params().items()}
+        dec = self.cfg.decoder
+        self.band_decode = (
+            "K2" if ("grid" not in self.cfg.encoder.plane_types
+                     and self.compute_dtype == torch.float32
+                     and can_dense_decode(1, self.final_n, 1, dec.hidden_size, KERNEL_O,
+                                          dec.n_blocks))
+            else "module")
+        if self.band_decode == "K2":  # the head's one output padded to K2's four
+            pad = KERNEL_O - self._dec["fc_out_bias"].shape[-1]
+            self._dec_k2 = {**self._dec,
+                            "fc_out_kernel": F.pad(self._dec["fc_out_kernel"], (0, pad)),
+                            "fc_out_bias": F.pad(self._dec["fc_out_bias"], (0, pad))}
         self.marks = None  # a list to record CUDA events at stage ends (profiling)
         self.batch_stats = []
 
@@ -329,13 +358,27 @@ class MeshGenerator:
         the host)."""
         return bool(self._refine_tiers) and "grid" not in self.cfg.encoder.plane_types
 
+    @property
+    def decode_path(self) -> str:
+        """The path of a scene's lattice decodes, as its stats record it:
+        ``band_decode`` under ``strategy="dense"``, the module path in the
+        refine chain."""
+        return self.band_decode if self.strategy == "dense" else "module"
+
+    def _decode_batched(self, planes: dict, coords: torch.Tensor) -> torch.Tensor:
+        """The band program's decode: cast planes {t: (B, H, W, C)} -> float32
+        occupancy logits (B, n, n, n) on the ``band_decode`` path."""
+        n, n_blocks = coords.shape[0], self.cfg.decoder.n_blocks
+        feats = lattice_features_batched(planes, coords, self.cfg)
+        if self.band_decode == "K2":
+            out = dense_decode_batched(*prepare_projections_batched(self._dec_k2, feats, coords,
+                                                                    n_blocks))
+            return out[:, 0].reshape(-1, n, n, n)
+        return decode_dense_batched(self._dec, feats, coords, n_blocks)[0, ..., 0]
+
     def _dense_logits(self, planes: dict, n: int) -> torch.Tensor:
         """One scene's occupancy logits on the (n, n, n) lattice, float16."""
-        coords = self.coords(n)
-        planes = self._cast({t: v[0] for t, v in planes.items()})
-        out = decode_dense(self._dec, self._lattice_feats(planes, coords), coords,
-                           self.cfg.decoder.n_blocks)
-        return out[0, ..., 0].to(torch.float16)
+        return self._decode_batched(self._cast(planes), self.coords(n))[0].to(torch.float16)
 
     def dense_program(self, planes: dict) -> torch.Tensor:
         """The full-grid program: float16 logits on the final lattice."""
@@ -354,17 +397,15 @@ class MeshGenerator:
 
     def band_program_batched(self, grids: torch.Tensor):
         """The batched band program: (B, R, R, R) TSDFs -> per-scene (ids
-        (B, K), values (B, K, 8), counts (B,)), encode included. As in the
-        JAX package, the threshold test reads the decode's own values (not
-        rounded to float16 first) and the corner values are rounded after."""
-        n = self.final_n
-        coords = self.coords(n)
+        (B, K), values (B, K, 8), counts (B,)), encode included. The lattice
+        decode is one K2 launch on the ``band_decode`` path, else the module
+        path's ops. As in the JAX package, the threshold test reads the
+        decode's own float32 values (not rounded to float16 first) and the
+        corner values are rounded after."""
         with torch.no_grad(), full_precision():
             planes = self._cast(self.net.encode(grids.float()))
             self._mark("encode")
-            feats = lattice_features_batched(planes, coords, self.cfg)
-            logits = decode_dense_batched(self._dec, feats, coords,
-                                          self.cfg.decoder.n_blocks)[0, ..., 0]
+            logits = self._decode_batched(planes, self.coords(self.final_n))
             self._mark("decode")
             out = [emit_band(F.pad(g, (1,) * 6, value=OUTSIDE), self.band_cells, self.logit_th)
                    for g in logits]
@@ -461,7 +502,7 @@ class MeshGenerator:
 
         Traced (utils/profiling.py) as sibling spans of one call:
         ``meshgen.upload`` (``bytes``), ``meshgen.enqueue`` (the band or
-        refine program's launches), ``meshgen.fetch`` and
+        refine program's launches; ``k2``, its K2 launches), ``meshgen.fetch`` and
         ``meshgen.marching`` (the per-scene triangulation and any fallback;
         ``meshes``, ``vertices``, ``faces``, ``fallbacks``). A model refined
         on the host has the last alone."""
@@ -483,12 +524,17 @@ class MeshGenerator:
             return meshes
         with span("meshgen.upload", call, bytes=grids.nbytes):
             dev = self.upload(grids)
-        if self.strategy == "refine":
+        refine = self.strategy == "refine"
+        with span("meshgen.enqueue", call) as s:
+            launched = dense_decode_batched.launches
+            out = self.refine_program_batched(dev, 0) if refine else self.band_program_batched(dev)
+            if s:
+                s.count(k2=dense_decode_batched.launches - launched)
+        with span("meshgen.fetch", call):
+            ids, vals, counts, *counts_p = fetch(*out)
+        if refine:
             K_f, K_ps = self._refine_tiers[0]
-            with span("meshgen.enqueue", call):
-                out = self.refine_program_batched(dev, 0)
-            with span("meshgen.fetch", call):
-                ids, vals, counts, counts_p = fetch(*out)
+            counts_p = counts_p[0]
             fits = [int(counts[b]) <= K_f and all(int(c) <= k for c, k in zip(counts_p[b], K_ps))
                     for b in range(B)]
             fallback = {"_min_tier": 1}
@@ -496,13 +542,11 @@ class MeshGenerator:
                    "refine cells (band/points-per-level)": (
                        int(counts[b]), tuple(int(c) for c in counts_p[b]))} for b in range(B)]
         else:
-            with span("meshgen.enqueue", call):
-                out = self.band_program_batched(dev)
-            with span("meshgen.fetch", call):
-                ids, vals, counts = fetch(*out)
             fits = [int(counts[b]) <= self.band_cells for b in range(B)]
             fallback = {}
             ok = [{"path": "band"} for _ in range(B)]
+        for stats in ok:
+            stats["decode"] = self.decode_path
         meshes, self.batch_stats = [], []
         with span("meshgen.marching", call) as s:
             for b in range(B):
@@ -524,7 +568,7 @@ class MeshGenerator:
 
         ``_min_tier``: first refine-budget tier to attempt (the batched path
         passes 1 after the half tier already overflowed)."""
-        stats = {}
+        stats = {"decode": self.decode_path}
         t0 = time.perf_counter()
         self.encode(tsdf_grid)
         stats["time (encode inputs)"] = time.perf_counter() - t0

@@ -1235,6 +1235,43 @@ def test_generate_meshes_on_card_equal_per_scene(cuda_device, strategy):
 
 
 @pytest.mark.cuda
+def test_band_program_on_k2_equals_module_path(cuda_device):
+    """The batched band program's lattice decode on K2 against the module
+    path's on the card, B=2 at 65^3: equal band counts and ids, corners
+    within one float16 step + TOL_DECODE * (1 + |b|) (near 0 a float16 step
+    is below the two float32 sums' difference); K2 launched once a program,
+    never on the module
+    path; and ``generate_meshes`` on K2 equal to its per-scene
+    ``generate_mesh``, every scene's stats naming K2."""
+    from giga_tpu_torch.geometry.generation import fetch
+
+    kw = dict(resolution0=16, upsampling_steps=2, strategy="dense")
+    k2, module = _mesh_generators({}, **kw)[0], _mesh_generators({}, **kw)[0]
+    module.band_decode = "module"
+    assert k2.band_decode == "K2"
+    scenes = _mesh_scenes(2)
+    grids = k2.upload(scenes)
+    bands = []
+    for gen, launches in ((k2, 1), (module, 0)):
+        n = dense_decode_batched.launches
+        bands.append(fetch(*gen.band_program_batched(grids)))
+        assert dense_decode_batched.launches == n + launches, gen.band_decode
+    (ids, vals, counts), (rids, rvals, rcounts) = bands
+    np.testing.assert_array_equal(counts, rcounts)
+    np.testing.assert_array_equal(ids, rids)
+    for b, c in enumerate(counts):
+        a, r = vals[b, :c], rvals[b, :c]
+        step = np.spacing(np.maximum(np.abs(a), np.abs(r))).astype(np.float64)
+        excess = np.abs(a.astype(np.float64) - r) - step - chip_smoke.TOL_DECODE * (1 + np.abs(r))
+        assert excess.max(initial=-1.0) <= 0, (b, excess.max())
+    meshes = k2.generate_meshes(scenes)
+    singles = [k2.generate_mesh(g) for g in scenes]
+    assert [s["decode"] for s in k2.batch_stats] == [s["decode"] for _, s in singles] == ["K2"] * 2
+    assert [s["path"] for s in k2.batch_stats] == [s["path"] for _, s in singles]
+    chip_smoke.compare_batched(meshes, [m for m, _ in singles], "K2")
+
+
+@pytest.mark.cuda
 def test_refine_mesh_on_card_equals_cpu(cuda_device):
     """Normals and two refinement steps (the same Dirichlet draws) on the
     card against the CPU's."""

@@ -109,6 +109,31 @@ def test_generate_meshes_emits_its_four_spans(scenes):
     assert records[0].counts == {"bytes": scenes.nbytes}
 
 
+@pytest.mark.parametrize("precision,k2", [("fp32", 1), ("bf16", 0)])
+def test_meshgen_enqueue_counts_k2_launches(scenes, monkeypatch, precision, k2):
+    """``meshgen.enqueue``'s ``k2``: the K2 launches of the call, read from
+    ``dense_decode_batched.launches`` (one a batched band program on K2, none
+    on the module path). On the CPU the wrapper runs its plain version and
+    counts nothing, so a counting stand-in takes its place here."""
+    from giga_tpu_torch.geometry import generation
+
+    real = generation.dense_decode_batched
+
+    def counting(*args, **kw):
+        counting.launches += 1
+        return real(*args, **kw)
+
+    counting.launches = 0
+    monkeypatch.setattr(generation, "dense_decode_batched", counting)
+    net, _ = load_network(REPO / chip_smoke.GEO_CHECKPOINT, "giga_geo")
+    gen = MeshGenerator(net, resolution0=8, upsampling_steps=1, precision=precision,
+                        device="cpu")
+    _, _, records = _traced(lambda: gen.generate_meshes(scenes))
+    (enqueue,) = [r for r in records if r.name == "meshgen.enqueue"]
+    assert enqueue.counts == {"k2": k2}
+    assert counting.launches == k2
+
+
 def test_service_spans_come_from_its_worker(planner, scenes, tmp_path):
     with PlannerService(planner, batch_size=2, max_wait_ms=20.0) as svc:
         with profiling.device_trace(tmp_path) as prof:
