@@ -88,7 +88,9 @@ from giga_tpu_torch.ops.kernels.decoder import (
     can_dense_decode,
     decode_affordance_dense_kernel,
     decode_affordance_dense_kernel_batched,
+    dense_decode_batched,
 )
+from giga_tpu_torch.ops.kernels.stem import stem_pool_batched
 from giga_tpu_torch.utils.profiling import next_call, span
 
 
@@ -324,6 +326,15 @@ def build_ensemble_giga_planner_fn(net, stacked: dict, model_cfg: GIGAConfig,
     return plan
 
 
+def _mark(marks, name: str, device: torch.device) -> None:
+    """Append (``name``, a CUDA event recorded now on the current stream) to
+    ``marks``; nothing when ``marks`` is None or ``device`` is not CUDA."""
+    if marks is not None and device.type == "cuda":
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+
+
 def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig,
                                   size: float, use_kernels: bool = False, fold_b1: bool = False,
                                   hidden_bf16: bool = False, return_raw: bool = False,
@@ -361,6 +372,13 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     ``sp_axis`` (``decode_dense_batched``'s ``shard_constraint``); it runs on
     the module path only, as the JAX package's composition runs on its XLA
     path. ``plan.local`` is the per-rank program.
+
+    ``marks`` (a list; the local program only) takes a CUDA event at the
+    program's start and at the end of each stage, as (name, event): "start",
+    "encode" (K1 and the 2D U-Net, or the grid model's stem, grid and 3D
+    U-Net), "features" (the lattice sampling), "decode" (the trunk and the
+    heads) and "post" (masks, bound, NMS and top-k). Nothing is recorded on
+    the CPU or when ``marks`` is None.
     """
     voxel_size = size / planner_cfg.resolution
     R = planner_cfg.resolution
@@ -380,7 +398,7 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
         # (B, Rx, Ry, Rz, F) hidden state: batch over dp, lattice x over sp
         shard_constraint = NamedSharding(mesh, (axis, sp_axis))
 
-    def plan(tsdfs: torch.Tensor, tsdf_process: torch.Tensor) -> GraspCandidates:
+    def plan(tsdfs: torch.Tensor, tsdf_process: torch.Tensor, marks=None) -> GraspCandidates:
         if tsdfs.ndim != 4 or tuple(tsdfs.shape[1:]) != (P, P, P):
             raise ValueError(f"expected (B, {P}, {P}, {P}) TSDF grids, got {tuple(tsdfs.shape)}")
         if tuple(tsdf_process.shape) != (tsdfs.shape[0], R, R, R):
@@ -388,11 +406,14 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
                              f"got {tuple(tsdf_process.shape)}")
         coords, positions = lattice(tsdfs.device)
         with torch.inference_mode(), full_precision():
+            _mark(marks, "start", tsdfs.device)
             if paths["encode"] == "K1":
                 planes = encode_planes_fused(net.encoder, tsdfs.to(dtype))
             else:
                 planes = net.encode(tsdfs.to(dtype))
+            _mark(marks, "encode", tsdfs.device)
             feats = lattice_features_batched(planes, coords, model_cfg)
+            _mark(marks, "features", tsdfs.device)
             if paths["decode"] == "K2":
                 qual, rot, width = decode_affordance_dense_kernel_batched(
                     net.decoder_aff.params(), feats, coords, n_blocks, dtype, fold_b1=fold_b1,
@@ -401,9 +422,11 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
                 qual, rot, width = (v.float() for v in
                                     net.decode_affordance_lattice(feats, coords,
                                                                   shard_constraint))
+            _mark(marks, "decode", tsdfs.device)
             masked = mask_quality(qual, tsdf_process, width, planner_cfg)
             masked = bound_quality(masked, voxel_size, planner_cfg)
             cands = select_grasps_batched(masked, rot, width, positions, planner_cfg)
+            _mark(marks, "post", tsdfs.device)
             return (cands, (qual, rot, width)) if return_raw else cands
 
     plan.paths = paths
@@ -707,6 +730,7 @@ class GIGAPlanner:
         self.visualize = visualize
         self._fn = None
         self._vfn = None
+        self.marks = None  # a list to record plan_batch's stage ends as CUDA events (profiling)
 
     def _ensure_fn(self):
         """Build (once) the single-scene program of __call__ and plan_stream
@@ -808,9 +832,11 @@ class GIGAPlanner:
 
         Traced (utils/profiling.py) as four sibling spans of one call:
         ``planner.upload`` (counts ``bytes``, ``pinned``), ``planner.enqueue``
-        (the program's launches; ``scenes``), ``planner.fetch`` (the wait on
-        the card and the copy) and ``planner.convert`` (``scenes``,
-        ``grasps``).
+        (the program's launches; ``scenes``, and ``k1``, ``k2``: the K1 and K2
+        launches of the call), ``planner.fetch`` (the wait on the card and
+        the copy) and ``planner.convert`` (``scenes``, ``grasps``). With
+        ``marks`` a list, the program appends its stage marks to it
+        (``build_batched_giga_planner_fn``).
 
         Args:
             tsdf_grids: (B, R, R, R) float32.
@@ -826,8 +852,12 @@ class GIGAPlanner:
             if s:
                 s.count(bytes=grids.nbytes + (0 if proc is grids else proc.nbytes))
         B = grids.shape[0]
-        with span("planner.enqueue", call, scenes=B):
-            cands = fn(grids, proc)
+        with span("planner.enqueue", call, scenes=B) as s:
+            launched = stem_pool_batched.launches, dense_decode_batched.launches
+            cands = fn(grids, proc, marks=self.marks)
+            if s:
+                s.count(k1=stem_pool_batched.launches - launched[0],
+                        k2=dense_decode_batched.launches - launched[1])
         with span("planner.fetch", call):
             host = candidates_to_host(cands)
         with span("planner.convert", call, scenes=B) as s:
