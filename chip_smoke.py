@@ -133,8 +133,9 @@ Phases (any failure exits non-zero; nothing is caught):
      floors in each precision; fp32's scored grasps and oracle labels equal
      to the JAX script's (golden_gsr_giga.npz); GSR, candidates, median
      surface distance and seconds of each run.
- 29. giga_grid at full width (``grid_phase``; no kernel of this package,
-     K1-K5's counters zeroed just before and read after): JAX's seeded
+ 29. giga_grid at full width (``grid_phase``; K1-K6's counters zeroed just
+     before and read after: K6 once a call of the fp32 batched program, no
+     other kernel of this package): JAX's seeded
      weights from golden_plan_giga_grid.npz through __call__, plan_batch
      (B=64) and PlannerService, decisions equal to the golden's (JAX's
      float64 programs), raw volumes against the CPU port's; bf16 __call__
@@ -227,6 +228,11 @@ Phases (any failure exits non-zero; nothing is caught):
      weights after its 3,000 steps plan the JAX script's grasps on the
      held-out scene with the same oracle labels and GSR (K3 once, the
      others never).
+ 40. K6, the grid decode (``grid_decode_phase``): giga_grid's encoded grids
+     at B=64, R=40 through K6 against its plain version and the module path
+     (within 1e-5 * (1 + |b|)); K6's time beside its bound, the plain
+     version's and the module path's; its registers, spills and launch
+     configuration; one K6 launch a giga_grid plan_batch.
 
 Scenes come from ``make_scenes``: an analytic TSDF of a few boxes and
 spheres in the planner's convention ([0, 1], 0.5 at the surface,
@@ -906,6 +912,22 @@ def dense_decode_hybrid_work(B: int, R: int, C: int, heads: int, H: int, n_block
     inputs = 3 * R * F + 2 * B * R * R * C + 2 * n_blocks * C * F + weights
     return (flops, 4 * (inputs + B * R ** 3 * heads * O)
             + pyz_elem * B * n_blocks * R * R * F)
+
+
+def grid_decode_work(B: int, R: int, G: int, C: int, heads: int, H: int, n_blocks: int,
+                     O: int):
+    """(fp32 operations, bytes) of K6 on B scenes' R^3 lattices from their
+    G^3 grids of C channels: a point's 8-tap trilinear sample (15 C), then
+    per head fc_p (2 * 3 * H and its bias), per block fc_c (2 C H, its bias
+    and the add into the residual stream), fc_0 and fc_1 (2 H^2 each and
+    their biases) and the residual add, and the head (2 H O and its bias);
+    the grids and every weight read once, the (B, heads*O, R^3) outputs
+    written once. ``bound(*grid_decode_work(...))`` is K6's bound (the
+    benchmark's ``grid_decode_roofline`` counts the same)."""
+    block = 2 * C * H + 2 * H + 4 * H * H + 3 * H
+    point = 15 * C + heads * (7 * H + n_blocks * block + 2 * H * O + O)
+    weights = heads * (3 * H + H + n_blocks * (C * H + H + 2 * H * H + 2 * H) + H * O + O)
+    return B * R ** 3 * point, 4 * (B * G ** 3 * C + weights + B * heads * O * R ** 3)
 
 
 def ptxas_resources(log: str) -> dict:
@@ -3021,15 +3043,17 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
     """Phase 29: giga_grid at full width (40^3 grid of 32 channels, the 3D
     U-Net of f_maps 32 at 3 levels, 5 blocks of hidden 32) on JAX's seeded
     weights from golden_plan_giga_grid.npz: __call__, plan_batch (B=64) and
-    PlannerService with K1-K5's counters zeroed just before and read after
-    (0 each: the programs take the module path), their decisions against the
-    golden's (JAX's float64 program), the raw volumes of the card and of
-    the CPU port each within TOL_GRID_RAW * (1 + |b|) of the port's float64
-    evaluation on the CPU (the rule tests/test_torch_grid.py holds the CPU
-    to against JAX's float64); bf16 __call__ and plan_batch by their raw
-    qual against fp32; a 129^3 band and a refine mesh against the CPU's;
-    one fp32 train step against the CPU's. ``device="cpu"`` rehearses the
-    phase on the CPU. Returns the programs' times."""
+    PlannerService with K1-K6's counters zeroed just before and read after
+    (K6 once a call of the batched fp32 program, which decodes on it; K1-K5
+    never: the encode and the single-scene decode take the module path),
+    their decisions against the golden's (JAX's float64 program), the raw
+    volumes of the card and of the CPU port each within TOL_GRID_RAW *
+    (1 + |b|) of the port's float64 evaluation on the CPU (the rule
+    tests/test_torch_grid.py holds the CPU to against JAX's float64); bf16
+    __call__ and plan_batch (the module path) by their raw qual against
+    fp32; a 129^3 band and a refine mesh against the CPU's; one fp32 train
+    step against the CPU's. ``device="cpu"`` rehearses the phase on the CPU.
+    Returns the programs' times."""
     import copy
 
     import torch
@@ -3039,6 +3063,7 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
         State, build_batched_giga_planner_fn, build_giga_planner_fn, candidates_to_host)
     from giga_tpu_torch.inference.postprocess import GraspCandidates
     from giga_tpu_torch.inference.serving import PlannerService
+    from giga_tpu_torch.ops.kernels.grid_decode import grid_decode_batched
 
     root = Path(__file__).resolve().parent
     golden = np.load(root / GOLDEN_GRID)
@@ -3050,17 +3075,32 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
     planner = grid_planner(params, device)
     module = {"encode": "module", "decode": "module"}
     paths = (planner._ensure_fn().paths, planner._ensure_batched_fn().paths)
-    if paths != (module, module):
+    if paths != (module, {"encode": "module", "decode": "K6"}):
         raise AssertionError(f"giga_grid programs chose {paths}")
+    on_card = device == "cuda"
+
+    def k6_launches(fn):
+        """fn()'s result and the K6 launches it made."""
+        before = grid_decode_batched.launches
+        out = fn()
+        return out, grid_decode_batched.launches - before
+
     zero_kernel_counts(all_five=True)
-    called = [planner(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)]
-    batch = planner.plan_batch(scenes)
+    called, k6_call = k6_launches(
+        lambda: [planner(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)])
+    batch, k6_batch = k6_launches(lambda: planner.plan_batch(scenes))
     with PlannerService(planner, batch_size=B, max_wait_ms=5.0) as svc:
-        served = [f.result(timeout=300) for f in [svc.submit(scenes[i]) for i in range(n_gold)]]
+        served, k6_service = k6_launches(lambda: [
+            f.result(timeout=300) for f in [svc.submit(scenes[i]) for i in range(n_gold)]])
+        service_batches = svc.stats()["batches"]
     sync()
     launches = kernel_counts(all_five=True)
-    if any(launches.values()):
-        raise AssertionError(f"giga_grid launched a kernel of this package: {launches}")
+    launches["K6"] = k6_call + k6_batch + k6_service
+    want_k6 = (0, int(on_card), service_batches * on_card)
+    if any(v for k, v in launches.items() if k != "K6") or (k6_call, k6_batch,
+                                                            k6_service) != want_k6:
+        raise AssertionError(f"giga_grid launched {launches}: K6 {k6_call}, {k6_batch}, "
+                             f"{k6_service} (__call__, plan_batch, service), expected {want_k6}")
     worst = 0.0
     for prefix, got in (("call_", called), ("batch_", batch[:n_gold])):
         gc = GraspCandidates(*(golden[prefix + f] for f in GraspCandidates._fields))
@@ -3079,7 +3119,10 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
         d = device if where == "card" else "cpu"
         fn = build_batched_giga_planner_fn(net, net.cfg, planner.planner_cfg, SIZE,
                                            use_kernels=True, return_raw=True)
-        raw[where] = [v.double().cpu() for v in fn(tsdf.to(d), tsdf.to(d))[1]]
+        qual, rot, width = fn(tsdf.to(d), tsdf.to(d))[1]
+        if rot.ndim == 3:  # K6 (float32) leaves rot (B, 4, R^3); the module path (B, R, R, R, 4)
+            rot = rot.permute(0, 2, 1).reshape(n_cpu, R, R, R, 4)
+        raw[where] = [v.double().cpu() for v in (qual, rot, width)]
     raw_err = {w: max(float(((a - b).abs() / (1 + b.abs())).max())
                       for a, b in zip(raw[w], raw["f64"])) for w in ("card", "cpu")}
     raw_diff = max(float((a - b).abs().max()) for a, b in zip(raw["card"], raw["cpu"]))
@@ -3111,17 +3154,19 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
                                  f"{TOL_GRID_BF16_MAX}), {np.median(d):.3g} at the median")
         rows.append(f"{what} raw qual {d.max():.4g} at most, {np.median(d):.3g} at the median")
     zero_kernel_counts(all_five=True)
-    bf_called = [bf(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)]
-    bf_batched = bf.plan_batch(scenes)
+    (bf_called, bf_batched), k6_bf = k6_launches(lambda: (
+        [bf(State(tsdf=scenes[i][None]))[:2] for i in range(n_gold)], bf.plan_batch(scenes)))
     sync()
-    if any(kernel_counts(all_five=True).values()):
-        raise AssertionError(f"giga_grid bf16 launched {kernel_counts(all_five=True)}")
+    if any(kernel_counts(all_five=True).values()) or k6_bf:
+        raise AssertionError(f"giga_grid bf16 launched {kernel_counts(all_five=True)}, "
+                             f"K6 {k6_bf}")
     same = sum(decisions(a, voxel) == decisions(b, voxel)
                for a, b in zip(bf_called + bf_batched, called + batch))
     print(f"phase 29: giga_grid bf16 against fp32: " + "; ".join(rows) + f" (tol "
           f"{TOL_GRID_BF16_MAX}, {TOL_QUAL_BF16_MEDIAN}); decisions (not gated, seeded weights) "
           f"equal in {same} of {len(bf_called) + len(bf_batched)} scenes")
     # meshes: the 129^3 band program and the host refine path, card vs CPU
+    k6_mark = grid_decode_batched.launches
     mesh_rows = []
     for strategy, res0, steps in (("dense", 32, 2), ("refine", 16, 2)):
         gens = {d: MeshGenerator(copy.deepcopy(planner.net), resolution0=res0,
@@ -3166,6 +3211,7 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
     step = compare_train_step(copy.deepcopy(planner.net).cpu(), cfg, train_batch(SEED, 4, 256),
                               device)
     launches = kernel_counts(all_five=True)
+    launches["K6"] = grid_decode_batched.launches - k6_mark
     if any(launches.values()):
         raise AssertionError(f"giga_grid meshes or training launched {launches}")
     print(f"phase 29: giga_grid meshes: " + "; ".join(mesh_rows) + f"; train step B=4 loss "
@@ -3205,6 +3251,73 @@ def grid_phase(scenes, card, device: str = "cuda") -> dict:
         + f"; __call__ {times['fp32_call']:.3f} ms fp32, {times['bf16_call']:.3f} ms bf16; peak "
         f"{peak:.2f} GB | {card}")
     return times
+
+
+def grid_decode_phase(card, device: str = "cuda", B: int = BATCH) -> dict:
+    """Phase 40: K6, the grid decode, at B=64, R=40 on giga_grid's encoded
+    grids (JAX's seeded weights from golden_plan_giga_grid.npz) of
+    ``make_scenes(B)``: against its plain version and the module path
+    (the trilinear lattice features, then ``decode_dense_batched``) within
+    TOL_DECODE * (1 + |b|); its time by CUDA events beside its bound
+    (``grid_decode_work``), the plain version's and the module path's; its
+    registers and spills from the build log and its launch configuration;
+    and its launches a giga_grid ``plan_batch`` (one). ``device="cpu"``
+    rehearses the phase on the CPU (the plain version in the kernel's
+    place, host times, no launch). Returns the readings."""
+    import torch
+
+    from giga_tpu_torch.inference.dense_decode import (
+        decode_dense_batched, lattice_coords, lattice_features_batched)
+    from giga_tpu_torch.inference.planner import full_precision
+    from giga_tpu_torch.ops.kernels import _build
+    from giga_tpu_torch.ops.kernels import grid_decode as gd
+
+    root = Path(__file__).resolve().parent
+    planner = grid_planner(unflatten_params(np.load(root / GOLDEN_GRID)), device)
+    net, cfg = planner.net, planner.net.cfg
+    R, G, C = RESOLUTION, cfg.encoder.grid_resolution, cfg.encoder.c_dim
+    n_blocks, heads, H, O = cfg.decoder.n_blocks, 3, cfg.decoder.hidden_size, 4
+    on_card = device == "cuda"
+    clock = (lambda fn, n: cuda_ms(fn, n)) if on_card else (lambda fn, n: host_ms(fn, 1))
+    scenes = make_scenes(B)
+    coords = lattice_coords(R, device)
+    with torch.inference_mode(), full_precision():
+        grid = net.encode(torch.from_numpy(scenes).to(device))["grid"]
+        dec = net.decoder_aff.params()
+        inputs = gd.prepare_grid_inputs(dec, grid, coords, cfg.decoder.padding, n_blocks)
+
+        def module():
+            feats = lattice_features_batched({"grid": grid}, coords, cfg)
+            out = decode_dense_batched(dec, feats, coords, n_blocks)
+            return out.permute(1, 0, 5, 2, 3, 4).reshape(B, heads * O, R ** 3)
+
+        got = gd.grid_decode_batched(*inputs)
+        errs = {name: check_close(got, ref, TOL_DECODE, f"K6 against the {name}")
+                for name, ref in (("plain version", gd.grid_decode_plain(*inputs)),
+                                  ("module path", module()))}
+        ms = clock(lambda: gd.grid_decode_batched(*inputs), 20)
+        plain_ms = clock(lambda: gd.grid_decode_plain(*inputs), 3)
+        module_ms = clock(module, 3)
+    bnd = bound(*grid_decode_work(B, R, G, C, heads, H, n_blocks, O))
+    planner.plan_batch(scenes)
+    before = gd.grid_decode_batched.launches
+    planner.plan_batch(scenes)
+    launches = gd.grid_decode_batched.launches - before
+    if launches != int(on_card):
+        raise AssertionError(f"giga_grid plan_batch launched K6 {launches} times")
+    where = "no build on the CPU"
+    if on_card:
+        config = gd.grid_decode_launch_config(B, R, G, C, heads, n_blocks)
+        where = (f"{kernel_resources(_build.build_log('grid_decode'), 'grid_decode_kernel')}, "
+                 f"{config['shared_bytes']} B shared, grid {config['grid']} of "
+                 f"{config['threads']} threads, {config['blocks_per_sm']} block(s) an SM")
+    print(f"phase 40: K6 (grid decode) B={B}, R={R}: against its plain version "
+          f"{errs['plain version'][1]:.3g}, the module path {errs['module path'][1]:.3g} * "
+          f"(1 + |b|) (tol {TOL_DECODE}); {ms:.4f} ms, {bnd[0] / ms:.1%} of its bound "
+          f"({bnd[0]:.4f} ms by {bnd[1]}); plain version {plain_ms:.4f} ms, module path "
+          f"{module_ms:.4f} ms; {where}; launches a giga_grid plan_batch {launches} | {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "module_ms": module_ms, "bound": bnd,
+            "err": errs["plain version"][0], "launches": launches}
 
 
 def pt_phase(scenes, card, device: str = "cuda") -> None:
@@ -5128,6 +5241,7 @@ def main() -> int:
     parallel_s = parallel_phase(card, scenes)
     selfcheck = selfcheck_phase(card)
     scale = selfcheck_scale_phase(card)
+    k6 = grid_decode_phase(card)
     print(f"bf16 plan_batch B={B}: {bf16_rows['sps']:.1f} scenes/s end to end, batched program "
           f"{bf16_rows['plan_ms']:.3f} ms/batch ({B / bf16_rows['plan_ms'] * 1e3:.1f} scenes/s; "
           f"float32 {plan_ms:.3f} ms) | {card}")
@@ -5211,6 +5325,11 @@ def main() -> int:
         entry("dense_decode_hybrid", "dense_decode_feats.cu", "decoder_kernel.py:447",
               launches45["dense_decode_hybrid"], err5, ms5, plain5, bound5),
         *(entry(*k) for k in bf16_kernels + option_kernels),
+        {"name": "grid_decode", "route": "cuda", "source": "giga_tpu_torch/csrc/grid_decode.cu",
+         "replaces": "none: the JAX package decodes a grid with XLA "
+                     "(giga_tpu/inference/dense_decode.py)", "launches": k6["launches"],
+         "max_abs_err": k6["err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,8 @@ These functions are the module path: the planner's programs run
 the tests hold both against the JAX package. The grid variant's features
 are one dense (R, R, R, C) volume, sampled trilinearly on the lattice
 (``lattice_features``) and projected by each block's fc_c on the whole
-lattice; it decodes on this module path alone. ``decode_lattice_points``
+lattice; the batched planning program in float32 decodes it on K6
+(``ops/kernels/grid_decode.py``), every other caller on this module path. ``decode_lattice_points``
 decodes at sparse lattice points.
 """
 

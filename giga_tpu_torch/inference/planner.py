@@ -10,7 +10,8 @@ top-K arrays into Grasp objects:
     decode runs kernel K3;
   * the batched program (``build_batched_giga_planner_fn``), run by
     ``plan_batch`` and PlannerService; with ``use_kernels`` it runs kernel
-    K1 (stem + pool) and kernel K2 (dense-decode trunk);
+    K1 (stem + pool) and kernel K2 (dense-decode trunk), or for a grid
+    model in float32 kernel K6 (the grid decode);
   * the ensemble program (``build_ensemble_giga_planner_fn``), run by
     ``__call__`` and ``plan_stream`` of ``GIGAPlanner(params=[...])``: each
     member's single-scene encode and decode (K3), combined before one
@@ -90,6 +91,11 @@ from giga_tpu_torch.ops.kernels.decoder import (
     decode_affordance_dense_kernel_batched,
     dense_decode_batched,
 )
+from giga_tpu_torch.ops.kernels.grid_decode import (
+    can_grid_decode,
+    decode_affordance_grid_kernel_batched,
+    grid_decode_batched,
+)
 from giga_tpu_torch.ops.kernels.stem import stem_pool_batched
 from giga_tpu_torch.utils.profiling import next_call, span
 
@@ -143,18 +149,25 @@ def program_paths(model_cfg: GIGAConfig, planner_cfg: PlannerConfig, dtype: torc
                   use_kernels: bool, batched: bool, fold_b1: bool = False) -> dict:
     """The path of each stage of a planning program, chosen from the
     kernels' shape predicates when the program is built: {"encode": "K1" or
-    "module", "decode": "K2" (batched) or "K3" (single-scene) or "module"}.
-    The single-scene programs encode with ``net.encode``, as the JAX
-    package's do. A grid model (``plane_types=("grid",)``) takes the module
-    path for both: its lattice features are one dense volume, not the
-    per-plane projections K2 and K3 read, as the JAX package decodes it with
-    XLA. A batch's size is not known at build time: the predicates are asked
-    for one scene, and a batch a kernel cannot take (past 2^31 bf16 tiles)
-    raises at its launch."""
+    "module", "decode": "K2" (batched) or "K3" (single-scene) or "K6" (a
+    grid model, batched) or "module"}. The single-scene programs encode
+    with ``net.encode``, as the JAX package's do. A grid model
+    (``plane_types=("grid",)``) encodes on the module path: its features
+    are one dense volume, not the planes K1 pools. Its batched program in
+    float32 decodes on K6, straight from the grid, where ``can_grid_decode``
+    takes the shapes; its other programs decode on the module path, as the
+    JAX package decodes a grid with XLA. A batch's size is not known at
+    build time: the predicates are asked for one scene, and a batch a
+    kernel cannot take (past 2^31 bf16 tiles) raises at its launch."""
     P, R = model_cfg.encoder.plane_resolution, planner_cfg.resolution
-    dec = model_cfg.decoder
+    enc, dec = model_cfg.encoder, model_cfg.decoder
     paths = {"encode": "module", "decode": "module"}
-    if not use_kernels or "grid" in model_cfg.encoder.plane_types:
+    if not use_kernels:
+        return paths
+    if "grid" in enc.plane_types:
+        if batched and can_grid_decode(1, R, enc.grid_resolution, enc.c_dim, 3, dec.hidden_size,
+                                       4, dec.n_blocks, dtype):
+            paths["decode"] = "K6"
         return paths
     if batched and can_encode_fused(model_cfg.encoder, (1, P, P, P), dtype):
         paths["encode"] = "K1"
@@ -343,11 +356,11 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     GraspCandidates with a leading batch axis, left on the tensors' device.
 
     P is the encoder's plane resolution, R the planner's lattice resolution.
-    ``use_kernels`` runs K1 and K2 where they take the shapes
-    (``plan.paths``); the module path (the counterpart of the JAX package's
-    XLA path) is the reference the kernels' program is checked against. A bf16 net runs
-    the bf16 program: the TSDFs cast to bf16 for the network, K1's and K2's
-    bf16 modes, a float32 postprocess.
+    ``use_kernels`` runs K1 and K2 (a grid model: K6) where they take the
+    shapes (``plan.paths``); the module path (the counterpart of the JAX
+    package's XLA path) is the reference the kernels' program is checked
+    against. A bf16 net runs the bf16 program: the TSDFs cast to bf16 for
+    the network, K1's and K2's bf16 modes, a float32 postprocess.
 
     ``fold_b1`` and ``hidden_bf16`` are the JAX package's ``pallas_fold_b1``
     and ``pallas_hidden_bf16``: K2's options (``hidden_bf16`` in bf16 only),
@@ -376,9 +389,10 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
     ``marks`` (a list; the local program only) takes a CUDA event at the
     program's start and at the end of each stage, as (name, event): "start",
     "encode" (K1 and the 2D U-Net, or the grid model's stem, grid and 3D
-    U-Net), "features" (the lattice sampling), "decode" (the trunk and the
-    heads) and "post" (masks, bound, NMS and top-k). Nothing is recorded on
-    the CPU or when ``marks`` is None.
+    U-Net), "features" (the lattice sampling; on K6, which samples the grid
+    itself, right after "encode"), "decode" (the trunk and the heads; on K6
+    the sampling too) and "post" (masks, bound, NMS and top-k). Nothing is
+    recorded on the CPU or when ``marks`` is None.
     """
     voxel_size = size / planner_cfg.resolution
     R = planner_cfg.resolution
@@ -412,16 +426,22 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
             else:
                 planes = net.encode(tsdfs.to(dtype))
             _mark(marks, "encode", tsdfs.device)
-            feats = lattice_features_batched(planes, coords, model_cfg)
-            _mark(marks, "features", tsdfs.device)
-            if paths["decode"] == "K2":
-                qual, rot, width = decode_affordance_dense_kernel_batched(
-                    net.decoder_aff.params(), feats, coords, n_blocks, dtype, fold_b1=fold_b1,
-                    hidden_bf16=hidden_bf16)
+            if paths["decode"] == "K6":  # K6 samples the grid itself
+                _mark(marks, "features", tsdfs.device)
+                qual, rot, width = decode_affordance_grid_kernel_batched(
+                    net.decoder_aff.params(), planes["grid"], coords, model_cfg.decoder.padding,
+                    n_blocks)
             else:
-                qual, rot, width = (v.float() for v in
-                                    net.decode_affordance_lattice(feats, coords,
-                                                                  shard_constraint))
+                feats = lattice_features_batched(planes, coords, model_cfg)
+                _mark(marks, "features", tsdfs.device)
+                if paths["decode"] == "K2":
+                    qual, rot, width = decode_affordance_dense_kernel_batched(
+                        net.decoder_aff.params(), feats, coords, n_blocks, dtype,
+                        fold_b1=fold_b1, hidden_bf16=hidden_bf16)
+                else:
+                    qual, rot, width = (v.float() for v in
+                                        net.decode_affordance_lattice(feats, coords,
+                                                                      shard_constraint))
             _mark(marks, "decode", tsdfs.device)
             masked = mask_quality(qual, tsdf_process, width, planner_cfg)
             masked = bound_quality(masked, voxel_size, planner_cfg)
@@ -755,8 +775,8 @@ class GIGAPlanner:
 
     def _ensure_batched_fn(self):
         """Build (once) the batched program shared by plan_batch and
-        PlannerService; on the card it runs kernels K1 and K2 where they
-        take the shapes."""
+        PlannerService; on the card it runs kernels K1 and K2 (a grid
+        model: K6) where they take the shapes."""
         if self._vfn is None:
             if self.ensemble:
                 raise NotImplementedError(
@@ -832,9 +852,10 @@ class GIGAPlanner:
 
         Traced (utils/profiling.py) as four sibling spans of one call:
         ``planner.upload`` (counts ``bytes``, ``pinned``), ``planner.enqueue``
-        (the program's launches; ``scenes``, and ``k1``, ``k2``: the K1 and K2
-        launches of the call), ``planner.fetch`` (the wait on the card and
-        the copy) and ``planner.convert`` (``scenes``, ``grasps``). With
+        (the program's launches; ``scenes``, and ``k1``, ``k2``, ``k6``: the
+        K1, K2 and K6 launches of the call), ``planner.fetch`` (the wait on
+        the card and the copy) and ``planner.convert`` (``scenes``,
+        ``grasps``). With
         ``marks`` a list, the program appends its stage marks to it
         (``build_batched_giga_planner_fn``).
 
@@ -853,11 +874,13 @@ class GIGAPlanner:
                 s.count(bytes=grids.nbytes + (0 if proc is grids else proc.nbytes))
         B = grids.shape[0]
         with span("planner.enqueue", call, scenes=B) as s:
-            launched = stem_pool_batched.launches, dense_decode_batched.launches
+            launched = (stem_pool_batched.launches, dense_decode_batched.launches,
+                        grid_decode_batched.launches)
             cands = fn(grids, proc, marks=self.marks)
             if s:
                 s.count(k1=stem_pool_batched.launches - launched[0],
-                        k2=dense_decode_batched.launches - launched[1])
+                        k2=dense_decode_batched.launches - launched[1],
+                        k6=grid_decode_batched.launches - launched[2])
         with span("planner.fetch", call):
             host = candidates_to_host(cands)
         with span("planner.convert", call, scenes=B) as s:

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "giga_tpu_torch"
-SOURCES = ("stem_pool", "dense_decode", "dense_decode_feats")
+SOURCES = ("stem_pool", "dense_decode", "dense_decode_feats", "grid_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

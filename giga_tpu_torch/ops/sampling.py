@@ -197,9 +197,15 @@ def sample_grid_lattice_batched(grids: torch.Tensor, coords: torch.Tensor,
     then z: the same products and sums, in ``sample_grid``'s order, as its
     eight gathers per point, at a third of their memory."""
     D, H, W = grids.shape[1:4]
-    x0, x1, wx = _axis_taps(coords, W, padding)
-    y0, y1, wy = _axis_taps(coords, H, padding)
-    z0, z1, wz = _axis_taps(coords, D, padding)
+    return sample_grid_taps_batched(grids, _axis_taps(coords, W, padding),
+                                    _axis_taps(coords, H, padding), _axis_taps(coords, D, padding))
+
+
+def sample_grid_taps_batched(grids: torch.Tensor, x_taps, y_taps, z_taps) -> torch.Tensor:
+    """``sample_grid_lattice_batched`` from each axis's taps and upper
+    weights (``_axis_taps``: (i0, i1, w), each (R,)): B (D, H, W, C) grids
+    -> (B, Rx, Ry, Rz, C) indexed [b, ix, iy, iz, c]."""
+    (x0, x1, wx), (y0, y1, wy), (z0, z1, wz) = x_taps, y_taps, z_taps
     wx, wy, wz = wx[:, None], wy[:, None, None], wz[:, None, None, None]
     t = grids[:, :, :, x0] * (1 - wx) + grids[:, :, :, x1] * wx  # (B, D, H, Rx, C)
     t = t[:, :, y0] * (1 - wy) + t[:, :, y1] * wy  # (B, D, Ry, Rx, C)

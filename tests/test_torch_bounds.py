@@ -3,7 +3,8 @@
 PERF.md reads each kernel's time against its bound: the least time an H100
 could take for the work, from ``chip_smoke.trunk_flops``,
 ``chip_smoke.stem_pool_work``, ``chip_smoke.dense_decode_feats_work``,
-``chip_smoke.dense_decode_hybrid_work`` and ``chip_smoke.bound``. A redesigned kernel's target is half of that bound, so
+``chip_smoke.dense_decode_hybrid_work``, ``chip_smoke.grid_decode_work`` and
+``chip_smoke.bound``. A redesigned kernel's target is half of that bound, so
 the numbers PERF.md quotes are pinned here, on the CPU, from the shapes of
 the serving path (B=64, R=40, C=32, 5 blocks, 3 heads of 32 columns, 4
 outputs each). Also checked: the ptxas log parser that chip_smoke.py uses to
@@ -42,6 +43,17 @@ def test_trunk_bound_is_what_perf_md_quotes(kernel, B, gflop, ms):
     bound_ms, by = chip_smoke.bound(flops, _dense_decode_bytes(B))
     assert by == "operations"
     assert round(bound_ms, 4 if B == 1 else 3) == ms
+
+
+def test_grid_decode_bound_is_what_perf_md_quotes():
+    """K6 at B=64 on giga_grid's 40^3 grids of 32 channels: 395 GFLOP (96,492
+    operations a lattice point) and 721 MB, bound by operations at 5.90 ms,
+    the count the benchmark's ``grid_decode_roofline`` reads against."""
+    flops, nbytes = chip_smoke.grid_decode_work(64, R, 40, 32, E, H, NB, O)
+    assert flops == 64 * R ** 3 * 96_492
+    assert (round(flops / 1e9, 1), round(nbytes / 1e6)) == (395.2, 721)
+    bound_ms, by = chip_smoke.bound(flops, nbytes)
+    assert (round(bound_ms, 3), by) == (5.899, "operations")
 
 
 @pytest.mark.parametrize("kernel,work,gflop,mb,ms", [

@@ -247,9 +247,14 @@ def test_lattice_decode_matches_point_decode(grid_net):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_program_paths_take_the_module_for_a_grid_model(dtype):
+    """A grid model encodes on the module path; it decodes on K6 in the
+    batched float32 program only, elsewhere on the module path."""
     cfg = get_config("giga_grid")
     for batched in (False, True):
+        decode = "K6" if batched and dtype == torch.float32 else "module"
         assert program_paths(cfg, PlannerConfig(), dtype, True, batched) == {
+            "encode": "module", "decode": decode}
+        assert program_paths(cfg, PlannerConfig(), dtype, False, batched) == {
             "encode": "module", "decode": "module"}
 
 
@@ -278,16 +283,17 @@ def jax_grid_candidates(params, tsdf):
 
 def test_call_and_plan_batch_match_jax(grid_net):
     """GIGAPlanner(model_type="giga_grid").__call__ and plan_batch on the CPU:
-    the module paths, and decisions equal to the golden's (JAX's float64
-    programs) on its first scene."""
+    __call__ on the module path, plan_batch on K6's plain version, and
+    decisions equal to the golden's (JAX's float64 programs) on its first
+    scene."""
     golden = np.load(REPO / chip_smoke.GOLDEN_GRID)
     planner = GIGAPlanner(net=copy.deepcopy(grid_net), model_type="giga_grid", device="cpu",
                           rng=np.random.RandomState(0), **chip_smoke.GRID_KW)
     planner.planner_cfg = dataclasses.replace(planner.planner_cfg,
                                               min_width=chip_smoke.GRID_WIDTHS[0],
                                               max_width=chip_smoke.GRID_WIDTHS[1])
-    assert planner._ensure_fn().paths == planner._ensure_batched_fn().paths == {
-        "encode": "module", "decode": "module"}
+    assert planner._ensure_fn().paths == {"encode": "module", "decode": "module"}
+    assert planner._ensure_batched_fn().paths == {"encode": "module", "decode": "K6"}
     tsdf = golden["tsdf"][:1]
     called = planner(State(tsdf=tsdf))[:2]
     batched = planner.plan_batch(tsdf)[0]
@@ -308,10 +314,12 @@ def test_batched_program_equals_single_scene(grid_net):
     batched = build_batched_giga_planner_fn(grid_net, grid_net.cfg, pcfg, chip_smoke.SIZE,
                                             use_kernels=True, return_raw=True)
     tsdf = torch.from_numpy(chip_smoke.make_scenes(2))
-    cb, raw_b = batched(tsdf, tsdf)
+    cb, (qual, rot, width) = batched(tsdf, tsdf)
+    assert batched.paths["decode"] == "K6"
+    rot = rot.permute(0, 2, 1).reshape(2, 40, 40, 40, 4)  # K6 leaves rot (B, 4, R^3)
     for i in range(2):
         c, raw = single(tsdf[i], tsdf[i])
-        for a, b in zip(raw, raw_b):
+        for a, b in zip(raw, (qual, rot, width)):
             np.testing.assert_allclose(a.numpy(), b[i].numpy(), atol=TOL_SCORE, rtol=0)
         n = int(c.count)
         assert n == int(cb.count[i]) > 0

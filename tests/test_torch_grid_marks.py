@@ -1,8 +1,8 @@
 """The batched planning program's stage marks (``GIGAPlanner.marks``) and
-the ``k1``/``k2`` counts of ``plan_batch``'s ``planner.enqueue`` span, on
-the CPU: the marks change no candidate, record nothing without a card and
-come in stage order; the counts read each call's K1 and K2 launches (giga 1
-and 1, giga_grid none)."""
+the ``k1``/``k2``/``k6`` counts of ``plan_batch``'s ``planner.enqueue``
+span, on the CPU: the marks change no candidate, record nothing without a
+card and come in stage order, K6's program too; the counts read each
+call's K1, K2 and K6 launches (giga 1, 1 and 0, giga_grid 0, 0 and 1)."""
 
 import sys
 from pathlib import Path
@@ -50,7 +50,7 @@ def _flat(out):
 
 def test_marks_change_no_candidate_and_stay_empty_on_the_cpu(grid_planner, scenes):
     assert grid_planner.marks is None
-    assert grid_planner._ensure_batched_fn().paths == {"encode": "module", "decode": "module"}
+    assert grid_planner._ensure_batched_fn().paths == {"encode": "module", "decode": "K6"}
     plain = _flat(grid_planner.plan_batch(scenes))
     grid_planner.marks = []
     try:
@@ -83,11 +83,14 @@ def test_enqueue_counts_k1_and_k2_launches(scenes, monkeypatch, model_type, k1, 
                                            grid_planner):
     """On the CPU the kernels' wrappers run their plain versions and count
     nothing, so counting stand-ins take their place where the program
-    calls them, each counting on the real wrapper's ``launches``."""
+    calls them, each counting on the real wrapper's ``launches``. K6 runs
+    for giga_grid alone."""
     from giga_tpu_torch.models import encoder
-    from giga_tpu_torch.ops.kernels import decoder
+    from giga_tpu_torch.ops.kernels import decoder, grid_decode
 
-    for module, name in ((encoder, "stem_pool_batched"), (decoder, "dense_decode_batched")):
+    k6 = int(model_type == "giga_grid")
+    for module, name in ((encoder, "stem_pool_batched"), (decoder, "dense_decode_batched"),
+                         (grid_decode, "grid_decode_batched")):
         real = getattr(module, name)
         monkeypatch.setattr(real, "launches", real.launches)
 
@@ -101,4 +104,4 @@ def test_enqueue_counts_k1_and_k2_launches(scenes, monkeypatch, model_type, k1, 
     with profile(activities=[ProfilerActivity.CPU]):
         planner.plan_batch(scenes)
     (enqueue,) = [r for r in profiling.spans() if r.name == "planner.enqueue"]
-    assert enqueue.counts == {"scenes": len(scenes), "k1": k1, "k2": k2}
+    assert enqueue.counts == {"scenes": len(scenes), "k1": k1, "k2": k2, "k6": k6}

@@ -89,7 +89,7 @@ def test_plan_batch_emits_its_four_spans_per_call(planner, scenes):
         upload, enqueue, _, convert = call
         assert upload.counts == {"bytes": B * R ** 3 * 4, "pinned": False}
         # the CPU runs the kernels' plain versions, which launch nothing
-        assert enqueue.counts == {"scenes": B, "k1": 0, "k2": 0}
+        assert enqueue.counts == {"scenes": B, "k1": 0, "k2": 0, "k6": 0}
         assert convert.counts == {"scenes": B, "grasps": sum(len(g) for g, _ in out[k])}
     assert records[0].call != records[4].call
 
