@@ -250,7 +250,16 @@ from pathlib import Path
 
 import numpy as np
 
-from giga_tpu_torch.ops.kernels.decoder import trunk_flops
+# the kernels' yardstick: the benchmark's frozen counts
+from portbench.frozen.grid_work import grid_decode_work
+from portbench.frozen.work import (
+    PEAK_BF16_FLOPS,
+    PEAK_BYTES,
+    PEAK_FP32_FLOPS,
+    bound,
+    stem_pool_work,
+    trunk_flops,
+)
 
 SIZE = 0.3
 RESOLUTION = 40
@@ -546,12 +555,6 @@ CHAIN_KW = dict(scene="packed", object_set="cubes", num_grasps=12, grasps_per_sc
                 save_scene=True, random=False, sim_gui=False, seed=11)
 CHAIN_PROCS = 2
 CHAIN_OCC = (128, 2)  # points a shard, shards a scene
-
-# published fp32 (non-tensor-core) and dense bf16 (tensor-core) peaks and
-# the memory rate of one H100 SXM
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 
 TOL_STEM = 2e-5     # K1 vs its plain version, absolute, on plane features
 TOL_DECODE = 1e-5   # K2-K5 vs their plain versions, |a - b| <= tol * (1 + |b|)
@@ -865,23 +868,6 @@ def host_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
-    """Least time (ms) for the work on the card and what bounds it; ``peak``
-    is the operations' rate (PEAK_BF16_FLOPS for a bf16 mode's)."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def stem_pool_work(B: int, R: int, C: int, elem: int = 4):
-    """(operations, bytes) of K1 on B scenes of R^3 voxels and C channels:
-    per voxel and channel 27 multiply-adds, the bias add and 3 pooling adds;
-    the TSDF and the weights read once, the three (B, R, R, C) planes written
-    once, ``elem`` bytes each (2 in the bf16 mode).
-    ``bound(*stem_pool_work(...))`` is K1's bound."""
-    N = R ** 3
-    return B * N * C * (2 * 27 + 1 + 3), elem * (B * N + 28 * C + 3 * B * R * R * C)
-
-
 def dense_decode_feats_work(B: int, R: int, C: int, heads: int, H: int, n_blocks: int,
                             O: int):
     """(fp32 operations, bytes) of K4: the per-head trunk with the fc_c bias
@@ -912,22 +898,6 @@ def dense_decode_hybrid_work(B: int, R: int, C: int, heads: int, H: int, n_block
     inputs = 3 * R * F + 2 * B * R * R * C + 2 * n_blocks * C * F + weights
     return (flops, 4 * (inputs + B * R ** 3 * heads * O)
             + pyz_elem * B * n_blocks * R * R * F)
-
-
-def grid_decode_work(B: int, R: int, G: int, C: int, heads: int, H: int, n_blocks: int,
-                     O: int):
-    """(fp32 operations, bytes) of K6 on B scenes' R^3 lattices from their
-    G^3 grids of C channels: a point's 8-tap trilinear sample (15 C), then
-    per head fc_p (2 * 3 * H and its bias), per block fc_c (2 C H, its bias
-    and the add into the residual stream), fc_0 and fc_1 (2 H^2 each and
-    their biases) and the residual add, and the head (2 H O and its bias);
-    the grids and every weight read once, the (B, heads*O, R^3) outputs
-    written once. ``bound(*grid_decode_work(...))`` is K6's bound (the
-    benchmark's ``grid_decode_roofline`` counts the same)."""
-    block = 2 * C * H + 2 * H + 4 * H * H + 3 * H
-    point = 15 * C + heads * (7 * H + n_blocks * block + 2 * H * O + O)
-    weights = heads * (3 * H + H + n_blocks * (C * H + H + 2 * H * H + 2 * H) + H * O + O)
-    return B * R ** 3 * point, 4 * (B * G ** 3 * C + weights + B * heads * O * R ** 3)
 
 
 def ptxas_resources(log: str) -> dict:
@@ -3298,7 +3268,7 @@ def grid_decode_phase(card, device: str = "cuda", B: int = BATCH) -> dict:
         ms = clock(lambda: gd.grid_decode_batched(*inputs), 20)
         plain_ms = clock(lambda: gd.grid_decode_plain(*inputs), 3)
         module_ms = clock(module, 3)
-    bnd = bound(*grid_decode_work(B, R, G, C, heads, H, n_blocks, O))
+    bnd = bound(*grid_decode_work(B, R=R, G=G, C=C, heads=heads, H=H, n_blocks=n_blocks, O=O))
     planner.plan_batch(scenes)
     before = gd.grid_decode_batched.launches
     planner.plan_batch(scenes)

@@ -82,7 +82,7 @@ from giga_tpu_torch.ops.kernels.decoder import (
     prepare_projections_batched,
 )
 from giga_tpu_torch.ops.sampling import linspace_f32
-from giga_tpu_torch.utils.profiling import next_call, span
+from giga_tpu_torch.utils.profiling import mark, next_call, span
 
 OUTSIDE = -6.0e4     # float16-safe "outside" fill of the band's boundary pad
 GRID_OUTSIDE = -1e6  # extract_mesh's float64 boundary pad
@@ -339,12 +339,6 @@ class MeshGenerator:
             self._coords[n] = torch.from_numpy(linspace_f32(-b, b, n)).to(self.device)
         return self._coords[n]
 
-    def _mark(self, name: str) -> None:
-        if self.marks is not None and self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-
     def _cast(self, planes: dict) -> dict:
         return {t: v.to(self.compute_dtype) for t, v in planes.items()}
 
@@ -392,7 +386,7 @@ class MeshGenerator:
             g = F.pad(self._dense_logits(planes, self.final_n).float(), (1,) * 6,
                       value=OUTSIDE)
             out = emit_band(g, self.band_cells, self.logit_th)
-            self._mark("band")
+            mark(self.marks, "band", self.device)
             return out
 
     def band_program_batched(self, grids: torch.Tensor):
@@ -404,12 +398,12 @@ class MeshGenerator:
         corner values are rounded after."""
         with torch.no_grad(), full_precision():
             planes = self._cast(self.net.encode(grids.float()))
-            self._mark("encode")
+            mark(self.marks, "encode", self.device)
             logits = self._decode_batched(planes, self.coords(self.final_n))
-            self._mark("decode")
+            mark(self.marks, "decode", self.device)
             out = [emit_band(F.pad(g, (1,) * 6, value=OUTSIDE), self.band_cells, self.logit_th)
                    for g in logits]
-            self._mark("band")
+            mark(self.marks, "band", self.device)
             return tuple(torch.stack(v) for v in zip(*out))
 
     def _chain(self, planes: dict, K_f: int, K_ps: tuple):
@@ -419,7 +413,7 @@ class MeshGenerator:
         coords0 = self.coords(self.resolution0 + 1)
         g = decode_dense(self._dec, self._lattice_feats(planes, coords0), coords0,
                          n_blocks)[0, ..., 0].float()
-        self._mark("dense")
+        mark(self.marks, "dense", self.device)
         counts_p = []
         for lvl in range(1, self.upsampling_steps + 1):
             K_p = K_ps[lvl - 1]
@@ -428,15 +422,15 @@ class MeshGenerator:
             P = g.shape[0]
             pidx, count_p, anchors = compact_mask(touched_points(active), K_p // 2, K_p)
             counts_p.append(_fold_overflow(count_p, anchors, K_p))
-            self._mark(f"mask{lvl}")
+            mark(self.marks, f"mask{lvl}", self.device)
             i = pidx.long()
             coords = self.coords(P)
             vals = decode_lattice_points(self._dec, self._lattice_feats(planes, coords), coords,
                                          i // (P * P), (i // P) % P, i % P, n_blocks)[0, :, 0]
             g = scatter_valid(g, pidx, vals.float(), count_p)
-            self._mark(f"level{lvl}")
+            mark(self.marks, f"level{lvl}", self.device)
         out = emit_band(F.pad(g, (1,) * 6, value=OUTSIDE), K_f, self.logit_th)
-        self._mark("band")
+        mark(self.marks, "band", self.device)
         return (*out, torch.stack(counts_p))
 
     def refine_program(self, planes: dict, tier: int):
@@ -451,7 +445,7 @@ class MeshGenerator:
         K_f, K_ps = self._refine_tiers[tier]
         with torch.no_grad(), full_precision():
             planes = self._cast(self.net.encode(grids.float()))
-            self._mark("encode")
+            mark(self.marks, "encode", self.device)
             out = [self._chain({t: v[b] for t, v in planes.items()}, K_f, K_ps)
                    for b in range(grids.shape[0])]
             return tuple(torch.stack(v) for v in zip(*out))
@@ -467,7 +461,7 @@ class MeshGenerator:
         grid = np.squeeze(np.asarray(tsdf_grid, np.float32))
         with torch.no_grad():
             self._planes = self.net.encode(self.upload(grid[None]))
-        self._mark("encode")
+        mark(self.marks, "encode", self.device)
         return self._planes
 
     def eval_occ_logits(self, points: np.ndarray) -> np.ndarray:

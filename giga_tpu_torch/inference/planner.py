@@ -22,6 +22,10 @@ else the module path. The choice is ``plan.paths``; nothing gives way at
 run time, and a kernel the predicate admits raises if its launch fails.
 For CPU tensors the kernel wrappers run the kernels' plain versions.
 
+The batched programs' host edge (``upload_batch``, ``fetch_async`` and
+``wait_fetch``, ``scene_grasps``) is defined here once, for ``plan_batch``
+and PlannerService (inference/serving.py) alike.
+
 Precision: the fp32 plan turns TF32 off for cuDNN convolutions and CUDA
 matmuls while it runs (``full_precision``), the counterpart of the JAX
 plan's ``default_matmul_precision("highest")`` pin. The flags are
@@ -79,7 +83,6 @@ from giga_tpu_torch.inference.postprocess import (
     select_grasps,
     select_grasps_batched,
 )
-from giga_tpu_torch.inference.serving import fetch_async
 from giga_tpu_torch.models.conv_onet import GIGANet
 from giga_tpu_torch.models.convert import flax_to_state_dict
 from giga_tpu_torch.models.encoder import can_encode_fused, encode_planes_fused
@@ -97,7 +100,7 @@ from giga_tpu_torch.ops.kernels.grid_decode import (
     grid_decode_batched,
 )
 from giga_tpu_torch.ops.kernels.stem import stem_pool_batched
-from giga_tpu_torch.utils.profiling import next_call, span
+from giga_tpu_torch.utils.profiling import mark, next_call, span
 
 
 class State(NamedTuple):
@@ -339,15 +342,6 @@ def build_ensemble_giga_planner_fn(net, stacked: dict, model_cfg: GIGAConfig,
     return plan
 
 
-def _mark(marks, name: str, device: torch.device) -> None:
-    """Append (``name``, a CUDA event recorded now on the current stream) to
-    ``marks``; nothing when ``marks`` is None or ``device`` is not CUDA."""
-    if marks is not None and device.type == "cuda":
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        marks.append((name, event))
-
-
 def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: PlannerConfig,
                                   size: float, use_kernels: bool = False, fold_b1: bool = False,
                                   hidden_bf16: bool = False, return_raw: bool = False,
@@ -420,20 +414,20 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
                              f"got {tuple(tsdf_process.shape)}")
         coords, positions = lattice(tsdfs.device)
         with torch.inference_mode(), full_precision():
-            _mark(marks, "start", tsdfs.device)
+            mark(marks, "start", tsdfs.device)
             if paths["encode"] == "K1":
                 planes = encode_planes_fused(net.encoder, tsdfs.to(dtype))
             else:
                 planes = net.encode(tsdfs.to(dtype))
-            _mark(marks, "encode", tsdfs.device)
+            mark(marks, "encode", tsdfs.device)
             if paths["decode"] == "K6":  # K6 samples the grid itself
-                _mark(marks, "features", tsdfs.device)
+                mark(marks, "features", tsdfs.device)
                 qual, rot, width = decode_affordance_grid_kernel_batched(
                     net.decoder_aff.params(), planes["grid"], coords, model_cfg.decoder.padding,
                     n_blocks)
             else:
                 feats = lattice_features_batched(planes, coords, model_cfg)
-                _mark(marks, "features", tsdfs.device)
+                mark(marks, "features", tsdfs.device)
                 if paths["decode"] == "K2":
                     qual, rot, width = decode_affordance_dense_kernel_batched(
                         net.decoder_aff.params(), feats, coords, n_blocks, dtype,
@@ -442,11 +436,11 @@ def build_batched_giga_planner_fn(net, model_cfg: GIGAConfig, planner_cfg: Plann
                     qual, rot, width = (v.float() for v in
                                         net.decode_affordance_lattice(feats, coords,
                                                                       shard_constraint))
-            _mark(marks, "decode", tsdfs.device)
+            mark(marks, "decode", tsdfs.device)
             masked = mask_quality(qual, tsdf_process, width, planner_cfg)
             masked = bound_quality(masked, voxel_size, planner_cfg)
             cands = select_grasps_batched(masked, rot, width, positions, planner_cfg)
-            _mark(marks, "post", tsdfs.device)
+            mark(marks, "post", tsdfs.device)
             return (cands, (qual, rot, width)) if return_raw else cands
 
     plan.paths = paths
@@ -596,16 +590,48 @@ def build_batched_vgn_planner_fn(net, planner_cfg: PlannerConfig, size: float,
     return plan
 
 
+# -- the host edge: grids onto the card, candidates back as Grasp objects -------
+
 def candidates_to_host(cands: GraspCandidates) -> GraspCandidates:
     """Fetch device candidates to numpy (the only wait on the card)."""
     return GraspCandidates(*(t.cpu().numpy() for t in cands))
 
 
-def _as_batch(grids) -> np.ndarray:
-    """Normalize (B, R, R, R) / (B, 1, R, R, R) / single (R, R, R) inputs to
-    a float32 (B, R, R, R) array."""
+def fetch_async(cands: GraspCandidates):
+    """Queue the copy of a program's candidates to (pinned) host memory right
+    behind the program that makes them; returns the host tensors and the
+    event that marks them ready (None on the CPU). A plain ``.cpu()`` at
+    drain time would queue behind the next program and wait for it."""
+    host = GraspCandidates(*(t.to("cpu", non_blocking=True) for t in cands))
+    if cands.scores.device.type != "cuda":
+        return host, None
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(cands.scores.device))
+    return host, ready
+
+
+def wait_fetch(fetch) -> GraspCandidates:
+    """Wait for a ``fetch_async`` copy (the only wait on the card) and view
+    its candidates as numpy."""
+    cands, ready = fetch
+    if ready is not None:
+        ready.synchronize()
+    return GraspCandidates(*(t.numpy() for t in cands))
+
+
+def upload_batch(grids, device: torch.device) -> torch.Tensor:
+    """(B, R, R, R) / (B, 1, R, R, R) grids, a list of (R, R, R) grids or a
+    single grid onto ``device`` as one float32 (B, R, R, R) tensor: a
+    pageable copy."""
     a = np.asarray(grids, np.float32)
-    return a.reshape(-1, *a.shape[-3:])
+    return torch.from_numpy(a.reshape(-1, *a.shape[-3:])).to(device)
+
+
+def scene_grasps(host: GraspCandidates, to_grasps, *args):
+    """Yield ``to_grasps(scene i's candidates, *args)`` for each scene of a
+    fetched batch, one scene at a time."""
+    for i in range(len(host.count)):
+        yield to_grasps(GraspCandidates(*(x[i] for x in host)), *args)
 
 
 def _is_volume(tsdf) -> bool:
@@ -842,10 +868,7 @@ class GIGAPlanner:
     def _collect(self, fetch):
         """Wait for one queued fetch (the only wait on the card) and build
         its Grasp objects."""
-        cands, ready = fetch
-        if ready is not None:
-            ready.synchronize()
-        return self._to_grasps(GraspCandidates(*(t.numpy() for t in cands)))
+        return self._to_grasps(wait_fetch(fetch))
 
     def plan_batch(self, tsdf_grids, process_grids=None):
         """Plan a whole batch of scenes in one program.
@@ -867,9 +890,8 @@ class GIGAPlanner:
         fn = self._ensure_batched_fn()
         call = next_call()
         with span("planner.upload", call, pinned=False) as s:
-            grids = torch.from_numpy(_as_batch(tsdf_grids)).to(self.device)
-            proc = grids if process_grids is None else torch.from_numpy(
-                _as_batch(process_grids)).to(self.device)
+            grids = upload_batch(tsdf_grids, self.device)
+            proc = grids if process_grids is None else upload_batch(process_grids, self.device)
             if s:
                 s.count(bytes=grids.nbytes + (0 if proc is grids else proc.nbytes))
         B = grids.shape[0]
@@ -884,7 +906,7 @@ class GIGAPlanner:
         with span("planner.fetch", call):
             host = candidates_to_host(cands)
         with span("planner.convert", call, scenes=B) as s:
-            out = [self._to_grasps(GraspCandidates(*(x[i] for x in host))) for i in range(B)]
+            out = list(scene_grasps(host, self._to_grasps))
             if s:
                 s.count(grasps=sum(len(g) for g, _ in out))
         return out
@@ -1007,13 +1029,10 @@ class VGNPlanner:
             on a grid.
         """
         fn = self._ensure_batched_fn()
-        grids = torch.from_numpy(_as_batch(tsdf_grids)).to(self.device)
-        proc = grids if process_grids is None else torch.from_numpy(
-            _as_batch(process_grids)).to(self.device)
+        grids = upload_batch(tsdf_grids, self.device)
+        proc = grids if process_grids is None else upload_batch(process_grids, self.device)
         host = candidates_to_host(fn(grids, proc))
-        voxel_size = self.size / VGN_RESOLUTION
-        return [self._to_grasps(GraspCandidates(*(x[i] for x in host)), voxel_size)
-                for i in range(grids.shape[0])]
+        return list(scene_grasps(host, self._to_grasps, self.size / VGN_RESOLUTION))
 
 
 def candidates_to_grasps(cands: GraspCandidates, scale, offset, width_scale, best, rng):

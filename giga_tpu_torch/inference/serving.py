@@ -45,12 +45,11 @@ from dataclasses import dataclass, field
 from queue import Empty, Full, Queue
 
 import numpy as np
-import torch
 
-from giga_tpu_torch.inference.postprocess import GraspCandidates
+from giga_tpu_torch.inference.planner import fetch_async, scene_grasps, upload_batch, wait_fetch
 from giga_tpu_torch.utils.profiling import next_call, span
 
-__all__ = ["PlannerService", "ServiceStats", "fetch_async"]
+__all__ = ["PlannerService", "ServiceStats"]
 
 
 @dataclass
@@ -76,19 +75,6 @@ class ServiceStats:
                 "mean_batch_occupancy": occ,
                 "errors": self.errors,
             }
-
-
-def fetch_async(cands: GraspCandidates):
-    """Queue the copy of a program's candidates to (pinned) host memory right
-    behind the program that makes them; returns the host tensors and the
-    event that marks them ready (None on the CPU). A plain ``.cpu()`` at
-    drain time would queue behind the next batch's program and wait for it."""
-    host = GraspCandidates(*(t.to("cpu", non_blocking=True) for t in cands))
-    if cands.scores.device.type != "cuda":
-        return host, None
-    ready = torch.cuda.Event()
-    ready.record(torch.cuda.current_stream(cands.scores.device))
-    return host, ready
 
 
 def _fail(fut: Future, exc: Exception):
@@ -220,19 +206,16 @@ class PlannerService:
         pad = self.batch_size - len(grids)
         if pad:
             grids = grids + [grids[-1]] * pad
-        batch = torch.from_numpy(np.stack(grids)).to(self.planner.device)
+        batch = upload_batch(grids, self.planner.device)
         return fetch_async(self._vfn(batch, batch)), items, pad
 
     def _resolve(self, fetch, items, call: int):
         """Wait for a batch's fetch (the wait on the card) and resolve futures."""
         with span("service.resolve", call) as s:
-            cands, ready = fetch
-            if ready is not None:
-                ready.synchronize()
-            host = GraspCandidates(*(t.numpy() for t in cands))
+            host = wait_fetch(fetch)
             grasps = 0
-            for i, (_, fut) in enumerate(items):
-                result = self.planner._to_grasps(GraspCandidates(*(x[i] for x in host)))
+            # zip stops at the last request: the padding is never converted
+            for (_, fut), result in zip(items, scene_grasps(host, self.planner._to_grasps)):
                 grasps += len(result[0])
                 fut.set_result(result)
             if s:

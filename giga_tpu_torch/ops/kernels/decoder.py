@@ -665,18 +665,6 @@ def dense_decode_hybrid_batched(px, py, pz, fxz, fxy, pyz, wxz, wxy, w0, b0, w1,
 dense_decode_hybrid_batched.launches = 0
 
 
-def trunk_flops(points: int, heads: int, H: int, n_blocks: int, O: int,
-                extra_adds: int = 0, fold_b1: bool = False) -> int:
-    """fp32 operations of the per-head trunk (the fused trunk's off-diagonal
-    zeros are no work): per point and head the fc_p sum (2H), per block the
-    three plane adds, the fc0 and fc1 products and three bias/residual adds
-    (4H^2 + 6H, plus ``extra_adds`` * H), then the head (2HO + O). With
-    ``fold_b1`` every block but the last adds no b1 (H fewer each)."""
-    per_block = 4 * H * H + (6 + extra_adds) * H
-    folded = (n_blocks - 1) * H if fold_b1 else 0
-    return points * heads * (2 * H + n_blocks * per_block - folded + 2 * H * O + O)
-
-
 # -- head splits and the decode entry points ----------------------------------
 
 def split_heads(out: torch.Tensor, heads: int):

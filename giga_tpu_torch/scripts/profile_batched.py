@@ -21,11 +21,11 @@ Every output of a prefix is reduced into one device scalar, so no work is
 skipped. On the card each prefix is timed by CUDA events around ``--iters``
 calls after a warm-up call and a synchronize; each line carries the card's
 name and power limit. The +decode line also gives the trunk's operations
-(``trunk_flops``) and the rate its stage time implies. The JAX script's XLA
-cost analysis has no counterpart here. Without a card the script exits 2
-unless ``--device cpu`` is given, which times the kernels' plain versions by
-the host clock (a check that the script runs, not a measurement of the
-card).
+(``chip_smoke.trunk_flops``, the benchmark's frozen count) and the rate
+its stage time implies. The JAX script's XLA cost analysis has no
+counterpart here. Without a card the script exits 2 unless ``--device
+cpu`` is given, which times the kernels' plain versions by the host clock
+(a check that the script runs, not a measurement of the card).
 """
 
 from __future__ import annotations
@@ -140,11 +140,12 @@ def main(argv=None) -> int:
         print("profile_batched: no CUDA device (pass --device cpu to run on the CPU)",
               file=sys.stderr)
         return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import trunk_flops
     from giga_tpu_torch.core.config import PlannerConfig
     from giga_tpu_torch.inference.dense_decode import lattice_coords
     from giga_tpu_torch.inference.planner import full_precision
     from giga_tpu_torch.models.registry import load_network
-    from giga_tpu_torch.ops.kernels.decoder import trunk_flops
 
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32

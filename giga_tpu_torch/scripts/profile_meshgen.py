@@ -94,6 +94,7 @@ def split_call(gen, grids: np.ndarray, simplify_nfaces: int) -> dict:
     import torch
 
     from giga_tpu_torch.geometry.native import simplify_mesh
+    from giga_tpu_torch.utils.profiling import mark
 
     batched = grids.ndim == 4
     dev = gen.upload(grids if batched else grids[None])
@@ -106,7 +107,7 @@ def split_call(gen, grids: np.ndarray, simplify_nfaces: int) -> dict:
     else:
         with torch.no_grad():
             gen._planes = gen.net.encode(dev)
-        gen._mark("encode")
+        mark(gen.marks, "encode", gen.device)
         out = (gen.refine_program(gen._planes, 0) if gen.strategy == "refine"
                else gen.band_program(gen._planes))
     host = [t.to("cpu", non_blocking=True) for t in out]

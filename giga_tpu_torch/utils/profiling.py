@@ -18,6 +18,10 @@ profiler. Nothing else switches it.
     counts known only at the end; a span is true and ``OFF`` false, so a
     count that costs work is computed under ``if s:``.
   * ``spans()``: the finished records, oldest first; clears them.
+  * ``mark(marks, name, device)``: a program's stage mark, traced or not:
+    appends (``name``, a CUDA event recorded now) to the caller's list
+    (``GIGAPlanner.marks``, ``MeshGenerator.marks``); nothing when the
+    list is None or the device is not CUDA.
   * ``host.gc``: each of Python's collections while tracing is on is a span
     of its own (counts ``generation`` and ``collected``), nested in the span
     it interrupted.
@@ -46,10 +50,11 @@ import time
 from pathlib import Path
 from typing import Iterator
 
+import torch
 import torch.autograd.profiler as _autograd_profiler
 from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["OFF", "Span", "device_trace", "next_call", "span", "spans"]
+__all__ = ["OFF", "Span", "device_trace", "mark", "next_call", "span", "spans"]
 
 
 class Span:
@@ -139,6 +144,15 @@ def span(name: str, call: int | None = None, **counts):
     if not _autograd_profiler._is_profiler_enabled:
         return OFF
     return _On(name, call, counts)
+
+
+def mark(marks, name: str, device: torch.device) -> None:
+    """Append (``name``, a CUDA event recorded now on the current stream) to
+    ``marks``; nothing when ``marks`` is None or ``device`` is not CUDA."""
+    if marks is not None and device.type == "cuda":
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
 
 
 def next_call() -> int:

@@ -4,7 +4,10 @@ PERF.md reads each kernel's time against its bound: the least time an H100
 could take for the work, from ``chip_smoke.trunk_flops``,
 ``chip_smoke.stem_pool_work``, ``chip_smoke.dense_decode_feats_work``,
 ``chip_smoke.dense_decode_hybrid_work``, ``chip_smoke.grid_decode_work`` and
-``chip_smoke.bound``. A redesigned kernel's target is half of that bound, so
+``chip_smoke.bound``. All but K4's and K5's counts are the benchmark's
+frozen ones (``portbench/frozen``), which chip_smoke imports, so the card
+gate and the benchmark's rooflines read one yardstick. A redesigned
+kernel's target is half of that bound, so
 the numbers PERF.md quotes are pinned here, on the CPU, from the shapes of
 the serving path (B=64, R=40, C=32, 5 blocks, 3 heads of 32 columns, 4
 outputs each). Also checked: the ptxas log parser that chip_smoke.py uses to
@@ -49,7 +52,8 @@ def test_grid_decode_bound_is_what_perf_md_quotes():
     """K6 at B=64 on giga_grid's 40^3 grids of 32 channels: 395 GFLOP (96,492
     operations a lattice point) and 721 MB, bound by operations at 5.90 ms,
     the count the benchmark's ``grid_decode_roofline`` reads against."""
-    flops, nbytes = chip_smoke.grid_decode_work(64, R, 40, 32, E, H, NB, O)
+    flops, nbytes = chip_smoke.grid_decode_work(64, R=R, G=40, C=32, heads=E, H=H, n_blocks=NB,
+                                                O=O)
     assert flops == 64 * R ** 3 * 96_492
     assert (round(flops / 1e9, 1), round(nbytes / 1e6)) == (395.2, 721)
     bound_ms, by = chip_smoke.bound(flops, nbytes)
@@ -114,6 +118,35 @@ def test_trunk_flops_count_per_point_and_head():
     assert chip_smoke.trunk_flops(1, 1, H, NB, O) == per == 21764
     assert chip_smoke.trunk_flops(10, E, H, NB, O) == 10 * E * per
     assert chip_smoke.trunk_flops(1, 1, H, NB, O, extra_adds=1) == per + NB * H
+
+
+@pytest.mark.parametrize("module,name", [
+    ("work", "PEAK_FP32_FLOPS"), ("work", "PEAK_BF16_FLOPS"), ("work", "PEAK_BYTES"),
+    ("work", "bound"), ("work", "stem_pool_work"), ("work", "trunk_flops"),
+    ("grid_work", "grid_decode_work"),
+])
+def test_the_yardstick_is_the_benchmarks(module, name):
+    """chip_smoke's peaks and counts are portbench/frozen's own objects, not
+    copies that could drift from the benchmark's rooflines."""
+    import importlib
+
+    frozen = importlib.import_module(f"portbench.frozen.{module}")
+    assert getattr(chip_smoke, name) is getattr(frozen, name)
+
+
+def test_the_package_holds_no_yardstick():
+    """The work counts are measurement code: no module of giga_tpu_torch
+    defines trunk_flops or imports portbench."""
+    import ast
+
+    from giga_tpu_torch.ops.kernels import decoder
+
+    assert not hasattr(decoder, "trunk_flops")
+    for path in sorted((REPO / "giga_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            assert not any(n.split(".")[0] == "portbench" for n in names), path
 
 
 def test_bound_takes_the_slower_of_bytes_and_operations():
@@ -321,8 +354,8 @@ def test_kernel_resources_reads_the_feats_prologue_and_float32_kernels(kernel, e
 
 def test_fold_skips_the_folded_bias_adds():
     """fold_b1 drops one H-wide add for every block but the last, per point
-    and head; chip_smoke reckons with the package's trunk_flops."""
-    from giga_tpu_torch.ops.kernels.decoder import trunk_flops
+    and head; chip_smoke reckons with the benchmark's frozen trunk_flops."""
+    from portbench.frozen.work import trunk_flops
 
     assert chip_smoke.trunk_flops is trunk_flops
     assert trunk_flops(1, 1, H, NB, O, fold_b1=True) == 21764 - (NB - 1) * H

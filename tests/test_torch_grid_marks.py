@@ -69,7 +69,7 @@ def test_the_program_marks_its_stages_in_order(grid_planner, scenes, monkeypatch
         if marks is not None:
             marks.append((name, device.type))
 
-    monkeypatch.setattr(planner_mod, "_mark", recorder)
+    monkeypatch.setattr(planner_mod, "mark", recorder)
     grid_planner.marks = []
     try:
         grid_planner.plan_batch(scenes)

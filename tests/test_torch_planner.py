@@ -337,6 +337,21 @@ def test_service_lifecycle(small, small_scenes):
         tiny.close()
 
 
+def test_planner_imports_nothing_from_serving():
+    """The batched planners' host edge lives in planner.py: serving.py
+    depends on it, never the reverse."""
+    import ast
+
+    tree = ast.parse((REPO / "giga_tpu_torch" / "inference" / "planner.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names += [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+    assert not [n for n in names if n.split(".")[-1] == "serving"]
+
+
 def test_full_precision_scope_is_shared_and_restored():
     """TF32 stays off while any plan runs, even when another one ends, and
     the caller's flags come back after the last."""
